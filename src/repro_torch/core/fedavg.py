@@ -1,0 +1,89 @@
+"""FederatedAveraging — Algorithm 1 (counterpart of ``repro/core/fedavg.py``).
+
+- ``client_update``      ClientUpdate(k, w) for a whole cohort at once: E
+                         epochs of masked minibatch SGD, batched over
+                         clients with ``torch.func.vmap``.
+- ``server_aggregate``   w_{t+1} = sum_k (n_k / n) w^k_{t+1}.
+- ``sample_clients``     S_t = random set of m = max(C*K, 1) clients, the
+                         same numpy draw as the reference, so the same seed
+                         picks the same cohort ids.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.kernels.ops import tree_fedavg_aggregate
+from repro_torch.utils.tree import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class FedAvgConfig:
+    """Paper hyper-parameters (Section 2).
+
+    C: fraction of clients per round; the server samples m = max(C*K, 1).
+    E: local epochs per round.
+    B: local minibatch size; None means B = inf (full local batch).
+    lr: client SGD learning rate.
+    lr_decay: per-round multiplicative decay of ``lr``.
+    """
+
+    C: float = 0.1
+    E: int = 1
+    B: Optional[int] = 10
+    lr: float = 0.1
+    lr_decay: float = 1.0
+    seed: int = 0
+
+
+def sample_clients(rng: np.random.Generator, n_clients: int, C: float) -> np.ndarray:
+    """S_t <- random set of m clients, m = max(C*K, 1)."""
+    m = max(int(round(C * n_clients)), 1)
+    return rng.choice(n_clients, size=m, replace=False)
+
+
+def client_update(loss_fn: Callable, params, batches, step_mask, lr):
+    """ClientUpdate for the cohort: every client starts from ``params``.
+
+    ``batches``: tuple of tensors with leading (m, n_steps, B, ...) axes;
+    ``step_mask``: (m, n_steps) 0/1 float. Each step computes every
+    client's gradient with one vmapped call and applies
+    ``p - lr * mask * g``; a padded step (mask 0) still computes its
+    gradient and leaves the client unchanged, as the reference's scan does.
+    Returns the (m, ...) stacked client params and the (m, n_steps) losses.
+    """
+    m, n_steps = step_mask.shape
+    step_grad = vmap(grad_and_value(loss_fn, has_aux=True))
+    w = tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
+    losses = []
+    for s in range(n_steps):
+        grads, (loss, _) = step_grad(w, tuple(b[:, s] for b in batches))
+        scale = lr * step_mask[:, s]
+        w = tree_map(
+            lambda p, g: p - scale.reshape((m,) + (1,) * (p.ndim - 1)) * g, w, grads
+        )
+        losses.append(loss)
+    return w, torch.stack(losses, dim=1)
+
+
+def masked_weighted_loss(losses, step_mask, client_weights):
+    """Round train-loss metric: mean loss over each client's REAL steps,
+    weighted by client example count (the reference's unsharded branch)."""
+    per_client = torch.sum(losses * step_mask, dim=1) / torch.clamp(
+        torch.sum(step_mask, dim=1), min=1.0
+    )
+    w = client_weights / torch.sum(client_weights)
+    return torch.sum(w * per_client)
+
+
+def server_aggregate(stacked_params, client_weights):
+    """w_{t+1} <- sum_k (n_k/n) w^k_{t+1} — Algorithm 1's server line.
+
+    ``client_weights`` are RAW example counts n_k; they are normalized once,
+    inside ``tree_fedavg_aggregate`` (on the host when they live there),
+    whose kernel takes the normalized contract."""
+    return tree_fedavg_aggregate(stacked_params, client_weights)

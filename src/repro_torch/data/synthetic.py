@@ -1,0 +1,72 @@
+"""Procedural MNIST stand-in, copied from ``repro/data/synthetic.py``.
+
+The port keeps its own copy rather than importing ``repro``; for the same
+seed its output is byte-identical to the reference (tested).
+
+Each class c has a smooth random template T_c; a sample is a randomly
+shifted, scaled copy of its template plus Gaussian noise.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    x: np.ndarray
+    y: np.ndarray
+
+    def __len__(self):
+        return len(self.x)
+
+
+def make_image_classification(
+    n_train: int = 60_000,
+    n_test: int = 10_000,
+    *,
+    image_shape=(28, 28, 1),
+    n_classes: int = 10,
+    seed: int = 0,
+    difficulty: float = 1.0,
+):
+    """MNIST-like synthetic image classification: (train, test, templates)
+    with NHWC float32 images and int32 labels."""
+    rng = np.random.default_rng(seed)
+    h, w, ch = image_shape
+    low = rng.normal(size=(n_classes, 7, 7, ch)).astype(np.float32)
+    templates = np.stack(
+        [_upsample(low[c], (h, w)) for c in range(n_classes)], axis=0
+    )
+    templates /= np.maximum(np.abs(templates).max(axis=(1, 2, 3), keepdims=True), 1e-6)
+
+    def gen(n, rng):
+        y = rng.integers(0, n_classes, size=n)
+        shifts = rng.integers(-3, 4, size=(n, 2))
+        scale = rng.uniform(0.7, 1.3, size=(n, 1, 1, 1)).astype(np.float32)
+        noise = rng.normal(0, 0.35 * difficulty, size=(n, h, w, ch)).astype(np.float32)
+        x = np.empty((n, h, w, ch), np.float32)
+        for i in range(n):
+            x[i] = np.roll(templates[y[i]], tuple(shifts[i]), axis=(0, 1))
+        x = x * scale + noise
+        return ArrayDataset(x=x, y=y.astype(np.int32))
+
+    return gen(n_train, rng), gen(n_test, rng), templates
+
+
+def _upsample(img: np.ndarray, hw) -> np.ndarray:
+    """Bilinear upsample (h0,w0,c) -> (h,w,c) with numpy only."""
+    h0, w0, c = img.shape
+    h, w = hw
+    yi = np.linspace(0, h0 - 1, h)
+    xi = np.linspace(0, w0 - 1, w)
+    y0 = np.floor(yi).astype(int)
+    x0 = np.floor(xi).astype(int)
+    y1 = np.minimum(y0 + 1, h0 - 1)
+    x1 = np.minimum(x0 + 1, w0 - 1)
+    wy = (yi - y0)[:, None, None]
+    wx = (xi - x0)[None, :, None]
+    top = img[y0][:, x0] * (1 - wx) + img[y0][:, x1] * wx
+    bot = img[y1][:, x0] * (1 - wx) + img[y1][:, x1] * wx
+    return (top * (1 - wy) + bot * wy).astype(np.float32)
