@@ -1,5 +1,6 @@
 """RoundEngine: Algorithm 1 over a device-resident client pool (counterpart
-of ``repro/core/engine.py``, its plain lane).
+of ``repro/core/engine.py``: its plain lane, and with ``codec=`` its
+compressed-upload lane).
 
 One round::
 
@@ -9,6 +10,8 @@ One round::
     counts[ids] -> raw weights (m,)       batches            -> (m, E*spe, B, ..)
                                           vmapped ClientUpdate (masked SGD steps)
                                           fp32 deltas -> fedavg_aggregate (CUDA kernel)
+                                            or, with a codec: encode -> fused
+                                            decode + average (codec's kernel)
                                           strategy.apply -> new global params
 
 The cohort is drawn on the host with the reference's numpy stream, in the
@@ -19,6 +22,12 @@ permutations: their keys are not the reference's bits (threefry and
 Philox differ), so whole runs are compared by accuracy, never bitwise, and
 exact checks inject the reference's batches through
 ``build_simulation_round_step``.
+
+With a codec, the codec's generator is seeded with ``seed ^ 0x5EED``, the
+same per-round integer decorrelated from the batch generator (the
+reference folds ``0x5EED`` into its round key, ``engine.py:1613``). No
+further number is drawn from the host stream, so a codec leaves the cohort
+ids unchanged.
 
 Weights come from the host counts, so normalizing them costs no device
 sync; the loop's only per-round sync is the loss read in ``run``.
@@ -32,6 +41,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from repro_torch.core.compression import Codec, build_compressed_round_step
 from repro_torch.core.fedavg import (
     FedAvgConfig,
     client_update,
@@ -62,12 +72,16 @@ class RoundBatch(NamedTuple):
     client_weights: (m,) RAW example counts n_k, on the host or the device;
                     normalized once, inside ``server_aggregate``.
     lr:             client learning rate for this round.
+    seed:           host integer seeding the codec's generator (the
+                    reference's ``RoundBatch.key``); the compressed round
+                    step needs it, the plain one ignores it.
     """
 
     data: Any
     step_mask: torch.Tensor
     client_weights: torch.Tensor
     lr: Any = None
+    seed: Optional[int] = None
 
 
 def build_simulation_round_step(
@@ -146,7 +160,12 @@ class RoundEngine:
     Construction packs ``client_data`` once (``data.batching.pack_clients``)
     and uploads it to ``device``; each ``round()`` draws a cohort on the
     host and runs gather -> permute -> ClientUpdate -> aggregate on the
-    device. ``device`` defaults to ``"cuda"`` and raises without a card."""
+    device. ``device`` defaults to ``"cuda"`` and raises without a card.
+
+    ``codec`` (``core.compression``) swaps the server step for the
+    compressed-upload lane: each client's delta is encoded and the server
+    averages the payloads through the codec's fused decode + aggregate.
+    ``None`` keeps the plain lane."""
 
     def __init__(
         self,
@@ -157,6 +176,7 @@ class RoundEngine:
         eval_fn: Optional[Callable] = None,
         *,
         strategy=None,
+        codec: Optional[Codec] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -180,7 +200,12 @@ class RoundEngine:
         # Keep only the metadata: counts and steps stay on the host, where
         # the cohort is drawn.
         self.packed = packed._replace(x=None, y=None)
-        self._round_step = build_simulation_round_step(loss_fn, strategy=self.strategy)
+        self.codec = codec
+        if codec is None:
+            self._round_step = build_simulation_round_step(loss_fn, strategy=self.strategy)
+        else:
+            self._round_step = build_compressed_round_step(loss_fn, codec,
+                                                           strategy=self.strategy)
 
     @property
     def num_clients(self) -> int:
@@ -236,9 +261,10 @@ class RoundEngine:
         """One synchronous round; returns {'loss': device scalar}."""
         ids, seed, lr = self._next_round_inputs()
         batch, mask, w = self.materialize_round_batch(ids, seed)
+        codec_seed = None if self.codec is None else seed ^ 0x5EED
         state, metrics = self._round_step(
             RoundState(self.params, outer_state=self.outer_state),
-            RoundBatch(batch, mask, w, lr=lr),
+            RoundBatch(batch, mask, w, lr=lr, seed=codec_seed),
         )
         self.params, self.outer_state = state.params, state.outer_state
         self.round_idx += 1

@@ -3,7 +3,8 @@
 
 FedAvg is the identity over the aggregated client delta
 ``Δ_t = Σ_k (n_k / n) (w_k - w_t)``: ``w_{t+1} = w_t + Δ_t``. The port has
-FedAvg only; FedSGD, FedAvgM and FedAsync are ROADMAP Queue 1 item 2.
+FedAvg only; FedSGD, FedAvgM and FedAsync wait in ROADMAP Queue 1
+("strategies, spec loader, checkpoints").
 """
 from __future__ import annotations
 
@@ -48,5 +49,6 @@ def resolve_strategy(strategy: Union[None, str, ServerStrategy]) -> ServerStrate
         return strategy
     raise ValueError(
         f"server strategy {strategy!r} is not ported to repro_torch yet: only "
-        "'fedavg' is (FedSGD, FedAvgM and FedAsync are ROADMAP Queue 1 item 2)"
+        "'fedavg' is (FedSGD, FedAvgM and FedAsync wait in ROADMAP Queue 1: "
+        "strategies, spec loader, checkpoints)"
     )

@@ -17,8 +17,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -77,6 +78,14 @@ def build(name: str) -> BuildResult:
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log, False)
+
+
+def build_all(names) -> Dict[str, BuildResult]:
+    """:func:`build` every named source at once, one nvcc process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
 
 
 @functools.cache

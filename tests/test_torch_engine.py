@@ -238,7 +238,7 @@ def test_only_fedavg_is_ported():
     s = FedAvg()
     assert resolve_strategy(s) is s
     for name in ("fedsgd", "fedavgm", "fedasync"):
-        with pytest.raises(ValueError, match="Queue 1 item 2"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 1: strategies"):
             resolve_strategy(name)
     p = {"a": {"w": torch.ones(3)}}
     _, new = FedAvg().apply((), p, {"a": {"w": torch.full((3,), 0.5)}})
