@@ -30,13 +30,23 @@ Phases, in order, each printing its own lines:
    bytes against the wire-bytes table;
 9. one profiled round of the CNN q8 lane: the kernel's share of the round;
 10. plain and q8 CNN rounds in turns, so that the two lanes' round times
-    are compared on one card at one time.
+    are compared on one card at one time;
+11. the gossip lane at full size through ``RoundEngine(topology=...).run``:
+    the 2NN on the ring and small-world graphs of
+    ``specs/mnist_2nn_noniid_{ring,smallworld}.json`` and the CNN on the
+    ring, 100 nodes each. One gossip round on the card is first held
+    against the same round on the CPU (same injected batches); then each
+    lane runs, and ``gossip_mix`` must launch once a round;
+12. the anchor: on the full graph (100 nodes, 2NN) one gossip round equals
+    one plain FedAvg round with C = 1.0 on the same injected batches;
+13. one profiled CNN ring round: the mixing kernel's share and the card's
+    idle share.
 
 Every kernel's launch count is set to 0 just before each lane's run and
-read just after. The last three lines are the card's ``nvidia-smi`` name and
-power limit, a ``{"kernels": [...]}`` record and ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero before those lines; so does a machine
-without a card.
+read just after. Each phase prints its seconds. The last three lines are
+the card's ``nvidia-smi`` name and power limit, a ``{"kernels": [...]}``
+record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before those lines; so does a machine without a card.
 """
 from __future__ import annotations
 
@@ -72,9 +82,16 @@ CHECK_STEPS = 3                         # the longer card-vs-CPU round: E=1, 3 s
 UPDATE_RTOL_1 = 1e-4
 UPDATE_RTOL_N = 1e-2
 LOSS_RTOL = 1e-4
+# The gossip lane's 1-step CNN round on 100 nodes measured 1.7e-4 card vs
+# CPU on an H100 (the 2NN stays within UPDATE_RTOL_1). Each 1-step gossip
+# round is therefore also run on the CPU in fp64, and both fp32 rounds are
+# held to it: there the CPU's own fp32 round measured 8.1e-5 from fp64 and
+# the card's 1.5e-4, so fp32 rounding alone moves this round by ~1e-4.
+GOSSIP_CNN_RTOL_1 = 1e-3
 
 KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregate",
-           "sparse_aggregate")
+           "sparse_aggregate", "gossip_mix")
+WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
 COMPRESSED_ROUNDS = 2
@@ -97,13 +114,40 @@ WIRE_BYTES = {
 # held in L2 relative to its size.
 LOWRANK_RTOL = 1e-5
 
+N_NODES = 100                           # the gossip specs: every client is a node
+GOSSIP_ROUNDS = 2
+# (model, spec whose topology, fedavg and partition sections the lane uses);
+# no CNN gossip spec exists, so the CNN takes the 2NN ring spec's sections.
+GOSSIP_LANES = (
+    ("mnist_2nn", "mnist_2nn_noniid_ring"),
+    ("mnist_2nn", "mnist_2nn_noniid_smallworld"),
+    ("mnist_cnn", "mnist_2nn_noniid_ring"),
+)
+# The anchor. The node mean and FedAvg's params differ only in the order of
+# an fp32 sum of 100 terms: the reference's own tolerance
+# (tests/test_engine_gossip.py). The full graph's replicas differ only by
+# fp32 rounding, so the consensus distance is held to 1e-6 of the replicas'
+# RMS norm (a ring's is a few percent of it). The losses are the same
+# per-client losses, weighted alike.
+ANCHOR_ATOL = 2e-5
+ANCHOR_CONSENSUS_RTOL = 1e-6
+ANCHOR_LOSS_RTOL = 1e-6
+
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
 
 
+_PHASES = []
+
+
 def phase(title: str) -> None:
+    """Start a phase, and print the seconds the one before it took."""
+    now = time.perf_counter()
+    if _PHASES:
+        print(f"  [{_PHASES[-1][0]}: {now - _PHASES[-1][1]:.1f} s]")
+    _PHASES.append((title.split(" ", 1)[0].rstrip(".:"), now))
     print(f"\n== {title}", flush=True)
 
 
@@ -234,10 +278,11 @@ def counters():
         packed_quantized_aggregate,
         quantized_aggregate,
     )
+    from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.sparse_agg import sparse_aggregate
 
     return {f.__name__: f for f in (fedavg_aggregate, quantized_aggregate,
-                                    packed_quantized_aggregate, sparse_aggregate)}
+                                    packed_quantized_aggregate, sparse_aggregate, gossip_mix)}
 
 
 def launch_counts():
@@ -487,6 +532,133 @@ def check_sparse_aggregate():
     return main_err
 
 
+def gossip_plans(n):
+    """name -> MixingPlan at n nodes: the ring, the small world of
+    specs/mnist_2nn_noniid_smallworld.json and the full graph, where the kind
+    takes n nodes."""
+    from repro_torch.core import topology as topo
+
+    kinds = {"ring": topo.RingTopology(degree=2),
+             "smallworld": topo.SmallWorldTopology(degree=4, rewire=0.2, seed=0),
+             "full": topo.FullTopology()}
+    out = {}
+    for name, t in kinds.items():
+        if name == "ring" and n < 3 or name == "smallworld" and n < 5:
+            continue
+        out[name] = t.build(n)
+    return out
+
+
+def odd_plan(n, kind, seed):
+    """(idx, weight) with duplicate ids, ids outside [0, n), or a ring plan
+    widened with dead padded slots; every row sums to 1."""
+    r = np.random.default_rng(seed)
+    if kind == "padded":
+        plan = gossip_plans(n)["ring"]
+        idx = np.concatenate([plan.idx, np.tile(np.arange(n, dtype=np.int32)[:, None], (1, 3))], 1)
+        w = np.concatenate([plan.weight, np.zeros((n, 3), np.float32)], 1)
+        return idx, w
+    D = 6
+    idx = r.integers(0, n, (n, D)).astype(np.int32)
+    if kind == "duplicates":
+        idx[:, 1] = idx[:, 0]
+    else:   # out of range: -1, n and a large id on every row
+        idx[:, :3] = np.array([-1, n, 10 * n + 3], np.int32)
+    w = r.uniform(0.1, 1.0, (n, D))
+    return idx, (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def gossip_tol(x, w):
+    """fp32 sums of the row's terms in another order: for weights summing to
+    at most 1, each side errs by at most D roundings of max|x|."""
+    D = w.shape[1]
+    return 2 * D * 2.0 ** -24 * float(x.float().abs().max())
+
+
+def check_gossip_mix():
+    from repro_torch.kernels.gossip_mix import (
+        MAX_NODES,
+        gossip_mix,
+        gossip_mix_ref,
+        launch_config,
+    )
+
+    name = "gossip_mix"
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (2, 3, 17, 100):
+            for N in (1, 33, 4097, *MAIN_N.values()):
+                for plan in gossip_plans(n):
+                    cases.append(dict(n=n, N=N, dtype=dtype, plan=plan))
+        for kind in ("duplicates", "out_of_range", "padded"):
+            for n, N in ((17, 4097), (100, MAIN_N["mnist_2nn"])):
+                cases.append(dict(n=n, N=N, dtype=dtype, plan=kind))
+        for plan in ("ring", "full"):
+            cases.append(dict(n=100, N=MAIN_N["mnist_2nn"], dtype=dtype, plan=plan,
+                              misaligned=True))
+    before = gossip_mix.launches
+    main_err = worst = worst_bf16 = 0.0
+    for i, c in enumerate(cases):
+        n, N, dtype = c["n"], c["N"], c["dtype"]
+        if c["plan"] in ("duplicates", "out_of_range", "padded"):
+            idx, w = odd_plan(n, c["plan"], seed=i)
+        else:
+            p = gossip_plans(n)[c["plan"]]
+            idx, w = p.idx, p.weight
+        idx, w = torch.from_numpy(idx).cuda(), torch.from_numpy(w).cuda()
+        g = torch.Generator(device="cuda").manual_seed(i)
+        if c.get("misaligned"):   # a contiguous view one element off 16-byte alignment
+            x = torch.empty(n * N + 1, device="cuda", dtype=dtype)[1:].view(n, N)
+            x.copy_(torch.randn((n, N), generator=g, device="cuda"))
+        else:
+            x = torch.randn((n, N), generator=g, device="cuda").to(dtype)
+        out = gossip_mix(x, idx, w)
+        torch.cuda.synchronize()
+        require(out.shape == (n, N) and out.dtype == dtype, f"bad output for {c}")
+        tol = gossip_tol(x, w)
+        ref32 = gossip_mix_ref(x.float(), idx, w)
+        tile, vec = launch_config(x, out)
+        tag = (f"n={n:3d} N={N:8d} D={idx.shape[1]:3d} {str(dtype)[6:]:8s} {c['plan']:12s} "
+               f"tile={tile:3d} vec={vec}" + (" misaligned" if c.get("misaligned") else ""))
+        if dtype == torch.float32:
+            err = float((out - ref32).abs().max())
+            ok = err <= tol
+            worst = max(worst, err)
+            if n == N_NODES and N in MAIN_N.values() and c["plan"] in ("ring", "smallworld"):
+                main_err = max(main_err, err)
+            detail = f"max_abs_err={err:.3e} tol={tol:.3e}"
+        else:
+            # plus one rounding at the store: one bf16 ulp of the fp32 sum
+            share = float(((out.float() - ref32).abs() / (bf16_ulp(ref32) + tol)).max())
+            ok = share <= 1.0
+            worst_bf16 = max(worst_bf16, share)
+            detail = f"max_err={share:.3f} of (1 bf16 ulp + tol)"
+        print(f"  {tag}: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {c}")
+    require(gossip_mix.launches - before == len(cases), "one launch per case")
+
+    ring = gossip_plans(4)["ring"]
+    x = torch.randn((4, 64), device="cuda")
+    idx, w = torch.from_numpy(ring.idx).cuda(), torch.from_numpy(ring.weight).cuda()
+    big = torch.zeros((MAX_NODES + 1, 8), device="cuda")
+    n_ref = check_refusals(name, gossip_mix, {
+        "a non-stochastic CPU plan": lambda: gossip_mix(x.cpu(), idx.cpu(), w.cpu() * 2),
+        "idx of another shape": lambda: gossip_mix(x, idx[:3].contiguous(), w[:3].contiguous()),
+        "float16 x": lambda: gossip_mix(x.half(), idx, w),
+        "int64 idx": lambda: gossip_mix(x, idx.long(), w),
+        "non-contiguous x": lambda: gossip_mix(x.t().contiguous().t(), idx, w),
+        "accum_dtype=bfloat16 on CUDA": lambda: gossip_mix(x, idx, w, accum_dtype=torch.bfloat16),
+        f"{MAX_NODES + 1} nodes": lambda: gossip_mix(
+            big, torch.arange(MAX_NODES + 1, dtype=torch.int32, device="cuda")[:, None],
+            torch.ones((MAX_NODES + 1, 1), device="cuda")),
+    })
+    print(f"kernels: {name} cuda ok ({len(cases)} cases, fp32 max_abs_err {worst:.3e} within "
+          f"2*D*2^-24*max|x|; bf16 max error {worst_bf16:.3f} of 1 bf16 ulp + that; "
+          f"{n_ref} refusals)")
+    return main_err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
@@ -579,7 +751,7 @@ def time_wire_kernels():
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     K = MAIN_K
-    rows = {name: {} for name in KERNELS[1:]}
+    rows = {name: {} for name in WIRE_KERNELS}
     for model, N in MAIN_N.items():
         C = -(-N // CHUNK)
         n_pad = C * CHUNK
@@ -627,6 +799,35 @@ def time_wire_kernels():
     return rows
 
 
+def time_gossip_mix():
+    """The mixing kernel at n = 100 nodes on the ring, the small world and the
+    full graph, at the 2NN's and the CNN's N, fp32."""
+    from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_ref, launch_config
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    rows = {}
+    for plan_name, plan in gossip_plans(N_NODES).items():
+        idx = torch.from_numpy(plan.idx).cuda()
+        w = torch.from_numpy(plan.weight).cuda()
+        W = torch.from_numpy(plan.dense()).cuda()
+        nonzero = int(np.count_nonzero(plan.weight))
+        for model, N in MAIN_N.items():
+            x = torch.randn((N_NODES, N), generator=torch.Generator(device="cuda").manual_seed(7),
+                            device="cuda")
+            r = timing_row(
+                f"gossip_mix {plan_name} {model}: n={N_NODES} N={N} D={plan.max_slots} "
+                f"non-zero slots {nonzero} tile, vec={launch_config(x, x)}",
+                lambda: gossip_mix(x, idx, w),
+                lambda: gossip_mix_ref(x, idx, w),
+                lambda: torch.matmul(W, x),      # cuBLAS, TF32 off: the reference's oracle
+                2 * N_NODES * N * 4 + idx.numel() * 8, 2 * nonzero * N, flush)
+            r.update(n=N_NODES, N=N, plan=plan_name, max_slots=plan.max_slots,
+                     nonzero_slots=nonzero)
+            rows[f"{plan_name}/{model}"] = r
+    del flush
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 5-9: the main paths
 # ---------------------------------------------------------------------------
@@ -637,10 +838,11 @@ def host_vector(tree) -> torch.Tensor:
     return tree_ravel(tree_map(lambda p: p.detach().cpu().double(), tree))[0]
 
 
-def make_engine(model_name, data, codec=None):
-    """``RoundEngine`` on the card for the paper's non-IID cell of
-    ``model_name`` (``specs/<model>_noniid.json``, read as JSON) at full
-    size; returns the engine, the model and its config."""
+def make_engine(model_name, data, codec=None, spec_name=None, topology=None):
+    """``RoundEngine`` on the card for ``model_name`` at full size, with the
+    fedavg and partition sections of ``specs/<spec_name>.json`` (read as
+    JSON; by default the model's own non-IID cell ``<model>_noniid``);
+    returns the engine, the model and its config."""
     from repro_torch.core.engine import RoundEngine
     from repro_torch.core.fedavg import FedAvgConfig
     from repro_torch.core.simulation import make_eval_fn
@@ -648,10 +850,9 @@ def make_engine(model_name, data, codec=None):
     from repro_torch.models import paper
     from repro_torch.utils.tree import tree_leaves
 
-    spec = json.loads((ROOT / "specs" / f"{model_name}_noniid.json").read_text())
+    spec = json.loads((ROOT / "specs" / f"{spec_name or model_name + '_noniid'}.json").read_text())
     fed, part = spec["fedavg"], spec["partition"]
-    require(spec["model"]["kind"] == model_name and part["kind"] == "pathological_noniid",
-            f"unexpected spec {spec['name']}")
+    require(part["kind"] == "pathological_noniid", f"unexpected spec {spec['name']}")
     train, test = data
     split = partition_pathological_noniid(
         train.y, part["n_clients"], part["shards_per_client"], seed=part["seed"])
@@ -664,11 +865,14 @@ def make_engine(model_name, data, codec=None):
     require(n_params == MAIN_N[model_name], f"{model_name} has {n_params} params")
     eng = RoundEngine(model.loss, params, clients, cfg,
                       eval_fn=make_eval_fn(model.apply, test.x, test.y, device="cuda"),
-                      codec=codec, device="cuda")
-    print(f"  {spec['name']}: {len(clients)} clients x {int(split.client_sizes[0])} examples, "
+                      codec=codec, topology=topology, device="cuda")
+    print(f"  {spec['name']}" + ("" if spec["model"]["kind"] == model_name else
+                                 f" (its sections, with {model_name})")
+          + f": {len(clients)} clients x {int(split.client_sizes[0])} examples, "
           f"C={cfg.C} E={cfg.E} B={cfg.B} lr={cfg.lr}, {n_params} params, "
           f"{eng.packed.max_real_steps_per_epoch * cfg.E} steps/round"
-          + (f", codec {codec.name}" if codec is not None else ""))
+          + (f", codec {codec.name}" if codec is not None else "")
+          + (f", topology {topology.name}" if topology is not None else ""))
     return eng, model, cfg
 
 
@@ -676,13 +880,18 @@ def run_lane(name, eng, n_rounds, kernel):
     """One lane's main path: every launch count set to 0, ``RoundEngine.run``,
     the counts read. ``kernel`` must have launched once a round and every
     other kernel never (``None``: no hand kernel at all)."""
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     hist = eng.run(n_rounds, eval_every=1)
     torch.cuda.synchronize()
     counts = launch_counts()
     for r in hist.records:
-        print(f"  round {r.round}: loss {r.train_loss:.6f} test_acc {r.test_acc:.4f} "
+        cons = "" if r.consensus is None else f"consensus {r.consensus:.6f} "
+        print(f"  round {r.round}: loss {r.train_loss:.6f} {cons}test_acc {r.test_acc:.4f} "
               f"test_loss {r.test_loss:.6f} wall_s {r.wall_s:.4f}")
+    if eng.topology is not None and not all(
+            math.isfinite(r.consensus) and r.consensus >= 0 for r in hist.records):
+        raise AssertionError(f"{name}: bad consensus distances")
     losses = [r.train_loss for r in hist.records]
     if len(hist.records) != n_rounds or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{name}: non-finite or missing round losses {losses}")
@@ -813,17 +1022,40 @@ def compressed_lane(model_name, spec_name, override, kernel, data):
             "aggregate_err": err, "payload_bytes": realized, "dense_bytes": 4 * n}, eng
 
 
+def busy_seconds(spans):
+    """Length of the union of (start, end) intervals in µs, in seconds:
+    the time at least one device op ran, however many ran at once."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e6
+
+
 def profile_round(name, eng, key, label):
     """Device time of one more round by kernel, from torch.profiler's CUDA
-    activity (CUPTI), against the round's host wall time; ``key`` picks the
-    hand kernel's rows by name."""
+    activity (CUPTI), against the round's host wall time, which ends when
+    the card has finished the round; ``key`` picks the hand kernel's rows by
+    name. Device busy is the union of the device ops' intervals: ops that
+    overlap (on several streams) count once, so the sum of the ops' times may
+    exceed it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    wrapper = counters()[label]
+    launched = wrapper.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         float(eng.round()["loss"])
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = wrapper.launches - launched
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
+    streams = len({e.device_resource_id for e in ops})
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -831,17 +1063,166 @@ def profile_round(name, eng, key, label):
             us = e.self_cuda_time_total
         if us > 0:
             rows.append((us, e.count, e.key))
-    busy = sum(r[0] for r in rows) / 1e6
     rows.sort(reverse=True)
-    agg = sum(r[0] for r in rows if key in r[2]) / 1e6
+    mine = [r for r in rows if key in r[2]]
+    agg = sum(r[0] for r in mine) / 1e6
+    share = (f"{agg * 1e3:.4f} ms ({agg / wall:.4%} of the round, {agg / summed:.4%} of "
+             "the ops' summed time)" if mine else
+             "not in the profiler's trace")
     print(f"  {name}: round wall {wall:.4f} s under the profiler, device busy {busy:.4f} s "
-          f"(idle share {1 - busy / wall:.1%}), {sum(r[1] for r in rows)} device ops; "
-          f"{label} {agg * 1e3:.4f} ms ({agg / wall:.4%} of the round, "
-          f"{agg / busy:.4%} of device time)")
+          f"(idle share {1 - busy / wall:.1%}; the ops' times sum to {summed:.4f} s on "
+          f"{streams} streams), {len(ops)} device ops; {label} launched {launched}x by its "
+          f"counter, {share}")
     for us, count, k in rows[:8]:
         print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
-            "kernel_ms": agg * 1e3}
+            "device_ops_summed_s": summed, "streams": streams, "device_ops": len(ops),
+            "launches": launched, "kernel_ms": agg * 1e3 if mine else None}
+
+
+def spec_topology(spec_name):
+    """The ``Topology`` of a spec's ``topology`` section, its ``None``
+    fields dropped as the reference's ``TopologySpec.build`` drops them."""
+    from repro_torch.core.topology import topology_from_json
+
+    t = json.loads((ROOT / "specs" / f"{spec_name}.json").read_text())["topology"]
+    return topology_from_json({k: v for k, v in t.items() if v is not None})
+
+
+def gossip_card_vs_cpu(name, eng, model, cfg, steps):
+    """One gossip round of ``steps[i][0]`` steps on the card against the same
+    round on the CPU: same replicas, same plan, same injected batches.
+    Compared on the replicas' update in L2 relative to its size, on the loss
+    and on the consensus distance."""
+    from repro_torch.core.engine import build_gossip_round_step
+    from repro_torch.utils.tree import tree_map
+
+    batch, mask, w = eng.materialize_round_batch(np.arange(eng.num_clients),
+                                                 generator_seed=1234)
+    step = build_gossip_round_step(model.loss)
+    start = host_vector(eng.params)
+    cpu_params = tree_map(lambda p: p.cpu(), eng.params)
+    for n_steps, rtol in steps:
+        b = tuple(x[:, :n_steps].contiguous() for x in batch)
+        msk = mask[:, :n_steps].contiguous()
+        gpu_p, gpu_m = step(eng.params, b, msk, w, eng._mix_idx, eng._mix_w, cfg.lr)
+        cpu_p, cpu_m = step(cpu_params, tuple(x.cpu() for x in b), msk.cpu(), w,
+                            eng._mix_idx.cpu(), eng._mix_w.cpu(), cfg.lr)
+        torch.cuda.synchronize()
+        d_gpu = host_vector(gpu_p) - start
+        d_cpu = host_vector(cpu_p) - start
+        rel = float((d_gpu - d_cpu).norm() / d_cpu.norm())
+        l_gpu, l_cpu = float(gpu_m["loss"]), float(cpu_m["loss"])
+        c_gpu, c_cpu = float(gpu_m["consensus"]), float(cpu_m["consensus"])
+        l_err = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-12)
+        c_err = abs(c_gpu - c_cpu) / max(abs(c_cpu), 1e-12)
+        ok = rel <= rtol and l_err <= LOSS_RTOL and c_err <= rtol
+        print(f"  card vs CPU, a {n_steps}-step gossip round on {eng.num_clients} nodes: "
+              f"update |d_card - d_cpu|/|d_cpu| = {rel:.3e} (rtol {rtol:g}), loss "
+              f"{l_gpu:.6f} vs {l_cpu:.6f} (rel {l_err:.2e}, rtol {LOSS_RTOL:g}), consensus "
+              f"{c_gpu:.6e} vs {c_cpu:.6e} (rel {c_err:.2e}, rtol {rtol:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: the gossip round on the card disagrees with the CPU")
+        if n_steps == 1:
+            d_64 = gossip_round_fp64(eng, model, b, msk, cfg.lr) - start
+            to64 = {k: float((d - d_64).norm() / d_64.norm())
+                    for k, d in (("card", d_gpu), ("cpu", d_cpu))}
+            ok = max(to64.values()) <= rtol
+            print(f"    the same round on the CPU in fp64: |d_card - d_64|/|d_64| = "
+                  f"{to64['card']:.3e}, |d_cpu - d_64|/|d_64| = {to64['cpu']:.3e} "
+                  f"(rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: an fp32 gossip round is far from fp64")
+
+
+def gossip_round_fp64(eng, model, batch, mask, lr):
+    """The replicas after one gossip round computed on the CPU in fp64 (the
+    plain mix, as the kernel wrapper takes only fp32 and bf16), as one host
+    vector in ``host_vector``'s layout."""
+    from repro_torch.core.fedavg import client_update_stacked
+    from repro_torch.kernels.gossip_mix import gossip_mix_ref
+    from repro_torch.utils.tree import tree_map, tree_ravel_stacked, tree_unravel_stacked
+
+    def f64(t):
+        return t.cpu().double() if t.is_floating_point() else t.cpu()
+
+    trained, _ = client_update_stacked(model.loss, tree_map(f64, eng.params),
+                                       tuple(f64(x) for x in batch), f64(mask), lr)
+    flat, spec = tree_ravel_stacked(trained)
+    mixed = gossip_mix_ref(flat, eng._mix_idx.cpu(), eng._mix_w.cpu(), torch.float64)
+    return host_vector(tree_unravel_stacked(spec, mixed))
+
+
+def gossip_lane(model_name, spec_name, data):
+    """The gossip lane through ``RoundEngine(topology=...).run`` at full size,
+    after a card-vs-CPU round on injected batches."""
+    topo = spec_topology(spec_name)
+    eng, model, cfg = make_engine(model_name, data, spec_name=spec_name, topology=topo)
+    require(eng.num_clients == N_NODES and eng.plan.n_nodes == N_NODES,
+            f"{spec_name}: {eng.num_clients} nodes")
+    print(f"  plan: {eng.plan.n_nodes} nodes x {eng.plan.max_slots} slots, "
+          f"{int(np.count_nonzero(eng.plan.weight))} non-zero")
+    # the CPU takes seconds a step for 100 CNN nodes: one step there
+    steps = ((1, GOSSIP_CNN_RTOL_1),) if model_name == "mnist_cnn" else \
+        ((1, UPDATE_RTOL_1), (CHECK_STEPS, UPDATE_RTOL_N))
+    gossip_card_vs_cpu(f"{model_name} {topo.kind}", eng, model, cfg, steps)
+    launches, walls = run_lane(f"{model_name} {topo.kind}", eng, GOSSIP_ROUNDS, "gossip_mix")
+    recs = eng.history.records
+    return {"model": model_name, "spec": spec_name, "topology": topo.name,
+            "kernel": "gossip_mix", "launches": launches, "rounds": GOSSIP_ROUNDS,
+            "round_wall_s": walls, "consensus": [r.consensus for r in recs],
+            "test_acc": [r.test_acc for r in recs],
+            "peak_device_MiB": torch.cuda.max_memory_allocated() / 2**20}, eng
+
+
+def anchor(data):
+    """The full graph is centralized FedAvg: one gossip round on 100 nodes
+    against one plain round with C = 1.0, same batches, same start."""
+    from repro_torch.core.engine import (
+        RoundBatch,
+        RoundState,
+        build_gossip_round_step,
+        build_simulation_round_step,
+    )
+    from repro_torch.core.topology import FullTopology
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    eng, model, cfg = make_engine("mnist_2nn", data, spec_name="mnist_2nn_noniid_ring",
+                                  topology=FullTopology())
+    counts = eng.packed.counts
+    require(bool((counts == counts[0]).all()), "the anchor needs equal shards")
+    batch, mask, w = eng.materialize_round_batch(np.arange(eng.num_clients),
+                                                 generator_seed=4321)
+    start = tree_map(lambda p: p[0].clone(), eng.params)   # every replica is the init
+    reset_counts()
+    mixed, gm = build_gossip_round_step(model.loss)(
+        eng.params, batch, mask, w, eng._mix_idx, eng._mix_w, cfg.lr)
+    state, sm = build_simulation_round_step(model.loss)(
+        RoundState(start, ()), RoundBatch(batch, mask, w, lr=cfg.lr))
+    torch.cuda.synchronize()
+    n_launched = launch_counts()
+    require(n_launched["gossip_mix"] == 1 and n_launched["fedavg_aggregate"] == 1,
+            f"anchor launches {n_launched}")
+    mean = tree_map(lambda p: p.float().mean(dim=0), mixed)
+    err = max(float((a - b.float()).abs().max())
+              for a, b in zip(tree_leaves(mean), tree_leaves(state.params)))
+    cons = float(gm["consensus"])
+    rms = math.sqrt(sum(float((p.float() ** 2).sum()) for p in tree_leaves(mixed))
+                    / eng.num_clients)
+    l_g, l_s = float(gm["loss"]), float(sm["loss"])
+    l_err = abs(l_g - l_s) / abs(l_s)
+    ok = (err <= ANCHOR_ATOL and cons <= ANCHOR_CONSENSUS_RTOL * rms
+          and l_err <= ANCHOR_LOSS_RTOL)
+    print(f"  full graph, {eng.num_clients} nodes, one {mask.shape[1]}-step round: node mean vs "
+          f"FedAvg params max_abs_err={err:.3e} (atol {ANCHOR_ATOL:g}); consensus "
+          f"{cons:.3e} = {cons / rms:.2e} of the replicas' RMS norm {rms:.3f} (rtol "
+          f"{ANCHOR_CONSENSUS_RTOL:g}); loss {l_g:.8f} vs {l_s:.8f} (rel {l_err:.2e}, "
+          f"rtol {ANCHOR_LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the full-graph gossip round is not the FedAvg round")
+    return {"max_abs_err": err, "consensus": cons, "replica_rms_norm": rms,
+            "loss_rel_err": l_err}
 
 
 def print_ptxas(log):
@@ -851,7 +1232,7 @@ def print_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
-                         "sparse_agg_kernel"):
+                         "sparse_agg_kernel", "gossip_mix_kernel"):
                 if base in mangled:
                     entry = base + "<" + mangled.split(base, 1)[1].split("EEv")[0][1:] + ">"
                     break
@@ -885,7 +1266,7 @@ def main() -> int:
 
     phase("2. build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    built = build_all(["fedavg_agg", "quantized_agg", "sparse_agg"])
+    built = build_all(["fedavg_agg", "quantized_agg", "sparse_agg", "gossip_mix"])
     print(f"built in {time.perf_counter() - t0:.2f} s wall")
     for src, res in built.items():
         print(f"  {src}: {res.path.name} nvcc {res.seconds:.2f} s (cached={res.cached})")
@@ -897,11 +1278,13 @@ def main() -> int:
         "quantized_aggregate": check_quantized_aggregate(),
         "packed_quantized_aggregate": check_packed_quantized_aggregate(),
         "sparse_aggregate": check_sparse_aggregate(),
+        "gossip_mix": check_gossip_mix(),
     }
 
     phase("4. timing (CUDA events, median of 200, L2 flushed before each launch)")
     print(f"card: {smi}")
-    timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels()}
+    timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
+              "gossip_mix": time_gossip_mix()}
 
     phase("data: synthetic MNIST, 60,000 train / 10,000 test, seed 0")
     t0 = time.perf_counter()
@@ -948,15 +1331,42 @@ def main() -> int:
         print(f"  {name:5s} round {turns[-1][1]:.4f} s")
     del eng_cnn, eng_cnn_q8, eng
 
+    phase("11. the gossip lane, full size, through RoundEngine(topology=...).run")
+    gossip, eng_cnn_ring = [], None
+    for model_name, spec_name in GOSSIP_LANES:
+        lane, eng = gossip_lane(model_name, spec_name, (train, test))
+        gossip.append(lane)
+        if model_name == "mnist_cnn":
+            eng_cnn_ring = eng
+        del eng
+    for lane in gossip:
+        walls = ", ".join(f"{t:.4f}" for t in lane["round_wall_s"])
+        print(f"  {lane['model']} {lane['spec']}: {lane['launches']} launches of gossip_mix in "
+              f"{lane['rounds']} rounds, rounds {walls} s, consensus "
+              + ", ".join(f"{c:.6f}" for c in lane["consensus"])
+              + f", test_acc {lane['test_acc'][-1]:.4f}, peak device memory "
+              f"{lane['peak_device_MiB']:.0f} MiB")
+
+    phase("12. the anchor: full graph == FedAvg with C = 1.0 (2NN, 100 nodes)")
+    anchor_res = anchor((train, test))
+
+    phase("13. where the time goes in the gossip lane: one more CNN ring round")
+    gossip_profile = profile_round("mnist_cnn ring", eng_cnn_ring, "gossip_mix_kernel",
+                                   "gossip_mix")
+    del eng_cnn_ring
+
+    phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
-    for k in KERNELS[1:]:
+    for k in WIRE_KERNELS:
         launches[k] = sum(lane["launches"] for lane in lanes if lane["kernel"] == k)
+    launches["gossip_mix"] = sum(lane["launches"] for lane in gossip)
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
         "packed_quantized_aggregate": ("quantized_agg.cu",
                                        "src/repro/kernels/quantized_agg.py:215"),
         "sparse_aggregate": ("sparse_agg.cu", "src/repro/kernels/sparse_agg.py:75"),
+        "gossip_mix": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:85"),
     }
     at = {
         "fedavg_aggregate": {"K": MAIN_K, "N": MAIN_N["mnist_cnn"], "dtype": "float32"},
@@ -966,10 +1376,14 @@ def main() -> int:
                                        "chunk": CHUNK},
         "sparse_aggregate": {"K": MAIN_K, "n": MAIN_N["mnist_cnn"], "keep_frac": TOPK,
                              "vals": "float32"},
+        "gossip_mix": {"n": N_NODES, "N": MAIN_N["mnist_cnn"], "plan": "ring", "max_slots": 3,
+                       "dtype": "float32"},
     }
+    main_shape = {k: "mnist_cnn" for k in KERNELS}
+    main_shape["gossip_mix"] = "ring/mnist_cnn"
     kernels = []
     for k in KERNELS:
-        cnn = timing[k]["mnist_cnn"]
+        cnn = timing[k][main_shape[k]]
         kernels.append({
             "name": k,
             "route": "cuda",
@@ -984,10 +1398,12 @@ def main() -> int:
             "library_ms": cnn["library_ms"],
             "at": at[k],
             "per_shape": timing[k],
-            "lanes": [lane for lane in lanes if lane["kernel"] == k],
+            "lanes": [lane for lane in lanes + gossip if lane["kernel"] == k],
         })
     kernels[0]["round_wall_s"] = {"mnist_2nn": wall_2nn, "mnist_cnn": wall_cnn}
     kernels[1]["cnn_rounds_in_turns_s"] = turns
+    kernels[4]["anchor"] = anchor_res
+    kernels[4]["cnn_ring_round_profile"] = gossip_profile
     print(f"\nchip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """RoundEngine: Algorithm 1 over a device-resident client pool (counterpart
-of ``repro/core/engine.py``: its plain lane, and with ``codec=`` its
-compressed-upload lane).
+of ``repro/core/engine.py``: its plain lane, with ``codec=`` its
+compressed-upload lane, and with ``topology=`` its decentralized gossip
+lane).
 
 One round::
 
@@ -31,6 +32,19 @@ ids unchanged.
 
 Weights come from the host counts, so normalizing them costs no device
 sync; the loop's only per-round sync is the loss read in ``run``.
+
+The gossip lane (``topology=``) has no server and no cohort draw: every
+node trains its own packed client (node k is client k) from its own
+replica, then one Metropolis-Hastings mixing step through ``gossip_mix``
+(CUDA kernel) replaces the aggregate. ``self.params`` is then the
+(n_nodes, ...) replica stack; ``consensus_params()`` is their mean. The
+reference splits a device PRNG key for each gossip round; threefry's bits
+cannot be reproduced here, so each gossip round instead draws one
+``rng.integers(2**31)`` from the engine's numpy stream and seeds
+``materialize_round_batch`` with it. Whole gossip runs are therefore
+compared with the reference in a band, and exact checks inject the
+reference's batches through ``build_gossip_round_step``. ``run`` reads the
+loss and the consensus distance back in one sync a round.
 """
 from __future__ import annotations
 
@@ -45,15 +59,18 @@ from repro_torch.core.compression import Codec, build_compressed_round_step
 from repro_torch.core.fedavg import (
     FedAvgConfig,
     client_update,
+    client_update_stacked,
     masked_weighted_loss,
     sample_clients,
     server_aggregate,
 )
-from repro_torch.core.strategies import ServerStrategy, resolve_strategy
+from repro_torch.core.strategies import FedAvg, ServerStrategy, resolve_strategy
+from repro_torch.core.topology import Topology, resolve_topology
 from repro_torch.data.batching import pack_clients
 from repro_torch.data.pool import device_pool_budget
+from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_map, tree_ravel_stacked, tree_unravel_stacked
 
 
 class RoundState(NamedTuple):
@@ -109,6 +126,32 @@ def build_simulation_round_step(
     return round_step
 
 
+def build_gossip_round_step(loss_fn: Callable):
+    """``gossip_step(stacked, batch, step_mask, counts, idx, weight, lr) ->
+    (mixed stacked, {"loss", "consensus"})``: one gossip round on injected
+    batches, the reference's ``_engine_gossip_round`` (``engine.py:1724``).
+
+    Node k trains packed client k from replica k (``client_update_stacked``);
+    the loss is ``masked_weighted_loss`` over the nodes' real steps, weighted
+    by the raw ``counts``; the (n_nodes, N) raveled replicas go through
+    ``gossip_mix`` once. ``consensus`` is the RMS over nodes of each mixed
+    row's L2 distance to the node mean, in fp32, from the same raveled
+    matrix: 0 exactly when all replicas agree."""
+
+    def gossip_step(stacked, batch, step_mask, counts, idx, weight, lr):
+        node_params, losses = client_update_stacked(loss_fn, stacked, batch, step_mask, lr)
+        w = torch.as_tensor(counts, dtype=torch.float32)
+        loss = masked_weighted_loss(losses, step_mask, w.to(losses.device))
+        flat, spec = tree_ravel_stacked(node_params)
+        mixed = gossip_mix(flat, idx, weight)
+        mf = mixed.float()
+        center = mf.mean(dim=0, keepdim=True)
+        consensus = torch.sqrt(torch.mean(torch.sum((mf - center) ** 2, dim=1)))
+        return tree_unravel_stacked(spec, mixed), {"loss": loss, "consensus": consensus}
+
+    return gossip_step
+
+
 @dataclasses.dataclass
 class RoundRecord:
     round: int
@@ -116,6 +159,9 @@ class RoundRecord:
     test_acc: Optional[float] = None
     test_loss: Optional[float] = None
     wall_s: float = 0.0
+    # Gossip lane only: the post-mix consensus distance (RMS over nodes of
+    # each replica's L2 distance to the node mean). None on the star lanes.
+    consensus: Optional[float] = None
 
 
 def _monotone_crossing(curve, target: float) -> Optional[float]:
@@ -165,7 +211,13 @@ class RoundEngine:
     ``codec`` (``core.compression``) swaps the server step for the
     compressed-upload lane: each client's delta is encoded and the server
     averages the payloads through the codec's fused decode + aggregate.
-    ``None`` keeps the plain lane."""
+    ``None`` keeps the plain lane.
+
+    ``topology`` (a ``core.topology`` registry name or ``Topology``) switches
+    to the gossip lane: one node per packed client, each with its own
+    replica, mixed with its neighbours every round. It needs ``cfg.C ==
+    1.0`` and the FedAvg strategy, and takes no codec, as the reference's
+    refusals say."""
 
     def __init__(
         self,
@@ -177,6 +229,7 @@ class RoundEngine:
         *,
         strategy=None,
         codec: Optional[Codec] = None,
+        topology=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -201,15 +254,66 @@ class RoundEngine:
         # the cohort is drawn.
         self.packed = packed._replace(x=None, y=None)
         self.codec = codec
-        if codec is None:
+        self.topology: Optional[Topology] = None
+        if topology is not None:
+            self._init_gossip(loss_fn, resolve_topology(topology))
+        elif codec is None:
             self._round_step = build_simulation_round_step(loss_fn, strategy=self.strategy)
         else:
             self._round_step = build_compressed_round_step(loss_fn, codec,
                                                            strategy=self.strategy)
 
+    def _init_gossip(self, loss_fn: Callable, topology: Topology) -> None:
+        """The gossip lane's set-up (the reference's ``engine.py:386-434`` and
+        ``:650-664``): refuse what the lane cannot take, build the mixing
+        plan on the host, check its rows once, move it to the device, and
+        tile the params into the (n_nodes, ...) replica stack."""
+        if self.codec is not None:
+            raise ValueError(
+                "topology= is incompatible with codec=: gossip mixing replaces the "
+                "server aggregate entirely, so there is no upload path to compress; "
+                "drop the codec, or run the star lane"
+            )
+        if not isinstance(self.strategy, FedAvg):
+            raise ValueError(
+                f"topology= is incompatible with the {self.strategy.kind!r} server "
+                "strategy: there is no server, the Metropolis-Hastings mixing step "
+                "IS the update rule. Use FedAvg"
+            )
+        if float(self.cfg.C) != 1.0:
+            raise ValueError(
+                "topology= requires cfg.C == 1.0 (every node gossips every round; "
+                f"there is no cohort sampling), got C={self.cfg.C}"
+            )
+        n_nodes = self.num_clients
+        self.topology = topology
+        self.plan = topology.build(n_nodes)
+        err = float(np.abs(self.plan.weight.astype(np.float64).sum(axis=1) - 1.0).max())
+        if err > 1e-3:
+            raise ValueError(
+                f"the {topology.kind!r} mixing plan is not row-stochastic: worst row "
+                f"off by {err:.6f}"
+            )
+        self._mix_idx = torch.from_numpy(self.plan.idx).to(self.device)
+        self._mix_w = torch.from_numpy(self.plan.weight).to(self.device)
+        self.params = tree_map(
+            lambda p: p.unsqueeze(0).repeat((n_nodes,) + (1,) * p.ndim), self.params
+        )
+        self._gossip_step = build_gossip_round_step(loss_fn)
+
     @property
     def num_clients(self) -> int:
         return self.packed.num_clients
+
+    def consensus_params(self):
+        """The node-mean parameter tree on the gossip lane (fp32 mean over
+        the replica axis, cast back to the storage dtype): what evaluation
+        reads. Mixing is doubly stochastic, so this mean is the quantity the
+        replicas contract toward. A star engine returns ``params`` as they
+        are."""
+        if self.topology is None:
+            return self.params
+        return tree_map(lambda p: p.float().mean(dim=0).to(p.dtype), self.params)
 
     def lr_at(self, rnd: int) -> float:
         """Client lr for round ``rnd``: ``cfg.lr`` decayed by ``cfg.lr_decay``
@@ -258,7 +362,10 @@ class RoundEngine:
         return (bx, by), torch.from_numpy(mask).to(dev), torch.from_numpy(counts.copy())
 
     def round(self) -> Dict[str, torch.Tensor]:
-        """One synchronous round; returns {'loss': device scalar}."""
+        """One synchronous round; returns {'loss': device scalar}, plus
+        'consensus' on the gossip lane."""
+        if self.topology is not None:
+            return self._round_gossip()
         ids, seed, lr = self._next_round_inputs()
         batch, mask, w = self.materialize_round_batch(ids, seed)
         codec_seed = None if self.codec is None else seed ^ 0x5EED
@@ -267,6 +374,19 @@ class RoundEngine:
             RoundBatch(batch, mask, w, lr=lr, seed=codec_seed),
         )
         self.params, self.outer_state = state.params, state.outer_state
+        self.round_idx += 1
+        return metrics
+
+    def _round_gossip(self) -> Dict[str, torch.Tensor]:
+        """Every node trains its own client from its replica, then one
+        mixing step. No cohort draw: ids are all nodes, and the one host
+        integer drawn seeds the batch permutations."""
+        lr = self.lr_at(self.round_idx)
+        seed = int(self.rng.integers(2**31))
+        batch, mask, w = self.materialize_round_batch(np.arange(self.num_clients), seed)
+        self.params, metrics = self._gossip_step(
+            self.params, batch, mask, w, self._mix_idx, self._mix_w, lr
+        )
         self.round_idx += 1
         return metrics
 
@@ -279,7 +399,9 @@ class RoundEngine:
     ) -> History:
         """Run ``n_rounds`` of Algorithm 1, evaluating every ``eval_every``
         rounds and after the last; stop early once ``target_acc`` is met.
-        Each record's ``wall_s`` ends at the synced loss read."""
+        Each record's ``wall_s`` ends at the synced loss read. On the gossip
+        lane each record also carries the consensus distance, read in the
+        same sync as the loss, and evaluation sees ``consensus_params()``."""
         if int(eval_every) < 1:
             raise ValueError(
                 f"eval_every must be >= 1, got {eval_every} (use a large "
@@ -292,19 +414,24 @@ class RoundEngine:
         for i in range(n_rounds):
             t0 = time.perf_counter()
             metrics = self.round()
-            loss = float(metrics["loss"])
+            if self.topology is None:
+                loss, consensus = float(metrics["loss"]), None
+            else:
+                loss, consensus = torch.stack(
+                    [metrics["loss"], metrics["consensus"]]).tolist()
             rec = RoundRecord(round=self.round_idx, train_loss=loss,
-                              wall_s=time.perf_counter() - t0)
+                              wall_s=time.perf_counter() - t0, consensus=consensus)
             self.history.records.append(rec)
             if self.eval_fn is not None and (
                 self.round_idx % eval_every == 0 or i == n_rounds - 1
             ):
-                ev = self.eval_fn(self.params)
+                ev = self.eval_fn(self.consensus_params())
                 rec.test_acc = float(ev["acc"])
                 rec.test_loss = float(ev.get("loss", np.nan))
                 if verbose:
+                    cons = "" if consensus is None else f"consensus {consensus:.2e} "
                     print(f"round {self.round_idx:5d} loss {rec.train_loss:.4f} "
-                          f"test_acc {rec.test_acc:.4f}")
+                          f"{cons}test_acc {rec.test_acc:.4f}")
                 if target_acc is not None and rec.test_acc >= target_acc:
                     break
         return self.history

@@ -2,7 +2,9 @@
 
 - ``client_update``      ClientUpdate(k, w) for a whole cohort at once: E
                          epochs of masked minibatch SGD, batched over
-                         clients with ``torch.func.vmap``.
+                         clients with ``torch.func.vmap``; its core
+                         ``client_update_stacked`` starts each client from
+                         its own params (the gossip lane's replicas).
 - ``server_aggregate``   w_{t+1} = sum_k (n_k / n) w^k_{t+1}.
 - ``sample_clients``     S_t = random set of m = max(C*K, 1) clients, the
                          same numpy draw as the reference, so the same seed
@@ -46,8 +48,9 @@ def sample_clients(rng: np.random.Generator, n_clients: int, C: float) -> np.nda
     return rng.choice(n_clients, size=m, replace=False)
 
 
-def client_update(loss_fn: Callable, params, batches, step_mask, lr):
-    """ClientUpdate for the cohort: every client starts from ``params``.
+def client_update_stacked(loss_fn: Callable, stacked, batches, step_mask, lr):
+    """ClientUpdate for the cohort, client k starting from row k of the
+    (m, ...) ``stacked`` params (the gossip lane's per-node replicas).
 
     ``batches``: tuple of tensors with leading (m, n_steps, B, ...) axes;
     ``step_mask``: (m, n_steps) 0/1 float. Each step computes every
@@ -58,7 +61,7 @@ def client_update(loss_fn: Callable, params, batches, step_mask, lr):
     """
     m, n_steps = step_mask.shape
     step_grad = vmap(grad_and_value(loss_fn, has_aux=True))
-    w = tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
+    w = stacked
     losses = []
     for s in range(n_steps):
         grads, (loss, _) = step_grad(w, tuple(b[:, s] for b in batches))
@@ -68,6 +71,15 @@ def client_update(loss_fn: Callable, params, batches, step_mask, lr):
         )
         losses.append(loss)
     return w, torch.stack(losses, dim=1)
+
+
+def client_update(loss_fn: Callable, params, batches, step_mask, lr):
+    """ClientUpdate for the cohort with every client starting from the one
+    ``params`` tree (the star lanes): ``client_update_stacked`` from ``params``
+    repeated along a leading (m,) axis."""
+    m = step_mask.shape[0]
+    stacked = tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
+    return client_update_stacked(loss_fn, stacked, batches, step_mask, lr)
 
 
 def masked_weighted_loss(losses, step_mask, client_weights):

@@ -1,0 +1,139 @@
+"""Gossip neighbour mixing: ``out[i] = sum_s w[i, s] * x[idx[i, s]]``, i.e.
+``X <- W @ X`` over the (n_nodes, N) stacked replicas.
+
+Replaces ``repro/kernels/gossip_mix.py::gossip_mix`` (the Pallas
+``_mix_kernel``). On a CUDA tensor the work goes to the hand-written kernel
+in ``csrc/gossip_mix.cu``: one block per column tile holds that tile of
+every node in shared memory and gathers each output row from it, so X is
+read once and the output written once (see the source note). On a CPU
+tensor it goes to :func:`gossip_mix_ref`, the plain version beside it. The
+tensor's device decides; a CUDA tensor launches the kernel or raises, with
+no fallback.
+
+``idx``/``weight`` are a ``MixingPlan``'s padded (n_nodes, max_slots) arrays
+(``core/topology.py``). Duplicate ids add, padded slots (``idx = i``,
+``weight = 0``) add nothing, and an id outside ``[0, n)`` contributes 0.
+
+Contract, as the reference's: each ``weight`` row sums to 1. It is checked
+here only for CPU weights: reading CUDA weights back would cost a device
+sync on every round. ``RoundEngine`` checks its plan once, on the host,
+when it is built.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load
+
+# csrc/gossip_mix.cu's kMaxNodes: the (n, 32) tile of the narrowest block
+# must fit in one block's shared memory.
+MAX_NODES = 1024
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("gossip_mix")
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.gossip_mix_f32, lib.gossip_mix_bf16):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.gossip_mix_tile.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gossip_mix_tile.restype = ctypes.c_int
+    lib.gossip_mix_vec.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_int]
+    lib.gossip_mix_vec.restype = ctypes.c_int
+    lib.gossip_mix_error_string.argtypes = [ctypes.c_int]
+    lib.gossip_mix_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gossip_mix_ref(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                   accum_dtype=torch.float32) -> torch.Tensor:
+    """Plain version, the reference's dense oracle: W from the padded slots
+    by a one-hot sum (duplicates add; out-of-range ids match no node), then
+    ``W @ X`` in ``accum_dtype``, cast to the storage dtype."""
+    n = x.shape[0]
+    onehot = (idx.long()[:, :, None] == torch.arange(n, device=x.device)).to(accum_dtype)
+    W = torch.einsum("nd,ndm->nm", weight.to(accum_dtype), onehot)
+    return (W @ x.to(accum_dtype)).to(x.dtype)
+
+
+def _check(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> None:
+    if x.ndim != 2 or idx.ndim != 2 or idx.shape != weight.shape \
+            or idx.shape[0] != x.shape[0]:
+        raise ValueError(
+            "gossip_mix needs x (n_nodes, N) and idx, weight both (n_nodes, "
+            f"max_slots); got x {tuple(x.shape)}, idx {tuple(idx.shape)}, "
+            f"weight {tuple(weight.shape)}"
+        )
+    if x.shape[0] < 1 or idx.shape[1] < 1:
+        raise ValueError("gossip_mix needs at least one node and one slot per node")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if weight.dtype != torch.float32:
+        raise TypeError(f"weight must be float32, got {weight.dtype}")
+    if not (x.device == idx.device == weight.device):
+        raise ValueError(
+            f"x on {x.device}, idx on {idx.device}, weight on {weight.device}"
+        )
+
+
+def gossip_mix(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, *,
+               accum_dtype=torch.float32) -> torch.Tensor:
+    """One neighbour-mixing step: (n, N), (n, D), (n, D) -> (n, N) in the
+    storage dtype, accumulated in fp32.
+
+    ``gossip_mix.launches`` counts kernel launches (CPU calls and empty
+    outputs launch nothing and count nothing)."""
+    _check(x, idx, weight)
+    if x.device.type == "cpu":
+        err = float((weight.sum(dim=1) - 1.0).abs().max())
+        if err > 1e-3:
+            raise ValueError(
+                "gossip_mix requires row-stochastic weights (each row sums to 1); "
+                f"worst row off by {err:.6f}. Build them with Topology.build(): "
+                "the Metropolis-Hastings construction lives there."
+            )
+        return gossip_mix_ref(x, idx, weight, accum_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"gossip_mix runs on cpu or cuda, not {x.device}")
+    if accum_dtype != torch.float32:
+        raise ValueError(
+            "the CUDA gossip_mix accumulates in float32 only; "
+            f"accum_dtype={accum_dtype} runs on the CPU plain version"
+        )
+    if not (x.is_contiguous() and idx.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("gossip_mix needs contiguous x, idx and weight")
+    n, N = x.shape
+    if n > MAX_NODES:
+        raise ValueError(f"gossip_mix takes at most {MAX_NODES} nodes, got {n}")
+    out = torch.empty_like(x)
+    if N == 0:
+        return out
+    lib = _lib()
+    fn = lib.gossip_mix_f32 if x.dtype == torch.float32 else lib.gossip_mix_bf16
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            n, N, idx.shape[1], stream)
+    if rc != 0:
+        msg = lib.gossip_mix_error_string(rc).decode()
+        raise RuntimeError(f"gossip_mix kernel launch failed: {msg} ({rc})")
+    gossip_mix.launches += 1
+    return out
+
+
+gossip_mix.launches = 0
+
+
+def launch_config(x: torch.Tensor, out: torch.Tensor):
+    """(columns per block, elements per global access) the kernel uses for
+    this (n, N) matrix and its output."""
+    lib = _lib()
+    return (lib.gossip_mix_tile(x.shape[0], x.element_size()),
+            lib.gossip_mix_vec(x.data_ptr(), out.data_ptr(), x.shape[1], x.element_size()))

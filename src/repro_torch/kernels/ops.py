@@ -1,20 +1,22 @@
 """Tree- and codec-facing wrappers around the kernels (counterpart of
 ``repro/kernels/ops.py``).
 
-Each adapter takes RAW example counts n_k and is the one place that
-normalizes them for its kernel. Host counts are normalized on the host and
-then copied to the payload's device, so a round adds no device sync."""
+Each aggregate adapter takes RAW example counts n_k and is the one place
+that normalizes them for its kernel. Host counts are normalized on the host
+and then copied to the payload's device, so a round adds no device sync.
+``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.quantized_agg import (
     packed_quantized_aggregate,
     quantized_aggregate,
 )
 from repro_torch.kernels.sparse_agg import sparse_aggregate
-from repro_torch.utils.tree import tree_ravel_stacked, tree_unravel
+from repro_torch.utils.tree import tree_ravel_stacked, tree_unravel, tree_unravel_stacked
 
 
 def normalized_weights(weights, device) -> torch.Tensor:
@@ -57,3 +59,12 @@ def sparse_fedavg_aggregate(idx, values, weights, n):
     """Weighted average of K sparse top-k payloads into a dense (n,) fp32
     delta through ``sparse_aggregate``."""
     return sparse_aggregate(idx, values, normalized_weights(weights, idx.device), n)
+
+
+def tree_gossip_mix(stacked_params, idx, weight):
+    """Gossip-mix a tree whose leaves are (n_nodes, ...) stacked per-node
+    replicas: the (n_nodes, N) raveled rows through ``gossip_mix``, then
+    unraveled per node, each leaf back in its storage dtype. ``idx`` and
+    ``weight`` are a ``MixingPlan``'s padded arrays on the stack's device."""
+    flat, spec = tree_ravel_stacked(stacked_params)
+    return tree_unravel_stacked(spec, gossip_mix(flat, idx, weight))

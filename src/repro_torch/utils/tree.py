@@ -113,3 +113,14 @@ def tree_unravel(spec: TreeSpec, flat: torch.Tensor) -> Tree:
         out.append(flat[off:off + n].reshape(shape).to(dtype))
         off += n
     return _unflatten(spec.paths, out)
+
+
+def tree_unravel_stacked(spec: TreeSpec, flat: torch.Tensor) -> Tree:
+    """Inverse of ``tree_ravel_stacked``: (K, N) rows back to a tree whose
+    leaves carry the leading K axis, each cast to its recorded dtype."""
+    K = flat.shape[0]
+    out, off = [], 0
+    for shape, dtype, n in zip(spec.shapes, spec.dtypes, spec.sizes):
+        out.append(flat[:, off:off + n].reshape((K,) + tuple(shape)).to(dtype))
+        off += n
+    return _unflatten(spec.paths, out)

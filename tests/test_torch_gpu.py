@@ -16,6 +16,7 @@ from repro_torch.kernels.fedavg_agg import (  # noqa: E402
     fedavg_aggregate,
     fedavg_aggregate_ref,
 )
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_ref  # noqa: E402
 from repro_torch.kernels.quantized_agg import (  # noqa: E402
     dequantize_ref,
     packed_quantized_aggregate,
@@ -311,3 +312,139 @@ def test_compressed_round_on_card(cuda, codec_name, kernel):
         assert float((card - plain).norm()) <= 1e-5 * float(plain.norm())
     one = {k: v[0] for k, v in host.items()}
     assert comp.realized_device_bytes(one) == codec.wire_bytes(box["n"])
+
+
+# ---------------------------------------------------------------------------
+# the gossip lane: gossip_mix
+# ---------------------------------------------------------------------------
+
+def _plans(n):
+    from repro_torch.core import topology as topo
+
+    kinds = {"ring": topo.RingTopology(), "full": topo.FullTopology(),
+             "smallworld": topo.SmallWorldTopology(degree=4, rewire=0.2, seed=0)}
+    return {k: t.build(n) for k, t in kinds.items()
+            if not (k == "ring" and n < 3 or k == "smallworld" and n < 5)}
+
+
+def _mix_check(x, idx, w):
+    """Kernel against the plain version: fp32 sums of D terms in another
+    order (at most D roundings a side for weights summing to 1), plus one
+    bf16 ulp at the store for bf16."""
+    before = gossip_mix.launches
+    out = gossip_mix(x, idx, w)
+    torch.cuda.synchronize()
+    assert gossip_mix.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape and out.device.type == "cuda"
+    ref32 = gossip_mix_ref(x.float(), idx, w)
+    tol = 2 * idx.shape[1] * 2.0 ** -24 * float(x.float().abs().max())
+    if x.dtype == torch.float32:
+        assert float((out - ref32).abs().max()) <= tol
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((out.float() - ref32).abs() <= ulp + tol).all())
+
+
+@pytest.mark.parametrize("n", [2, 3, 17, 100])
+@pytest.mark.parametrize("N", [1, 33, 4097, 199_210])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_kernel_matches_plain_version(cuda, n, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n * N)
+    x = torch.randn((n, N), generator=g, device=cuda).to(dtype)
+    for plan in _plans(n).values():
+        _mix_check(x, torch.from_numpy(plan.idx).to(cuda),
+                   torch.from_numpy(plan.weight).to(cuda))
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "out_of_range", "padded", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_kernel_slot_semantics(cuda, kind, dtype):
+    n, N = 17, 4097
+    r = np.random.default_rng(0)
+    plan = _plans(n)["ring"]
+    idx, w = plan.idx, plan.weight
+    if kind == "duplicates":
+        idx = r.integers(0, n, (n, 6)).astype(np.int32)
+        idx[:, 1] = idx[:, 0]
+    elif kind == "out_of_range":
+        idx = r.integers(0, n, (n, 6)).astype(np.int32)
+        idx[:, :3] = np.array([-1, n, 10 * n], np.int32)
+    elif kind == "padded":
+        idx = np.concatenate([idx, np.tile(np.arange(n, dtype=np.int32)[:, None], (1, 3))], 1)
+        w = np.concatenate([w, np.zeros((n, 3), np.float32)], 1)
+    if kind in ("duplicates", "out_of_range"):
+        w = r.uniform(0.1, 1.0, idx.shape)
+        w = (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+    x = torch.from_numpy(r.normal(size=(n, N)).astype(np.float32)).to(cuda, dtype)
+    if kind == "misaligned":   # a contiguous view one element off 16-byte alignment
+        x = torch.empty(n * N + 1, device=cuda, dtype=dtype)[1:].view(n, N).copy_(x)
+    idx_t, w_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    _mix_check(x, idx_t, w_t)
+    if kind == "padded":       # dead slots change nothing
+        narrow = gossip_mix(x, torch.from_numpy(plan.idx).to(cuda),
+                            torch.from_numpy(plan.weight).to(cuda))
+        assert torch.equal(gossip_mix(x, idx_t, w_t), narrow)
+
+
+def test_gossip_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.gossip_mix import MAX_NODES
+
+    plan = _plans(4)["ring"]
+    x = torch.randn((4, 64), device=cuda)
+    idx, w = torch.from_numpy(plan.idx).to(cuda), torch.from_numpy(plan.weight).to(cuda)
+    before = gossip_mix.launches
+    with pytest.raises(ValueError, match="row-stochastic"):
+        gossip_mix(x.cpu(), idx.cpu(), w.cpu() * 2)
+    with pytest.raises(ValueError, match="n_nodes"):
+        gossip_mix(x, idx[:3].contiguous(), w[:3].contiguous())
+    with pytest.raises(TypeError):
+        gossip_mix(x.half(), idx, w)
+    with pytest.raises(TypeError):
+        gossip_mix(x, idx.long(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix(x.t().contiguous().t(), idx, w)
+    with pytest.raises(ValueError, match="float32 only"):
+        gossip_mix(x, idx, w, accum_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="idx on"):
+        gossip_mix(x, idx.cpu(), w)
+    with pytest.raises(ValueError, match=f"at most {MAX_NODES}"):
+        gossip_mix(torch.zeros((MAX_NODES + 1, 8), device=cuda),
+                   torch.arange(MAX_NODES + 1, dtype=torch.int32, device=cuda)[:, None],
+                   torch.ones((MAX_NODES + 1, 1), device=cuda))
+    assert gossip_mix.launches == before
+
+
+def test_gossip_round_on_card_matches_round_on_cpu(cuda):
+    from repro_torch.core.engine import RoundEngine, build_gossip_round_step
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.synthetic import make_image_classification
+    from repro_torch.models import paper
+    from repro_torch.utils.tree import tree_map, tree_ravel
+
+    train, _, _ = make_image_classification(60, 1, seed=0)
+    clients = [(train.x[a:a + 12], train.y[a:a + 12]) for a in range(0, 60, 12)]
+    model = paper.mnist_cnn(device=cuda)
+    eng = RoundEngine(model.loss, model.init(0), clients,
+                      FedAvgConfig(C=1.0, E=1, B=4, lr=0.05, seed=0), topology="ring",
+                      device=cuda)
+    batch, mask, w = eng.materialize_round_batch(np.arange(5), generator_seed=5)
+    step = build_gossip_round_step(model.loss)
+    start = tree_ravel(tree_map(lambda p: p.cpu().double(), eng.params))[0]
+    before = gossip_mix.launches
+    # fp32 both sides, sums in other orders: as the star round's check
+    for n_steps, rtol in ((1, 1e-4), (mask.shape[1], 1e-2)):
+        b = tuple(x[:, :n_steps].contiguous() for x in batch)
+        msk = mask[:, :n_steps].contiguous()
+        got, gm = step(eng.params, b, msk, w, eng._mix_idx, eng._mix_w, 0.05)
+        want, wm = step(tree_map(lambda p: p.cpu(), eng.params), tuple(x.cpu() for x in b),
+                        msk.cpu(), w, eng._mix_idx.cpu(), eng._mix_w.cpu(), 0.05)
+        d_card, d_cpu = (tree_ravel(tree_map(lambda p: p.cpu().double(), t))[0] - start
+                         for t in (got, want))
+        assert float((d_card - d_cpu).norm()) <= rtol * float(d_cpu.norm())
+        assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-4 * abs(float(wm["loss"]))
+        assert abs(float(gm["consensus"]) - float(wm["consensus"])) <= \
+            rtol * float(wm["consensus"])
+    assert gossip_mix.launches == before + 2
+    hist = eng.run(2)
+    assert gossip_mix.launches == before + 4
+    assert all(r.consensus > 0 for r in hist.records)
