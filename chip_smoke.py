@@ -40,16 +40,30 @@ Phases, in order, each printing its own lines:
 12. the anchor: on the full graph (100 nodes, 2NN) one gossip round equals
     one plain FedAvg round with C = 1.0 on the same injected batches;
 13. one profiled CNN ring round: the mixing kernel's share and the card's
-    idle share.
+    idle share;
+14. serving the LM substrate: Jamba (``jamba-v0.1-52b`` at full width, one
+    period of 8 layers, bf16, weights drawn on the card from seed 0) takes
+    one request of B = 4 prompts of 2048 tokens and greedy decode to 32
+    tokens through ``repro_torch.launch.serve.generate``: ``flash_attention``
+    must launch once (the attention layer's prefill) and ``ssm_scan`` 224
+    times (7 Mamba layers in prefill and in each of 31 decode steps);
+15. the same for Gemma-2B, all 18 layers: ``flash_attention`` 18 times;
+16. correctness of the LM path: prefill + decode equals forward at full
+    width in bf16 (both models), and the reduced configs in fp32 on the card
+    against the CPU;
+17. one profiled Jamba prefill and one decode step: device busy, idle
+    share, the top ops and the two kernels' share.
 
-Every kernel's launch count is set to 0 just before each lane's run and
-read just after. Each phase prints its seconds. The last three lines are
-the card's ``nvidia-smi`` name and power limit, a ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+Phases 3 and 4 hold and time ``flash_attention`` and ``ssm_scan`` too, at
+the serving lanes' shapes. Every kernel's launch count is set to 0 just
+before each lane's run and read just after. Each phase prints its seconds.
+The last three lines are the card's ``nvidia-smi`` name and power limit, a
+``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before those lines; so does a machine without a card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -68,6 +82,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT32_OPS = FP32_FLOPS / 2
+BF16_FLOPS = 989e12                     # dense, tensor cores
+# Special-function units (exp2): 16 a clock per SM, 132 SMs, 1.98 GHz boost.
+SFU_OPS = 16 * 132 * 1.98e9
 L2_FLUSH_BYTES = 256 * 2**20            # well above the 50 MB L2
 MAIN_K = 10                             # m = C * K = 0.1 * 100 clients
 MAIN_N = {"mnist_2nn": 199_210, "mnist_cnn": 1_663_370}
@@ -90,7 +107,7 @@ LOSS_RTOL = 1e-4
 GOSSIP_CNN_RTOL_1 = 1e-3
 
 KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregate",
-           "sparse_aggregate", "gossip_mix")
+           "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan")
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
@@ -132,6 +149,30 @@ GOSSIP_LANES = (
 ANCHOR_ATOL = 2e-5
 ANCHOR_CONSENSUS_RTOL = 1e-6
 ANCHOR_LOSS_RTOL = 1e-6
+
+# Serving the LM substrate: B = 4 prompts of 2048 tokens, greedy decode to 32
+# tokens (31 decode steps), as repro_torch.launch.serve does it. Jamba at its
+# full width and one period of 8 layers (the full 32 do not fit one card in
+# bf16), Gemma-2B whole.
+SERVE_BATCH, PROMPT, SERVE_TOKENS = 4, 2048, 32
+JAMBA_LAYERS = 8
+# flash_attention's two prefill shapes (B, S, H, K, D) and Jamba's scan
+# (d_inner 8192, d_state 16)
+FLASH_SHAPES = {"jamba": (SERVE_BATCH, PROMPT, 32, 8, 128),
+                "gemma-2b": (SERVE_BATCH, PROMPT, 8, 1, 256)}
+FLASH_WINDOW = 100
+SSM_D, SSM_N = 8192, 16
+# The prefill+decode == forward invariant at full width in bf16, at a size
+# where Jamba's MoE buffers at capacity factor 8 fit. A bf16 value holds 8
+# significant bits (2^-8 = 0.4%), and the two paths round at other places
+# through every layer's residual stream: the logits are held to 2^-5 (3.1%)
+# of their largest magnitude.
+INVARIANT_SHAPE = (2, 128)
+INVARIANT_RTOL = 2.0 ** -5
+# The reduced configs in fp32, card vs CPU: the reference's own prefill+decode
+# consistency bound on logits, and 1e-4 on the caches (sums in other orders).
+REDUCED_LOGITS_ATOL = 3e-4
+REDUCED_CACHE_ATOL = 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -278,11 +319,14 @@ def counters():
         packed_quantized_aggregate,
         quantized_aggregate,
     )
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.sparse_agg import sparse_aggregate
+    from repro_torch.kernels.ssm_scan import ssm_scan
 
     return {f.__name__: f for f in (fedavg_aggregate, quantized_aggregate,
-                                    packed_quantized_aggregate, sparse_aggregate, gossip_mix)}
+                                    packed_quantized_aggregate, sparse_aggregate, gossip_mix,
+                                    flash_attention, ssm_scan)}
 
 
 def launch_counts():
@@ -829,6 +873,392 @@ def time_gossip_mix():
 
 
 # ---------------------------------------------------------------------------
+# phases 3-4 for the LM substrate's kernels: flash_attention and ssm_scan
+# ---------------------------------------------------------------------------
+
+def close_to_fp32(out, ref32, scale):
+    """(ok, err): fp32 outputs within 1e-5 of the inputs' scale (sums over D,
+    keys or state in another order, exp2 in place of exp); bf16 outputs
+    within one bf16 ulp of the fp32 result (both round it once) plus that.
+    err is the max abs error, or for bf16 its share of that allowance."""
+    tol = 1e-5 * scale
+    if out.dtype == torch.float32:
+        err = float((out - ref32).abs().max())
+        return err <= tol, err
+    share = float(((out.float() - ref32).abs() / (bf16_ulp(ref32) + tol)).max())
+    return share <= 1.0, share
+
+
+def flash_inputs(B, Sq, Sk, H, K, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+
+
+def check_flash_attention():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+        smem_bytes,
+    )
+
+    name = "flash_attention"
+    cases = [dict(B=1, S=S, H=H, K=K, D=D, dtype=dtype, mask=mask)
+             for dtype in (torch.float32, torch.bfloat16) for D in (64, 128, 256)
+             for S in (1, 37, 2047) for H, K in ((32, 8), (8, 1))
+             for mask in ("causal", "full", "window")]
+    cases += [dict(B=B, S=S, H=H, K=K, D=D, dtype=torch.bfloat16, mask="causal", main=tag)
+              for tag, (B, S, H, K, D) in FLASH_SHAPES.items()]
+    before = flash_attention.launches
+    main_err, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, c in enumerate(cases):
+        q, k, v = flash_inputs(c["B"], c["S"], c["S"], c["H"], c["K"], c["D"], c["dtype"], i)
+        causal, window = c["mask"] != "full", FLASH_WINDOW if c["mask"] == "window" else 0
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        require(out.shape == q.shape and out.dtype == q.dtype, f"bad output for {c}")
+        ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                    window=window)
+        ok, err = close_to_fp32(out, ref32, float(v.float().abs().max()))
+        worst[c["dtype"]] = max(worst[c["dtype"]], err)
+        if "main" in c:
+            main_err = max(main_err, float((out.float() - ref32).abs().max()))
+        print(f"  B={c['B']} S={c['S']:4d} H/K={c['H']}/{c['K']} D={c['D']:3d} "
+              f"{str(c['dtype'])[6:]:8s} {c['mask']:6s} smem={smem_bytes(c['D'], c['dtype'])}: "
+              + (f"max_abs_err={err:.3e}" if c["dtype"] == torch.float32
+                 else f"max_err={err:.3f} of (1 bf16 ulp + tol)")
+              + (f" [{c['main']} prefill shape]" if "main" in c else "")
+              + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {c}")
+    # the reference kernel's (BH, S, D) layout, and q, k, v as strided column
+    # slices of one fused projection
+    q, k, v = (t[:, :, 0] for t in flash_inputs(6, 70, 70, 1, 1, 37, torch.float32, 1))
+    out = flash_attention(q, k, v, causal=True, window=9)
+    ref32 = flash_attention_ref(q[:, :, None], k[:, :, None], v[:, :, None], window=9)[:, :, 0]
+    ok, err = close_to_fp32(out, ref32, float(v.abs().max()))
+    qkv = torch.randn((2, 130, 8 * 64), device="cuda")
+    qs, ks, vs = (qkv[..., a * 64:b * 64].view(2, 130, b - a, 64) for a, b in ((0, 4), (4, 6),
+                                                                              (6, 8)))
+    out2 = flash_attention(qs, ks, vs)
+    ok2, err2 = close_to_fp32(out2, flash_attention_ref(qs, ks, vs), float(vs.abs().max()))
+    print(f"  (BH, S, D) layout, D=37, window 9: max_abs_err={err:.3e}; strided q/k/v views: "
+          f"max_abs_err={err2:.3e}")
+    require(ok and ok2, f"{name} disagrees with its plain version on layouts or views")
+    require(flash_attention.launches - before == len(cases) + 2, "one launch per case")
+
+    q, k, v = flash_inputs(1, 8, 8, 4, 2, 16, torch.float32, 0)
+    big = flash_inputs(1, 8, 8, 1, 1, 264, torch.float32, 0)
+    n_ref = check_refusals(name, flash_attention, {
+        "head_dim 264": lambda: flash_attention(*big),
+        "float16": lambda: flash_attention(q.half(), k.half(), v.half()),
+        "mixed dtypes": lambda: flash_attention(q, k.bfloat16(), v),
+        "3 heads over 2 KV heads": lambda: flash_attention(q[:, :, :3], k, v),
+        "k on the CPU": lambda: flash_attention(q, k.cpu(), v),
+        "a strided last axis": lambda: flash_attention(
+            q, k.transpose(1, 3).contiguous().transpose(1, 3), v),
+    })
+    print(f"kernels: {name} cuda ok ({len(cases) + 2} cases, fp32 max_abs_err "
+          f"{worst[torch.float32]:.3e} within 1e-5*max|v|; bf16 max error "
+          f"{worst[torch.bfloat16]:.3f} of 1 bf16 ulp + that; {n_ref} refusals)")
+    return main_err
+
+
+def ssm_inputs(B, T, D, N, dtype, seed, h0_scale):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = (torch.rand((B, T, D), generator=g, device="cuda") * 0.1 + 1e-3).to(dtype)
+    Bm = torch.randn((B, T, N), generator=g, device="cuda").to(dtype)
+    Cm = torch.randn((B, T, N), generator=g, device="cuda").to(dtype)
+    x = torch.randn((B, T, D), generator=g, device="cuda").to(dtype)
+    A = -torch.rand((D, N), generator=g, device="cuda") * 16 - 0.5
+    h0 = torch.randn((B, D, N), generator=g, device="cuda") * h0_scale
+    return dt, Bm, Cm, x, A, h0
+
+
+def check_ssm_scan():
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    name = "ssm_scan"
+    shapes = [(1, 8, 4, 2), (2, 24, 8, 4), (1, 16, 16, 8), (2, 100, 200, 16), (3, 37, 129, 5),
+              (SERVE_BATCH, 1, SSM_D, SSM_N)]
+    cases = [dict(shape=s, dtype=dtype, h0=1.0) for dtype in (torch.float32, torch.bfloat16)
+             for s in shapes]
+    cases.append(dict(shape=(SERVE_BATCH, PROMPT, SSM_D, SSM_N), dtype=torch.float32, h0=0.0,
+                      main=True))
+    before = ssm_scan.launches
+    main_err, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, c in enumerate(cases):
+        args = ssm_inputs(*c["shape"], c["dtype"], i, c["h0"])
+        y, h = ssm_scan(*args)
+        torch.cuda.synchronize()
+        y32, h32 = ssm_scan_ref(*(a.float() for a in args[:4]), args[4], args[5])
+        scale = max(1.0, float(y32.abs().max()), float(h32.abs().max()))
+        ok, err = close_to_fp32(y, y32, scale)
+        h_err = float((h - h32).abs().max())
+        ok = ok and h_err <= 1e-5 * scale and y.dtype == c["dtype"]
+        worst[c["dtype"]] = max(worst[c["dtype"]], err)
+        if c.get("main"):
+            main_err = max(float((y - y32).abs().max()), h_err)
+        print(f"  (B, T, D, N)={c['shape']} {str(c['dtype'])[6:]:8s} h0 x{c['h0']}: "
+              + (f"y max_abs_err={err:.3e}" if c["dtype"] == torch.float32
+                 else f"y max_err={err:.3f} of (1 bf16 ulp + tol)")
+              + f", h_T max_abs_err={h_err:.3e} (scale {scale:.2f})"
+              + (" [the Jamba prefill shape]" if c.get("main") else "")
+              + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {c}")
+    # B and C as column slices of one projection, as mamba_apply makes them in fp32
+    dt, Bm, Cm, x, A, h0 = ssm_inputs(2, 50, 96, 16, torch.float32, 99, 1.0)
+    dbc = torch.cat([torch.randn((2, 50, 6), device="cuda"), Bm, Cm], dim=-1)
+    y, h = ssm_scan(dt, dbc[..., 6:22], dbc[..., 22:], x, A, h0)
+    y32, h32 = ssm_scan_ref(dt, Bm, Cm, x, A, h0)
+    err = max(float((y - y32).abs().max()), float((h - h32).abs().max()))
+    print(f"  strided B/C views: max_abs_err={err:.3e}")
+    require(err <= 1e-5 * max(1.0, float(y32.abs().max()), float(h32.abs().max())),
+            f"{name} disagrees with its plain version on strided views")
+    require(ssm_scan.launches - before == len(cases) + 1, "one launch per case")
+
+    dt, Bm, Cm, x, A, h0 = ssm_inputs(1, 4, 8, 4, torch.float32, 0, 0.0)
+    big = ssm_inputs(1, 4, 8, 17, torch.float32, 0, 0.0)
+    n_ref = check_refusals(name, ssm_scan, {
+        "d_state 17": lambda: ssm_scan(*big),
+        "bf16 x with fp32 dt": lambda: ssm_scan(dt, Bm, Cm, x.bfloat16(), A, h0),
+        "bf16 A": lambda: ssm_scan(dt, Bm, Cm, x, A.bfloat16(), h0),
+        "A of another shape": lambda: ssm_scan(dt, Bm, Cm, x, A[:4], h0),
+        "A on the CPU": lambda: ssm_scan(dt, Bm, Cm, x, A.cpu(), h0),
+        "a strided last axis": lambda: ssm_scan(
+            dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, x, A, h0),
+    })
+    print(f"kernels: {name} cuda ok ({len(cases) + 1} cases, fp32 max_abs_err "
+          f"{worst[torch.float32]:.3e} within 1e-5*scale; bf16 max error "
+          f"{worst[torch.bfloat16]:.3f} of 1 bf16 ulp + that; {n_ref} refusals)")
+    return main_err
+
+
+def lm_row(tag, fn, plain, library, nbytes, flops, flush, *, sfu_ops=0, tensor_core=False,
+           plain_iters=5):
+    """Kernel, plain and library times with the bound: bytes over the HBM
+    rate against the operations over the rate of their unit (bf16 tensor
+    cores, fp32 FMA pipes, special-function units; pipes run at once, so
+    the slowest sets the time)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / (BF16_FLOPS if tensor_core else FP32_FLOPS), sfu_ops / SFU_OPS)
+    r = {"ms": time_ms(fn, flush),
+         "plain_ms": time_ms(plain, flush, iters=plain_iters, warmup=1),
+         "library_ms": None if library is None else time_ms(library, flush),
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes": nbytes, "flops": flops, "sfu_ops": sfu_ops}
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    lib = "none" if library is None else f"{r['library_ms']:.5f}"
+    print(f"  {tag}: kernel_ms={r['ms']:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
+          f"{r['bound_share']:.1%} of bound) plain_ms={r['plain_ms']:.5f} library_ms={lib}")
+    return r
+
+
+def time_flash_attention():
+    """At both prefill shapes in bf16, causal: the work is the unmasked
+    (query, key) pairs, 4 * D flops each on the tensor cores' rate."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    rows = {}
+    for tag, (B, S, H, K, D) in FLASH_SHAPES.items():
+        q, k, v = flash_inputs(B, S, S, H, K, D, torch.bfloat16, 7)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = B * H * S * (S + 1) // 2
+        rows[tag] = lm_row(
+            f"flash_attention {tag}: B={B} S={S} H/K={H}/{K} D={D} bf16 causal",
+            lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+            (2 * B * S * H * D + 2 * B * S * K * D) * 2, 4 * D * pairs, flush,
+            tensor_core=True)
+        rows[tag].update(B=B, S=S, H=H, K=K, D=D, dtype="bfloat16", causal=True)
+    del flush
+    return rows
+
+
+def time_ssm_scan():
+    """At the Jamba prefill shape (T = 2048) and its decode step (T = 1), fp32
+    as mamba_apply passes it: one exp per (b, t, d, n) on the special-function
+    units, four fp32 operations beside it and one more per (b, t, d)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    rows = {}
+    for tag, T in (("jamba/prefill", PROMPT), ("jamba/decode", 1)):
+        B, D, N = SERVE_BATCH, SSM_D, SSM_N
+        args = ssm_inputs(B, T, D, N, torch.float32, 7, 1.0 if T == 1 else 0.0)
+        rows[tag] = lm_row(
+            f"ssm_scan {tag}: B={B} T={T} D={D} N={N} fp32",
+            lambda: ssm_scan(*args), lambda: ssm_scan_ref(*args), None,
+            (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N) * 4,
+            B * T * D * (4 * N + 1), flush, sfu_ops=B * T * D * N,
+            plain_iters=3 if T > 1 else 20)
+        rows[tag].update(B=B, T=T, D=D, N=N, dtype="float32")
+    del flush
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 14-17: serving the LM substrate
+# ---------------------------------------------------------------------------
+
+def prompt_tokens(vocab, B, S, seed=0):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(0, vocab, (B, S)).astype(np.int32)).cuda()
+
+
+def serving_lane(label, model, params):
+    """One request as a user sends it: prefill of B = 4 prompts of 2048
+    tokens, then greedy decode to 32 tokens (31 decode steps), through
+    ``repro_torch.launch.serve.generate``, after one short warm-up request.
+    Every launch count is set to 0 just before and read just after."""
+    from repro_torch.launch.serve import generate
+
+    cfg = model.cfg
+    prompt = prompt_tokens(cfg.vocab_size, SERVE_BATCH, PROMPT)
+    generate(model, params, prompt[:, :64], 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    ids, prefill_s, decode_s = generate(model, params, prompt, SERVE_TOKENS)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = sum(s.mixer == "attn" for s in model.plan)
+    n_mamba = len(model.plan) - n_attn
+    want = {k: 0 for k in KERNELS}
+    want.update(flash_attention=n_attn, ssm_scan=n_mamba * SERVE_TOKENS)
+    require(counts == want, f"{label}: launches {counts}, want {want}")
+    ids = ids.cpu()
+    require(ids.shape == (SERVE_BATCH, SERVE_TOKENS) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab_size, f"{label}: bad sampled ids")
+    ms_token = decode_s / (SERVE_TOKENS - 1) * 1e3
+    print(f"  {label}: prefill {SERVE_BATCH}x{PROMPT} {prefill_s:.4f} s "
+          f"({SERVE_BATCH * PROMPT / prefill_s:.0f} tokens/s), decode {ms_token:.3f} ms/token "
+          f"({SERVE_TOKENS - 1} steps, {SERVE_BATCH} seqs), peak device memory "
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the request, params "
+          f"included); launches: flash_attention {counts['flash_attention']} "
+          f"({n_attn} a prefill), ssm_scan {counts['ssm_scan']} ({n_mamba} a prefill + "
+          f"{n_mamba} x {SERVE_TOKENS - 1} decode steps); ids[0][:8] {ids[0, :8].tolist()}")
+    return {"model": label, "batch": SERVE_BATCH, "prompt": PROMPT, "tokens": SERVE_TOKENS,
+            "prefill_s": prefill_s, "decode_ms_per_token": ms_token,
+            "peak_device_GiB": peak / 2**30, "held_before_GiB": held / 2**30,
+            "launches": counts}
+
+
+def no_drop(cfg):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def lm_invariant(label, model, params):
+    """The reference's own invariant (tests/test_arch_smoke.py) at full width
+    in bf16: prefill of S - 1 tokens, then one decode step, gives the logits
+    that a forward over S tokens gives at the last position; MoE at capacity
+    factor 8, so nothing drops. The two paths round to bf16 at other places
+    (other matmul shapes, the flash kernel against decode_attention), so the
+    logits are held to INVARIANT_RTOL of their largest magnitude."""
+    from repro_torch.models.transformer import TransformerLM
+
+    m = TransformerLM(no_drop(model.cfg), device="cuda")
+    B, S = INVARIANT_SHAPE
+    tokens = prompt_tokens(m.cfg.vocab_size, B, S, seed=1)
+    hidden, _, _ = m.forward(params, {"tokens": tokens}, mode="train")
+    full = (hidden[:, -1:] @ m._head(params)).float()
+    caches, _ = m.prefill(params, {"tokens": tokens[:, :-1]}, cache_len=S)
+    logits, _ = m.decode_step(params, {"tokens": tokens[:, -1:], "pos_offset": S - 1}, caches)
+    require(bool(torch.isfinite(logits).all()) and logits.shape == full.shape,
+            f"{label}: bad decode logits")
+    err = float((logits - full).abs().max())
+    scale = float(full.abs().max())
+    agree = float((logits.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"  {label}: B={B} S={S} bf16, max |decode - forward| {err:.4e} of max |logit| "
+          f"{scale:.4f} ({err / scale:.3%}; tol {INVARIANT_RTOL:.3%}); argmax agree {agree:.2f}")
+    require(err <= INVARIANT_RTOL * scale, f"{label}: prefill+decode != forward")
+    return {"model": label, "batch": B, "seq": S, "max_abs_err": err, "max_abs_logit": scale}
+
+
+def reduced_card_vs_cpu(arch):
+    """The reduced config in fp32: prefill + 3 decode steps on the card
+    against the CPU on the same params (the kernels against their plain
+    versions, end to end), held to the reference's own consistency bound on
+    the logits and to 1e-4 on every cache leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config(arch))
+    gpu, cpu = TransformerLM(cfg, device="cuda"), TransformerLM(cfg, device="cpu")
+    params = gpu.init(0)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    tokens = prompt_tokens(cfg.vocab_size, 2, 40, seed=2).cpu()
+    c_gpu, l_gpu = gpu.prefill(params, {"tokens": tokens.cuda()}, cache_len=44)
+    c_cpu, l_cpu = cpu.prefill(params_cpu, {"tokens": tokens}, cache_len=44)
+    logit_err = cache_err = 0.0
+    for step in range(4):
+        logit_err = max(logit_err, float((l_gpu.cpu() - l_cpu).abs().max()))
+        cache_err = max(cache_err, max(float((a.cpu().double() - b.double()).abs().max())
+                                       for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu))))
+        if step == 3:
+            break
+        tok = torch.argmax(l_cpu[:, -1], dim=-1)[:, None]
+        l_gpu, c_gpu = gpu.decode_step(params, {"tokens": tok.cuda(), "pos_offset": 40 + step},
+                                       c_gpu)
+        l_cpu, c_cpu = cpu.decode_step(params_cpu, {"tokens": tok, "pos_offset": 40 + step},
+                                       c_cpu)
+    print(f"  reduced {arch} fp32, prefill 2x40 + 3 decode steps: card vs CPU logits "
+          f"max_abs_err {logit_err:.3e} (tol {REDUCED_LOGITS_ATOL}), cache leaves "
+          f"{cache_err:.3e} (tol {REDUCED_CACHE_ATOL})")
+    require(logit_err <= REDUCED_LOGITS_ATOL and cache_err <= REDUCED_CACHE_ATOL,
+            f"reduced {arch}: card and CPU disagree")
+    return {"arch": arch, "logits_err": logit_err, "cache_err": cache_err}
+
+
+def profile_serving(label, model, params):
+    """One prefill (B = 4, 2048 tokens) and one decode step under
+    torch.profiler: device busy (the union of the ops' intervals) against
+    the host wall, the top ops, and the two kernels' share."""
+    cfg = model.cfg
+    prompt = prompt_tokens(cfg.vocab_size, SERVE_BATCH, PROMPT)
+    box = {}
+
+    def prefill():
+        box["caches"], box["logits"] = model.prefill(params, {"tokens": prompt},
+                                                     cache_len=PROMPT + SERVE_TOKENS)
+
+    def decode():
+        tok = torch.argmax(box["logits"][:, -1], dim=-1)[:, None]
+        model.decode_step(params, {"tokens": tok, "pos_offset": PROMPT}, box["caches"])
+
+    out = {}
+    for what, fn in (("prefill", prefill), ("decode step", decode)):
+        wall, ops, rows = device_profile(fn)
+        busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+        summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
+        shares = {}
+        for key, kernel in (("flash_fwd_kernel", "flash_attention"),
+                            ("ssm_scan_kernel", "ssm_scan")):
+            mine = [r for r in rows if key in r[2]]
+            shares[kernel] = {"ms": sum(r[0] for r in mine) / 1e3,
+                              "count": sum(r[1] for r in mine)}
+        print(f"  {label} {what}: wall {wall:.4f} s under the profiler, device busy "
+              f"{busy:.4f} s (idle share {1 - busy / wall:.1%}; ops summed {summed:.4f} s), "
+              f"{len(ops)} device ops; "
+              + ", ".join(f"{k} {v['count']}x {v['ms']:.3f} ms ({v['ms'] / 1e3 / busy:.1%} of busy)"
+                          for k, v in shares.items()))
+        for us, count, k in rows[:8]:
+            print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+        out[what] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                     "device_ops": len(ops), "kernels": shares}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 5-9: the main paths
 # ---------------------------------------------------------------------------
 
@@ -1033,29 +1463,20 @@ def busy_seconds(spans):
     return total / 1e6
 
 
-def profile_round(name, eng, key, label):
-    """Device time of one more round by kernel, from torch.profiler's CUDA
-    activity (CUPTI), against the round's host wall time, which ends when
-    the card has finished the round; ``key`` picks the hand kernel's rows by
-    name. Device busy is the union of the device ops' intervals: ops that
-    overlap (on several streams) count once, so the sum of the ops' times may
-    exceed it."""
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler's CUDA activity (CUPTI): its host
+    wall time, which ends when the card has finished, the device ops, and
+    (self device µs, count, name) rows by kernel, longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wrapper = counters()[label]
-    launched = wrapper.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(eng.round()["loss"])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launched = wrapper.launches - launched
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
-    summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
-    streams = len({e.device_resource_id for e in ops})
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1064,6 +1485,21 @@ def profile_round(name, eng, key, label):
         if us > 0:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
+    return wall, ops, rows
+
+
+def profile_round(name, eng, key, label):
+    """Device time of one more round by kernel against the round's host wall
+    time; ``key`` picks the hand kernel's rows by name. Device busy is the
+    union of the device ops' intervals: ops that overlap (on several
+    streams) count once, so the sum of the ops' times may exceed it."""
+    wrapper = counters()[label]
+    launched = wrapper.launches
+    wall, ops, rows = device_profile(lambda: float(eng.round()["loss"]))
+    launched = wrapper.launches - launched
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
+    streams = len({e.device_resource_id for e in ops})
     mine = [r for r in rows if key in r[2]]
     agg = sum(r[0] for r in mine) / 1e6
     share = (f"{agg * 1e3:.4f} ms ({agg / wall:.4%} of the round, {agg / summed:.4%} of "
@@ -1232,7 +1668,8 @@ def print_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
-                         "sparse_agg_kernel", "gossip_mix_kernel"):
+                         "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_kernel",
+                         "ssm_scan_kernel"):
                 if base in mangled:
                     entry = base + "<" + mangled.split(base, 1)[1].split("EEv")[0][1:] + ">"
                     break
@@ -1266,7 +1703,8 @@ def main() -> int:
 
     phase("2. build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    built = build_all(["fedavg_agg", "quantized_agg", "sparse_agg", "gossip_mix"])
+    built = build_all(["fedavg_agg", "quantized_agg", "sparse_agg", "gossip_mix",
+                       "flash_attention", "ssm_scan"])
     print(f"built in {time.perf_counter() - t0:.2f} s wall")
     for src, res in built.items():
         print(f"  {src}: {res.path.name} nvcc {res.seconds:.2f} s (cached={res.cached})")
@@ -1279,12 +1717,15 @@ def main() -> int:
         "packed_quantized_aggregate": check_packed_quantized_aggregate(),
         "sparse_aggregate": check_sparse_aggregate(),
         "gossip_mix": check_gossip_mix(),
+        "flash_attention": check_flash_attention(),
+        "ssm_scan": check_ssm_scan(),
     }
 
     phase("4. timing (CUDA events, median of 200, L2 flushed before each launch)")
     print(f"card: {smi}")
     timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
-              "gossip_mix": time_gossip_mix()}
+              "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
+              "ssm_scan": time_ssm_scan()}
 
     phase("data: synthetic MNIST, 60,000 train / 10,000 test, seed 0")
     t0 = time.perf_counter()
@@ -1355,11 +1796,48 @@ def main() -> int:
                                    "gossip_mix")
     del eng_cnn_ring
 
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+
+    phase(f"14. serving Jamba: {JAMBA_LAYERS} layers at full width, bf16, B={SERVE_BATCH}, "
+          f"prompt {PROMPT}, {SERVE_TOKENS} tokens, through repro_torch.launch.serve.generate")
+    t0 = time.perf_counter()
+    jamba = TransformerLM(dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                              n_layers=JAMBA_LAYERS), device="cuda")
+    jamba_params = jamba.init(0)
+    torch.cuda.synchronize()
+    print(f"  {jamba.cfg.n_params():,} params ({len(jamba.plan)} layers: "
+          f"{[s.mixer + '/' + s.ffn for s in jamba.plan]}) drawn on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    serving = [serving_lane("jamba", jamba, jamba_params)]
+
+    phase("15. serving Gemma-2B: all 18 layers, bf16, the same traffic")
+    t0 = time.perf_counter()
+    gemma = TransformerLM(get_config("gemma-2b"), device="cuda")
+    gemma_params = gemma.init(0)
+    torch.cuda.synchronize()
+    print(f"  {gemma.cfg.n_params():,} params drawn on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    serving.append(serving_lane("gemma-2b", gemma, gemma_params))
+
+    phase("16. correctness of the LM path on the card")
+    invariant = [lm_invariant("jamba", jamba, jamba_params),
+                 lm_invariant("gemma-2b", gemma, gemma_params)]
+    del gemma, gemma_params
+    card_vs_cpu = [reduced_card_vs_cpu("jamba-v0.1-52b"), reduced_card_vs_cpu("gemma-2b")]
+
+    phase("17. where the time goes serving Jamba: one prefill and one decode step, "
+          "under torch.profiler")
+    serving_profile = profile_serving("jamba", jamba, jamba_params)
+    del jamba, jamba_params
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
         launches[k] = sum(lane["launches"] for lane in lanes if lane["kernel"] == k)
     launches["gossip_mix"] = sum(lane["launches"] for lane in gossip)
+    for k in ("flash_attention", "ssm_scan"):
+        launches[k] = sum(lane["launches"][k] for lane in serving)
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
@@ -1367,6 +1845,8 @@ def main() -> int:
                                        "src/repro/kernels/quantized_agg.py:215"),
         "sparse_aggregate": ("sparse_agg.cu", "src/repro/kernels/sparse_agg.py:75"),
         "gossip_mix": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:85"),
+        "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:111"),
+        "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:62"),
     }
     at = {
         "fedavg_aggregate": {"K": MAIN_K, "N": MAIN_N["mnist_cnn"], "dtype": "float32"},
@@ -1378,9 +1858,14 @@ def main() -> int:
                              "vals": "float32"},
         "gossip_mix": {"n": N_NODES, "N": MAIN_N["mnist_cnn"], "plan": "ring", "max_slots": 3,
                        "dtype": "float32"},
+        "flash_attention": {"shape": "jamba prefill", "B": SERVE_BATCH, "S": PROMPT, "H": 32,
+                            "K": 8, "D": 128, "dtype": "bfloat16", "causal": True},
+        "ssm_scan": {"shape": "jamba prefill", "B": SERVE_BATCH, "T": PROMPT, "D": SSM_D,
+                     "N": SSM_N, "dtype": "float32"},
     }
     main_shape = {k: "mnist_cnn" for k in KERNELS}
-    main_shape["gossip_mix"] = "ring/mnist_cnn"
+    main_shape.update(gossip_mix="ring/mnist_cnn", flash_attention="jamba",
+                      ssm_scan="jamba/prefill")
     kernels = []
     for k in KERNELS:
         cnn = timing[k][main_shape[k]]
@@ -1398,12 +1883,16 @@ def main() -> int:
             "library_ms": cnn["library_ms"],
             "at": at[k],
             "per_shape": timing[k],
-            "lanes": [lane for lane in lanes + gossip if lane["kernel"] == k],
+            "lanes": ([lane for lane in lanes + gossip if lane["kernel"] == k]
+                      if k not in ("flash_attention", "ssm_scan") else serving),
         })
     kernels[0]["round_wall_s"] = {"mnist_2nn": wall_2nn, "mnist_cnn": wall_cnn}
     kernels[1]["cnn_rounds_in_turns_s"] = turns
     kernels[4]["anchor"] = anchor_res
     kernels[4]["cnn_ring_round_profile"] = gossip_profile
+    kernels[5]["invariant"] = invariant
+    kernels[5]["reduced_card_vs_cpu"] = card_vs_cpu
+    kernels[6]["jamba_profile"] = serving_profile
     print(f"\nchip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

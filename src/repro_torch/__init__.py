@@ -3,8 +3,8 @@
 A second package beside the JAX reference ``repro``: same public layouts
 (dense ``w`` is (d_in, d_out), conv ``w`` is HWIO, images are NHWC,
 parameters are nested dicts with the same keys), same numpy data and
-cohort streams, and the server average through a CUDA kernel written by
-hand for ``sm_90a`` (``kernels/csrc/fedavg_agg.cu``).
+cohort streams, and every TPU kernel on a ported path as a CUDA kernel
+written by hand for ``sm_90a`` (``kernels/csrc/*.cu``).
 
 The package imports ``torch`` and numpy only, never ``jax`` and nothing of
 ``repro``; it keeps its own copies of what it needs. Entry points take a
@@ -15,7 +15,11 @@ Layout mirrors ``repro`` so each counterpart is easy to find::
 
     utils/   tree ravel/unravel in jax.tree leaf order, device resolution
     data/    synthetic MNIST stand-in, partitions, client packing
-    models/  dense/conv/max-pool primitives, the paper's 2NN and CNN
-    core/    losses, FedAvg pieces, strategies, RoundEngine, evaluation
-    kernels/ the hand-written CUDA fedavg_aggregate, its build and wrapper
+    configs/ the LM archs' ModelConfigs (a copy of the reference's)
+    models/  dense/conv/max-pool primitives, the paper's 2NN and CNN, the
+             LM substrate (attention, Mamba, MLP/MoE, TransformerLM)
+    core/    losses, FedAvg pieces, codecs, topologies, RoundEngine, evaluation
+    kernels/ the hand-written CUDA kernels, their build, wrappers and plain
+             versions
+    launch/  the LM serving entry point (batched prefill + greedy decode)
 """

@@ -1,0 +1,134 @@
+"""Forward flash attention: online-softmax attention that never holds the
+(Sq, Sk) score matrix whole.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
+``_flash_kernel``). On a CUDA tensor the work goes to the hand-written
+kernel in ``csrc/flash_attention.cu`` (see its note for the design and the
+bound). On a CPU tensor it goes to :func:`flash_attention_ref`, the plain
+version: ``models.attention_core.blocked_attention``, the same tiled
+online softmax. The tensor's device decides; a CUDA tensor launches the
+kernel or raises, with no fallback.
+
+Two layouts, as the reference has them:
+
+- (BH, S, D) q, k, v: the reference kernel's single-head layout;
+- (B, Sq, H, D) q with (B, Sk, K, D) k and v, H a multiple of K: the model
+  layout of ``ops.mha_flash``. Query head h reads KV head h // (H // K) in
+  place (the reference repeats the KV heads first).
+
+Masks: causal with positions from 0 (prefill; there is no query offset),
+a sliding ``window`` (0 = none), and keys past Sk. Scores, statistics and
+the accumulator are fp32; the output takes q's dtype. The kernel takes fp32
+and bf16 and D up to 256.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load
+from repro_torch.models.attention_core import blocked_attention
+
+MAX_HEAD_DIM = 256   # csrc/flash_attention.cu's kMaxD
+BLOCK = 128          # the reference kernel's default block_q and block_k
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("flash_attention")
+    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """Plain version in the model layout: the tiled online softmax of
+    ``blocked_attention`` with the reference kernel's 128 x 128 tiles."""
+    return blocked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=BLOCK, k_chunk=BLOCK)
+
+
+def _model_layout(q, k, v):
+    if q.ndim == 3 and k.ndim == 3 and v.ndim == 3:
+        return q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), True
+    if q.ndim == 4 and k.ndim == 4 and v.ndim == 4:
+        return q, k, v, False
+    raise ValueError(
+        "flash_attention takes q, k, v all (BH, S, D) or all (B, S, heads, D); "
+        f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+    )
+
+
+def _check(q, k, v):
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(
+            f"k and v must be (B, Sk, K, D) = (B={B}, Sk, K, D={D}); got k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {k.shape[2]}")
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(
+            f"q, k, v must share one dtype, float32 or bfloat16; got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """Attention of q over k, v in either layout above; the output has q's
+    shape and dtype.
+
+    ``flash_attention.launches`` counts kernel launches (CPU calls and
+    empty outputs launch nothing and count nothing)."""
+    q4, k4, v4, single = _model_layout(q, k, v)
+    _check(q4, k4, v4)
+    if q.device.type == "cpu":
+        out = flash_attention_ref(q4, k4, v4, causal=causal, window=window)
+        return out.squeeze(2) if single else out
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    B, Sq, H, D = q4.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA flash_attention takes head_dim up to {MAX_HEAD_DIM}, got {D}")
+    if B * H > 65535:
+        raise ValueError(f"the CUDA flash_attention takes B * H up to 65535, got {B * H}")
+    if any(t.stride(-1) != 1 for t in (q4, k4, v4)):
+        raise ValueError("flash_attention needs q, k, v with a contiguous last axis")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if Sq == 0:
+        return out.squeeze(2) if single else out
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q4, k4, v4, out) for s in t.stride()[:3]))
+    lib = _lib()
+    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), B, H, k4.shape[2],
+            Sq, k4.shape[1], D, strides, int(bool(causal)), int(window), stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({rc})")
+    flash_attention.launches += 1
+    return out.squeeze(2) if single else out
+
+
+flash_attention.launches = 0
+
+
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of the kernel takes."""
+    return int(_lib().flash_attention_smem_bytes(head_dim, 2 if dtype == torch.bfloat16 else 4))

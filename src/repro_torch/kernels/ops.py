@@ -1,21 +1,25 @@
-"""Tree- and codec-facing wrappers around the kernels (counterpart of
-``repro/kernels/ops.py``).
+"""Tree-, codec- and model-facing wrappers around the kernels (counterpart
+of ``repro/kernels/ops.py``).
 
 Each aggregate adapter takes RAW example counts n_k and is the one place
 that normalizes them for its kernel. Host counts are normalized on the host
 and then copied to the payload's device, so a round adds no device sync.
-``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already."""
+``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already.
+``mha_flash`` and ``mamba_ssm_scan`` adapt the LM's layouts to the
+attention and scan kernels."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.quantized_agg import (
     packed_quantized_aggregate,
     quantized_aggregate,
 )
 from repro_torch.kernels.sparse_agg import sparse_aggregate
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.utils.tree import tree_ravel_stacked, tree_unravel, tree_unravel_stacked
 
 
@@ -68,3 +72,26 @@ def tree_gossip_mix(stacked_params, idx, weight):
     ``weight`` are a ``MixingPlan``'s padded arrays on the stack's device."""
     flat, spec = tree_ravel_stacked(stacked_params)
     return tree_unravel_stacked(spec, gossip_mix(flat, idx, weight))
+
+
+def mha_flash(q, k, v, *, causal=True, window=0):
+    """(B, S, H, D) x (B, S, K, D) GQA attention through ``flash_attention``.
+    The reference folds batch and heads and repeats each KV head H // K
+    times; here the kernel reads KV head h // (H // K) in place, so nothing
+    is folded or repeated."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def mamba_ssm_scan(dt, Bm, Cm, x, A, h0, *, chunk=0):
+    """Selective scan through ``ssm_scan``, over T at once (``chunk`` 0 or
+    at least T) or in chunks of ``chunk`` steps, the state threading from
+    one chunk into the next; the chunks are views, not copies."""
+    T = dt.shape[1]
+    if not chunk or T <= chunk:
+        return ssm_scan(dt, Bm, Cm, x, A, h0)
+    ys, h = [], h0
+    for t0 in range(0, T, chunk):
+        sl = slice(t0, t0 + chunk)
+        y, h = ssm_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], x[:, sl], A, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h

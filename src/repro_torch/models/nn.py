@@ -1,5 +1,5 @@
-"""Dense, conv and max-pool primitives over dict parameters (counterpart of
-``repro/models/nn.py``).
+"""Initializers and dense, conv and max-pool primitives over dict
+parameters (counterpart of ``repro/models/nn.py``).
 
 The public layouts are the reference's: dense ``w`` is (d_in, d_out), conv
 ``w`` is HWIO and activations are NHWC. ``conv2d`` and ``max_pool`` permute
@@ -15,15 +15,33 @@ import torch
 import torch.nn.functional as F
 
 
-def glorot(gen: torch.Generator, shape, device):
-    """fp32 Uniform(-l, l), l = sqrt(6 / (fan_in + fan_out)), drawn from
-    ``gen`` (a CPU generator, so one seed gives the same weights on every
-    device)."""
+def _draw_device(gen, device):
+    """Where to draw: on the generator's device, or on ``device`` when
+    there is no generator (the ``meta`` device, which only states shapes)."""
+    return torch.device(device) if gen is None else gen.device
+
+
+def glorot(gen, shape, device, dtype=torch.float32, lead=()):
+    """Uniform(-l, l), l = sqrt(6 / (fan_in + fan_out)) from ``shape``,
+    drawn from ``gen`` in ``dtype`` on the generator's device and put on
+    ``device``. The paper's models pass a CPU generator, so one seed gives
+    the same weights on every device; the LM passes one on its own device,
+    so its billions of weights never pass through the host. ``lead`` axes
+    (a segment's stacked repeats) come first and leave the fans alone."""
     fan_in = int(np.prod(shape[:-1]))
     fan_out = int(shape[-1])
     limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
-    u = torch.rand(tuple(shape), generator=gen)
-    return ((u * 2.0 - 1.0) * limit).to(device)
+    u = torch.rand(tuple(lead) + tuple(shape), generator=gen, dtype=dtype,
+                   device=_draw_device(gen, device))
+    return u.mul_(2.0).sub_(1.0).mul_(limit).to(device)
+
+
+def normal_init(gen, shape, stddev, device, dtype=torch.float32, lead=()):
+    """``stddev`` times a standard normal draw in ``dtype`` (the reference's
+    ``nn.normal_init``), drawn as :func:`glorot` draws."""
+    z = torch.randn(tuple(lead) + tuple(shape), generator=gen, dtype=dtype,
+                    device=_draw_device(gen, device))
+    return z.mul_(stddev).to(device)
 
 
 def dense_init(gen, d_in, d_out, device):

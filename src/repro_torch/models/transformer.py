@@ -1,0 +1,388 @@
+"""Transformer substrate assembly: plan -> segments -> stacked layers
+(counterpart of ``repro/models/transformer.py``).
+
+A ``ModelConfig`` becomes a per-layer *plan* (mixer kind + FFN kind); the
+plan is grouped into *segments* (N identical layers, or a P-periodic
+pattern like Jamba's [attn 1 : mamba 7]); each segment's params are stacked
+on a leading repeats axis, as the reference's scanned stacks are, and its
+layers run one after another. Caches thread through the same stacks.
+
+Public entry points, as the reference's:
+
+    model = TransformerLM(cfg, device="cuda")
+    params = model.init(seed)
+    caches, logits = model.prefill(params, batch, cache_len=...)
+    logits, caches = model.decode_step(params, batch, caches)
+
+Ported here: attention (GQA/MQA, prefill through the flash kernel) and
+Mamba mixers, MLP and MoE FFNs — every layer of Jamba and of the dense
+archs. MLA, mLSTM/sLSTM, cross-attention, the vision and audio stubs and
+``train_loss`` raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import nn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    attention_apply,
+    attention_init,
+    embed_init,
+    embed_lookup,
+    init_attn_cache,
+    mlp_apply,
+    mlp_init,
+    moe_apply,
+    moe_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+_NOT_PORTED = {
+    "mla": "multi-head latent attention (DeepSeek V2/V3)",
+    "mlstm": "the mLSTM block (xLSTM)",
+    "slstm": "the sLSTM block (xLSTM)",
+    "cross": "cross-attention (encoder-decoder, seamless-m4t)",
+    "vision": "the vision stub (Qwen2-VL: embeddings in, M-RoPE)",
+    "audio": "the audio stub (seamless-m4t: an encoder)",
+    "train": "train_loss and chunked_cross_entropy (the training slice)",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{_NOT_PORTED[what]} is not ported to repro_torch yet: ROADMAP Queue 1 item 4"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Layer plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str   # attn | mla | mamba | mlstm | slstm
+    ffn: str     # mlp | moe | none
+    cross: bool = False  # decoder cross-attention (enc-dec)
+    dense_ff: int = 0    # ff size when ffn == mlp
+
+
+def layer_plan(cfg: ModelConfig, *, decoder: bool = True) -> List[LayerSpec]:
+    n = cfg.n_layers if decoder else cfg.encoder_layers
+    plan = []
+    for i in range(n):
+        if not decoder:
+            plan.append(LayerSpec("attn", "mlp", dense_ff=cfg.d_ff))
+            continue
+        if cfg.xlstm_pattern:
+            kind = cfg.xlstm_pattern[i % len(cfg.xlstm_pattern)]
+            plan.append(LayerSpec("mlstm" if kind == "m" else "slstm", "none"))
+            continue
+        if cfg.attn_period:
+            # Jamba: one attention layer per period (at the middle slot, per
+            # the released model), Mamba elsewhere; MoE every other layer.
+            mixer = "attn" if i % cfg.attn_period == cfg.attn_period // 2 else "mamba"
+        elif cfg.mla is not None:
+            mixer = "mla"
+        else:
+            mixer = "attn"
+        if cfg.moe is not None:
+            mo = cfg.moe
+            if i < mo.first_dense:
+                # DeepSeek-style leading dense layers use a wider dense FFN.
+                ffn, dff = "mlp", (_dense_ff(cfg) if cfg.arch_type == "moe" else cfg.d_ff)
+            elif mo.every > 1 and i % mo.every != 1:
+                # Jamba: MoE every other layer, plain MLP elsewhere.
+                ffn, dff = "mlp", cfg.d_ff
+            else:
+                ffn, dff = "moe", 0
+        else:
+            ffn, dff = "mlp", cfg.d_ff
+        plan.append(LayerSpec(mixer, ffn, cross=cfg.encoder_layers > 0, dense_ff=dff))
+    return plan
+
+
+def _dense_ff(cfg: ModelConfig) -> int:
+    """Dense-layer FFN width for MoE archs' leading dense layers."""
+    mo = cfg.moe
+    return mo.d_ff * (mo.topk + mo.n_shared_experts)
+
+
+@dataclasses.dataclass
+class Segment:
+    specs: Tuple[LayerSpec, ...]  # one period of the pattern
+    repeats: int
+
+
+def segment_plan(plan: List[LayerSpec]) -> List[Segment]:
+    """Split the plan into stackable segments (see module docstring)."""
+    if not plan:
+        return []
+    n = len(plan)
+    # whole-plan periodicity (only useful when it yields >1 repeat)
+    for P in range(1, n // 2 + 1):
+        if n % P:
+            continue
+        if all(plan[i] == plan[i % P] for i in range(n)):
+            return [Segment(tuple(plan[:P]), n // P)]
+    # strip the longest identical prefix, recurse
+    j = 1
+    while j < n and plan[j] == plan[0]:
+        j += 1
+    return [Segment((plan[0],), j)] + segment_plan(plan[j:])
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / cache / apply
+# ---------------------------------------------------------------------------
+
+
+def _check_spec(spec: LayerSpec):
+    if spec.mixer in ("mla", "mlstm", "slstm"):
+        raise _not_ported(spec.mixer)
+    if spec.cross:
+        raise _not_ported("cross")
+
+
+def _sublayer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, lead):
+    p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
+    if spec.mixer == "attn":
+        p["mixer"] = attention_init(gen, cfg, dtype, device, lead)
+    else:
+        p["mixer"] = ssm_mod.mamba_init(gen, cfg, dtype, device, lead)
+    if spec.ffn == "mlp":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
+        p["ffn"] = mlp_init(gen, cfg.d_model, spec.dense_ff, dtype, device,
+                            gated=cfg.act != "relu", lead=lead)
+    elif spec.ffn == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
+        p["ffn"] = moe_init(gen, cfg, dtype, device, lead)
+    return p
+
+
+def _sublayer_cache(spec: LayerSpec, cfg: ModelConfig, batch, cache_len, window, dtype,
+                    device, lead):
+    eff_len = min(cache_len, window) if window else cache_len
+    if spec.mixer == "attn":
+        return {"mixer": init_attn_cache(cfg, batch, eff_len, dtype, device, lead)}
+    return {"mixer": ssm_mod.init_mamba_cache(cfg, batch, dtype, device, lead)}
+
+
+def _sublayer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions, cache, mode,
+                    window):
+    new_cache: Dict[str, Any] = {}
+    aux = 0.0
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    mixer_cache = None if cache is None else cache["mixer"]
+    if spec.mixer == "attn":
+        out, mc, _ = attention_apply(p["mixer"], cfg, h, positions=positions,
+                                     cache=mixer_cache, mode=mode, window=window)
+    else:
+        out, mc = ssm_mod.mamba_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
+    if mc is not None:
+        new_cache["mixer"] = mc
+    x = x + out
+    if spec.ffn == "mlp":
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(p["ffn"], h, cfg.act)
+    elif spec.ffn == "moe":
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        out, moe_aux = moe_apply(p["ffn"], cfg, h, cfg.act)
+        aux = aux + moe_aux
+        x = x + out
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+
+
+def _stack_init(gen, segments: List[Segment], cfg: ModelConfig, dtype, device):
+    """One tree per segment, each leaf stacked over the segment's repeats."""
+    return [
+        {f"sub{j}": _sublayer_init(gen, spec, cfg, dtype, device, (seg.repeats,))
+         for j, spec in enumerate(seg.specs)}
+        for seg in segments
+    ]
+
+
+def _stack_cache(segments, cfg, batch, cache_len, window, dtype, device):
+    return [
+        {f"sub{j}": _sublayer_cache(spec, cfg, batch, cache_len, window, dtype, device,
+                                    (seg.repeats,))
+         for j, spec in enumerate(seg.specs)}
+        for seg in segments
+    ]
+
+
+def _stack_apply(stack_params, segments: List[Segment], cfg: ModelConfig, x, *, positions,
+                 caches, mode, window):
+    """Each segment's repeats in order, each repeat's layers in order (the
+    reference's scan over a segment, unrolled); new caches are stacked back
+    on the repeats axis."""
+    new_caches = []
+    aux_total = 0.0
+    for si, seg in enumerate(segments):
+        p_seg = stack_params[si]
+        c_seg = None if caches is None else caches[si]
+        ncs = []
+        for r in range(seg.repeats):
+            p_rep = tree_map(lambda a: a[r], p_seg)
+            c_rep = None if c_seg is None else tree_map(lambda a: a[r], c_seg)
+            nc_rep = {}
+            for j, spec in enumerate(seg.specs):
+                x, nc, a = _sublayer_apply(
+                    p_rep[f"sub{j}"], spec, cfg, x, positions=positions,
+                    cache=None if c_rep is None else c_rep[f"sub{j}"], mode=mode,
+                    window=window)
+                nc_rep[f"sub{j}"] = nc
+                aux_total = aux_total + a
+            ncs.append(nc_rep)
+        if any(tree_leaves(n) for n in ncs):
+            new_caches.append(tree_map(lambda *xs: torch.stack(xs), *ncs))
+        else:
+            new_caches.append({})
+    return x, new_caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+class TransformerLM:
+    """The LM substrate on ``device`` (default ``"cuda"``; raises without a
+    card). ``param_shapes()`` states the params' shapes and dtypes on the
+    ``meta`` device without allocating them."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        if cfg.encoder_layers or cfg.modality == "audio":
+            raise _not_ported("audio")
+        if cfg.modality == "vision":
+            raise _not_ported("vision")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plan = layer_plan(cfg, decoder=True)
+        self.segments = segment_plan(self.plan)
+        for spec in self.plan:
+            _check_spec(spec)
+        self.dtype = getattr(torch, cfg.param_dtype)
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+
+    # -- init ---------------------------------------------------------------
+    def _init_on(self, gen, device):
+        cfg = self.cfg
+        params = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, self.dtype, device),
+            "layers": _stack_init(gen, self.segments, cfg, self.dtype, device),
+            "final_norm": rmsnorm_init(cfg.d_model, self.dtype, device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = nn.normal_init(
+                gen, (cfg.d_model, cfg.vocab_size), 0.02, device, self.dtype)
+        return params
+
+    def init(self, seed: int):
+        """Params drawn from ``seed`` by a ``torch.Generator`` on the model's
+        device, so they never pass through the host."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return self._init_on(gen, self.device)
+
+    def param_shapes(self):
+        return self._init_on(None, torch.device("meta"))
+
+    # -- helpers ------------------------------------------------------------
+    def _head(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"]["table"].T
+        return params["lm_head"]
+
+    def _embed_in(self, params, batch):
+        """Token embeddings in the compute dtype. The reference's
+        ``embed_onehot`` (a one-hot matmul that avoids gathering from a
+        vocab-sharded table) gives the same rows: the port always gathers."""
+        cfg = self.cfg
+        if "embeds" in batch:
+            raise _not_ported("vision")
+        x = embed_lookup(params["embed"], batch["tokens"])
+        if cfg.tie_embeddings:
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+        return x.to(self.compute_dtype)
+
+    def _positions(self, batch, S, offset=0):
+        if "positions" in batch:
+            return batch["positions"]
+        B = batch["tokens"].shape[0]
+        pos = offset + torch.arange(S, device=batch["tokens"].device)
+        return pos[None, :].expand(B, S)
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params, batch, *, mode, caches=None, window=0):
+        if "enc_embeds" in batch:
+            raise _not_ported("audio")
+        x = self._embed_in(params, batch)
+        B, S, _ = x.shape
+        positions = self._positions(batch, S, batch.get("pos_offset", 0))
+        x, new_caches, aux = _stack_apply(
+            params["layers"], self.segments, self.cfg, x, positions=positions,
+            caches=caches, mode=mode, window=window)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return x, new_caches, aux
+
+    # -- entry points -------------------------------------------------------
+    def train_loss(self, params, batch):
+        raise _not_ported("train")
+
+    def init_caches(self, batch_size, cache_len, *, window=0):
+        return _stack_cache(self.segments, self.cfg, batch_size, cache_len, window,
+                            self.dtype, self.device)
+
+    def prefill(self, params, batch, *, cache_len=0, window=0):
+        """Run the prompt through the stack, writing K/V (and recurrent
+        states) into preallocated caches of ``cache_len`` slots (default: the
+        prompt length; rolling when sliding-window is on). Returns (caches,
+        logits (B, 1, V) fp32 of the last position)."""
+        B, S = batch["tokens"].shape
+        caches = self.init_caches(B, cache_len or S, window=window)
+        hidden, caches, _ = self.forward(params, batch, mode="prefill", caches=caches,
+                                         window=window)
+        logits = (hidden[:, -1:] @ self._head(params)).float()
+        return caches, logits
+
+    def decode_step(self, params, batch, caches, *, window=0):
+        """batch: {'tokens': (B, 1)}, plus optional 'positions'/'pos_offset'.
+        Returns (logits (B, 1, V) fp32, new caches)."""
+        hidden, new_caches, _ = self.forward(params, batch, mode="decode", caches=caches,
+                                             window=window)
+        logits = (hidden @ self._head(params)).float()
+        return logits, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter counts
+# ---------------------------------------------------------------------------
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from shapes on the ``meta`` device (nothing is
+    allocated). ``active_only`` counts only topk + shared experts per MoE
+    layer."""
+    model = TransformerLM(cfg, device="meta")
+    total = sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(model.param_shapes()))
+    if not active_only or cfg.moe is None:
+        return total
+    mo = cfg.moe
+    per_expert = 3 * cfg.d_model * mo.d_ff  # wi, wg, wo
+    n_moe_layers = sum(1 for s in layer_plan(cfg) if s.ffn == "moe")
+    inactive = (mo.n_experts - mo.topk) * per_expert * n_moe_layers
+    return total - inactive

@@ -1,28 +1,41 @@
-"""Ravel/unravel for nested-dict parameter trees.
+"""Ravel/unravel for parameter trees of nested dicts and lists.
 
 Counterpart of ``repro/utils/tree.py``. Leaves are taken in ``jax.tree``
-order — dict keys sorted at every level — and not in insertion order, so a
-raveled vector here is the same vector the reference ravels (for the CNN:
-``conv1/b, conv1/w, conv2/b, conv2/w, fc/b, fc/w, out/b, out/w``).
+order — dict keys sorted at every level, lists in index order — and not in
+insertion order, so a raveled vector here is the same vector the reference
+ravels (for the CNN: ``conv1/b, conv1/w, conv2/b, conv2/w, fc/b, fc/w,
+out/b, out/w``; for an LM: ``embed``, ``final_norm``, then ``layers/0``,
+``layers/1``, ... each with its ``sub0``, ``sub1``, ...). A path is a
+tuple of dict keys (str) and list indices (int).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import torch
 
-Tree = Dict[str, Any]
+Tree = Union[Dict[str, Any], List[Any]]
 
 
-def tree_paths(tree: Tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, ...]]:
-    """Leaf paths in ``jax.tree`` order (sorted keys, depth first)."""
-    out: List[Tuple[str, ...]] = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out.extend(tree_paths(v, prefix + (k,)))
-        else:
+def _children(tree):
+    """(key, child) pairs of a dict (sorted keys) or list (index order);
+    None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def tree_paths(tree: Tree, prefix: Tuple = ()) -> List[Tuple]:
+    """Leaf paths in ``jax.tree`` order (sorted keys, list indices, depth
+    first)."""
+    out: List[Tuple] = []
+    for k, v in _children(tree):
+        if _children(v) is None:
             out.append(prefix + (k,))
+        else:
+            out.extend(tree_paths(v, prefix + (k,)))
     return out
 
 
@@ -38,28 +51,33 @@ def tree_leaves(tree: Tree) -> List[Any]:
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over matching leaves of one or more trees of the same
-    structure; returns a tree of that structure."""
-    return {
-        k: (tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)))
-        for k, v in tree.items()
-    }
+    structure; returns a tree of that structure (lists stay lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def _unflatten(paths, leaves) -> Tree:
-    out: Tree = {}
+    """The tree whose leaves sit at ``paths``: a level keyed by ints is a
+    list, any other a dict."""
+    if len(paths) == 1 and paths[0] == ():
+        return leaves[0]
+    groups: Dict[Any, Tuple[list, list]] = {}
     for path, leaf in zip(paths, leaves):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
+        sub_paths, sub_leaves = groups.setdefault(path[0], ([], []))
+        sub_paths.append(path[1:])
+        sub_leaves.append(leaf)
+    if all(isinstance(k, int) for k in groups):
+        return [_unflatten(*groups[i]) for i in range(len(groups))]
+    return {k: _unflatten(*g) for k, g in groups.items()}
 
 
 class TreeSpec(NamedTuple):
     """Static recipe for rebuilding a tree from its raveled vector."""
 
-    paths: Tuple[Tuple[str, ...], ...]
+    paths: Tuple[Tuple, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
 

@@ -448,3 +448,214 @@ def test_gossip_round_on_card_matches_round_on_cpu(cuda):
     hist = eng.run(2)
     assert gossip_mix.launches == before + 4
     assert all(r.consensus > 0 for r in hist.records)
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate's kernels: flash_attention and ssm_scan
+# ---------------------------------------------------------------------------
+
+def _close_to_fp32(out, ref32, scale):
+    """fp32 outputs within 1e-5 of the inputs' scale (sums over D and over
+    the keys or steps in another order, exp2 in place of exp); bf16 outputs
+    within one bf16 ulp of the fp32 result (both round it once) plus that."""
+    tol = 1e-5 * scale
+    if out.dtype == torch.float32:
+        return float((out - ref32).abs().max()) <= tol
+    ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((out.float() - ref32).abs() <= ulp + tol).all())
+
+
+def _flash_case(cuda, B, Sq, Sk, H, K, D, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, K, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, K, D), generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+def _flash_check(q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    assert _close_to_fp32(out, ref32, float(v.float().abs().max()))
+
+
+@pytest.mark.parametrize("S", [1, 37, 2047])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(32, 8), (8, 1)])
+@pytest.mark.parametrize("mask", ["causal", "full", "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, S, D, heads, mask, dtype):
+    H, K = heads
+    q, k, v = _flash_case(cuda, 1, S, S, H, K, D, dtype, seed=S * D + H)
+    _flash_check(q, k, v, causal=mask != "full", window=100 if mask == "window" else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_layouts_and_views(cuda, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    # the reference kernel's (BH, S, D) layout, Sq != Sk, odd D
+    q, k, v = (t[:, :, 0] for t in _flash_case(cuda, 6, 70, 70, 1, 1, 37, dtype, seed=1))
+    for causal, window in ((True, 0), (False, 0), (True, 9), (False, 9)):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref32 = flash_attention_ref(q.float()[:, :, None], k.float()[:, :, None],
+                                    v.float()[:, :, None], causal=causal, window=window)
+        assert out.shape == q.shape
+        assert _close_to_fp32(out, ref32[:, :, 0], float(v.float().abs().max()))
+    # q, k, v as column slices of one fused projection (strided, not contiguous)
+    B, S, H, K, D = 2, 130, 4, 2, 64
+    qkv = torch.randn((B, S, (H + 2 * K) * D), device=cuda).to(dtype)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+    v = qkv[..., (H + K) * D:].view(B, S, K, D)
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, causal=True, window=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 32, 8, 128), (4, 2048, 8, 1, 256)],
+                         ids=["jamba", "gemma-2b"])
+def test_flash_kernel_at_the_prefill_shapes(cuda, shape):
+    B, S, H, K, D = shape
+    q, k, v = _flash_case(cuda, B, S, S, H, K, D, torch.bfloat16, seed=D)
+    _flash_check(q, k, v, causal=True, window=0)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _flash_case(cuda, 1, 8, 8, 4, 2, 16, torch.float32, seed=0)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        flash_attention(*_flash_case(cuda, 1, 8, 8, 1, 1, 264, torch.float32, seed=0))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple of n_kv_heads"):
+        flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="k on"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
+    with pytest.raises(ValueError, match="all \\(BH, S, D\\)"):
+        flash_attention(q[0], k, v)
+    assert flash_attention.launches == before
+
+
+def _ssm_case(cuda, B, T, D, N, dtype, seed, h0_scale=0.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dt = (torch.rand((B, T, D), generator=g, device=cuda) * 0.1 + 1e-3).to(dtype)
+    Bm = torch.randn((B, T, N), generator=g, device=cuda).to(dtype)
+    Cm = torch.randn((B, T, N), generator=g, device=cuda).to(dtype)
+    x = torch.randn((B, T, D), generator=g, device=cuda).to(dtype)
+    A = -torch.rand((D, N), generator=g, device=cuda) * 16 - 0.5
+    h0 = torch.randn((B, D, N), generator=g, device=cuda) * h0_scale
+    return dt, Bm, Cm, x, A, h0
+
+
+def _ssm_check(dt, Bm, Cm, x, A, h0):
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    before = ssm_scan.launches
+    y, h = ssm_scan(dt, Bm, Cm, x, A, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    y32, h32 = ssm_scan_ref(dt.float(), Bm.float(), Cm.float(), x.float(), A, h0)
+    scale = max(1.0, float(y32.abs().max()), float(h32.abs().max()))
+    assert _close_to_fp32(y, y32, scale)
+    assert float((h - h32).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("B,T,D,N", [(1, 8, 4, 2), (2, 24, 8, 4), (1, 16, 16, 8),
+                                     (2, 100, 200, 16), (3, 37, 129, 5), (1, 1, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_matches_plain_version(cuda, B, T, D, N, dtype):
+    _ssm_check(*_ssm_case(cuda, B, T, D, N, dtype, seed=B * T * D * N, h0_scale=1.0))
+
+
+def test_ssm_kernel_on_views_and_in_chunks(cuda):
+    from repro_torch.kernels.ops import mamba_ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    dt, Bm, Cm, x, A, h0 = _ssm_case(cuda, 2, 50, 96, 16, torch.float32, seed=3)
+    # B and C as column slices of one projection, as mamba_apply makes them
+    dbc = torch.cat([torch.randn((2, 50, 6), device=cuda), Bm, Cm], dim=-1)
+    Bv, Cv = dbc[..., 6:22], dbc[..., 22:]
+    assert not Bv.is_contiguous()
+    _ssm_check(dt, Bv, Cv, x, A, h0)
+    before = ssm_scan.launches
+    y1, h1 = mamba_ssm_scan(dt, Bv, Cv, x, A, h0, chunk=16)
+    assert ssm_scan.launches == before + 4
+    y2, h2 = ssm_scan(dt, Bm, Cm, x, A, h0)
+    torch.cuda.synchronize()
+    assert float((y1 - y2).abs().max()) <= 1e-6 * float(y2.abs().max())
+    assert float((h1 - h2).abs().max()) <= 1e-6 * float(h2.abs().max())
+
+
+def test_ssm_kernel_at_the_prefill_shape(cuda):
+    _ssm_check(*_ssm_case(cuda, 4, 2048, 8192, 16, torch.float32, seed=0))
+
+
+def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    dt, Bm, Cm, x, A, h0 = _ssm_case(cuda, 1, 4, 8, 4, torch.float32, seed=0)
+    before = ssm_scan.launches
+    with pytest.raises(ValueError, match="d_state up to 16"):
+        big = _ssm_case(cuda, 1, 4, 8, 17, torch.float32, seed=0)
+        ssm_scan(*big)
+    with pytest.raises(TypeError):
+        ssm_scan(dt, Bm, Cm, x.bfloat16(), A, h0)
+    with pytest.raises(TypeError):
+        ssm_scan(dt, Bm, Cm, x, A.bfloat16(), h0)
+    with pytest.raises(ValueError, match="want"):
+        ssm_scan(dt, Bm, Cm, x, A[:4], h0)
+    with pytest.raises(ValueError, match="one device"):
+        ssm_scan(dt, Bm, Cm, x, A.cpu(), h0)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ssm_scan(dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, x, A, h0)
+    assert ssm_scan.launches == before
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b"])
+def test_lm_serving_on_card_matches_cpu(cuda, arch):
+    """Reduced config in fp32: prefill + 3 decode steps on the card against
+    the CPU on the same params (kernels against plain versions, end to end;
+    the reference's own consistency bound, 3e-4, on the logits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config(arch))
+    gpu, cpu = TransformerLM(cfg, device=cuda), TransformerLM(cfg, device="cpu")
+    params = gpu.init(0)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    n_attn = sum(s.mixer == "attn" for s in gpu.plan)
+    n_mamba = len(gpu.plan) - n_attn
+    f0, s0 = flash_attention.launches, ssm_scan.launches
+    c_gpu, l_gpu = gpu.prefill(params, {"tokens": tokens.to(cuda)}, cache_len=44)
+    c_cpu, l_cpu = cpu.prefill(params_cpu, {"tokens": tokens}, cache_len=44)
+    assert (flash_attention.launches - f0, ssm_scan.launches - s0) == (n_attn, n_mamba)
+    for step in range(4):
+        assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 3e-4
+        for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu)):
+            assert float((a.cpu().double() - b.double()).abs().max()) <= 1e-4
+        if step == 3:
+            break
+        tok = torch.argmax(l_cpu[:, -1], dim=-1)[:, None]
+        batch = {"tokens": tok, "pos_offset": 40 + step}
+        l_gpu, c_gpu = gpu.decode_step(params, {**batch, "tokens": tok.to(cuda)}, c_gpu)
+        l_cpu, c_cpu = cpu.decode_step(params_cpu, batch, c_cpu)
+    assert flash_attention.launches - f0 == n_attn
+    assert ssm_scan.launches - s0 == 4 * n_mamba
