@@ -52,10 +52,28 @@ Phases, in order, each printing its own lines:
     width in bf16 (both models), and the reduced configs in fp32 on the card
     against the CPU;
 17. one profiled Jamba prefill and one decode step: device busy, idle
-    share, the top ops and the two kernels' share.
+    share, the top ops and the two kernels' share;
+18. training the LM substrate: Gemma-2B whole (18 layers, bf16, remat,
+    weights drawn on the card from seed 0, tokens from ``make_word_corpus``)
+    through ``repro_torch.launch.train.main``: 2 FedAvg rounds of G = 2
+    groups x H = 2 local AdamW steps on 2 x 2048 tokens a group, each round
+    launching ``fused_cross_entropy`` 4 times, ``flash_attention`` 144 times
+    (forward and remat recompute of 18 layers in 4 steps) and
+    ``fedavg_aggregate`` once a parameter leaf; then 4 FedSGD steps; seconds,
+    tokens/s, loss and peak memory a round;
+19. correctness of training: a reduced-config FedAvg round in fp32 on the
+    card against the CPU (Gemma-2B and Qwen2; SGD's update, AdamW's
+    moments), ``train_loss``'s CE at full
+    width against materialized fp32 logits, and FusedCrossEntropy's
+    gradients against autograd through them;
+20. one profiled Gemma-2B training step: device busy, idle share, the top
+    kernels and the shares of the CE kernel, the flash kernel and the plain
+    backwards.
 
-Phases 3 and 4 hold and time ``flash_attention`` and ``ssm_scan`` too, at
-the serving lanes' shapes. Every kernel's launch count is set to 0 just
+Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan`` and
+``fused_cross_entropy`` too, at the serving and training shapes; phase 3
+also holds the flash kernel's ``lse`` output and checks that every kernel
+wrapper refuses an input that requires grad. Every kernel's launch count is set to 0 just
 before each lane's run and read just after. Each phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -64,6 +82,7 @@ before those lines; so does a machine without a card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -107,7 +126,8 @@ LOSS_RTOL = 1e-4
 GOSSIP_CNN_RTOL_1 = 1e-3
 
 KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregate",
-           "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan")
+           "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan",
+           "fused_cross_entropy")
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
@@ -159,7 +179,8 @@ JAMBA_LAYERS = 8
 # flash_attention's two prefill shapes (B, S, H, K, D) and Jamba's scan
 # (d_inner 8192, d_state 16)
 FLASH_SHAPES = {"jamba": (SERVE_BATCH, PROMPT, 32, 8, 128),
-                "gemma-2b": (SERVE_BATCH, PROMPT, 8, 1, 256)}
+                "gemma-2b": (SERVE_BATCH, PROMPT, 8, 1, 256),
+                "gemma-2b train": (2, 2048, 8, 1, 256)}
 FLASH_WINDOW = 100
 SSM_D, SSM_N = 8192, 16
 # The prefill+decode == forward invariant at full width in bf16, at a size
@@ -173,6 +194,26 @@ INVARIANT_RTOL = 2.0 ** -5
 # consistency bound on logits, and 1e-4 on the caches (sums in other orders).
 REDUCED_LOGITS_ATOL = 3e-4
 REDUCED_CACHE_ATOL = 1e-4
+
+# Training the LM substrate: Gemma-2B whole (18 layers, bf16, remat, ce_chunk
+# 512), FedAvg rounds of G = 2 client groups x H = 2 local AdamW steps on
+# B = 2 sequences of 2048 tokens a group, through repro_torch.launch.train.
+TRAIN_ARGV = ["--arch", "gemma-2b", "--full", "--groups", "2", "--local-steps", "2",
+              "--global-batch", "4", "--seq", "2048", "--rounds", "2", "--device", "cuda"]
+TRAIN_G, TRAIN_H, TRAIN_B, TRAIN_S = 2, 2, 2, 2048
+PEAK_LIMIT_GIB = 75.0
+# fused_cross_entropy at the training step's shape: T = B * S tokens of the
+# tied 256,000-word head, d = 2048, bf16
+CE_SHAPE = (TRAIN_B * TRAIN_S, 2048, 256_000)
+# The card's fp32 round against the CPU's: sums in other orders through two
+# layers and back, in the SGD update and in AdamW's moments.
+TRAIN_RTOL = 1e-4
+# The kernel's CE against fp32 logits materialized from the same bf16 hidden:
+# two fp32 sums of 2048 products and of 256,000 exponentials in other orders.
+CE_MATERIALIZED_RTOL = 1e-5
+# FusedCrossEntropy's bf16 gradients against autograd through materialized
+# fp32 logits, rounded to bf16 alike.
+CE_GRAD_RTOL = 1e-3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -323,10 +364,11 @@ def counters():
     from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.sparse_agg import sparse_aggregate
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
 
     return {f.__name__: f for f in (fedavg_aggregate, quantized_aggregate,
                                     packed_quantized_aggregate, sparse_aggregate, gossip_mix,
-                                    flash_attention, ssm_scan)}
+                                    flash_attention, ssm_scan, fused_cross_entropy)}
 
 
 def launch_counts():
@@ -927,7 +969,7 @@ def check_flash_attention():
               f"{str(c['dtype'])[6:]:8s} {c['mask']:6s} smem={smem_bytes(c['D'], c['dtype'])}: "
               + (f"max_abs_err={err:.3e}" if c["dtype"] == torch.float32
                  else f"max_err={err:.3f} of (1 bf16 ulp + tol)")
-              + (f" [{c['main']} prefill shape]" if "main" in c else "")
+              + (f" [{c['main']} shape]" if "main" in c else "")
               + (" ok" if ok else " FAIL"))
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: {c}")
@@ -1057,8 +1099,9 @@ def lm_row(tag, fn, plain, library, nbytes, flops, flush, *, sfu_ops=0, tensor_c
 
 
 def time_flash_attention():
-    """At both prefill shapes in bf16, causal: the work is the unmasked
-    (query, key) pairs, 4 * D flops each on the tensor cores' rate."""
+    """At both prefill shapes and Gemma-2B's training shape in bf16, causal:
+    the work is the unmasked (query, key) pairs, 4 * D flops each on the
+    tensor cores' rate."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1099,6 +1142,218 @@ def time_ssm_scan():
         rows[tag].update(B=B, T=T, D=D, N=N, dtype="float32")
     del flush
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4 for the training path: fused_cross_entropy, the flash kernel's
+# lse, and the grad guard of every kernel
+# ---------------------------------------------------------------------------
+
+def ce_inputs(T, d, V, dtype, tied, seed, same_label=False):
+    """hidden ~ N(0, 1), a head ~ N(0, 1/d) so logits are O(1), labels with
+    0 and V - 1 among them (or one label for every token); the head is a
+    (d, V) tensor or the transposed view of a (V, d) table."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hidden = torch.randn((T, d), generator=g, device="cuda").to(dtype)
+    if tied:
+        head = (torch.randn((V, d), generator=g, device="cuda") / math.sqrt(d)).to(dtype).T
+    else:
+        head = (torch.randn((d, V), generator=g, device="cuda") / math.sqrt(d)).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda", dtype=torch.int32)
+    labels[0] = 0
+    labels[-1] = V - 1
+    if same_label:
+        labels.fill_(V // 2)
+    return hidden, head, labels
+
+
+def check_fused_cross_entropy():
+    """The kernel against its plain version on the same inputs widened to
+    fp32 (bf16 products are exact in fp32, so both compute one function):
+    loss and lse within 1e-5 * max(1, |lse|) (fp32 sums of d products and of
+    V exponentials in other orders)."""
+    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+
+    name = "fused_cross_entropy"
+    cases = [dict(T=T, d=d, V=V, dtype=dtype, tied=tied)
+             for dtype in (torch.float32, torch.bfloat16) for tied in (False, True)
+             for T in (1, 37, 4096) for V in (1, 1000, 2049, 256_000) for d in (64, 2048)
+             if not (T == 4096 and V == 256_000 and d == 64)]
+    cases.append(dict(T=37, d=64, V=1000, dtype=torch.float32, tied=False, same_label=True))
+    before = fused_cross_entropy.launches
+    main_err, worst = 0.0, 0.0
+    for i, c in enumerate(cases):
+        hidden, head, labels = ce_inputs(c["T"], c["d"], c["V"], c["dtype"], c["tied"], i,
+                                         c.get("same_label", False))
+        loss, lse = fused_cross_entropy(hidden, head, labels)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = fused_cross_entropy_ref(hidden.float(), head.float(), labels)
+        tol = 1e-5 * max(1.0, float(ref_lse.abs().max()))
+        err = max(float((loss - ref_loss).abs().max()), float((lse - ref_lse).abs().max()))
+        ok = (err <= tol and loss.dtype == lse.dtype == torch.float32
+              and bool(torch.isfinite(loss).all()))
+        worst = max(worst, err / tol)
+        main = (c["T"], c["d"], c["V"]) == CE_SHAPE and c["dtype"] == torch.bfloat16 and c["tied"]
+        if main:
+            main_err = err
+        if main or not ok or c["T"] == 4096 or c.get("same_label"):
+            print(f"  T={c['T']:4d} d={c['d']:4d} V={c['V']:6d} {str(c['dtype'])[6:]:8s} "
+                  f"{'tied view' if c['tied'] else 'contiguous'}"
+                  f"{' one label' if c.get('same_label') else ''}: max_abs_err={err:.3e} "
+                  f"(tol {tol:.2e}){' [the training shape]' if main else ''}"
+                  + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {c}")
+    require(fused_cross_entropy.launches - before == len(cases), "one launch per case")
+
+    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, True, 0)
+    big_h = torch.empty((1, 16), device="cuda").expand(2**31, 16)
+    big_l = torch.zeros(1, dtype=torch.int32, device="cuda").expand(2**31)
+    n_ref = check_refusals(name, fused_cross_entropy, {
+        "mixed dtypes": lambda: fused_cross_entropy(hidden.bfloat16(), head, labels),
+        "float16": lambda: fused_cross_entropy(hidden.half(), head.half(), labels),
+        "int64 labels": lambda: fused_cross_entropy(hidden, head, labels.long()),
+        "labels on the CPU": lambda: fused_cross_entropy(hidden, head, labels.cpu()),
+        "the meta device": lambda: fused_cross_entropy(hidden.to("meta"), head.to("meta"),
+                                                       labels.to("meta")),
+        "2^31 tokens (beyond the grid's token index)": lambda: fused_cross_entropy(
+            big_h, head, big_l),
+        "a strided last axis": lambda: fused_cross_entropy(hidden.T.contiguous().T, head,
+                                                           labels),
+        "hidden that requires grad": lambda: fused_cross_entropy(
+            hidden.clone().requires_grad_(), head, labels),
+    })
+    print(f"kernels: {name} cuda ok ({len(cases)} cases, max error {worst:.3f} of "
+          f"1e-5*max(1, |lse|); {n_ref} refusals)")
+    return main_err
+
+
+def check_flash_lse():
+    """The flash kernel's lse output against the plain
+    ``blocked_attention(return_lse=True)``, within 1e-5 * max(1, |lse|); the
+    output beside it is unchanged by asking for it."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    worst = 0.0
+    cases = [(B, S, H, K, D, dtype, mask)
+             for dtype in (torch.float32, torch.bfloat16) for mask in ("causal", "window", "full")
+             for (B, S, H, K, D) in ((1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
+                                     FLASH_SHAPES["gemma-2b train"])]
+    for i, (B, S, H, K, D, dtype, mask) in enumerate(cases):
+        q, k, v = flash_inputs(B, S, S, H, K, D, dtype, 100 + i)
+        causal, window = mask != "full", FLASH_WINDOW if mask == "window" else 0
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        plain = flash_attention(q, k, v, causal=causal, window=window)
+        _, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                         window=window, return_lse=True)
+        torch.cuda.synchronize()
+        err = float((lse - ref_lse).abs().max()) / max(1.0, float(ref_lse.abs().max()))
+        worst = max(worst, err)
+        require(lse.shape == (B, S, H) and lse.dtype == torch.float32, "lse shape")
+        require(torch.equal(out, plain), "asking for lse changed the output")
+        if err > 1e-5:
+            raise AssertionError(f"flash_attention lse disagrees: {(B, S, H, K, D, dtype, mask)}"
+                                 f" rel {err:.3e}")
+    print(f"kernels: flash_attention lse ok ({len(cases)} cases, max error {worst:.3e} of "
+          f"max(1, |lse|), tol 1e-5; the output equals the call without lse)")
+    return worst
+
+
+def check_grad_guard():
+    """Every kernel wrapper refuses, launching nothing, an input that requires
+    grad while grad mode is on, and takes it under torch.no_grad()."""
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gossip_mix import gossip_mix
+    from repro_torch.kernels.quantized_agg import (
+        packed_quantized_aggregate,
+        quantized_aggregate,
+    )
+    from repro_torch.kernels.sparse_agg import sparse_aggregate
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    rg = lambda t: t.clone().requires_grad_()   # noqa: E731
+    w = normalized(2)
+    x = torch.randn((2, 512), device="cuda")
+    lo, scale = ranges(2, 1, seed=0)
+    codes = random_codes(2, 512, torch.uint8, seed=0)
+    words = torch.zeros((2, 512 // 32), dtype=torch.int32, device="cuda")   # 1-bit codes
+    idx = torch.tensor([[0, 3], [1, 3]], dtype=torch.int32, device="cuda")
+    vals = torch.randn((2, 2), device="cuda")
+    mix_idx = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32, device="cuda")
+    mix_w = torch.full((2, 2), 0.5, device="cuda")
+    q, k, v = flash_inputs(1, 8, 8, 2, 1, 16, torch.float32, 0)
+    dt, Bm, Cm, xs, A, h0 = ssm_inputs(1, 4, 8, 4, torch.float32, 0, 0.0)
+    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, True, 0)
+    calls = {
+        "fedavg_aggregate": lambda f: fedavg_aggregate(f(x), w),
+        "quantized_aggregate": lambda f: quantized_aggregate(codes, f(lo), scale, w, chunk=512,
+                                                             levels=255),
+        "packed_quantized_aggregate": lambda f: packed_quantized_aggregate(
+            words, f(lo), scale, w, bits=1, chunk=512, levels=1),
+        "sparse_aggregate": lambda f: sparse_aggregate(idx, f(vals), w, 4),
+        "gossip_mix": lambda f: gossip_mix(f(x), mix_idx, mix_w),
+        "flash_attention": lambda f: flash_attention(f(q), k, v),
+        "ssm_scan": lambda f: ssm_scan(dt, Bm, Cm, f(xs), A, h0),
+        "fused_cross_entropy": lambda f: fused_cross_entropy(f(hidden), head, labels),
+    }
+    wrappers = counters()
+    for name, call in calls.items():
+        before = wrappers[name].launches
+        try:
+            call(rg)
+        except ValueError as e:
+            require("gradient would be dropped" in str(e), f"{name} refused for another reason: {e}")
+            print(f"  {name} refuses an input that requires grad: ValueError")
+        else:
+            raise AssertionError(f"{name} accepted an input that requires grad")
+        require(wrappers[name].launches == before, f"a refused {name} call launched the kernel")
+        with torch.no_grad():
+            call(rg)
+        require(wrappers[name].launches == before + 1, f"{name} under no_grad did not launch")
+    torch.cuda.synchronize()
+    print(f"kernels: grad guard ok ({len(calls)} wrappers refuse a requires_grad input under "
+          "grad mode and launch nothing; each launches under torch.no_grad())")
+
+
+def time_fused_cross_entropy():
+    """At the training step's shape, bf16, the head a tied view: the kernel
+    (5 launches), the plain version (3) and the two-call yardstick (hidden @
+    head, then F.cross_entropy over the 4.2 GB of fp32 logits it
+    materializes; 5). Bound: 2 T d V flops on the bf16 tensor cores against
+    head and hidden read once and the two (T,) outputs written once."""
+    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+
+    T, d, V = CE_SHAPE
+    hidden, head, labels = ce_inputs(T, d, V, torch.bfloat16, True, 7)
+    lbl64 = labels.long()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def yardstick():
+        return torch.nn.functional.cross_entropy((hidden @ head).float(), lbl64,
+                                                 reduction="none")
+
+    flops = 2 * T * d * V
+    nbytes = (T * d + d * V) * 2 + T * 4 + 2 * T * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    r = {"ms": time_ms(lambda: fused_cross_entropy(hidden, head, labels), flush, iters=5,
+                       warmup=1),
+         "plain_ms": time_ms(lambda: fused_cross_entropy_ref(hidden, head, labels), flush,
+                             iters=3, warmup=1),
+         "library_ms": time_ms(yardstick, flush, iters=5, warmup=1),
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes": nbytes, "flops": flops, "T": T, "d": d, "V": V, "dtype": "bfloat16",
+         "head": "tied view (V, d).T"}
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    r["achieved_TFLOPs"] = flops / (r["ms"] * 1e-3) / 1e12
+    print(f"  fused_cross_entropy T={T} d={d} V={V} bf16, tied head: kernel_ms={r['ms']:.3f} "
+          f"bound_ms={r['bound_ms']:.3f} ({r['bound_by']}; {r['bound_share']:.1%} of bound, "
+          f"{r['achieved_TFLOPs']:.1f} TFLOP/s) plain_ms={r['plain_ms']:.3f} "
+          f"yardstick_ms={r['library_ms']:.3f} (matmul then F.cross_entropy: two calls)")
+    del flush
+    return {"gemma-2b train": r}
 
 
 # ---------------------------------------------------------------------------
@@ -1256,6 +1511,275 @@ def profile_serving(label, model, params):
         out[what] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
                      "device_ops": len(ops), "kernels": shares}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 18-20: training the LM substrate
+# ---------------------------------------------------------------------------
+
+def gemma_leaf_count():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves
+
+    return len(tree_leaves(TransformerLM(get_config("gemma-2b"), device="meta").param_shapes()))
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def training_lane():
+    """Gemma-2B whole through ``repro_torch.launch.train.main``: 2 FedAvg
+    rounds (G = 2 groups x H = 2 local AdamW steps), then 4 FedSGD steps
+    (each group's 4 optimizer steps, taken by one model, so the two loss
+    curves compare step for step). Every count is set to 0 just before each run and read just after; each
+    round must launch ``fused_cross_entropy`` G·H times, ``flash_attention``
+    G·H·18·2 times (each layer's forward and its remat recompute) and
+    ``fedavg_aggregate`` once a parameter leaf, and nothing else."""
+    from repro_torch.launch import train
+
+    n_leaves = gemma_leaf_count()
+    steps = TRAIN_G * TRAIN_H
+    per_round = {"fused_cross_entropy": steps, "flash_attention": steps * 18 * 2,
+                 "fedavg_aggregate": n_leaves}
+    out = {}
+    for algo, argv, per in (
+            ("fedavg", TRAIN_ARGV, per_round),
+            ("fedsgd", TRAIN_ARGV + ["--algo", "fedsgd"],
+             {"fused_cross_entropy": 1, "flash_attention": 36, "fedavg_aggregate": 0})):
+        free_card()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        recs = train.main(argv)
+        counts = launch_counts()
+        free_card()
+        want = {k: 0 for k in KERNELS}
+        want.update({k: v * len(recs) for k, v in per.items()})
+        require(counts == want, f"training {algo}: launches {counts}, want {want}")
+        for rec in recs:
+            require(rec["launches"] == per, f"training {algo}: {rec['launches']} != {per}")
+            require(math.isfinite(rec["loss"]), f"training {algo}: loss {rec['loss']}")
+        peak = max(rec["peak_GiB"] for rec in recs)
+        what = "round" if algo == "fedavg" else "step"
+        for rec in recs:
+            print(f"  {algo} {what} {rec.get('round', rec.get('step'))}: {rec['seconds']:.3f} s, "
+                  f"{rec['tokens']} tokens, {rec['tokens_per_s']:.0f} tokens/s, loss "
+                  f"{rec['loss']:.4f}, peak device memory {rec['peak_GiB']:.2f} GiB, launches "
+                  + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()))
+        print(f"  {algo}: {len(recs)} {what}s, launches in all {want}; peak {peak:.2f} GiB "
+              f"({held / 2**30:.2f} GiB held before); {n_leaves} parameter leaves")
+        require(peak <= PEAK_LIMIT_GIB, f"training {algo}: peak {peak:.2f} GiB over "
+                f"{PEAK_LIMIT_GIB} GiB")
+        out[algo] = {"records": recs, "launches": counts, "peak_GiB": peak, "argv": argv}
+    return out
+
+
+def reduced_round_card_vs_cpu(arch):
+    """One FedAvg round (G = 2, H = 2) of the reduced config in fp32 on the
+    card against the same round on the CPU, from the same params and
+    batches: the kernels' forwards and the plain backwards against the plain
+    versions end to end. Twice: with SGD, whose update is linear in the
+    gradients, the loss and the update (the whole tree's, in L2, and each
+    attention weight's and the tied head's) within TRAIN_RTOL; with AdamW,
+    the local optimizer of the main path, the loss and the groups' moments
+    mu and nu (linear and quadratic in the gradients; the trees and the same
+    leaves) within TRAIN_RTOL. The AdamW update itself is not compared: its
+    first steps are lr * g / |g|, so a gradient element at rounding level
+    steps by +-lr on either side."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import local_sgd
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+    cfg = reduced(get_config(arch))
+    r = np.random.default_rng(5)
+    shape = (TRAIN_H, TRAIN_G, 2, 40)
+    batches = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, shape).astype(np.int32))
+               for k in ("tokens", "labels")}
+    start = TransformerLM(cfg, device="cuda").init(0)
+    n_attn = sum(s.mixer == "attn" for s in TransformerLM(cfg, device="cuda").plan)
+    paths = ["/".join(map(str, p)) for p in tree_paths(start)]
+    steps = TRAIN_G * TRAIN_H
+
+    def rel_l2(got, want):
+        num = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want)))
+        return num / math.sqrt(sum(float((b ** 2).sum()) for b in want))
+
+    out = {"arch": arch}
+    for name, make in (("SGD", lambda: sgd(0.05)), ("AdamW", lambda: adamw(1e-3))):
+        results = {}
+        for dev in ("cuda", "cpu"):
+            model = TransformerLM(cfg, device=dev)
+            params_g = local_sgd.replicate_for_groups(tree_map(lambda t: t.to(dev), start),
+                                                      TRAIN_G)
+            opt = make()
+            step = local_sgd.build_fedavg_round_step(model.train_loss, opt,
+                                                     local_sgd.LocalSGDConfig(TRAIN_G, TRAIN_H))
+            reset_counts()
+            params_g, inner_g, _, m = step(
+                params_g, local_sgd.init_group_states(opt, params_g), None,
+                tree_map(lambda t: t.to(dev), batches), torch.tensor([1.0, 3.0]))
+            moments = ([t.cpu().double() for t in tree_leaves(inner_g.mu)
+                        + tree_leaves(inner_g.nu)] if name == "AdamW" else None)
+            results[dev] = (float(m["loss"]), launch_counts(),
+                            [(p[0].cpu().double() - s.cpu().double())
+                             for p, s in zip(tree_leaves(params_g), tree_leaves(start))],
+                            moments)
+        (l_gpu, n_gpu, u_gpu, m_gpu), (l_cpu, _, u_cpu, m_cpu) = results["cuda"], results["cpu"]
+        want = {k: 0 for k in KERNELS}
+        want.update(fused_cross_entropy=steps, flash_attention=steps * n_attn,
+                    fedavg_aggregate=len(u_gpu))
+        require(n_gpu == want, f"reduced {arch} {name} round: launches {n_gpu}, want {want}")
+        l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        n = len(paths)
+        # (what, rel L2 of the tree, per-leaf (got, want) of the attention weights and head)
+        if name == "SGD":
+            checks = [("update", u_gpu, u_cpu)]
+        else:
+            checks = [("mu", m_gpu[:n], m_cpu[:n]), ("nu", m_gpu[n:], m_cpu[n:])]
+        tree_err = {k: rel_l2(g, w) for k, g, w in checks}
+        leaf_err = {f"{k} {p}": float((a - b).norm() / b.norm())
+                    for k, g, w in checks for p, a, b in zip(paths, g, w)
+                    if p.split("/")[-1] in ("wq", "wk", "wv", "wo", "table")}
+        worst_key = max(leaf_err, key=leaf_err.get)
+        worst_leaf = leaf_err[worst_key]
+        print(f"  reduced {arch} fp32, one round G={TRAIN_G} H={TRAIN_H} {name}: loss "
+              f"{l_gpu:.6f} vs CPU {l_cpu:.6f} (rel {l_err:.2e}); "
+              + ", ".join(f"{k} rel L2 {e:.2e}" for k, e in tree_err.items())
+              + f"; attention weights and tied head, worst {worst_leaf:.2e} ({worst_key}) "
+              f"(tol {TRAIN_RTOL:g}); launches {({k: v for k, v in n_gpu.items() if v})}")
+        require(max([l_err, worst_leaf, *tree_err.values()]) <= TRAIN_RTOL,
+                f"reduced {arch} {name}: the card's round and the CPU's disagree")
+        out[name] = {"loss_rel_err": l_err, **{f"{k}_rel_err": e for k, e in tree_err.items()},
+                     "attention_and_head_worst_rel_err": worst_leaf}
+    return out
+
+
+def full_width_ce_checks():
+    """Gemma-2B at full width in bf16: ``train_loss``'s ce against the CE of
+    fp32 logits materialized from the same hidden; then FusedCrossEntropy's
+    dhidden and dhead on a 512-token slice against autograd through
+    materialized fp32 logits of the same bf16 values, rounded to bf16 alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(get_config("gemma-2b"), device="cuda")
+    params = model.init(0)
+    r = np.random.default_rng(6)
+    V, d = model.cfg.vocab_size, model.cfg.d_model
+    batch = {k: torch.from_numpy(r.integers(0, V, (TRAIN_B, TRAIN_S)).astype(np.int32)).cuda()
+             for k in ("tokens", "labels")}
+    labels = batch["labels"].reshape(-1).long()
+    with torch.no_grad():
+        hidden = model.forward(params, batch, mode="train")[0]
+        _, aux = model.train_loss(params, batch)
+        logits = hidden.reshape(-1, d).float() @ params["embed"]["table"].float().T
+        ref = float((torch.logsumexp(logits, -1)
+                     - logits.gather(1, labels[:, None])[:, 0]).double().mean())
+        del logits
+    ce = float(aux["ce"])
+    rel = abs(ce - ref) / abs(ref)
+    print(f"  gemma-2b bf16 B={TRAIN_B} S={TRAIN_S}: train_loss ce {ce:.7f} vs materialized fp32 "
+          f"CE {ref:.7f} (rel {rel:.2e}, tol {CE_MATERIALIZED_RTOL:g})")
+    require(rel <= CE_MATERIALIZED_RTOL, "train_loss's ce disagrees with the materialized CE")
+
+    n = 512 // TRAIN_B
+    h = hidden[:, :n].detach().clone().requires_grad_()
+    table = params["embed"]["table"].detach().clone().requires_grad_()
+    lbl = batch["labels"][:, :n]
+    ops.ce_loss_mean(h, table.T, lbl, chunk=model.cfg.ce_chunk).backward()
+    hf = h.detach().float().requires_grad_()
+    tf = table.detach().float().requires_grad_()
+    torch.nn.functional.cross_entropy(hf.reshape(-1, d) @ tf.T, lbl.reshape(-1).long()).backward()
+    errs = {}
+    for what, got, want in (("dhidden", h.grad, hf.grad), ("dhead", table.grad, tf.grad)):
+        want = want.to(got.dtype).float()
+        errs[what] = float((got.float() - want).norm() / want.norm())
+    print(f"  FusedCrossEntropy on {TRAIN_B * n} tokens, bf16: dhidden rel {errs['dhidden']:.2e}, "
+          f"dhead rel {errs['dhead']:.2e} against autograd through fp32 logits (tol "
+          f"{CE_GRAD_RTOL:g})")
+    require(max(errs.values()) <= CE_GRAD_RTOL, "FusedCrossEntropy's gradients disagree")
+    return {"ce": ce, "materialized_ce": ref, "ce_rel_err": rel, **errs}
+
+
+def profile_training_step():
+    """One training step of one group (Gemma-2B, B = 2 x 2048 tokens, AdamW,
+    through ``build_fedsgd_train_step``) under torch.profiler with CPU and
+    CUDA activity, after one warm-up step: device busy (the union of the
+    kernels' intervals) against the host wall, the top kernels, and the
+    shares of the CE kernel, the flash kernel and the plain backwards (each
+    a ``torch.profiler`` range in ``kernels/ops.py``: the device time of the
+    kernels launched inside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.local_sgd import build_fedsgd_train_step
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+
+    model = TransformerLM(get_config("gemma-2b"), device="cuda")
+    params = model.init(0)
+    opt = adamw(3e-3)
+    box = {"state": opt.init(params)}
+    step = build_fedsgd_train_step(model.train_loss, opt)
+    r = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(r.integers(0, model.cfg.vocab_size, (TRAIN_B, TRAIN_S))
+                                 .astype(np.int32)).cuda() for k in ("tokens", "labels")}
+
+    def one():
+        _, box["state"], m = step(params, box["state"], batch)
+        return float(m["loss"])
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    ranges = ("flash_attention_bwd", "fused_cross_entropy_bwd")
+    # the device copies of the two ranges (user annotations) span their
+    # kernels and the gaps between them: they are not kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges
+               and not getattr(e, "is_user_annotation", False)]
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    rows = sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)
+
+    def range_ms(name):
+        spans = [e for e in events if e.device_type == DeviceType.CPU and e.name == name]
+        total = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+                    for e in spans)
+        return total / 1e3, len(spans)
+
+    shares = {
+        "fused_cross_entropy": (sum(us for us, _, k in rows
+                                    if "ce_partial_kernel" in k or "ce_merge_kernel" in k) / 1e3,
+                                sum(c for _, c, k in rows if "ce_partial_kernel" in k)),
+        "flash_attention": (sum(us for us, _, k in rows if "flash_fwd_kernel" in k) / 1e3,
+                            sum(c for _, c, k in rows if "flash_fwd_kernel" in k)),
+        **{f"{name} (plain)": range_ms(name) for name in ranges},
+    }
+    print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
+          f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
+          f"{len(kernels)} device kernels")
+    for k, (ms, count) in shares.items():
+        print(f"    {k}: {count}x, {ms:.3f} ms ({ms / 1e3 / busy:.1%} of busy)")
+    for us, count, k in rows[:10]:
+        print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_kernels": len(kernels),
+            "shares_ms": {k: v[0] for k, v in shares.items()},
+            "top": [(us / 1e3, c, k[:120]) for us, c, k in rows[:10]]}
 
 
 # ---------------------------------------------------------------------------
@@ -1669,9 +2193,11 @@ def print_ptxas(log):
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
                          "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_kernel",
-                         "ssm_scan_kernel"):
+                         "ssm_scan_kernel", "ce_partial_kernel", "ce_merge_kernel"):
                 if base in mangled:
-                    entry = base + "<" + mangled.split(base, 1)[1].split("EEv")[0][1:] + ">"
+                    rest = mangled.split(base, 1)[1]
+                    entry = base + ("<" + rest.split("EEv")[0][1:] + ">" if "EEv" in rest
+                                    else "")
                     break
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
@@ -1704,7 +2230,7 @@ def main() -> int:
     phase("2. build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
     built = build_all(["fedavg_agg", "quantized_agg", "sparse_agg", "gossip_mix",
-                       "flash_attention", "ssm_scan"])
+                       "flash_attention", "ssm_scan", "ce_loss"])
     print(f"built in {time.perf_counter() - t0:.2f} s wall")
     for src, res in built.items():
         print(f"  {src}: {res.path.name} nvcc {res.seconds:.2f} s (cached={res.cached})")
@@ -1719,13 +2245,16 @@ def main() -> int:
         "gossip_mix": check_gossip_mix(),
         "flash_attention": check_flash_attention(),
         "ssm_scan": check_ssm_scan(),
+        "fused_cross_entropy": check_fused_cross_entropy(),
     }
+    flash_lse_err = check_flash_lse()
+    check_grad_guard()
 
     phase("4. timing (CUDA events, median of 200, L2 flushed before each launch)")
     print(f"card: {smi}")
     timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
               "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
-              "ssm_scan": time_ssm_scan()}
+              "ssm_scan": time_ssm_scan(), "fused_cross_entropy": time_fused_cross_entropy()}
 
     phase("data: synthetic MNIST, 60,000 train / 10,000 test, seed 0")
     t0 = time.perf_counter()
@@ -1830,6 +2359,23 @@ def main() -> int:
           "under torch.profiler")
     serving_profile = profile_serving("jamba", jamba, jamba_params)
     del jamba, jamba_params
+    free_card()
+
+    phase(f"18. training Gemma-2B: all 18 layers, bf16, remat, FedAvg G={TRAIN_G} x H={TRAIN_H} "
+          f"AdamW steps on {TRAIN_B} x {TRAIN_S} tokens a group, 2 rounds, then 4 FedSGD steps, "
+          "through repro_torch.launch.train.main")
+    training = training_lane()
+
+    phase("19. correctness of the training path on the card")
+    train_checks = {"reduced_card_vs_cpu": [reduced_round_card_vs_cpu("gemma-2b"),
+                                            reduced_round_card_vs_cpu("qwen2-72b")]}
+    free_card()
+    train_checks["full_width"] = full_width_ce_checks()
+    free_card()
+
+    phase("20. where the time goes training: one group step of Gemma-2B under torch.profiler")
+    train_profile = profile_training_step()
+    free_card()
 
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
@@ -1838,6 +2384,8 @@ def main() -> int:
     launches["gossip_mix"] = sum(lane["launches"] for lane in gossip)
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
+    for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy"):
+        launches[k] = launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
@@ -1847,6 +2395,7 @@ def main() -> int:
         "gossip_mix": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:85"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:111"),
         "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:62"),
+        "fused_cross_entropy": ("ce_loss.cu", "src/repro/kernels/ce_loss.py:91"),
     }
     at = {
         "fedavg_aggregate": {"K": MAIN_K, "N": MAIN_N["mnist_cnn"], "dtype": "float32"},
@@ -1862,10 +2411,15 @@ def main() -> int:
                             "K": 8, "D": 128, "dtype": "bfloat16", "causal": True},
         "ssm_scan": {"shape": "jamba prefill", "B": SERVE_BATCH, "T": PROMPT, "D": SSM_D,
                      "N": SSM_N, "dtype": "float32"},
+        "fused_cross_entropy": {"shape": "gemma-2b train step", "T": CE_SHAPE[0],
+                                "d": CE_SHAPE[1], "V": CE_SHAPE[2], "dtype": "bfloat16",
+                                "head": "tied view"},
     }
     main_shape = {k: "mnist_cnn" for k in KERNELS}
     main_shape.update(gossip_mix="ring/mnist_cnn", flash_attention="jamba",
-                      ssm_scan="jamba/prefill")
+                      ssm_scan="jamba/prefill", fused_cross_entropy="gemma-2b train")
+    lanes_of = {"flash_attention": serving, "ssm_scan": serving,
+                "fused_cross_entropy": []}   # its lane is kernels[7]["training"]
     kernels = []
     for k in KERNELS:
         cnn = timing[k][main_shape[k]]
@@ -1883,8 +2437,7 @@ def main() -> int:
             "library_ms": cnn["library_ms"],
             "at": at[k],
             "per_shape": timing[k],
-            "lanes": ([lane for lane in lanes + gossip if lane["kernel"] == k]
-                      if k not in ("flash_attention", "ssm_scan") else serving),
+            "lanes": lanes_of.get(k, [lane for lane in lanes + gossip if lane["kernel"] == k]),
         })
     kernels[0]["round_wall_s"] = {"mnist_2nn": wall_2nn, "mnist_cnn": wall_cnn}
     kernels[1]["cnn_rounds_in_turns_s"] = turns
@@ -1893,6 +2446,11 @@ def main() -> int:
     kernels[5]["invariant"] = invariant
     kernels[5]["reduced_card_vs_cpu"] = card_vs_cpu
     kernels[6]["jamba_profile"] = serving_profile
+    kernels[5]["lse_max_rel_err"] = flash_lse_err
+    kernels[7]["training"] = {algo: {"records": run["records"], "peak_GiB": run["peak_GiB"]}
+                              for algo, run in training.items()}
+    kernels[7]["training_checks"] = train_checks
+    kernels[7]["training_step_profile"] = train_profile
     print(f"\nchip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,13 +13,17 @@ missing — the tests pass ``device="cpu"``.
 
 Layout mirrors ``repro`` so each counterpart is easy to find::
 
-    utils/   tree ravel/unravel in jax.tree leaf order, device resolution
-    data/    synthetic MNIST stand-in, partitions, client packing
+    utils/   tree ravel/unravel in jax.tree leaf order, the weighted tree
+             mean, device resolution
+    data/    synthetic MNIST stand-in and word corpus, partitions, client
+             packing
     configs/ the LM archs' ModelConfigs (a copy of the reference's)
     models/  dense/conv/max-pool primitives, the paper's 2NN and CNN, the
              LM substrate (attention, Mamba, MLP/MoE, TransformerLM)
-    core/    losses, FedAvg pieces, codecs, topologies, RoundEngine, evaluation
-    kernels/ the hand-written CUDA kernels, their build, wrappers and plain
-             versions
-    launch/  the LM serving entry point (batched prefill + greedy decode)
+    core/    losses, FedAvg pieces, codecs, topologies, RoundEngine, evaluation,
+             the LM's FedAvg rounds (local_sgd)
+    optim/   optimizers and learning-rate schedules
+    kernels/ the hand-written CUDA kernels, their build, wrappers, plain
+             versions, grad guard and autograd Functions
+    launch/  the LM serving and training entry points
 """

@@ -1,7 +1,8 @@
 """Carry parameter trees across between numpy (the reference's ``init``
-output or a gossip engine's replica stack, ``np.asarray``-ed) and the
-port's trees of tensors (nested dicts, and for an LM the list of stacked
-segments under ``layers``).
+output, a gossip engine's replica stack or an LM round's (G, ...) group
+replicas, ``np.asarray``-ed) and the port's trees of tensors (nested dicts,
+and for an LM the list of stacked segments under ``layers``); and an
+optimizer state, per model or per group.
 
 ``np.asarray`` of a JAX bf16 array is an ``ml_dtypes.bfloat16`` array,
 which ``torch.from_numpy`` refuses: it crosses as its uint16 bit pattern
@@ -73,6 +74,17 @@ def replicas_from_numpy(tree, model, device="cuda"):
     if not leaves or np.ndim(leaves[0]) < 1:
         raise ValueError("a replica stack needs leaves with a leading node axis")
     return _checked(tree, model, torch.Size([np.shape(leaves[0])[0]]), device)
+
+
+def opt_state_from_numpy(state, state_type, device="cuda"):
+    """The port's optimizer state of ``state_type`` (``optim.AdamState``,
+    ``MomentumState`` or ``SGDState``) from a reference state whose fields,
+    matched by name, are numpy arrays or trees of them: one model's state, or
+    a per-group (G, ...) stack with a (G,) step, as the reference's
+    ``jax.vmap(opt.init)`` and its FedAvg round carry it."""
+    dev = resolve_device(device)
+    return state_type(**{f: tree_map(lambda a: _tensor(a).to(dev), getattr(state, f))
+                         for f in state_type._fields})
 
 
 def params_to_numpy(params):

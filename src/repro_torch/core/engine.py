@@ -75,10 +75,13 @@ from repro_torch.utils.tree import tree_map, tree_ravel_stacked, tree_unravel_st
 
 class RoundState(NamedTuple):
     """Everything a round mutates: the global params and the strategy's
-    server state (``outer_state``)."""
+    server state (``outer_state``); the LM rounds of ``core.local_sgd``
+    also thread the per-group inner optimizer state (``inner_state``, last
+    here so that ``RoundState(params, outer_state)`` keeps its meaning)."""
 
     params: Any
     outer_state: Any = None
+    inner_state: Any = None
 
 
 class RoundBatch(NamedTuple):

@@ -1,10 +1,13 @@
-"""Procedural MNIST stand-in, copied from ``repro/data/synthetic.py``.
+"""Synthetic data, copied from ``repro/data/synthetic.py``: the
+procedural MNIST stand-in and the word-level corpus that ``launch/train.py``
+reads its tokens from.
 
 The port keeps its own copy rather than importing ``repro``; for the same
 seed its output is byte-identical to the reference (tested).
 
-Each class c has a smooth random template T_c; a sample is a randomly
-shifted, scaled copy of its template plus Gaussian noise.
+Images: each class c has a smooth random template T_c; a sample is a
+randomly shifted, scaled copy of its template plus Gaussian noise. Words: a
+Zipf vocabulary and a per-author mixture of topics.
 """
 from __future__ import annotations
 
@@ -70,3 +73,38 @@ def _upsample(img: np.ndarray, hw) -> np.ndarray:
     top = img[y0][:, x0] * (1 - wx) + img[y0][:, x1] * wx
     bot = img[y1][:, x0] * (1 - wx) + img[y1][:, x1] * wx
     return (top * (1 - wy) + bot * wy).astype(np.float32)
+
+
+def make_word_corpus(
+    n_authors: int = 512,
+    *,
+    vocab_size: int = 10_000,
+    mean_words_per_author: int = 1_000,
+    n_topics: int = 16,
+    seed: int = 0,
+):
+    """Zipf vocabulary + per-author topic mixture; returns per-author int32
+    arrays (train, test) and the vocab size."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, vocab_size + 1) ** 1.1
+    topics = []
+    for _ in range(n_topics):
+        boost = np.zeros(vocab_size)
+        idx = rng.integers(0, vocab_size, size=vocab_size // 20)
+        boost[idx] = rng.uniform(5, 50, size=len(idx))
+        p = zipf * (1 + boost)
+        topics.append(p / p.sum())
+    topics = np.stack(topics)
+
+    sizes = np.maximum(
+        rng.lognormal(np.log(mean_words_per_author), 0.8, n_authors).astype(int), 32
+    )
+    train, test = [], []
+    for a in range(n_authors):
+        mix = rng.dirichlet(np.full(n_topics, 0.3))
+        p = mix @ topics
+        seq = rng.choice(vocab_size, size=int(sizes[a]), p=p).astype(np.int32)
+        split = max(int(0.8 * len(seq)), 1)
+        train.append(seq[:split])
+        test.append(seq[split:] if split < len(seq) else seq[-8:])
+    return train, test, vocab_size

@@ -1,5 +1,5 @@
 // flash_attention for Hopper (sm_90a): the forward online-softmax attention
-// of prefill
+// of prefill and of training
 //
 //     o[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, h / G, :] * scale) v[b, j, h / G, :]
 //
@@ -8,11 +8,14 @@
 // sliding window (key j visible to query i only when i - j < window) and the
 // padded-key mask j < Sk. Scores, the softmax statistics m and l and the
 // accumulator are fp32; the output is written in q's dtype. scale is
-// 1/sqrt(D). Each of q, k, v, o has its own (batch, sequence, head) strides
-// in elements and a contiguous last axis, so the (BH, S, D) single-head layout
-// of the reference kernel and the (B, S, H, D) model layout both come in
-// without a copy, and a KV head is read in place by every query head of its
-// group (no repeat).
+// 1/sqrt(D). On request (a non-null lse) the kernel also writes each row's
+// lse = m + log(max(l, 1e-30)) of the scaled scores into a (B, Sq, H) fp32
+// array, as the reference's _blocked_attention_fwd_impl defines it: the
+// training forward keeps it for the backward. Each of q, k, v, o has its own
+// (batch, sequence, head) strides in elements and a contiguous last axis, so
+// the (BH, S, D) single-head layout of the reference kernel and the
+// (B, S, H, D) model layout both come in without a copy, and a KV head is
+// read in place by every query head of its group (no repeat).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (the Pallas
 // _flash_kernel). That kernel walks the key blocks as the innermost grid axis
@@ -129,7 +132,7 @@ __host__ __device__ inline Layout layout(int D) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Args a) {
+                 T* __restrict__ o, float* __restrict__ lse, Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D;
   const Layout L = layout<T>(D);
@@ -276,10 +279,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       if (d < D) store(ob + qpos * a.o.s + d, acc[i][j] / l);
     }
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < a.Sq)
+    lse[((long long)b * a.Sq + q0 + tid) * a.H + h] = sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
 }
 
 template <typename T, int NJ>
-int launch_nj(const T* q, const T* k, const T* v, T* o, int B, const Args& a, cudaStream_t s) {
+int launch_nj(const T* q, const T* k, const T* v, T* o, float* lse, int B, const Args& a,
+              cudaStream_t s) {
   const size_t smem = layout<T>(a.D).bytes;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -287,13 +293,14 @@ int launch_nj(const T* q, const T* k, const T* v, T* o, int B, const Args& a, cu
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.H);
-  flash_fwd_kernel<T, NJ><<<grid, kThreads, smem, s>>>(q, k, v, o, a);
+  flash_fwd_kernel<T, NJ><<<grid, kThreads, smem, s>>>(q, k, v, o, lse, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int Sq,
-           int Sk, int D, const long long* st, int causal, int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int K, int Sq, int Sk, int D, const long long* st, int causal, int window,
+           void* stream) {
   if (B < 1 || H < 1 || K < 1 || H % K || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -315,9 +322,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch_nj<T, 4>(qt, kt, vt, ot, B, a, s);
-  if (D <= 128) return launch_nj<T, 8>(qt, kt, vt, ot, B, a, s);
-  return launch_nj<T, 16>(qt, kt, vt, ot, B, a, s);
+  if (D <= 64) return launch_nj<T, 4>(qt, kt, vt, ot, lse, B, a, s);
+  if (D <= 128) return launch_nj<T, 8>(qt, kt, vt, ot, lse, B, a, s);
+  return launch_nj<T, 16>(qt, kt, vt, ot, lse, B, a, s);
 }
 
 }  // namespace
@@ -325,16 +332,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 extern "C" {
 
 // strides: 12 values in elements, (batch, sequence, head) of q, k, v, o.
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int K, int Sq, int Sk, int D, const long long* strides, int causal,
-                        int window, void* stream) {
-  return launch<float>(q, k, v, o, B, H, K, Sq, Sk, D, strides, causal, window, stream);
+// lse: a contiguous (B, Sq, H) fp32 output of m + log(l) over the scaled
+// scores (the training forward keeps it for the backward), or null (prefill).
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int H, int K, int Sq, int Sk, int D, const long long* strides,
+                        int causal, int window, void* stream) {
+  return launch<float>(q, k, v, o, lse, B, H, K, Sq, Sk, D, strides, causal, window, stream);
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                         int K, int Sq, int Sk, int D, const long long* strides, int causal,
-                         int window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Sk, D, strides, causal, window,
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int H, int K, int Sq, int Sk, int D, const long long* strides,
+                         int causal, int window, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, K, Sq, Sk, D, strides, causal, window,
                                stream);
 }
 

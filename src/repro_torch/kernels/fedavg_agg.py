@@ -22,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.grad_guard import NOT_DIFFERENTIATED, refuse_grad
 
 # Dynamic shared memory holds the (K,) fp32 weights: 48 KB without opting in.
 MAX_K = 48 * 1024 // 4
@@ -93,6 +94,7 @@ def fedavg_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
         return fedavg_aggregate_ref(stacked, weights, accum_dtype)
     if stacked.device.type != "cuda":
         raise ValueError(f"fedavg_aggregate runs on cpu or cuda, not {stacked.device}")
+    refuse_grad("fedavg_aggregate", (stacked, weights), NOT_DIFFERENTIATED)
     if accum_dtype != torch.float32:
         raise ValueError(
             "the CUDA fedavg_aggregate accumulates in float32 only; "

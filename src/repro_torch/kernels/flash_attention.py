@@ -16,10 +16,15 @@ Two layouts, as the reference has them:
   layout of ``ops.mha_flash``. Query head h reads KV head h // (H // K) in
   place (the reference repeats the KV heads first).
 
-Masks: causal with positions from 0 (prefill; there is no query offset),
-a sliding ``window`` (0 = none), and keys past Sk. Scores, statistics and
-the accumulator are fp32; the output takes q's dtype. The kernel takes fp32
-and bf16 and D up to 256.
+Masks: causal with positions from 0 (prefill and training; there is no
+query offset), a sliding ``window`` (0 = none), and keys past Sk. Scores,
+statistics and the accumulator are fp32; the output takes q's dtype. The
+kernel takes fp32 and bf16 and D up to 256. ``return_lse`` adds each query
+row's fp32 log-sum-exp, which the training backward
+(``ops.FlashAttention``) rebuilds the probabilities from; prefill does not
+ask for it, and the kernel then writes none. On the card the wrapper
+refuses inputs that require grad (``grad_guard``): training reaches it
+through ``ops.FlashAttention``.
 """
 from __future__ import annotations
 
@@ -29,16 +34,19 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.models.attention_core import blocked_attention
 
 MAX_HEAD_DIM = 256   # csrc/flash_attention.cu's kMaxD
 BLOCK = 128          # the reference kernel's default block_q and block_k
+_NO_GRAD = ("Its differentiable entry point is ops.mha_flash_train (the autograd.Function "
+            "ops.FlashAttention).")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("flash_attention")
-    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
         fn.argtypes = args
@@ -50,11 +58,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
     """Plain version in the model layout: the tiled online softmax of
     ``blocked_attention`` with the reference kernel's 128 x 128 tiles."""
     return blocked_attention(q, k, v, causal=causal, window=window,
-                             q_chunk=BLOCK, k_chunk=BLOCK)
+                             q_chunk=BLOCK, k_chunk=BLOCK, return_lse=return_lse)
 
 
 def _model_layout(q, k, v):
@@ -88,19 +96,30 @@ def _check(q, k, v):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
     """Attention of q over k, v in either layout above; the output has q's
-    shape and dtype.
+    shape and dtype. With ``return_lse`` also the fp32 log-sum-exp of each
+    query row's scaled scores, (B, Sq, H) (or (BH, Sq) in the single-head
+    layout), which the training backward needs.
 
     ``flash_attention.launches`` counts kernel launches (CPU calls and
     empty outputs launch nothing and count nothing)."""
     q4, k4, v4, single = _model_layout(q, k, v)
     _check(q4, k4, v4)
+
+    def result(out, lse):
+        if single:
+            out = out.squeeze(2)
+            lse = None if lse is None else lse.squeeze(2)
+        return (out, lse) if return_lse else out
+
     if q.device.type == "cpu":
-        out = flash_attention_ref(q4, k4, v4, causal=causal, window=window)
-        return out.squeeze(2) if single else out
+        res = flash_attention_ref(q4, k4, v4, causal=causal, window=window,
+                                  return_lse=return_lse)
+        return result(*res) if return_lse else result(res, None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    refuse_grad("flash_attention", (q, k, v), _NO_GRAD)
     B, Sq, H, D = q4.shape
     if D > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA flash_attention takes head_dim up to {MAX_HEAD_DIM}, got {D}")
@@ -111,19 +130,21 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) if return_lse else None
     if Sq == 0:
-        return out.squeeze(2) if single else out
+        return result(out, lse)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q4, k4, v4, out) for s in t.stride()[:3]))
     lib = _lib()
     fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), B, H, k4.shape[2],
+    rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, k4.shape[2],
             Sq, k4.shape[1], D, strides, int(bool(causal)), int(window), stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({rc})")
     flash_attention.launches += 1
-    return out.squeeze(2) if single else out
+    return result(out, lse)
 
 
 flash_attention.launches = 0

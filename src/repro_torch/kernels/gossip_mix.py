@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.grad_guard import NOT_DIFFERENTIATED, refuse_grad
 
 # csrc/gossip_mix.cu's kMaxNodes: the (n, 32) tile of the narrowest block
 # must fit in one block's shared memory.
@@ -103,6 +104,7 @@ def gossip_mix(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, *,
         return gossip_mix_ref(x, idx, weight, accum_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"gossip_mix runs on cpu or cuda, not {x.device}")
+    refuse_grad("gossip_mix", (x, weight), NOT_DIFFERENTIATED)
     if accum_dtype != torch.float32:
         raise ValueError(
             "the CUDA gossip_mix accumulates in float32 only; "

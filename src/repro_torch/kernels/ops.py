@@ -6,11 +6,22 @@ that normalizes them for its kernel. Host counts are normalized on the host
 and then copied to the payload's device, so a round adds no device sync.
 ``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already.
 ``mha_flash`` and ``mamba_ssm_scan`` adapt the LM's layouts to the
-attention and scan kernels."""
+attention and scan kernels.
+
+Training goes through two ``torch.autograd.Function``s, because a kernel
+launched through ctypes is invisible to autograd (``grad_guard``):
+``FlashAttention`` (``mha_flash_train``) and ``FusedCrossEntropy``
+(``ce_loss_mean``). Each forward is the kernel on a CUDA tensor and its
+plain version on a CPU tensor; each backward is plain torch on both, as the
+reference's gradients are plain JAX outside its forward-only Pallas
+kernels. Each backward is a ``torch.profiler`` range of its own
+(``flash_attention_bwd``, ``fused_cross_entropy_bwd``), so a trace shows
+what the plain backward costs."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ce_loss import fused_cross_entropy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix
@@ -20,7 +31,14 @@ from repro_torch.kernels.quantized_agg import (
 )
 from repro_torch.kernels.sparse_agg import sparse_aggregate
 from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.utils.tree import tree_ravel_stacked, tree_unravel, tree_unravel_stacked
+from repro_torch.models.attention_core import flash_attention_bwd
+from repro_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_ravel_stacked,
+    tree_unravel,
+    tree_unravel_stacked,
+)
 
 
 def normalized_weights(weights, device) -> torch.Tensor:
@@ -41,6 +59,23 @@ def tree_fedavg_aggregate(stacked_params, weights):
     flat, spec = tree_ravel_stacked(stacked_params)
     avg = fedavg_aggregate(flat, normalized_weights(weights, flat.device))
     return tree_unravel(spec, avg)
+
+
+def tree_weighted_mean(stacked, weights):
+    """The same server line leaf by leaf, for a tree too large to ravel:
+    each (K, ...) leaf goes through ``fedavg_aggregate`` on its own, viewed
+    (K, -1), so a 2.5B-parameter replica stack is never copied whole.
+    ``weights`` are raw counts n_k, normalized once as above. The kernel sums
+    in fp32 and rounds once to the leaf's dtype, where the reference's
+    ``repro/utils/tree.py::tree_weighted_mean`` sums bf16 leaves in bf16; in
+    fp32 the two agree to rounding."""
+    leaves = tree_leaves(stacked)
+    w = normalized_weights(weights, leaves[0].device) if leaves else None
+
+    def avg(leaf):
+        return fedavg_aggregate(leaf.reshape(leaf.shape[0], -1), w).reshape(leaf.shape[1:])
+
+    return tree_map(avg, stacked)
 
 
 def quantized_fedavg_aggregate(codes, lo, scale, weights, *, chunk, levels):
@@ -95,3 +130,86 @@ def mamba_ssm_scan(dt, Bm, Cm, x, A, h0, *, chunk=0):
         y, h = ssm_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], x[:, sl], A, h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is ``flash_attention`` with its
+    ``lse`` (the kernel on the card, ``blocked_attention`` on the CPU); the
+    backward is the reference's ``_flash_bwd`` (``flash_attention_bwd``)
+    over ``q_chunk`` x ``k_chunk`` tiles, from (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, k_chunk):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_chunk=q_chunk, k_chunk=k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def mha_flash_train(q, k, v, *, causal=True, window=0, q_chunk=1024, k_chunk=1024):
+    """(B, S, H, D) x (B, S, K, D) GQA attention of the training forward,
+    differentiable through ``FlashAttention``; ``q_chunk`` and ``k_chunk``
+    tile the backward, as the reference's ``blocked_attention`` takes them."""
+    return FlashAttention.apply(q, k, v, causal, window, q_chunk, k_chunk)
+
+
+class FusedCrossEntropy(torch.autograd.Function):
+    """Per-token CE ``lse - gold`` of ``hidden @ head`` with a gradient.
+
+    Forward: ``fused_cross_entropy`` (the kernel on the card, the plain
+    version on the CPU), keeping (hidden, head, labels, lse). Backward, plain
+    torch on both devices, over token chunks of ``chunk``: fp32 logits of
+    the chunk again, ``p = exp(logits - lse)``, ``p[gold] -= 1``, scaled by
+    the upstream gradient; ``dhidden = p @ head^T`` and ``dhead`` summed as
+    ``hidden^T p`` in fp32, cast to head's dtype once at the end. The
+    reference's gradient here is XLA's autodiff of
+    ``chunked_cross_entropy``; its Pallas kernel is forward only."""
+
+    @staticmethod
+    def forward(ctx, hidden, head, labels, chunk):
+        loss, lse = fused_cross_entropy(hidden, head, labels)
+        ctx.save_for_backward(hidden, head, labels, lse)
+        ctx.chunk = chunk
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, head, labels, lse = ctx.saved_tensors
+        T = hidden.shape[0]
+        V = head.shape[1]
+        chunk = ctx.chunk or T
+        lbl = labels.long()
+        with torch.profiler.record_function("fused_cross_entropy_bwd"):
+            head32 = head.float()
+            dhidden = torch.empty_like(hidden)
+            dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
+            for t0 in range(0, T, chunk):
+                sl = slice(t0, t0 + chunk)
+                h_c = hidden[sl].float()
+                # in place: one (chunk, V) fp32 buffer at a time
+                p = torch.matmul(h_c, head32).sub_(lse[sl, None]).exp_()
+                hit = (lbl[sl] >= 0) & (lbl[sl] < V)
+                rows = torch.arange(p.shape[0], device=p.device)
+                p[rows, lbl[sl].clamp(0, V - 1)] -= hit.float()
+                p *= g[sl, None]
+                dhidden[sl] = (p @ head32.T).to(hidden.dtype)
+                dhead.addmm_(h_c.T, p)
+        return dhidden, dhead.to(head.dtype), None, None
+
+
+def ce_loss_mean(hidden, head, labels, *, chunk=0):
+    """(B, S, d) hidden, (d, V) head, (B, S) labels -> the scalar mean CE,
+    through ``FusedCrossEntropy`` (counterpart of the reference's
+    ``ops.ce_loss_mean``). ``chunk`` is the config's ``ce_chunk``: the
+    backward takes B * chunk tokens at a time (all at once for 0)."""
+    B, S, d = hidden.shape
+    losses = FusedCrossEntropy.apply(hidden.reshape(B * S, d), head,
+                                     labels.reshape(B * S).to(torch.int32), B * chunk)
+    return losses.mean()

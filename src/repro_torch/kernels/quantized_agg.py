@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.fedavg_agg import MAX_K, fedavg_aggregate_ref
+from repro_torch.kernels.grad_guard import NOT_DIFFERENTIATED, refuse_grad
 from repro_torch.utils.bitpack import unpack_codes, words_per_chunk
 
 CODE_DTYPES = (torch.uint8, torch.uint16)
@@ -133,6 +134,7 @@ def _check_cpu_weights(name, weights):
 def _check_cuda(name, tensors, accum_dtype, K):
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {tensors[0].device}")
+    refuse_grad(name, tensors, NOT_DIFFERENTIATED)
     if accum_dtype != torch.float32:
         raise ValueError(f"the CUDA {name} accumulates in float32 only; "
                          f"accum_dtype={accum_dtype} runs on the CPU plain version")

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.grad_guard import NOT_DIFFERENTIATED, refuse_grad
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate_ref
 
 
@@ -96,6 +97,7 @@ def sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor, weights: torch.Tenso
         return sparse_aggregate_ref(idx, vals, weights, n, accum_dtype=accum_dtype)
     if idx.device.type != "cuda":
         raise ValueError(f"sparse_aggregate runs on cpu or cuda, not {idx.device}")
+    refuse_grad("sparse_aggregate", (vals, weights), NOT_DIFFERENTIATED)
     if accum_dtype != torch.float32:
         raise ValueError("the CUDA sparse_aggregate accumulates in float32 only; "
                          f"accum_dtype={accum_dtype} runs on the CPU plain version")

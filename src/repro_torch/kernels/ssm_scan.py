@@ -23,8 +23,12 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.grad_guard import refuse_grad
 
 MAX_STATE = 16   # csrc/ssm_scan.cu's kMaxN
+
+_NO_GRAD = ("No differentiable entry point exists yet: the scan's backward comes with "
+            "Jamba training, ROADMAP Queue 1 item 4.")
 
 
 @functools.cache
@@ -81,6 +85,7 @@ def ssm_scan(dt, Bm, Cm, x, A, h0):
         return ssm_scan_ref(dt, Bm, Cm, x, A, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cpu or cuda, not {dt.device}")
+    refuse_grad("ssm_scan", (dt, Bm, Cm, x, A, h0), _NO_GRAD)
     dtype = x.dtype
     if dtype not in (torch.float32, torch.bfloat16) or not (dt.dtype == Bm.dtype == Cm.dtype
                                                               == dtype):

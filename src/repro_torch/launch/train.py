@@ -1,0 +1,192 @@
+"""Training entry point: FedAvg / local-SGD rounds of the LM substrate on one
+device (counterpart of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --device cpu \\
+        --rounds 2 --local-steps 2 --global-batch 4 --seq 32
+
+trains the arch's ``reduced()`` config (``--n-layers`` layers), as the
+reference's ``launch/train.py`` does; ``--full`` trains the arch's own
+config instead (Gemma-2B whole on the card). Without ``--arch`` it trains
+the reference's small demo LM. A FedAvg round is H local AdamW steps for each of
+``--groups`` client groups, then their weighted average through
+``fedavg_aggregate`` (see ``core/local_sgd.py``); ``--algo fedsgd`` takes
+one AdamW step per batch instead. Weights come from ``--seed`` on the
+device; tokens from ``make_word_corpus``, one shard per group.
+
+The reference's mesh flags have no counterpart: the groups run one after
+another on one device. ``--device`` defaults to ``cuda``: attention, the
+cross-entropy and the group average then run the hand-written kernels.
+:func:`main` returns one record a round (FedSGD: a step) with its seconds,
+tokens/s, loss, peak device memory and the kernels' launches in it.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def _parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="assigned arch id (reduced unless --full)")
+    ap.add_argument("--full", action="store_true",
+                    help="train the arch's own config, not its reduced() variant")
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--algo", default="fedavg", choices=["fedavg", "fedsgd"])
+    ap.add_argument("--outer", default="none", choices=["none", "nesterov"],
+                    help="server optimizer on the pseudo-gradient (DiLoCo-style)")
+    ap.add_argument("--d-model", type=int, default=384)
+    ap.add_argument("--n-layers", type=int, default=6)
+    ap.add_argument("--groups", type=int, default=2, help="G: client groups")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def _counters():
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return (fused_cross_entropy, flash_attention, fedavg_aggregate)
+
+
+def _launches():
+    return {f.__name__: f.launches for f in _counters()}
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoints are not ported to repro_torch yet: ROADMAP Queue 1 item 5")
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig, reduced
+    from repro_torch.core.local_sgd import (
+        LocalSGDConfig,
+        build_fedavg_round_step,
+        build_fedsgd_train_step,
+        init_group_states,
+        replicate_for_groups,
+        unreplicate,
+    )
+    from repro_torch.data.synthetic import make_word_corpus
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw, momentum
+    from repro_torch.utils.tree import tree_leaves
+
+    if args.arch and args.full:
+        cfg = get_config(args.arch)
+    elif args.arch:
+        cfg = reduced(get_config(args.arch), n_layers=args.n_layers)
+    else:
+        cfg = ModelConfig(
+            name="demo-lm", arch_type="dense", n_layers=args.n_layers,
+            d_model=args.d_model, n_heads=4, n_kv_heads=2, head_dim=64,
+            d_ff=4 * args.d_model, vocab_size=8192, scan_layers=True,
+        )
+    model = TransformerLM(cfg, device=args.device)
+    dev = model.device
+    params = model.init(args.seed)
+    G = args.groups
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    print(f"device {dev}, {G} client groups; model {cfg.name}: {n_params / 1e6:.1f}M params",
+          flush=True)
+
+    # data: synthetic word corpus, one shard per client group
+    train, _, _ = make_word_corpus(
+        n_authors=64, vocab_size=cfg.vocab_size, mean_words_per_author=20_000,
+        seed=args.seed,
+    )
+    corpus = np.concatenate(train)
+    H, S = args.local_steps, args.seq
+    B_local = max(args.global_batch // G, 1)
+    rng = np.random.default_rng(args.seed)
+
+    def sample_round_batch():
+        # (H, G, B_local, S) tokens + labels: each group reads its own shard
+        starts = rng.integers(0, len(corpus) - S - 1, (H, G, B_local))
+        tok = np.stack([[[corpus[s:s + S] for s in row] for row in step] for step in starts])
+        lab = np.stack([[[corpus[s + 1:s + S + 1] for s in row] for row in step]
+                        for step in starts])
+        return {"tokens": torch.from_numpy(tok).to(dev), "labels": torch.from_numpy(lab).to(dev)}
+
+    def timed(fn, tokens):
+        """Run ``fn`` and return its record: seconds to a synced device,
+        tokens/s, the loss, peak device memory and the launches of each
+        kernel counter inside it."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = _launches()
+        t0 = time.perf_counter()
+        loss = float(fn())                     # reading the loss syncs the device
+        sec = time.perf_counter() - t0
+        rec = {"seconds": sec, "tokens": tokens, "tokens_per_s": tokens / sec,
+               "loss": loss,
+               "peak_GiB": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None),
+               "launches": {k: v - before[k] for k, v in _launches().items()}}
+        return rec
+
+    inner = adamw(args.lr)
+    outer = momentum(0.7, beta=0.9, nesterov=True) if args.outer == "nesterov" else None
+    records = []
+    if args.algo == "fedavg":
+        round_step = build_fedavg_round_step(
+            model.train_loss, inner, LocalSGDConfig(G, H), outer_opt=outer)
+        params_g = replicate_for_groups(params, G)
+        del params
+        opt_g = init_group_states(inner, params_g)
+        outer_state = outer.init(unreplicate(params_g)) if outer else None
+        weights = torch.ones(G)
+        for r in range(args.rounds):
+            batch = sample_round_batch()
+
+            def one_round():
+                nonlocal params_g, opt_g, outer_state
+                params_g, opt_g, outer_state, m = round_step(
+                    params_g, opt_g, outer_state, batch, weights)
+                return m["loss"]
+
+            rec = timed(one_round, H * G * B_local * S)
+            rec["round"] = r + 1
+            records.append(rec)
+            _report(f"round {r + 1:3d}", rec)
+    else:
+        step_fn = build_fedsgd_train_step(model.train_loss, inner)
+        opt_state = inner.init(params)
+        for r in range(args.rounds * H):
+            b = sample_round_batch()
+            batch = {"tokens": b["tokens"][0].reshape(-1, S),
+                     "labels": b["labels"][0].reshape(-1, S)}
+
+            def one_step():
+                nonlocal params, opt_state
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                return m["loss"]
+
+            rec = timed(one_step, G * B_local * S)
+            rec["step"] = r + 1
+            records.append(rec)
+            _report(f"step {r + 1:4d}", rec)
+    return records
+
+
+def _report(tag, rec):
+    peak = "" if rec["peak_GiB"] is None else f"  peak {rec['peak_GiB']:.2f} GiB"
+    launches = ", ".join(f"{k} {v}" for k, v in rec["launches"].items())
+    print(f"{tag}  loss {rec['loss']:.4f}  {rec['seconds']:.3f} s  "
+          f"{rec['tokens_per_s']:.0f} tokens/s{peak}  launches: {launches}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,13 @@
 
 ``blocked_attention`` is the tiled online-softmax forward (flash-style:
 the (Sq, Sk) score matrix never exists whole). It is the plain version
-behind ``kernels/flash_attention.py``: prefill on a CPU tensor runs it, and
-on the card the hand-written kernel computes the same tiles. Its backward
-(the reference's custom VJP) comes with the training slice.
+behind ``kernels/flash_attention.py``: prefill and the training forward on a
+CPU tensor run it, and on the card the hand-written kernel computes the same
+tiles. ``flash_attention_bwd`` is the reference's ``_flash_bwd``, the
+backward of its custom VJP: it rebuilds the probability tiles from (q, k,
+lse), so only O(Sq + Sk) is kept between the passes. It is plain torch on
+both devices (no Pallas kernel computes it); ``kernels/ops.FlashAttention``
+pairs it with the forward.
 ``naive_attention`` is the O(Sq*Sk) oracle and ``decode_attention`` the
 one-token step against a KV cache; no Pallas kernel computes either.
 
@@ -31,10 +35,12 @@ def _mask_for(qpos, kpos, causal, window, Sk0):
 
 
 def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      q_chunk=1024, k_chunk=1024):
+                      q_chunk=1024, k_chunk=1024, return_lse=False):
     """Online-softmax tiled attention, forward only: (B, Sq, H, D) ->
     (B, Sq, H, D). ``window`` 0 is unlimited, else only the last
-    ``window`` keys; ``q_offset`` is the absolute position of q[0]."""
+    ``window`` keys; ``q_offset`` is the absolute position of q[0]. With
+    ``return_lse`` also the (B, Sq, H) fp32 ``m + log(l)`` of the scaled
+    scores, as the reference's ``_blocked_attention_fwd_impl`` returns it."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if H % K:
@@ -46,6 +52,7 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     kf = k.float()
     vf = v.float()
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), device=q.device) if return_lse else None
     for q0 in range(0, Sq, q_chunk):
         q_i = q[:, q0:q0 + q_chunk].float().reshape(B, -1, K, G, D) * scale
         qc = q_i.shape[1]
@@ -68,7 +75,60 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         l = l.clamp_min(1e-30)
         o = acc / l.permute(0, 3, 1, 2)[..., None]
         out[:, q0:q0 + qc] = o.reshape(B, qc, H, D).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, q0:q0 + qc] = (m + torch.log(l)).permute(0, 3, 1, 2).reshape(B, qc, H)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal=True, window=0, q_chunk=1024,
+                        k_chunk=1024):
+    """(dq, dk, dv) of ``blocked_attention`` for the upstream gradient ``g``
+    of ``out``: the reference's ``_flash_bwd``. Each (q tile, k tile) pair
+    rebuilds its scores from q, k and the forward's ``lse`` (B, Sq, H);
+    sums are fp32 and the gradients take their input's dtype.
+
+    Tiles that the causal mask or the window hide from every query of the
+    q tile add exact zeros in the reference, and are skipped here; ragged
+    last tiles are slices, not padding."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / (D ** 0.5)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    kf = k.float()
+    vf = v.float()
+    dq = torch.empty((B, Sq, H, D), device=q.device)
+    dk = torch.zeros((B, Sk, K, D), device=q.device)
+    dv = torch.zeros((B, Sk, K, D), device=q.device)
+    for q0 in range(0, Sq, q_chunk):
+        sl = slice(q0, q0 + q_chunk)
+        q_i = q[:, sl].float().reshape(B, -1, K, G, D)
+        qc = q_i.shape[1]
+        g_i = g[:, sl].float().reshape(B, qc, K, G, D)
+        o_i = out[:, sl].float().reshape(B, qc, K, G, D)
+        l_i = lse[:, sl].reshape(B, qc, K, G).permute(0, 2, 3, 1)         # (B, K, G, qc)
+        d_i = torch.einsum("bqkgd,bqkgd->bkgq", g_i, o_i)                # rowsum(dO * O)
+        qpos = q0 + torch.arange(qc, device=q.device)
+        dq_i = torch.zeros((B, qc, K, G, D), device=q.device)
+        for k0 in range(0, Sk, k_chunk):
+            k_j, v_j = kf[:, k0:k0 + k_chunk], vf[:, k0:k0 + k_chunk]
+            kc = k_j.shape[1]
+            if causal and k0 > q0 + qc - 1:
+                break
+            if window and k0 + kc - 1 <= q0 - window:
+                continue
+            kpos = k0 + torch.arange(kc, device=q.device)
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_i * scale, k_j)
+            s = s.masked_fill(~_mask_for(qpos, kpos, causal, window, Sk), NEG_INF)
+            p = torch.exp(s - l_i[..., None])                          # (B, K, G, qc, kc)
+            dv[:, k0:k0 + kc] += torch.einsum("bkgqs,bqkgd->bskd", p, g_i)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", g_i, v_j)
+            ds = p * (dp - d_i[..., None]) * scale
+            dq_i += torch.einsum("bkgqs,bskd->bqkgd", ds, k_j)
+            dk[:, k0:k0 + kc] += torch.einsum("bkgqs,bqkgd->bskd", ds, q_i)
+        dq[:, sl] = dq_i.reshape(B, qc, H, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):

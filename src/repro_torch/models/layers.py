@@ -7,10 +7,11 @@ Every block is an (init, apply) pair over dict trees:
 
 ``mode`` is one of "train" (no cache), "prefill" (build cache) or "decode"
 (one-token step against the cache). Matmuls run in the params' dtype; norms
-and softmax statistics in float32. Prefill attention goes through
-``ops.mha_flash`` (the hand-written flash kernel on the card) where the
-reference calls ``blocked_attention``; decode attention is
-``decode_attention``. Caches are updated out of place, as the reference's
+and softmax statistics in float32. Where the reference calls
+``blocked_attention``, prefill attention goes through ``ops.mha_flash`` (the
+hand-written flash kernel on the card) and training attention through
+``ops.mha_flash_train`` (the same kernel forward, with the reference's
+flash backward); decode attention is ``decode_attention``. Caches are updated out of place, as the reference's
 are, so a caller may keep the cache it passed in.
 
 Init functions draw from ``gen`` (a ``torch.Generator`` on the model's
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import mha_flash
+from repro_torch.kernels.ops import mha_flash, mha_flash_train
 from repro_torch.models import nn
 from repro_torch.models.attention_core import decode_attention
 
@@ -158,6 +159,10 @@ def attention_apply(p, cfg: ModelConfig, x, *, positions, cache=None, mode="trai
         valid = torch.clamp(cache["idx"] + 1, max=cache_len)
         out = decode_attention(q, k_c, v_c, valid)
         new_cache = {"k": k_c, "v": v_c, "idx": cache["idx"] + 1}
+    elif mode == "train":
+        out = mha_flash_train(q, k, v, causal=True, window=window,
+                              q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+        new_cache = None
     else:
         out = mha_flash(q, k, v, causal=(mode != "encode"), window=window)
         if mode == "prefill":

@@ -11,13 +11,19 @@ Public entry points, as the reference's:
 
     model = TransformerLM(cfg, device="cuda")
     params = model.init(seed)
+    loss, metrics = model.train_loss(params, {"tokens": ..., "labels": ...})
     caches, logits = model.prefill(params, batch, cache_len=...)
     logits, caches = model.decode_step(params, batch, caches)
 
-Ported here: attention (GQA/MQA, prefill through the flash kernel) and
-Mamba mixers, MLP and MoE FFNs — every layer of Jamba and of the dense
-archs. MLA, mLSTM/sLSTM, cross-attention, the vision and audio stubs and
-``train_loss`` raise ``NotImplementedError`` naming their ROADMAP item.
+Ported here: attention (GQA/MQA; prefill and the training forward through
+the flash kernel, training's backward by the reference's flash backward)
+and Mamba mixers, MLP and MoE FFNs — every layer of Jamba and of the dense
+archs — and ``train_loss``, whose cross-entropy goes through the fused CE
+kernel (``ops.ce_loss_mean``). Gradients reach every weight of the dense
+archs; a Mamba layer's scan has no backward yet, and its kernel refuses a
+differentiable input on the card (``kernels/grad_guard.py``). MLA,
+mLSTM/sLSTM, cross-attention and the vision and audio stubs raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,8 +32,10 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import ce_loss_mean
 from repro_torch.models import nn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -53,7 +61,6 @@ _NOT_PORTED = {
     "cross": "cross-attention (encoder-decoder, seamless-m4t)",
     "vision": "the vision stub (Qwen2-VL: embeddings in, M-RoPE)",
     "audio": "the audio stub (seamless-m4t: an encoder)",
-    "train": "train_loss and chunked_cross_entropy (the training slice)",
 }
 
 
@@ -225,34 +232,73 @@ def _stack_cache(segments, cfg, batch, cache_len, window, dtype, device):
     ]
 
 
+def _repeat_apply(p_rep, c_subs, specs, cfg: ModelConfig, x, positions, mode, window):
+    """One repeat of a segment: its layers in order, ``c_subs`` holding each
+    layer's cache (or None). Returns (x, the repeat's new caches, its aux
+    loss)."""
+    nc_rep = {}
+    aux = 0.0
+    for j, spec in enumerate(specs):
+        x, nc, a = _sublayer_apply(p_rep[f"sub{j}"], spec, cfg, x, positions=positions,
+                                   cache=c_subs[j], mode=mode, window=window)
+        nc_rep[f"sub{j}"] = nc
+        aux = aux + a
+    return x, nc_rep, aux
+
+
 def _stack_apply(stack_params, segments: List[Segment], cfg: ModelConfig, x, *, positions,
                  caches, mode, window):
     """Each segment's repeats in order, each repeat's layers in order (the
     reference's scan over a segment, unrolled); new caches are stacked back
-    on the repeats axis."""
+    on the repeats axis. Under ``cfg.remat``, with grad mode on, each repeat
+    runs inside ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(body)``): its activations are dropped after the forward
+    and recomputed in the backward."""
     new_caches = []
     aux_total = 0.0
+    remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(segments):
         p_seg = stack_params[si]
         c_seg = None if caches is None else caches[si]
         ncs = []
         for r in range(seg.repeats):
             p_rep = tree_map(lambda a: a[r], p_seg)
-            c_rep = None if c_seg is None else tree_map(lambda a: a[r], c_seg)
-            nc_rep = {}
-            for j, spec in enumerate(seg.specs):
-                x, nc, a = _sublayer_apply(
-                    p_rep[f"sub{j}"], spec, cfg, x, positions=positions,
-                    cache=None if c_rep is None else c_rep[f"sub{j}"], mode=mode,
-                    window=window)
-                nc_rep[f"sub{j}"] = nc
-                aux_total = aux_total + a
+            c_subs = ([None] * len(seg.specs) if c_seg is None else
+                      [tree_map(lambda a: a[r], c_seg[f"sub{j}"]) for j in range(len(seg.specs))])
+            args = (p_rep, c_subs, seg.specs, cfg, x, positions, mode, window)
+            if remat:
+                x, nc_rep, a = torch.utils.checkpoint.checkpoint(
+                    _repeat_apply, *args, use_reentrant=False)
+            else:
+                x, nc_rep, a = _repeat_apply(*args)
+            aux_total = aux_total + a
             ncs.append(nc_rep)
         if any(tree_leaves(n) for n in ncs):
             new_caches.append(tree_map(lambda *xs: torch.stack(xs), *ncs))
         else:
             new_caches.append({})
     return x, new_caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def chunked_cross_entropy(hidden, head_w, labels, chunk: int):
+    """Mean next-token CE over sequence chunks of ``chunk`` (all at once for
+    0), each chunk's logits computed in the params' dtype and taken to fp32,
+    as the reference's. This is the plain oracle; ``train_loss`` computes the
+    same function through ``ops.ce_loss_mean``."""
+    B, S, _ = hidden.shape
+    step = S if chunk <= 0 else chunk
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, step):
+        logits = (hidden[:, s0:s0 + step] @ head_w).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, s0:s0 + step, None].long())[..., 0]
+        tot = tot + (logz - gold).sum()
+    return tot / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +387,22 @@ class TransformerLM:
 
     # -- entry points -------------------------------------------------------
     def train_loss(self, params, batch):
-        raise _not_ported("train")
+        """Mean next-token CE of ``batch["labels"]`` (B, S) plus the MoE
+        aux loss: (loss, {"ce", "aux"}). The CE goes through
+        ``ops.ce_loss_mean`` (the fused CE kernel on the card), which
+        computes what ``chunked_cross_entropy`` computes; ``cfg.ce_chunk``
+        chunks its backward."""
+        cfg = self.cfg
+        hidden, _, aux = self.forward(params, batch, mode="train", window=cfg.sliding_window)
+        ce = ce_loss_mean(hidden, self._head(params), batch["labels"], chunk=cfg.ce_chunk)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def loss(self, params, batch):
+        """(loss, aux-dict) for a ``{"tokens", "labels"}`` dict or a
+        ``(tokens, labels)`` tuple."""
+        if isinstance(batch, tuple):
+            batch = {"tokens": batch[0], "labels": batch[1]}
+        return self.train_loss(params, batch)
 
     def init_caches(self, batch_size, cache_len, *, window=0):
         return _stack_cache(self.segments, self.cfg, batch_size, cache_len, window,

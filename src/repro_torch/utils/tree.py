@@ -51,11 +51,15 @@ def tree_leaves(tree: Tree) -> List[Any]:
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over matching leaves of one or more trees of the same
-    structure; returns a tree of that structure (lists stay lists)."""
+    structure; returns a tree of that structure (lists stay lists, tuples
+    and NamedTuples such as an optimizer's state keep their type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree, *rest)
 
 
@@ -142,3 +146,4 @@ def tree_unravel_stacked(spec: TreeSpec, flat: torch.Tensor) -> Tree:
         out.append(flat[:, off:off + n].reshape((K,) + tuple(shape)).to(dtype))
         off += n
     return _unflatten(spec.paths, out)
+

@@ -659,3 +659,264 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch):
         l_cpu, c_cpu = cpu.decode_step(params_cpu, batch, c_cpu)
     assert flash_attention.launches - f0 == n_attn
     assert ssm_scan.launches - s0 == 4 * n_mamba
+
+
+# ---------------------------------------------------------------------------
+# the training path: fused_cross_entropy, the flash lse, the grad guard,
+# gradients through the kernels
+# ---------------------------------------------------------------------------
+
+def _ce_case(cuda, T, d, V, dtype, tied, seed=0):
+    r = np.random.default_rng(seed)
+    hidden = torch.from_numpy(r.normal(size=(T, d)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((r.normal(size=(V, d)) / np.sqrt(d)).astype(np.float32)).to(cuda, dtype)
+    head = w.T if tied else w.T.contiguous()
+    labels = torch.from_numpy(r.integers(0, V, T).astype(np.int32)).to(cuda)
+    labels[0], labels[-1] = 0, V - 1
+    return hidden, head, labels
+
+
+def _ce_check(hidden, head, labels):
+    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+
+    before = fused_cross_entropy.launches
+    loss, lse = fused_cross_entropy(hidden, head, labels)
+    torch.cuda.synchronize()
+    assert fused_cross_entropy.launches == before + 1
+    ref_loss, ref_lse = fused_cross_entropy_ref(hidden.float(), head.float(), labels)
+    # the same function on the same values: fp32 sums in other orders
+    tol = 1e-5 * max(1.0, float(ref_lse.abs().max()))
+    assert float((loss - ref_loss).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("T", [1, 37, 4096])
+@pytest.mark.parametrize("V", [1, 1000, 2049])
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_kernel_matches_plain_version(cuda, T, V, d, tied, dtype):
+    _ce_check(*_ce_case(cuda, T, d, V, dtype, tied, seed=T + V + d))
+
+
+@pytest.mark.parametrize("T", [37, 4096])
+def test_ce_kernel_at_the_training_vocab(cuda, T):
+    _ce_check(*_ce_case(cuda, T, 2048, 256_000, torch.bfloat16, True, seed=T))
+
+
+def test_ce_kernel_one_label_for_every_token(cuda):
+    hidden, head, labels = _ce_case(cuda, 37, 64, 1000, torch.float32, False)
+    labels.fill_(500)
+    _ce_check(hidden, head, labels)
+
+
+def test_ce_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
+
+    hidden, head, labels = _ce_case(cuda, 8, 16, 40, torch.float32, True)
+    before = fused_cross_entropy.launches
+    with pytest.raises(TypeError):
+        fused_cross_entropy(hidden.bfloat16(), head, labels)
+    with pytest.raises(TypeError):
+        fused_cross_entropy(hidden.half(), head.half(), labels)
+    with pytest.raises(TypeError, match="int32"):
+        fused_cross_entropy(hidden, head, labels.long())
+    with pytest.raises(ValueError, match="labels on cpu"):
+        fused_cross_entropy(hidden, head, labels.cpu())
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_cross_entropy(hidden.to("meta"), head.to("meta"), labels.to("meta"))
+    with pytest.raises(ValueError, match="tokens"):
+        fused_cross_entropy(torch.empty((1, 16), device=cuda).expand(2**31, 16), head,
+                            torch.zeros(1, dtype=torch.int32, device=cuda).expand(2**31))
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        fused_cross_entropy(hidden.T.contiguous().T, head, labels)
+    with pytest.raises(ValueError, match="ops.ce_loss_mean"):
+        fused_cross_entropy(hidden.clone().requires_grad_(), head, labels)
+    assert fused_cross_entropy.launches == before
+
+
+@pytest.mark.parametrize("mask", ["causal", "full", "window"])
+@pytest.mark.parametrize("shape", [(1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
+                                   (2, 2048, 8, 1, 256)])   # the last: Gemma-2B's training step
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_lse_matches_plain_version(cuda, mask, shape, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    B, S, H, K, D = shape
+    r = np.random.default_rng(S)
+    q = torch.from_numpy(r.normal(size=(B, S, H, D)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(r.normal(size=(B, S, K, D)).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    causal, window = mask != "full", 100 if mask == "window" else 0
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    _, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window, return_lse=True)
+    assert lse.shape == (B, S, H) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(1.0, float(ref_lse.abs().max()))
+
+
+def _guard_calls(cuda):
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    w = torch.tensor([0.25, 0.75], device=cuda)
+    x = torch.randn((2, 512), device=cuda)
+    lo, scale = torch.zeros((2, 1), device=cuda), torch.full((2, 1), 0.1, device=cuda)
+    codes = torch.zeros((2, 512), dtype=torch.uint8, device=cuda)
+    words = torch.zeros((2, words_per_chunk(512, 1)), dtype=torch.int32, device=cuda)
+    idx = torch.tensor([[0, 3], [1, 3]], dtype=torch.int32, device=cuda)
+    vals = torch.randn((2, 2), device=cuda)
+    mix_idx = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32, device=cuda)
+    mix_w = torch.full((2, 2), 0.5, device=cuda)
+    q, kv = torch.randn((1, 8, 2, 16), device=cuda), torch.randn((1, 8, 1, 16), device=cuda)
+    dt = torch.full((1, 4, 8), 0.05, device=cuda)
+    bc = torch.randn((1, 4, 4), device=cuda)
+    A, h0 = -torch.ones((8, 4), device=cuda), torch.zeros((1, 8, 4), device=cuda)
+    hidden, head, labels = _ce_case(cuda, 8, 16, 40, torch.float32, True)
+    return {
+        "fedavg_aggregate": (fedavg_aggregate, lambda f: fedavg_aggregate(f(x), w)),
+        "quantized_aggregate": (quantized_aggregate, lambda f: quantized_aggregate(
+            codes, f(lo), scale, w, chunk=512, levels=255)),
+        "packed_quantized_aggregate": (packed_quantized_aggregate,
+                                       lambda f: packed_quantized_aggregate(
+                                           words, f(lo), scale, w, bits=1, chunk=512, levels=1)),
+        "sparse_aggregate": (sparse_aggregate, lambda f: sparse_aggregate(idx, f(vals), w, 4)),
+        "gossip_mix": (gossip_mix, lambda f: gossip_mix(f(x), mix_idx, mix_w)),
+        "flash_attention": (flash_attention, lambda f: flash_attention(f(q), kv, kv)),
+        "ssm_scan": (ssm_scan, lambda f: ssm_scan(dt, bc, bc, f(dt), A, h0)),
+        "fused_cross_entropy": (fused_cross_entropy,
+                                lambda f: fused_cross_entropy(f(hidden), head, labels)),
+    }
+
+
+@pytest.mark.parametrize("name", ["fedavg_aggregate", "quantized_aggregate",
+                                  "packed_quantized_aggregate", "sparse_aggregate", "gossip_mix",
+                                  "flash_attention", "ssm_scan", "fused_cross_entropy"])
+def test_grad_guard_refuses_a_differentiable_input_and_launches_nothing(cuda, name):
+    wrapper, call = _guard_calls(cuda)[name]
+    rg = lambda t: t.clone().requires_grad_()   # noqa: E731
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="gradient would be dropped"):
+        call(rg)
+    assert wrapper.launches == before
+    with torch.no_grad():
+        call(rg)
+    assert wrapper.launches == before + 1
+
+
+def test_training_gradients_on_card_match_cpu(cuda):
+    """FusedCrossEntropy (tied head, chunked backward) and FlashAttention
+    (GQA, window) in fp32: value and every gradient on the card against the
+    same Functions on the CPU (kernels against plain versions)."""
+    from repro_torch.kernels import ops
+
+    r = np.random.default_rng(3)
+    h = r.normal(size=(2, 37, 64)).astype(np.float32)
+    table = (r.normal(size=(1000, 64)) / 8).astype(np.float32)
+    labels = r.integers(0, 1000, (2, 37)).astype(np.int32)
+    q = r.normal(size=(2, 130, 8, 32)).astype(np.float32)
+    k, v = (r.normal(size=(2, 130, 2, 32)).astype(np.float32) for _ in range(2))
+    g = r.normal(size=q.shape).astype(np.float32)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ht, tt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (h, table))
+        ce = ops.ce_loss_mean(ht, tt.T, torch.from_numpy(labels).to(dev), chunk=8)
+        ce.backward()
+        qt, kt, vt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v))
+        out = ops.mha_flash_train(qt, kt, vt, window=50, q_chunk=64, k_chunk=64)
+        out.backward(torch.from_numpy(g).to(dev))
+        got[dev.type] = [t.detach().cpu() for t in (ce, ht.grad, tt.grad, out, qt.grad, kt.grad,
+                                                     vt.grad)]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_training_round_on_card_matches_cpu(cuda):
+    """One FedAvg round (G = 2, H = 2, SGD) of reduced Gemma-2B in fp32 on
+    the card against the CPU from the same params and batches; the kernels
+    launch G·H times (CE, flash per layer) and once a leaf (the average)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import local_sgd
+    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config("gemma-2b"))
+    start = TransformerLM(cfg, device="cpu").init(0)
+    r = np.random.default_rng(4)
+    batches = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 2, 2, 24)).astype(np.int32))
+               for k in ("tokens", "labels")}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = TransformerLM(cfg, device=dev)
+        params_g = local_sgd.replicate_for_groups(tree_map(lambda t: t.to(dev), start), 2)
+        opt = sgd(0.05)
+        step = local_sgd.build_fedavg_round_step(model.train_loss, opt,
+                                                 local_sgd.LocalSGDConfig(2, 2))
+        c0, f0, a0 = fused_cross_entropy.launches, flash_attention.launches, \
+            fedavg_aggregate.launches
+        params_g, _, _, m = step(params_g, local_sgd.init_group_states(opt, params_g), None,
+                                 tree_map(lambda t: t.to(dev), batches), torch.tensor([1.0, 3.0]))
+        out[dev.type] = (float(m["loss"]), [p[0].cpu() - s for p, s in
+                                            zip(tree_leaves(params_g), tree_leaves(start))],
+                         (fused_cross_entropy.launches - c0, flash_attention.launches - f0,
+                          fedavg_aggregate.launches - a0))
+    (lg, ug, ng), (lc, uc, nc) = out["cuda"], out["cpu"]
+    assert ng == (4, 4 * cfg.n_layers, len(uc)) and nc == (0, 0, 0)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(ug, uc)) ** 0.5
+    den = sum(float((b ** 2).sum()) for b in uc) ** 0.5
+    assert num <= 1e-4 * den
+
+
+
+def test_training_round_adamw_moments_on_card_match_cpu(cuda):
+    """The same round with AdamW, the main path's local optimizer: the loss
+    and both groups' moments mu and nu (linear and quadratic in the
+    gradients) on the card within 1e-4 of the CPU's, in L2 over the tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import local_sgd
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config("gemma-2b"))
+    start = TransformerLM(cfg, device="cpu").init(0)
+    r = np.random.default_rng(4)
+    batches = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 2, 2, 24)).astype(np.int32))
+               for k in ("tokens", "labels")}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = TransformerLM(cfg, device=dev)
+        params_g = local_sgd.replicate_for_groups(tree_map(lambda t: t.to(dev), start), 2)
+        opt = adamw(1e-3)
+        step = local_sgd.build_fedavg_round_step(model.train_loss, opt,
+                                                 local_sgd.LocalSGDConfig(2, 2))
+        _, inner, _, m = step(params_g, local_sgd.init_group_states(opt, params_g), None,
+                              tree_map(lambda t: t.to(dev), batches), torch.tensor([1.0, 3.0]))
+        out[dev.type] = (float(m["loss"]), [[t.cpu().double() for t in tree_leaves(x)]
+                                            for x in (inner.mu, inner.nu)])
+    (lg, mg), (lc, mc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for got, want in zip(mg, mc):
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want)) ** 0.5
+        den = sum(float((b ** 2).sum()) for b in want) ** 0.5
+        assert num <= 1e-4 * den
+
+
+def test_ce_split_plan_fills_its_waves(cuda):
+    """The CE grid at the training shape, sized from the blocks the card
+    holds at once, leaves under 5% of its waves' slots empty."""
+    from repro_torch.kernels.ce_loss import TILE, _slots, split_plan
+
+    slots = _slots(cuda, True)
+    splits, _ = split_plan(4096, 256_000, slots)
+    blocks = (4096 // TILE) * splits
+    assert slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks >= 0.95 * -(-blocks // slots) * slots
