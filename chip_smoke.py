@@ -73,8 +73,15 @@ Phases, in order, each printing its own lines:
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan`` and
 ``fused_cross_entropy`` too, at the serving and training shapes; phase 3
 also holds the flash kernel's ``lse`` output and checks that every kernel
-wrapper refuses an input that requires grad. Every kernel's launch count is set to 0 just
-before each lane's run and read just after. Each phase prints its seconds.
+wrapper refuses an input that requires grad. ``flash_attention`` has two
+routes, the tensor-core kernel (bf16 at D = 64, 128, 256 on aligned rows)
+and the scalar one (everything else): phase 3 checks which route each case
+took (``flash_attention.tc_launches`` beside ``launches``), phase 4 times
+both in turns at the three shapes and requires the tensor-core route to be
+at least 5x faster, and phases 14-15, 18 and 20 require every flash launch
+of the serving and training paths to take the tensor-core route. Every
+kernel's launch count is set to 0 just before each lane's run and read just
+after. Each phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before those lines; so does a machine without a card.
@@ -378,6 +385,13 @@ def launch_counts():
 def reset_counts():
     for f in counters().values():
         f.launches = 0
+    counters()["flash_attention"].tc_launches = 0
+
+
+def flash_tc_launches():
+    """Launches of flash_attention's tensor-core kernel (its ``launches``
+    counts both routes)."""
+    return counters()["flash_attention"].tc_launches
 
 
 def check_refusals(name, wrapper, refusals):
@@ -937,6 +951,20 @@ def flash_inputs(B, Sq, Sk, H, K, D, dtype, seed):
                  for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
 
 
+def flash_routed(q, k, v, route, **kw):
+    """flash_attention(q, k, v, **kw), required to launch once, through
+    ``route``'s kernel ("mma": the tensor-core one; "scalar")."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    n, tc = flash_attention.launches, flash_attention.tc_launches
+    out = flash_attention(q, k, v, **kw)
+    require(flash_attention.launches == n + 1
+            and flash_attention.tc_launches == tc + (route == "mma"),
+            f"flash_attention took the wrong route (want {route}) for {tuple(q.shape)} "
+            f"{q.dtype} strides {q.stride()}")
+    return out
+
+
 def check_flash_attention():
     from repro_torch.kernels.flash_attention import (
         flash_attention,
@@ -945,9 +973,11 @@ def check_flash_attention():
     )
 
     name = "flash_attention"
+    # every bf16 case here takes the tensor-core route, every fp32 one the
+    # scalar route; S = 1, 37, 130, 2047 are off the 32/64-key and 64-row tiles
     cases = [dict(B=1, S=S, H=H, K=K, D=D, dtype=dtype, mask=mask)
              for dtype in (torch.float32, torch.bfloat16) for D in (64, 128, 256)
-             for S in (1, 37, 2047) for H, K in ((32, 8), (8, 1))
+             for S in (1, 37, 130, 2047) for H, K in ((32, 8), (8, 1))
              for mask in ("causal", "full", "window")]
     cases += [dict(B=B, S=S, H=H, K=K, D=D, dtype=torch.bfloat16, mask="causal", main=tag)
               for tag, (B, S, H, K, D) in FLASH_SHAPES.items()]
@@ -956,7 +986,8 @@ def check_flash_attention():
     for i, c in enumerate(cases):
         q, k, v = flash_inputs(c["B"], c["S"], c["S"], c["H"], c["K"], c["D"], c["dtype"], i)
         causal, window = c["mask"] != "full", FLASH_WINDOW if c["mask"] == "window" else 0
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        route = "mma" if c["dtype"] == torch.bfloat16 else "scalar"
+        out = flash_routed(q, k, v, route, causal=causal, window=window)
         torch.cuda.synchronize()
         require(out.shape == q.shape and out.dtype == q.dtype, f"bad output for {c}")
         ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
@@ -966,7 +997,8 @@ def check_flash_attention():
         if "main" in c:
             main_err = max(main_err, float((out.float() - ref32).abs().max()))
         print(f"  B={c['B']} S={c['S']:4d} H/K={c['H']}/{c['K']} D={c['D']:3d} "
-              f"{str(c['dtype'])[6:]:8s} {c['mask']:6s} smem={smem_bytes(c['D'], c['dtype'])}: "
+              f"{str(c['dtype'])[6:]:8s} {c['mask']:6s} {route:6s} "
+              f"smem={smem_bytes(c['D'], c['dtype'], route)}: "
               + (f"max_abs_err={err:.3e}" if c["dtype"] == torch.float32
                  else f"max_err={err:.3f} of (1 bf16 ulp + tol)")
               + (f" [{c['main']} shape]" if "main" in c else "")
@@ -974,20 +1006,45 @@ def check_flash_attention():
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: {c}")
     # the reference kernel's (BH, S, D) layout, and q, k, v as strided column
-    # slices of one fused projection
+    # slices of one fused projection: fp32 on the scalar route, bf16 on the
+    # tensor-core route in place (the slices stay on the 16-byte grid)
     q, k, v = (t[:, :, 0] for t in flash_inputs(6, 70, 70, 1, 1, 37, torch.float32, 1))
-    out = flash_attention(q, k, v, causal=True, window=9)
+    out = flash_routed(q, k, v, "scalar", causal=True, window=9)
     ref32 = flash_attention_ref(q[:, :, None], k[:, :, None], v[:, :, None], window=9)[:, :, 0]
     ok, err = close_to_fp32(out, ref32, float(v.abs().max()))
-    qkv = torch.randn((2, 130, 8 * 64), device="cuda")
-    qs, ks, vs = (qkv[..., a * 64:b * 64].view(2, 130, b - a, 64) for a, b in ((0, 4), (4, 6),
-                                                                              (6, 8)))
-    out2 = flash_attention(qs, ks, vs)
-    ok2, err2 = close_to_fp32(out2, flash_attention_ref(qs, ks, vs), float(vs.abs().max()))
-    print(f"  (BH, S, D) layout, D=37, window 9: max_abs_err={err:.3e}; strided q/k/v views: "
-          f"max_abs_err={err2:.3e}")
-    require(ok and ok2, f"{name} disagrees with its plain version on layouts or views")
-    require(flash_attention.launches - before == len(cases) + 2, "one launch per case")
+    views = []
+    for dtype, route in ((torch.float32, "scalar"), (torch.bfloat16, "mma")):
+        qkv = torch.randn((2, 130, 8 * 64), device="cuda").to(dtype)
+        qs, ks, vs = (qkv[..., a * 64:b * 64].view(2, 130, b - a, 64)
+                      for a, b in ((0, 4), (4, 6), (6, 8)))
+        out2 = flash_routed(qs, ks, vs, route)
+        views.append(close_to_fp32(out2, flash_attention_ref(qs.float(), ks.float(), vs.float()),
+                                   float(vs.float().abs().max())))
+    # bf16 the tensor-core kernel does not take: D = 96, and q one element
+    # into its storage (rows off the 16-byte grid); both on the scalar route
+    q, k, v = flash_inputs(1, 130, 130, 4, 2, 96, torch.bfloat16, 2)
+    scalar_bf16 = [close_to_fp32(flash_routed(q, k, v, "scalar", causal=causal, window=window),
+                                 flash_attention_ref(q.float(), k.float(), v.float(),
+                                                     causal=causal, window=window),
+                                 float(v.float().abs().max()))
+                   for causal, window in ((True, 0), (False, 0), (True, FLASH_WINDOW))]
+    q, k, v = flash_inputs(1, 130, 130, 4, 2, 128, torch.bfloat16, 3)
+    qu = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:].view(q.shape)
+    qu.copy_(q)
+    require(qu.data_ptr() % 16 != 0, "the unaligned view is aligned")
+    scalar_bf16.append(close_to_fp32(flash_routed(qu, k, v, "scalar"),
+                                     flash_attention_ref(q.float(), k.float(), v.float()),
+                                     float(v.float().abs().max())))
+    print(f"  (BH, S, D) layout, D=37, window 9: max_abs_err={err:.3e}; fused q/k/v views: fp32 "
+          f"max_abs_err={views[0][1]:.3e}, bf16 (mma) max_err={views[1][1]:.3f}; bf16 on the "
+          f"scalar route (D=96 x 3 masks, an unaligned q): max_err "
+          f"{max(e for _, e in scalar_bf16):.3f} of (1 bf16 ulp + tol)")
+    require(ok and all(o for o, _ in views + scalar_bf16),
+            f"{name} disagrees with its plain version on layouts or views")
+    worst[torch.float32] = max(worst[torch.float32], err, views[0][1])
+    worst[torch.bfloat16] = max([worst[torch.bfloat16], views[1][1]] + [e for _, e in scalar_bf16])
+    n_extra = 1 + len(views) + len(scalar_bf16)
+    require(flash_attention.launches - before == len(cases) + n_extra, "one launch per case")
 
     q, k, v = flash_inputs(1, 8, 8, 4, 2, 16, torch.float32, 0)
     big = flash_inputs(1, 8, 8, 1, 1, 264, torch.float32, 0)
@@ -1000,7 +1057,7 @@ def check_flash_attention():
         "a strided last axis": lambda: flash_attention(
             q, k.transpose(1, 3).contiguous().transpose(1, 3), v),
     })
-    print(f"kernels: {name} cuda ok ({len(cases) + 2} cases, fp32 max_abs_err "
+    print(f"kernels: {name} cuda ok ({len(cases) + n_extra} cases, fp32 max_abs_err "
           f"{worst[torch.float32]:.3e} within 1e-5*max|v|; bf16 max error "
           f"{worst[torch.bfloat16]:.3f} of 1 bf16 ulp + that; {n_ref} refusals)")
     return main_err
@@ -1078,14 +1135,15 @@ def check_ssm_scan():
 
 
 def lm_row(tag, fn, plain, library, nbytes, flops, flush, *, sfu_ops=0, tensor_core=False,
-           plain_iters=5):
+           plain_iters=5, kernel_ms=None):
     """Kernel, plain and library times with the bound: bytes over the HBM
     rate against the operations over the rate of their unit (bf16 tensor
     cores, fp32 FMA pipes, special-function units; pipes run at once, so
-    the slowest sets the time)."""
+    the slowest sets the time). ``kernel_ms``: the kernel's time, taken
+    already by the caller."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(flops / (BF16_FLOPS if tensor_core else FP32_FLOPS), sfu_ops / SFU_OPS)
-    r = {"ms": time_ms(fn, flush),
+    r = {"ms": time_ms(fn, flush) if kernel_ms is None else kernel_ms,
          "plain_ms": time_ms(plain, flush, iters=plain_iters, warmup=1),
          "library_ms": None if library is None else time_ms(library, flush),
          "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1098,11 +1156,17 @@ def lm_row(tag, fn, plain, library, nbytes, flops, flush, *, sfu_ops=0, tensor_c
     return r
 
 
+FLASH_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same run
+
+
 def time_flash_attention():
     """At both prefill shapes and Gemma-2B's training shape in bf16, causal:
     the work is the unmasked (query, key) pairs, 4 * D flops each on the
-    tensor cores' rate."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    tensor cores' rate. The tensor-core route (the one ``flash_attention``
+    takes here) and the scalar route (through the module's private
+    launcher) in turns: scalar, tensor cores, tensor cores, scalar; each
+    route's time is the mean of its two medians."""
+    from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
@@ -1111,13 +1175,33 @@ def time_flash_attention():
         q, k, v = flash_inputs(B, S, S, H, K, D, torch.bfloat16, 7)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = B * H * S * (S + 1) // 2
+        flops = 4 * D * pairs
+        flash_routed(q, k, v, "mma")
+        routes = {"scalar": lambda: _launch(q, k, v, True, 0, False, "scalar"),
+                  "mma": lambda: flash_attention(q, k, v)}
+        turns = [(name, time_ms(routes[name], flush))
+                 for name in ("scalar", "mma", "mma", "scalar")]
+        tc_ms = float(np.mean([t for name, t in turns if name == "mma"]))
+        scalar_ms = float(np.mean([t for name, t in turns if name == "scalar"]))
         rows[tag] = lm_row(
-            f"flash_attention {tag}: B={B} S={S} H/K={H}/{K} D={D} bf16 causal",
-            lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+            f"flash_attention {tag}: B={B} S={S} H/K={H}/{K} D={D} bf16 causal, tensor-core route",
+            None, lambda: flash_attention_ref(q, k, v),
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-            (2 * B * S * H * D + 2 * B * S * K * D) * 2, 4 * D * pairs, flush,
-            tensor_core=True)
-        rows[tag].update(B=B, S=S, H=H, K=K, D=D, dtype="bfloat16", causal=True)
+            (2 * B * S * H * D + 2 * B * S * K * D) * 2, flops, flush,
+            tensor_core=True, kernel_ms=tc_ms)
+        rows[tag].update(B=B, S=S, H=H, K=K, D=D, dtype="bfloat16", causal=True, route="mma",
+                         scalar_ms=scalar_ms, turns_ms=turns, speedup=scalar_ms / tc_ms,
+                         TFLOPs=flops / tc_ms / 1e9, scalar_TFLOPs=flops / scalar_ms / 1e9,
+                         vs_library=tc_ms / rows[tag]["library_ms"])
+        r = rows[tag]
+        print(f"    turns (scalar, mma, mma, scalar): "
+              + ", ".join(f"{t:.5f}" for _, t in turns)
+              + f" ms; tensor cores {r['TFLOPs']:.1f} TFLOP/s counted, scalar "
+              f"{r['scalar_TFLOPs']:.1f}; {r['speedup']:.2f}x faster than the scalar route, "
+              f"{r['vs_library']:.2f}x SDPA's time")
+        require(r["speedup"] >= FLASH_MIN_SPEEDUP,
+                f"flash_attention {tag}: the tensor-core route is only {r['speedup']:.2f}x "
+                f"faster than the scalar route (want >= {FLASH_MIN_SPEEDUP})")
     del flush
     return rows
 
@@ -1232,7 +1316,7 @@ def check_flash_lse():
     """The flash kernel's lse output against the plain
     ``blocked_attention(return_lse=True)``, within 1e-5 * max(1, |lse|); the
     output beside it is unchanged by asking for it."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
 
     worst = 0.0
     cases = [(B, S, H, K, D, dtype, mask)
@@ -1242,8 +1326,9 @@ def check_flash_lse():
     for i, (B, S, H, K, D, dtype, mask) in enumerate(cases):
         q, k, v = flash_inputs(B, S, S, H, K, D, dtype, 100 + i)
         causal, window = mask != "full", FLASH_WINDOW if mask == "window" else 0
-        out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
-        plain = flash_attention(q, k, v, causal=causal, window=window)
+        route = "mma" if dtype == torch.bfloat16 else "scalar"
+        out, lse = flash_routed(q, k, v, route, causal=causal, window=window, return_lse=True)
+        plain = flash_routed(q, k, v, route, causal=causal, window=window)
         _, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
                                          window=window, return_lse=True)
         torch.cuda.synchronize()
@@ -1254,8 +1339,9 @@ def check_flash_lse():
         if err > 1e-5:
             raise AssertionError(f"flash_attention lse disagrees: {(B, S, H, K, D, dtype, mask)}"
                                  f" rel {err:.3e}")
-    print(f"kernels: flash_attention lse ok ({len(cases)} cases, max error {worst:.3e} of "
-          f"max(1, |lse|), tol 1e-5; the output equals the call without lse)")
+    print(f"kernels: flash_attention lse ok ({len(cases)} cases, bf16 on the tensor-core "
+          f"route, fp32 on the scalar one; max error {worst:.3e} of max(1, |lse|), tol 1e-5; "
+          f"the output equals the call without lse)")
     return worst
 
 
@@ -1380,13 +1466,14 @@ def serving_lane(label, model, params):
     held = torch.cuda.memory_allocated()
     reset_counts()
     ids, prefill_s, decode_s = generate(model, params, prompt, SERVE_TOKENS)
-    counts = launch_counts()
+    counts, tc = launch_counts(), flash_tc_launches()
     peak = torch.cuda.max_memory_allocated()
     n_attn = sum(s.mixer == "attn" for s in model.plan)
     n_mamba = len(model.plan) - n_attn
     want = {k: 0 for k in KERNELS}
     want.update(flash_attention=n_attn, ssm_scan=n_mamba * SERVE_TOKENS)
     require(counts == want, f"{label}: launches {counts}, want {want}")
+    require(tc == n_attn, f"{label}: {tc} of {n_attn} flash launches took the tensor-core route")
     ids = ids.cpu()
     require(ids.shape == (SERVE_BATCH, SERVE_TOKENS) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab_size, f"{label}: bad sampled ids")
@@ -1396,12 +1483,12 @@ def serving_lane(label, model, params):
           f"({SERVE_TOKENS - 1} steps, {SERVE_BATCH} seqs), peak device memory "
           f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the request, params "
           f"included); launches: flash_attention {counts['flash_attention']} "
-          f"({n_attn} a prefill), ssm_scan {counts['ssm_scan']} ({n_mamba} a prefill + "
+          f"({n_attn} a prefill; {tc} on the tensor-core route), ssm_scan {counts['ssm_scan']} ({n_mamba} a prefill + "
           f"{n_mamba} x {SERVE_TOKENS - 1} decode steps); ids[0][:8] {ids[0, :8].tolist()}")
     return {"model": label, "batch": SERVE_BATCH, "prompt": PROMPT, "tokens": SERVE_TOKENS,
             "prefill_s": prefill_s, "decode_ms_per_token": ms_token,
             "peak_device_GiB": peak / 2**30, "held_before_GiB": held / 2**30,
-            "launches": counts}
+            "launches": counts, "flash_tc_launches": tc}
 
 
 def no_drop(cfg):
@@ -1496,7 +1583,7 @@ def profile_serving(label, model, params):
         busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
         summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
         shares = {}
-        for key, kernel in (("flash_fwd_kernel", "flash_attention"),
+        for key, kernel in (("flash_fwd", "flash_attention"),   # both routes' kernels
                             ("ssm_scan_kernel", "ssm_scan")):
             mine = [r for r in rows if key in r[2]]
             shares[kernel] = {"ms": sum(r[0] for r in mine) / 1e3,
@@ -1553,11 +1640,13 @@ def training_lane():
         held = torch.cuda.memory_allocated()
         reset_counts()
         recs = train.main(argv)
-        counts = launch_counts()
+        counts, tc = launch_counts(), flash_tc_launches()
         free_card()
         want = {k: 0 for k in KERNELS}
         want.update({k: v * len(recs) for k, v in per.items()})
         require(counts == want, f"training {algo}: launches {counts}, want {want}")
+        require(tc == want["flash_attention"], f"training {algo}: {tc} of "
+                f"{want['flash_attention']} flash launches took the tensor-core route")
         for rec in recs:
             require(rec["launches"] == per, f"training {algo}: {rec['launches']} != {per}")
             require(math.isfinite(rec["loss"]), f"training {algo}: loss {rec['loss']}")
@@ -1568,11 +1657,13 @@ def training_lane():
                   f"{rec['tokens']} tokens, {rec['tokens_per_s']:.0f} tokens/s, loss "
                   f"{rec['loss']:.4f}, peak device memory {rec['peak_GiB']:.2f} GiB, launches "
                   + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()))
-        print(f"  {algo}: {len(recs)} {what}s, launches in all {want}; peak {peak:.2f} GiB "
-              f"({held / 2**30:.2f} GiB held before); {n_leaves} parameter leaves")
+        print(f"  {algo}: {len(recs)} {what}s, launches in all {want} (flash_attention {tc} "
+              f"on the tensor-core route); peak {peak:.2f} GiB ({held / 2**30:.2f} GiB held "
+              f"before); {n_leaves} parameter leaves")
         require(peak <= PEAK_LIMIT_GIB, f"training {algo}: peak {peak:.2f} GiB over "
                 f"{PEAK_LIMIT_GIB} GiB")
-        out[algo] = {"records": recs, "launches": counts, "peak_GiB": peak, "argv": argv}
+        out[algo] = {"records": recs, "launches": counts, "flash_tc_launches": tc,
+                     "peak_GiB": peak, "argv": argv}
     return out
 
 
@@ -1738,10 +1829,16 @@ def profile_training_step():
 
     one()
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one()
         wall = time.perf_counter() - t0
+    counts, tc = launch_counts(), flash_tc_launches()
+    want = {k: 0 for k in KERNELS}
+    want.update(fused_cross_entropy=1, flash_attention=36)
+    require(counts == want, f"profiled step: launches {counts}, want {want}")
+    require(tc == 36, f"profiled step: {tc} of 36 flash launches took the tensor-core route")
     events = prof.events()
     ranges = ("flash_attention_bwd", "fused_cross_entropy_bwd")
     # the device copies of the two ranges (user annotations) span their
@@ -1765,13 +1862,18 @@ def profile_training_step():
         "fused_cross_entropy": (sum(us for us, _, k in rows
                                     if "ce_partial_kernel" in k or "ce_merge_kernel" in k) / 1e3,
                                 sum(c for _, c, k in rows if "ce_partial_kernel" in k)),
-        "flash_attention": (sum(us for us, _, k in rows if "flash_fwd_kernel" in k) / 1e3,
-                            sum(c for _, c, k in rows if "flash_fwd_kernel" in k)),
+        # flash_fwd_mma_kernel and flash_fwd_kernel, the two routes' kernels
+        "flash_attention": (sum(us for us, _, k in rows if "flash_fwd" in k) / 1e3,
+                            sum(c for _, c, k in rows if "flash_fwd" in k)),
+        "flash_attention (tensor-core kernel)": (
+            sum(us for us, _, k in rows if "flash_fwd_mma_kernel" in k) / 1e3,
+            sum(c for _, c, k in rows if "flash_fwd_mma_kernel" in k)),
         **{f"{name} (plain)": range_ms(name) for name in ranges},
     }
     print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
-          f"{len(kernels)} device kernels")
+          f"{len(kernels)} device kernels; flash_attention {tc} of 36 launches on the "
+          f"tensor-core route")
     for k, (ms, count) in shares.items():
         print(f"    {k}: {count}x, {ms:.3f} ms ({ms / 1e3 / busy:.1%} of busy)")
     for us, count, k in rows[:10]:
@@ -2192,7 +2294,8 @@ def print_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
-                         "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_kernel",
+                         "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_mma_kernel",
+                         "flash_fwd_kernel",
                          "ssm_scan_kernel", "ce_partial_kernel", "ce_merge_kernel"):
                 if base in mangled:
                     rest = mangled.split(base, 1)[1]
@@ -2235,6 +2338,13 @@ def main() -> int:
     for src, res in built.items():
         print(f"  {src}: {res.path.name} nvcc {res.seconds:.2f} s (cached={res.cached})")
         print_ptxas(res.log)
+    from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, mma_occupancy
+
+    mma_resources = {D: mma_occupancy(D) for D in MMA_HEAD_DIMS}
+    for D, r in mma_resources.items():
+        print(f"  flash_fwd_mma_kernel<{D}>: {r['threads']} threads, {r['smem_bytes']} bytes of "
+              f"dynamic shared memory a block, {r['blocks_per_sm']} blocks an SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     phase("3. kernel vs plain on the card")
     errs = {
@@ -2386,6 +2496,8 @@ def main() -> int:
         launches[k] = sum(lane["launches"][k] for lane in serving)
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy"):
         launches[k] = launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
+    flash_tc = (sum(lane["flash_tc_launches"] for lane in serving)
+                + sum(run["flash_tc_launches"] for run in training.values()))
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
@@ -2447,6 +2559,10 @@ def main() -> int:
     kernels[5]["reduced_card_vs_cpu"] = card_vs_cpu
     kernels[6]["jamba_profile"] = serving_profile
     kernels[5]["lse_max_rel_err"] = flash_lse_err
+    kernels[5]["tc_launches"] = flash_tc
+    kernels[5]["routes"] = {"mma": "flash_fwd_mma_kernel (bf16, D 64/128/256, aligned rows)",
+                            "scalar": "flash_fwd_kernel (the rest)"}
+    kernels[5]["mma_resources"] = mma_resources
     kernels[7]["training"] = {algo: {"records": run["records"], "peak_GiB": run["peak_GiB"]}
                               for algo, run in training.items()}
     kernels[7]["training_checks"] = train_checks

@@ -4,8 +4,10 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes no
 PyTorch header, so it compiles in seconds. The shared library goes into
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``) at
-first use, under a name keyed by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing here runs
+first use, under a name keyed by a hash of the source, the ``csrc/*.cuh``
+headers it includes (``#include "name.cuh"``, followed through the headers
+themselves) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing here runs
 at import: the CPU tests import every module and have no ``nvcc``.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,13 +53,36 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(src: Path) -> list:
+    """The headers next to ``src`` that it includes in quotes, and theirs in
+    turn, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = src.parent / inc
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, the headers it includes and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in (src, *included_headers(src)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` for sm_90a unless a library built from the
-    same source and flags is already there."""
+    same source, headers and flags is already there."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = source_digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():

@@ -473,13 +473,16 @@ def _flash_case(cuda, B, Sq, Sk, H, K, D, dtype, seed):
     return q, k, v
 
 
-def _flash_check(q, k, v, causal, window):
+def _flash_check(q, k, v, causal, window, route):
+    """One launch, of ``route``'s kernel ("mma": the tensor-core one, which
+    also moves ``tc_launches``; "scalar"), within the allowance."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
-    before = flash_attention.launches
+    before, tc_before = flash_attention.launches, flash_attention.tc_launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.tc_launches == tc_before + (route == "mma")
     assert out.shape == q.shape and out.dtype == q.dtype
     ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
     assert _close_to_fp32(out, ref32, float(v.float().abs().max()))
@@ -493,7 +496,8 @@ def _flash_check(q, k, v, causal, window):
 def test_flash_kernel_matches_plain_version(cuda, S, D, heads, mask, dtype):
     H, K = heads
     q, k, v = _flash_case(cuda, 1, S, S, H, K, D, dtype, seed=S * D + H)
-    _flash_check(q, k, v, causal=mask != "full", window=100 if mask == "window" else 0)
+    _flash_check(q, k, v, causal=mask != "full", window=100 if mask == "window" else 0,
+                 route="mma" if dtype == torch.bfloat16 else "scalar")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -515,7 +519,9 @@ def test_flash_kernel_layouts_and_views(cuda, dtype):
     k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
     v = qkv[..., (H + K) * D:].view(B, S, K, D)
     assert not q.is_contiguous()
-    _flash_check(q, k, v, causal=True, window=0)
+    # aligned views: bf16 takes the tensor-core route in place
+    _flash_check(q, k, v, causal=True, window=0,
+                 route="mma" if dtype == torch.bfloat16 else "scalar")
 
 
 @pytest.mark.parametrize("shape", [(4, 2048, 32, 8, 128), (4, 2048, 8, 1, 256)],
@@ -523,7 +529,33 @@ def test_flash_kernel_layouts_and_views(cuda, dtype):
 def test_flash_kernel_at_the_prefill_shapes(cuda, shape):
     B, S, H, K, D = shape
     q, k, v = _flash_case(cuda, B, S, S, H, K, D, torch.bfloat16, seed=D)
-    _flash_check(q, k, v, causal=True, window=0)
+    _flash_check(q, k, v, causal=True, window=0, route="mma")
+
+
+@pytest.mark.parametrize("S", [1, 37, 130, 2047])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("mask", ["causal", "full", "window"])
+def test_flash_tc_kernel_at_lengths_off_the_tile(cuda, S, D, mask):
+    """bf16 on the tensor-core route at S not a multiple of its 32- or 64-key
+    tiles or its 64-row query tiles, GQA 4/2."""
+    q, k, v = _flash_case(cuda, 2, S, S, 4, 2, D, torch.bfloat16, seed=S + D)
+    _flash_check(q, k, v, causal=mask != "full", window=100 if mask == "window" else 0,
+                 route="mma")
+
+
+@pytest.mark.parametrize("mask", ["causal", "full", "window"])
+def test_flash_scalar_route_takes_bf16_at_d96_and_unaligned_views(cuda, mask):
+    causal, window = mask != "full", 100 if mask == "window" else 0
+    # a head dim the tensor-core kernel does not take
+    _flash_check(*_flash_case(cuda, 1, 130, 130, 4, 2, 96, torch.bfloat16, seed=96),
+                 causal=causal, window=window, route="scalar")
+    # q one element into its storage: rows off the 16-byte grid
+    q, k, v = _flash_case(cuda, 1, 130, 130, 4, 2, 128, torch.bfloat16, seed=128)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    qu = flat[1:].view(q.shape)
+    qu.copy_(q)
+    assert qu.data_ptr() % 16
+    _flash_check(qu, k, v, causal=causal, window=window, route="scalar")
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -748,7 +780,9 @@ def test_flash_kernel_lse_matches_plain_version(cuda, mask, shape, dtype):
     k, v = (torch.from_numpy(r.normal(size=(B, S, K, D)).astype(np.float32)).to(cuda, dtype)
             for _ in range(2))
     causal, window = mask != "full", 100 if mask == "window" else 0
+    tc_before = flash_attention.tc_launches
     out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    assert flash_attention.tc_launches == tc_before + (dtype == torch.bfloat16)
     _, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
                                      window=window, return_lse=True)
     assert lse.shape == (B, S, H) and lse.dtype == torch.float32
