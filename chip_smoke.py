@@ -57,29 +57,34 @@ Phases, in order, each printing its own lines:
     weights drawn on the card from seed 0, tokens from ``make_word_corpus``)
     through ``repro_torch.launch.train.main``: 2 FedAvg rounds of G = 2
     groups x H = 2 local AdamW steps on 2 x 2048 tokens a group, each round
-    launching ``fused_cross_entropy`` 4 times, ``flash_attention`` 144 times
-    (forward and remat recompute of 18 layers in 4 steps) and
-    ``fedavg_aggregate`` once a parameter leaf; then 4 FedSGD steps; seconds,
-    tokens/s, loss and peak memory a round;
+    launching ``fused_cross_entropy`` 4 times (all on its tensor-core
+    route), ``ce_probs`` 16 times (4 chunks of 1,024 tokens a backward),
+    ``flash_attention`` 144 times (forward and remat recompute of 18 layers
+    in 4 steps) and ``fedavg_aggregate`` once a parameter leaf; then 4
+    FedSGD steps; seconds, tokens/s, loss and peak memory a round;
 19. correctness of training: a reduced-config FedAvg round in fp32 on the
     card against the CPU (Gemma-2B and Qwen2; SGD's update, AdamW's
     moments), ``train_loss``'s CE at full
     width against materialized fp32 logits, and FusedCrossEntropy's
     gradients against autograd through them;
 20. one profiled Gemma-2B training step: device busy, idle share, the top
-    kernels and the shares of the CE kernel, the flash kernel and the plain
-    backwards.
+    kernels and the shares of the CE kernels (forward and ``ce_probs``), the
+    flash kernel and the two backwards.
 
-Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan`` and
-``fused_cross_entropy`` too, at the serving and training shapes; phase 3
-also holds the flash kernel's ``lse`` output and checks that every kernel
-wrapper refuses an input that requires grad. ``flash_attention`` has two
-routes, the tensor-core kernel (bf16 at D = 64, 128, 256 on aligned rows)
-and the scalar one (everything else): phase 3 checks which route each case
-took (``flash_attention.tc_launches`` beside ``launches``), phase 4 times
-both in turns at the three shapes and requires the tensor-core route to be
-at least 5x faster, and phases 14-15, 18 and 20 require every flash launch
-of the serving and training paths to take the tensor-core route. Every
+Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
+``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
+shapes; phase 3 also holds the flash kernel's ``lse`` output and checks that
+every kernel wrapper refuses an input that requires grad.
+``flash_attention`` and ``fused_cross_entropy`` have two routes each, a
+tensor-core kernel (bf16 on aligned rows; flash at D = 64, 128, 256) and a
+scalar one (everything else): phase 3 checks which route each case took
+(``tc_launches`` beside ``launches``) and runs every bf16 CE case on both;
+phase 4 times both routes in turns at the main shapes and requires the
+tensor-core route to be at least 5x faster, and times the CE backward
+against the plain one it replaced; phases 14-15, 18 and 20 require every
+flash and CE launch of the serving and training paths to take the
+tensor-core route. ``ce_probs`` (the CE gradient's kernel) ports no Pallas
+kernel; it is held, timed and counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
 after. Each phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
@@ -132,9 +137,12 @@ LOSS_RTOL = 1e-4
 # the card's 1.5e-4, so fp32 rounding alone moves this round by ~1e-4.
 GOSSIP_CNN_RTOL_1 = 1e-3
 
+# The eight ported TPU kernels, then ce_probs: the CE gradient's kernel on the
+# training path, which ports no Pallas kernel (the reference's CE gradient is
+# XLA's autodiff).
 KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregate",
            "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan",
-           "fused_cross_entropy")
+           "fused_cross_entropy", "ce_probs")
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
@@ -210,8 +218,13 @@ TRAIN_ARGV = ["--arch", "gemma-2b", "--full", "--groups", "2", "--local-steps", 
 TRAIN_G, TRAIN_H, TRAIN_B, TRAIN_S = 2, 2, 2, 2048
 PEAK_LIMIT_GIB = 75.0
 # fused_cross_entropy at the training step's shape: T = B * S tokens of the
-# tied 256,000-word head, d = 2048, bf16
+# tied 256,000-word head, d = 2048, bf16; the backward takes B * ce_chunk
+# (Gemma-2B's 512) tokens at a time, so ce_probs launches CE_CHUNKS times a
+# step
 CE_SHAPE = (TRAIN_B * TRAIN_S, 2048, 256_000)
+CE_CHUNK_TOKENS = TRAIN_B * 512
+CE_CHUNKS = -(-CE_SHAPE[0] // CE_CHUNK_TOKENS)
+CE_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same run
 # The card's fp32 round against the CPU's: sums in other orders through two
 # layers and back, in the SGD update and in AdamW's moments.
 TRAIN_RTOL = 1e-4
@@ -371,11 +384,11 @@ def counters():
     from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.sparse_agg import sparse_aggregate
     from repro_torch.kernels.ssm_scan import ssm_scan
-    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
 
     return {f.__name__: f for f in (fedavg_aggregate, quantized_aggregate,
                                     packed_quantized_aggregate, sparse_aggregate, gossip_mix,
-                                    flash_attention, ssm_scan, fused_cross_entropy)}
+                                    flash_attention, ssm_scan, fused_cross_entropy, ce_probs)}
 
 
 def launch_counts():
@@ -385,13 +398,26 @@ def launch_counts():
 def reset_counts():
     for f in counters().values():
         f.launches = 0
-    counters()["flash_attention"].tc_launches = 0
+    for name in ("flash_attention", "fused_cross_entropy", "ce_probs"):
+        counters()[name].tc_launches = 0
 
 
 def flash_tc_launches():
     """Launches of flash_attention's tensor-core kernel (its ``launches``
     counts both routes)."""
     return counters()["flash_attention"].tc_launches
+
+
+def ce_tc_launches():
+    """Launches of fused_cross_entropy's tensor-core kernel (its
+    ``launches`` counts both routes)."""
+    return counters()["fused_cross_entropy"].tc_launches
+
+
+def probs_tc_launches():
+    """Launches of ce_probs' tensor-core kernel (its ``launches`` counts
+    both routes)."""
+    return counters()["ce_probs"].tc_launches
 
 
 def check_refusals(name, wrapper, refusals):
@@ -1233,16 +1259,21 @@ def time_ssm_scan():
 # lse, and the grad guard of every kernel
 # ---------------------------------------------------------------------------
 
-def ce_inputs(T, d, V, dtype, tied, seed, same_label=False):
+def ce_inputs(T, d, V, dtype, layout, seed, same_label=False):
     """hidden ~ N(0, 1), a head ~ N(0, 1/d) so logits are O(1), labels with
-    0 and V - 1 among them (or one label for every token); the head is a
-    (d, V) tensor or the transposed view of a (V, d) table."""
+    0 and V - 1 among them (or one label for every token). ``layout`` is
+    "tied" (the transposed view of a (V, d) table), "contiguous" (a (d, V)
+    tensor) or "sliced" (the first V columns of a (d, V') tensor, V' a
+    multiple of 8 above V: a (d, V) view with contiguous rows that the
+    tensor-core route takes at any V)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     hidden = torch.randn((T, d), generator=g, device="cuda").to(dtype)
-    if tied:
+    if layout == "tied":
         head = (torch.randn((V, d), generator=g, device="cuda") / math.sqrt(d)).to(dtype).T
     else:
-        head = (torch.randn((d, V), generator=g, device="cuda") / math.sqrt(d)).to(dtype)
+        pitch = V if layout == "contiguous" else -(-V // 8) * 8 + 8
+        head = (torch.randn((d, pitch), generator=g, device="cuda") / math.sqrt(d)).to(dtype)
+        head = head[:, :V]
     labels = torch.randint(0, V, (T,), generator=g, device="cuda", dtype=torch.int32)
     labels[0] = 0
     labels[-1] = V - 1
@@ -1251,48 +1282,88 @@ def ce_inputs(T, d, V, dtype, tied, seed, same_label=False):
     return hidden, head, labels
 
 
+def ce_routed(hidden, head, labels, route):
+    """fused_cross_entropy(hidden, head, labels), required to launch once,
+    through ``route``'s kernels ("mma": the tensor-core one, which the
+    wrapper must choose; "scalar": the wrapper's choice where it routes the
+    inputs there, else forced through the module's private launcher)."""
+    from repro_torch.kernels.ce_loss import _launch, _route, fused_cross_entropy
+
+    n, tc = fused_cross_entropy.launches, fused_cross_entropy.tc_launches
+    if route == "mma" or _route(hidden, head) == "scalar":
+        out = fused_cross_entropy(hidden, head, labels)
+    else:
+        out = _launch(hidden, head, labels, "scalar")
+    require(fused_cross_entropy.launches == n + 1
+            and fused_cross_entropy.tc_launches == tc + (route == "mma"),
+            f"fused_cross_entropy took the wrong route (want {route}) for hidden "
+            f"{tuple(hidden.shape)} {hidden.dtype}, head strides {head.stride()}")
+    return out
+
+
 def check_fused_cross_entropy():
-    """The kernel against its plain version on the same inputs widened to
-    fp32 (bf16 products are exact in fp32, so both compute one function):
+    """The kernels against their plain version on the same inputs widened
+    to fp32 (bf16 products are exact in fp32, so both compute one function):
     loss and lse within 1e-5 * max(1, |lse|) (fp32 sums of d products and of
-    V exponentials in other orders)."""
-    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+    V exponentials in other orders). Every fp32 case takes the scalar route;
+    every bf16 case runs on the scalar route and, where ``_route`` sends it
+    there, on the tensor-core route (the tied view and the sliced (d, V)
+    view always; a contiguous (d, V) head where V is a multiple of 8)."""
+    from repro_torch.kernels.ce_loss import (
+        _launch,
+        _route,
+        fused_cross_entropy,
+        fused_cross_entropy_ref,
+    )
 
     name = "fused_cross_entropy"
-    cases = [dict(T=T, d=d, V=V, dtype=dtype, tied=tied)
-             for dtype in (torch.float32, torch.bfloat16) for tied in (False, True)
+    cases = [dict(T=T, d=d, V=V, dtype=dtype, layout=layout)
+             for dtype in (torch.float32, torch.bfloat16) for layout in ("contiguous", "tied")
              for T in (1, 37, 4096) for V in (1, 1000, 2049, 256_000) for d in (64, 2048)
              if not (T == 4096 and V == 256_000 and d == 64)]
-    cases.append(dict(T=37, d=64, V=1000, dtype=torch.float32, tied=False, same_label=True))
+    cases += [dict(T=T, d=2048, V=V, dtype=torch.bfloat16, layout="sliced")
+              for T in (1, 37, 4096) for V in (1, 1000, 2049, 256_000)]
+    cases.append(dict(T=37, d=64, V=1000, dtype=torch.float32, layout="contiguous",
+                      same_label=True))
     before = fused_cross_entropy.launches
-    main_err, worst = 0.0, 0.0
+    main_err, worst = 0.0, {"scalar": 0.0, "mma": 0.0}
+    n_runs, scalar_only = 0, []
     for i, c in enumerate(cases):
-        hidden, head, labels = ce_inputs(c["T"], c["d"], c["V"], c["dtype"], c["tied"], i,
+        hidden, head, labels = ce_inputs(c["T"], c["d"], c["V"], c["dtype"], c["layout"], i,
                                          c.get("same_label", False))
-        loss, lse = fused_cross_entropy(hidden, head, labels)
-        torch.cuda.synchronize()
         ref_loss, ref_lse = fused_cross_entropy_ref(hidden.float(), head.float(), labels)
         tol = 1e-5 * max(1.0, float(ref_lse.abs().max()))
-        err = max(float((loss - ref_loss).abs().max()), float((lse - ref_lse).abs().max()))
-        ok = (err <= tol and loss.dtype == lse.dtype == torch.float32
-              and bool(torch.isfinite(loss).all()))
-        worst = max(worst, err / tol)
-        main = (c["T"], c["d"], c["V"]) == CE_SHAPE and c["dtype"] == torch.bfloat16 and c["tied"]
-        if main:
-            main_err = err
-        if main or not ok or c["T"] == 4096 or c.get("same_label"):
-            print(f"  T={c['T']:4d} d={c['d']:4d} V={c['V']:6d} {str(c['dtype'])[6:]:8s} "
-                  f"{'tied view' if c['tied'] else 'contiguous'}"
-                  f"{' one label' if c.get('same_label') else ''}: max_abs_err={err:.3e} "
-                  f"(tol {tol:.2e}){' [the training shape]' if main else ''}"
-                  + (" ok" if ok else " FAIL"))
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version: {c}")
-    require(fused_cross_entropy.launches - before == len(cases), "one launch per case")
+        routes = ["scalar"] + (["mma"] if _route(hidden, head) == "mma" else [])
+        if c["dtype"] == torch.bfloat16 and routes == ["scalar"]:
+            scalar_only.append((c["layout"], c["V"]))
+        require(c["dtype"] == torch.float32 or c["layout"] != "tied" or "mma" in routes,
+                f"a bf16 tied head does not take the tensor-core route: {c}")
+        for route in routes:
+            loss, lse = ce_routed(hidden, head, labels, route)
+            torch.cuda.synchronize()
+            n_runs += 1
+            err = max(float((loss - ref_loss).abs().max()), float((lse - ref_lse).abs().max()))
+            ok = (err <= tol and loss.dtype == lse.dtype == torch.float32
+                  and bool(torch.isfinite(loss).all()))
+            worst[route] = max(worst[route], err / tol)
+            main = ((c["T"], c["d"], c["V"]) == CE_SHAPE and c["dtype"] == torch.bfloat16
+                    and c["layout"] == "tied" and route == "mma")
+            if main:
+                main_err = err
+            if main or not ok or c["T"] == 4096 and c["V"] == 256_000 or c.get("same_label"):
+                print(f"  T={c['T']:4d} d={c['d']:4d} V={c['V']:6d} {str(c['dtype'])[6:]:8s} "
+                      f"{c['layout']:10s} {route:6s}"
+                      f"{' one label' if c.get('same_label') else ''}: max_abs_err={err:.3e} "
+                      f"(tol {tol:.2e}){' [the training shape]' if main else ''}"
+                      + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"{name} {route} disagrees with its plain version: {c}")
+    require(fused_cross_entropy.launches - before == n_runs, "one launch per run")
 
-    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, True, 0)
+    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, "tied", 0)
     big_h = torch.empty((1, 16), device="cuda").expand(2**31, 16)
     big_l = torch.zeros(1, dtype=torch.int32, device="cuda").expand(2**31)
+    hb, wb = hidden.bfloat16(), head.bfloat16()
     n_ref = check_refusals(name, fused_cross_entropy, {
         "mixed dtypes": lambda: fused_cross_entropy(hidden.bfloat16(), head, labels),
         "float16": lambda: fused_cross_entropy(hidden.half(), head.half(), labels),
@@ -1306,9 +1377,134 @@ def check_fused_cross_entropy():
                                                            labels),
         "hidden that requires grad": lambda: fused_cross_entropy(
             hidden.clone().requires_grad_(), head, labels),
+        "the tensor-core route forced on fp32": lambda: _launch(hidden, head, labels, "mma"),
+        "the tensor-core route forced on a one-element offset": lambda: _launch(
+            torch.empty(8 * 16 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(8, 16), wb,
+            labels, "mma"),
+        "an unknown route": lambda: _launch(hb, wb, labels, "wgmma"),
     })
-    print(f"kernels: {name} cuda ok ({len(cases)} cases, max error {worst:.3f} of "
-          f"1e-5*max(1, |lse|); {n_ref} refusals)")
+    print(f"kernels: {name} cuda ok ({len(cases)} cases, {n_runs} runs; max error of "
+          f"1e-5*max(1, |lse|): scalar route {worst['scalar']:.3f}, tensor-core route "
+          f"{worst['mma']:.3f}; bf16 cases on the scalar route only (head layout, V): "
+          f"{sorted(set(scalar_only))}; {n_ref} refusals)")
+    return main_err
+
+
+def ce_probs_tol(p32, p_one, g, lse, dtype):
+    """ce_probs' allowance at each element against the fp32 value ``p32``
+    (not rounded): rounding to ``dtype`` (one bf16 ulp, as both sides round
+    once; an fp32 epsilon of |p32|), plus |g| (1e-6 + p * 1e-5 *
+    max(1, |lse|)), with p = softmax = ``p_one`` + the one-hot: 1e-6 for
+    the exp, and the forward's 1e-5 * max(1, |lse|) on the logits (fp32 sums
+    of d products in another order) carried into p, which is where p is
+    near 1 (V = 1) the whole of g (p - 1)."""
+    logit_tol = 1e-5 * max(1.0, float(lse.abs().max()))
+    rnd = (bf16_ulp(p32) if dtype == torch.bfloat16
+           else p32.abs() * torch.finfo(torch.float32).eps)
+    return rnd + g.abs()[:, None] * (1e-6 + p_one * logit_tol)
+
+
+def probs_routed(hidden, head, labels, lse, g, route):
+    """ce_probs(hidden, head, labels, lse, g), required to launch once,
+    through ``route``'s kernel, as :func:`ce_routed` does for the
+    forward."""
+    from repro_torch.kernels.ce_loss import _launch_probs, _route, ce_probs
+
+    n, tc = ce_probs.launches, ce_probs.tc_launches
+    if route == "mma" or _route(hidden, head) == "scalar":
+        out = ce_probs(hidden, head, labels, lse, g)
+    else:
+        out = _launch_probs(hidden, head, labels, lse, g, "scalar")
+    require(ce_probs.launches == n + 1 and ce_probs.tc_launches == tc + (route == "mma"),
+            f"ce_probs took the wrong route (want {route}) for hidden "
+            f"{tuple(hidden.shape)} {hidden.dtype}, head strides {head.stride()}")
+    return out
+
+
+def check_ce_probs():
+    """ce_probs (ce_probs_mma_kernel and ce_probs_kernel) against
+    ce_probs_ref on the same inputs widened to fp32, from the plain
+    forward's lse, with per-token upstream gradients g in [0.5, 1.5) / T
+    and, beside the labels 0 and V - 1, the labels -1 and V (no column): at
+    the training step's chunk (1,024 tokens of the tied 256,000-word head,
+    d = 2048) and at ragged T and V on the tied and sliced layouts; within
+    :func:`ce_probs_tol`. Every bf16 case runs on both routes, every fp32
+    case (and bf16 at d = 12) on the scalar route, the wrapper's choice for
+    them."""
+    from repro_torch.kernels.ce_loss import (
+        _launch_probs,
+        _route,
+        ce_probs,
+        ce_probs_ref,
+        fused_cross_entropy_ref,
+    )
+
+    cases = [dict(T=CE_CHUNK_TOKENS, d=CE_SHAPE[1], V=CE_SHAPE[2], layout="tied",
+                  dtype=torch.bfloat16, main=True)]
+    cases += [dict(T=T, d=d, V=V, layout=layout, dtype=dtype)
+              for dtype in (torch.bfloat16, torch.float32)
+              for layout in ("tied", "sliced") for T in (1, 37, 300)
+              for V in (1, 1000, 2049) for d in (64, 2048)]
+    cases += [dict(T=37, d=12, V=1000, layout="tied", dtype=torch.bfloat16)]
+    before = ce_probs.launches
+    worst = {"scalar": 0.0, "mma": 0.0}
+    main_share, main_err, n_runs = 0.0, 0.0, 0
+    for i, c in enumerate(cases):
+        T, V, dtype = c["T"], c["V"], c["dtype"]
+        hidden, head, labels = ce_inputs(T, c["d"], V, dtype, c["layout"], 200 + i)
+        if T > 3:
+            labels[1], labels[2] = -1, V
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        g = (torch.rand(T, generator=gen, device="cuda") + 0.5) / T
+        h32, w32 = hidden.float(), head.float()
+        _, lse = fused_cross_entropy_ref(h32, w32, labels)
+        p_one = ce_probs_ref(h32, w32, labels, lse, torch.ones_like(g))
+        p32 = p_one * g[:, None]
+        hit = (labels >= 0) & (labels < V)
+        rows = torch.arange(T, device="cuda")[hit]
+        p_one[rows, labels[hit].long()] += 1.0
+        tol = ce_probs_tol(p32, p_one, g, lse, dtype)
+        routes = ["scalar"] + (["mma"] if _route(hidden, head) == "mma" else [])
+        require(dtype == torch.float32 or c["d"] % 8 or "mma" in routes,
+                f"an aligned bf16 case does not take the tensor-core route: {c}")
+        for route in routes:
+            p = probs_routed(hidden, head, labels, lse, g, route)
+            torch.cuda.synchronize()
+            n_runs += 1
+            require(p.shape == (T, V) and p.dtype == dtype, f"ce_probs output {c}")
+            share = float(((p.float() - p32).abs() / tol).max())
+            worst[route] = max(worst[route], share)
+            main = c.get("main") and route == "mma"
+            if main:
+                main_share, main_err = share, float((p.float() - p32).abs().max())
+            if c.get("main") or share > 1.0 or (T, V) == (37, 1):
+                print(f"  T={T:4d} d={c['d']:4d} V={V:6d} {str(dtype)[6:]:8s} "
+                      f"{c['layout']:6s} {route:6s}: max error {share:.3f} of the allowance"
+                      f"{' [the training chunk]' if c.get('main') else ''}"
+                      + (" ok" if share <= 1.0 else " FAIL"))
+            require(share <= 1.0, f"ce_probs {route} disagrees with its plain version: {c}")
+            del p
+        del p_one, p32, tol
+    require(ce_probs.launches - before == n_runs, "one ce_probs launch per run")
+
+    hidden, head, labels = ce_inputs(8, 16, 40, torch.bfloat16, "tied", 0)
+    lse, g = torch.zeros(8, device="cuda"), torch.ones(8, device="cuda")
+    n_ref = check_refusals("ce_probs", ce_probs, {
+        "the tensor-core route forced on fp32": lambda: _launch_probs(
+            hidden.float(), head.float(), labels, lse, g, "mma"),
+        "the tensor-core route forced on d = 12": lambda: _launch_probs(
+            hidden[:, :12], head[:12], labels, lse, g, "mma"),
+        "an unknown route": lambda: _launch_probs(hidden, head, labels, lse, g, "wgmma"),
+        "a strided last axis": lambda: ce_probs(hidden.T.contiguous().T, head, labels, lse, g),
+        "a bf16 lse": lambda: ce_probs(hidden, head, labels, lse.bfloat16(), g),
+        "g of another length": lambda: ce_probs(hidden, head, labels, lse, g[:7]),
+        "hidden that requires grad": lambda: ce_probs(hidden.clone().requires_grad_(), head,
+                                                      labels, lse, g),
+    })
+    print(f"kernels: ce_probs cuda ok ({len(cases)} cases, {n_runs} runs; max error of one "
+          f"rounding + |g| (1e-6 + p * 1e-5 * max(1, |lse|)): scalar route "
+          f"{worst['scalar']:.3f}, tensor-core route {worst['mma']:.3f}, {main_share:.3f} at "
+          f"the training chunk (max_abs_err {main_err:.3e}); {n_ref} refusals)")
     return main_err
 
 
@@ -1348,7 +1544,7 @@ def check_flash_lse():
 def check_grad_guard():
     """Every kernel wrapper refuses, launching nothing, an input that requires
     grad while grad mode is on, and takes it under torch.no_grad()."""
-    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gossip_mix import gossip_mix
@@ -1371,7 +1567,9 @@ def check_grad_guard():
     mix_w = torch.full((2, 2), 0.5, device="cuda")
     q, k, v = flash_inputs(1, 8, 8, 2, 1, 16, torch.float32, 0)
     dt, Bm, Cm, xs, A, h0 = ssm_inputs(1, 4, 8, 4, torch.float32, 0, 0.0)
-    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, True, 0)
+    hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, "tied", 0)
+    hb, wb = hidden.bfloat16(), head.bfloat16()
+    lse, g = torch.zeros(8, device="cuda"), torch.ones(8, device="cuda")
     calls = {
         "fedavg_aggregate": lambda f: fedavg_aggregate(f(x), w),
         "quantized_aggregate": lambda f: quantized_aggregate(codes, f(lo), scale, w, chunk=512,
@@ -1383,6 +1581,7 @@ def check_grad_guard():
         "flash_attention": lambda f: flash_attention(f(q), k, v),
         "ssm_scan": lambda f: ssm_scan(dt, Bm, Cm, f(xs), A, h0),
         "fused_cross_entropy": lambda f: fused_cross_entropy(f(hidden), head, labels),
+        "ce_probs": lambda f: ce_probs(f(hb), wb, labels, lse, g),
     }
     wrappers = counters()
     for name, call in calls.items():
@@ -1403,16 +1602,62 @@ def check_grad_guard():
           "grad mode and launch nothing; each launches under torch.no_grad())")
 
 
+def old_plain_ce_backward(hidden, head, labels, lse, g, chunk):
+    """The CE backward as ``ops.FusedCrossEntropy`` took it before the
+    ce_probs kernel, kept here to time the new one against it (and, in
+    fp32 on the CPU, ``tests/test_torch_ce_route.py`` holds the new one to
+    it bit for bit): the head widened to fp32 once, fp32 logits and softmax
+    of each chunk, and the two products in fp32."""
+    T = hidden.shape[0]
+    V = head.shape[1]
+    lbl = labels.long()
+    head32 = head.float()
+    dhidden = torch.empty_like(hidden)
+    dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
+    for t0 in range(0, T, chunk):
+        sl = slice(t0, t0 + chunk)
+        h_c = hidden[sl].float()
+        p = torch.matmul(h_c, head32).sub_(lse[sl, None]).exp_()
+        hit = (lbl[sl] >= 0) & (lbl[sl] < V)
+        rows = torch.arange(p.shape[0], device=p.device)
+        p[rows, lbl[sl].clamp(0, V - 1)] -= hit.float()
+        p *= g[sl, None]
+        dhidden[sl] = (p @ head32.T).to(hidden.dtype)
+        dhead.addmm_(h_c.T, p)
+    return dhidden, dhead.to(head.dtype)
+
+
 def time_fused_cross_entropy():
-    """At the training step's shape, bf16, the head a tied view: the kernel
-    (5 launches), the plain version (3) and the two-call yardstick (hidden @
-    head, then F.cross_entropy over the 4.2 GB of fp32 logits it
+    """At the training step's shape, bf16, the head a tied view. The
+    forward: the tensor-core route (the one ``fused_cross_entropy`` takes
+    here) and the scalar route (through the module's private launcher) in
+    turns, scalar, tensor cores, tensor cores, scalar (5 launches each, the
+    mean of each route's two medians), which must be at least
+    CE_MIN_SPEEDUP apart; the plain version (3) and the two-call yardstick
+    (hidden @ head, then F.cross_entropy over the 4.2 GB of fp32 logits it
     materializes; 5). Bound: 2 T d V flops on the bf16 tensor cores against
-    head and hidden read once and the two (T,) outputs written once."""
-    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+    head and hidden read once and the two (T,) outputs written once.
+
+    ce_probs on one chunk of CE_CHUNK_TOKENS (20 launches) against its
+    scalar route (through the module's private launcher; 3) and
+    ce_probs_ref (3); bound: the chunk's 2 n d V flops against hidden's
+    chunk and the head read once and P written once. The whole backward
+    (``ops.ce_backward`` over CE_CHUNKS chunks; 5) against the plain one it
+    replaced (3); bound 3 x 2 T d V flops (P's logits again and the two
+    products) against hidden and head read and dhidden and dhead written
+    once."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ce_loss import (
+        _launch,
+        _launch_probs,
+        ce_probs,
+        ce_probs_ref,
+        fused_cross_entropy,
+        fused_cross_entropy_ref,
+    )
 
     T, d, V = CE_SHAPE
-    hidden, head, labels = ce_inputs(T, d, V, torch.bfloat16, True, 7)
+    hidden, head, labels = ce_inputs(T, d, V, torch.bfloat16, "tied", 7)
     lbl64 = labels.long()
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
 
@@ -1423,23 +1668,91 @@ def time_fused_cross_entropy():
     flops = 2 * T * d * V
     nbytes = (T * d + d * V) * 2 + T * 4 + 2 * T * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    r = {"ms": time_ms(lambda: fused_cross_entropy(hidden, head, labels), flush, iters=5,
-                       warmup=1),
+    ce_routed(hidden, head, labels, "mma")
+    routes = {"scalar": lambda: _launch(hidden, head, labels, "scalar"),
+              "mma": lambda: fused_cross_entropy(hidden, head, labels)}
+    turns = [(name, time_ms(routes[name], flush, iters=5, warmup=1))
+             for name in ("scalar", "mma", "mma", "scalar")]
+    tc_ms = float(np.mean([t for name, t in turns if name == "mma"]))
+    scalar_ms = float(np.mean([t for name, t in turns if name == "scalar"]))
+    r = {"ms": tc_ms,
          "plain_ms": time_ms(lambda: fused_cross_entropy_ref(hidden, head, labels), flush,
                              iters=3, warmup=1),
          "library_ms": time_ms(yardstick, flush, iters=5, warmup=1),
          "bound_ms": max(t_bytes, t_ops) * 1e3,
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "bytes": nbytes, "flops": flops, "T": T, "d": d, "V": V, "dtype": "bfloat16",
-         "head": "tied view (V, d).T"}
+         "head": "tied view (V, d).T", "route": "mma", "scalar_ms": scalar_ms,
+         "turns_ms": turns, "speedup": scalar_ms / tc_ms}
     r["bound_share"] = r["bound_ms"] / r["ms"]
     r["achieved_TFLOPs"] = flops / (r["ms"] * 1e-3) / 1e12
-    print(f"  fused_cross_entropy T={T} d={d} V={V} bf16, tied head: kernel_ms={r['ms']:.3f} "
-          f"bound_ms={r['bound_ms']:.3f} ({r['bound_by']}; {r['bound_share']:.1%} of bound, "
-          f"{r['achieved_TFLOPs']:.1f} TFLOP/s) plain_ms={r['plain_ms']:.3f} "
-          f"yardstick_ms={r['library_ms']:.3f} (matmul then F.cross_entropy: two calls)")
+    r["scalar_TFLOPs"] = flops / (scalar_ms * 1e-3) / 1e12
+    r["vs_library"] = tc_ms / r["library_ms"]
+    print(f"  fused_cross_entropy T={T} d={d} V={V} bf16, tied head, tensor-core route: "
+          f"kernel_ms={r['ms']:.3f} bound_ms={r['bound_ms']:.3f} ({r['bound_by']}; "
+          f"{r['bound_share']:.1%} of bound, {r['achieved_TFLOPs']:.1f} TFLOP/s) "
+          f"plain_ms={r['plain_ms']:.3f} yardstick_ms={r['library_ms']:.3f} (matmul then "
+          f"F.cross_entropy: two calls)")
+    print(f"    turns (scalar, mma, mma, scalar): " + ", ".join(f"{t:.3f}" for _, t in turns)
+          + f" ms; scalar route {r['scalar_TFLOPs']:.1f} TFLOP/s; tensor cores "
+          f"{r['speedup']:.2f}x faster than the scalar route, {r['vs_library']:.2f}x the "
+          f"yardstick's time")
+    require(r["speedup"] >= CE_MIN_SPEEDUP,
+            f"fused_cross_entropy: the tensor-core route is only {r['speedup']:.2f}x faster "
+            f"than the scalar route (want >= {CE_MIN_SPEEDUP})")
+
+    # the backward's pieces, from the tensor-core forward's lse and the mean's
+    # upstream gradient
+    _, lse = fused_cross_entropy(hidden, head, labels)
+    g = torch.full((T,), 1.0 / T, device="cuda")
+    n = CE_CHUNK_TOKENS
+    p_flops = 2 * n * d * V
+    p_bytes = (n * d + d * V) * 2 + n * 12 + n * V * 2
+    pb, po = p_bytes / HBM_BYTES_PER_S, p_flops / BF16_FLOPS
+    sl = slice(0, n)
+    probs = {"ms": time_ms(lambda: ce_probs(hidden[sl], head, labels[sl], lse[sl], g[sl]),
+                           flush, iters=20, warmup=2),
+             "scalar_ms": time_ms(lambda: _launch_probs(hidden[sl], head, labels[sl], lse[sl],
+                                                        g[sl], "scalar"), flush, iters=3,
+                                  warmup=1),
+             "plain_ms": time_ms(lambda: ce_probs_ref(hidden[sl], head, labels[sl], lse[sl],
+                                                      g[sl]), flush, iters=3, warmup=1),
+             "library_ms": None,
+             "bound_ms": max(pb, po) * 1e3, "bound_by": "bytes" if pb >= po else "operations",
+             "bytes": p_bytes, "flops": p_flops, "T": n, "d": d, "V": V, "dtype": "bfloat16",
+             "head": "tied view (V, d).T"}
+    probs["bound_share"] = probs["bound_ms"] / probs["ms"]
+    probs["achieved_TFLOPs"] = p_flops / (probs["ms"] * 1e-3) / 1e12
+    print(f"  ce_probs {n} tokens d={d} V={V} bf16, tied head: kernel_ms={probs['ms']:.3f} "
+          f"bound_ms={probs['bound_ms']:.3f} ({probs['bound_by']}; "
+          f"{probs['bound_share']:.1%} of bound, {probs['achieved_TFLOPs']:.1f} TFLOP/s) "
+          f"plain_ms={probs['plain_ms']:.3f} library_ms=none (no one PyTorch call); the "
+          f"scalar route (ce_probs_kernel) {probs['scalar_ms']:.3f} ms")
+
+    b_flops = 3 * flops
+    b_bytes = 2 * (T * d + d * V) * 2 + T * 12
+    bb, bo = b_bytes / HBM_BYTES_PER_S, b_flops / BF16_FLOPS
+    bwd = {"ms": time_ms(lambda: ops.ce_backward(hidden, head, labels, lse, g, n), flush,
+                         iters=5, warmup=1),
+           "old_plain_ms": time_ms(lambda: old_plain_ce_backward(hidden, head, labels, lse, g, n),
+                                   flush, iters=3, warmup=1),
+           "bound_ms": max(bb, bo) * 1e3, "bound_by": "bytes" if bb >= bo else "operations",
+           "flops": b_flops, "bytes": b_bytes, "chunk": n, "chunks": CE_CHUNKS}
+    bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
+    new, old = ops.ce_backward(hidden, head, labels, lse, g, n), \
+        old_plain_ce_backward(hidden, head, labels, lse, g, n)
+    for what, a, b in (("dhidden", new[0], old[0]), ("dhead", new[1], old[1])):
+        bwd[f"{what}_rel_diff_vs_old"] = float((a.float() - b.float()).norm() / b.float().norm())
+    del new, old
+    print(f"  the CE backward (ops.ce_backward, {CE_CHUNKS} chunks of {n} tokens): "
+          f"{bwd['ms']:.3f} ms, bound {bwd['bound_ms']:.3f} ms ({bwd['bound_by']}; "
+          f"{bwd['bound_share']:.1%} of bound); the old plain backward {bwd['old_plain_ms']:.3f} "
+          f"ms ({bwd['old_plain_ms'] / bwd['ms']:.2f}x); dhidden and dhead differ from it by "
+          f"{bwd['dhidden_rel_diff_vs_old']:.2e} and {bwd['dhead_rel_diff_vs_old']:.2e} "
+          f"(rel L2, both bf16)")
+    r["backward"] = bwd
     del flush
-    return {"gemma-2b train": r}
+    return {"gemma-2b train": r}, {"gemma-2b train chunk": probs}
 
 
 # ---------------------------------------------------------------------------
@@ -1622,31 +1935,39 @@ def training_lane():
     rounds (G = 2 groups x H = 2 local AdamW steps), then 4 FedSGD steps
     (each group's 4 optimizer steps, taken by one model, so the two loss
     curves compare step for step). Every count is set to 0 just before each run and read just after; each
-    round must launch ``fused_cross_entropy`` G·H times, ``flash_attention``
+    round must launch ``fused_cross_entropy`` G·H times, all on the
+    tensor-core route, ``ce_probs`` G·H·CE_CHUNKS times (each step's
+    backward, a chunk of B * ce_chunk tokens at a time), ``flash_attention``
     G·H·18·2 times (each layer's forward and its remat recompute) and
     ``fedavg_aggregate`` once a parameter leaf, and nothing else."""
     from repro_torch.launch import train
 
     n_leaves = gemma_leaf_count()
     steps = TRAIN_G * TRAIN_H
-    per_round = {"fused_cross_entropy": steps, "flash_attention": steps * 18 * 2,
-                 "fedavg_aggregate": n_leaves}
+    per_round = {"fused_cross_entropy": steps, "ce_probs": steps * CE_CHUNKS,
+                 "flash_attention": steps * 18 * 2, "fedavg_aggregate": n_leaves}
     out = {}
     for algo, argv, per in (
             ("fedavg", TRAIN_ARGV, per_round),
             ("fedsgd", TRAIN_ARGV + ["--algo", "fedsgd"],
-             {"fused_cross_entropy": 1, "flash_attention": 36, "fedavg_aggregate": 0})):
+             {"fused_cross_entropy": 1, "ce_probs": CE_CHUNKS, "flash_attention": 36,
+              "fedavg_aggregate": 0})):
         free_card()
         held = torch.cuda.memory_allocated()
         reset_counts()
         recs = train.main(argv)
-        counts, tc = launch_counts(), flash_tc_launches()
+        counts, tc, ce_tc = launch_counts(), flash_tc_launches(), ce_tc_launches()
+        probs_tc = probs_tc_launches()
         free_card()
         want = {k: 0 for k in KERNELS}
         want.update({k: v * len(recs) for k, v in per.items()})
         require(counts == want, f"training {algo}: launches {counts}, want {want}")
         require(tc == want["flash_attention"], f"training {algo}: {tc} of "
                 f"{want['flash_attention']} flash launches took the tensor-core route")
+        require(ce_tc == want["fused_cross_entropy"], f"training {algo}: {ce_tc} of "
+                f"{want['fused_cross_entropy']} CE launches took the tensor-core route")
+        require(probs_tc == want["ce_probs"], f"training {algo}: {probs_tc} of "
+                f"{want['ce_probs']} ce_probs launches took the tensor-core route")
         for rec in recs:
             require(rec["launches"] == per, f"training {algo}: {rec['launches']} != {per}")
             require(math.isfinite(rec["loss"]), f"training {algo}: loss {rec['loss']}")
@@ -1657,12 +1978,13 @@ def training_lane():
                   f"{rec['tokens']} tokens, {rec['tokens_per_s']:.0f} tokens/s, loss "
                   f"{rec['loss']:.4f}, peak device memory {rec['peak_GiB']:.2f} GiB, launches "
                   + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()))
-        print(f"  {algo}: {len(recs)} {what}s, launches in all {want} (flash_attention {tc} "
-              f"on the tensor-core route); peak {peak:.2f} GiB ({held / 2**30:.2f} GiB held "
-              f"before); {n_leaves} parameter leaves")
+        print(f"  {algo}: {len(recs)} {what}s, launches in all {want} (flash_attention {tc}, "
+              f"fused_cross_entropy {ce_tc} on the tensor-core route); peak {peak:.2f} GiB "
+              f"({held / 2**30:.2f} GiB held before); {n_leaves} parameter leaves")
         require(peak <= PEAK_LIMIT_GIB, f"training {algo}: peak {peak:.2f} GiB over "
                 f"{PEAK_LIMIT_GIB} GiB")
         out[algo] = {"records": recs, "launches": counts, "flash_tc_launches": tc,
+                     "ce_tc_launches": ce_tc, "probs_tc_launches": probs_tc,
                      "peak_GiB": peak, "argv": argv}
     return out
 
@@ -1670,8 +1992,9 @@ def training_lane():
 def reduced_round_card_vs_cpu(arch):
     """One FedAvg round (G = 2, H = 2) of the reduced config in fp32 on the
     card against the same round on the CPU, from the same params and
-    batches: the kernels' forwards and the plain backwards against the plain
-    versions end to end. Twice: with SGD, whose update is linear in the
+    batches: the kernels' forwards, the CE gradient's ce_probs (all on their
+    scalar routes, required) and the plain attention backward against the
+    plain versions end to end. Twice: with SGD, whose update is linear in the
     gradients, the loss and the update (the whole tree's, in L2, and each
     attention weight's and the tied head's) within TRAIN_RTOL; with AdamW,
     the local optimizer of the main path, the loss and the groups' moments
@@ -1695,6 +2018,8 @@ def reduced_round_card_vs_cpu(arch):
     n_attn = sum(s.mixer == "attn" for s in TransformerLM(cfg, device="cuda").plan)
     paths = ["/".join(map(str, p)) for p in tree_paths(start)]
     steps = TRAIN_G * TRAIN_H
+    step_tokens = shape[2] * shape[3]
+    chunks = -(-step_tokens // (shape[2] * cfg.ce_chunk)) if cfg.ce_chunk else 1
 
     def rel_l2(got, want):
         num = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want)))
@@ -1714,6 +2039,8 @@ def reduced_round_card_vs_cpu(arch):
             params_g, inner_g, _, m = step(
                 params_g, local_sgd.init_group_states(opt, params_g), None,
                 tree_map(lambda t: t.to(dev), batches), torch.tensor([1.0, 3.0]))
+            if dev == "cuda":
+                tc = (flash_tc_launches(), ce_tc_launches(), probs_tc_launches())
             moments = ([t.cpu().double() for t in tree_leaves(inner_g.mu)
                         + tree_leaves(inner_g.nu)] if name == "AdamW" else None)
             results[dev] = (float(m["loss"]), launch_counts(),
@@ -1722,9 +2049,11 @@ def reduced_round_card_vs_cpu(arch):
                             moments)
         (l_gpu, n_gpu, u_gpu, m_gpu), (l_cpu, _, u_cpu, m_cpu) = results["cuda"], results["cpu"]
         want = {k: 0 for k in KERNELS}
-        want.update(fused_cross_entropy=steps, flash_attention=steps * n_attn,
-                    fedavg_aggregate=len(u_gpu))
+        want.update(fused_cross_entropy=steps, ce_probs=steps * chunks,
+                    flash_attention=steps * n_attn, fedavg_aggregate=len(u_gpu))
         require(n_gpu == want, f"reduced {arch} {name} round: launches {n_gpu}, want {want}")
+        require(tc == (0, 0, 0), f"reduced {arch} {name} round: fp32 took a tensor-core "
+                f"route (flash, CE, ce_probs: {tc})")
         l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
         n = len(paths)
         # (what, rel L2 of the tree, per-leaf (got, want) of the attention weights and head)
@@ -1783,7 +2112,10 @@ def full_width_ce_checks():
     h = hidden[:, :n].detach().clone().requires_grad_()
     table = params["embed"]["table"].detach().clone().requires_grad_()
     lbl = batch["labels"][:, :n]
+    probs_tc = probs_tc_launches()
     ops.ce_loss_mean(h, table.T, lbl, chunk=model.cfg.ce_chunk).backward()
+    require(probs_tc_launches() == probs_tc + 1,
+            "the full-width CE backward did not take ce_probs' tensor-core route once")
     hf = h.detach().float().requires_grad_()
     tf = table.detach().float().requires_grad_()
     torch.nn.functional.cross_entropy(hf.reshape(-1, d) @ tf.T, lbl.reshape(-1).long()).backward()
@@ -1803,9 +2135,10 @@ def profile_training_step():
     through ``build_fedsgd_train_step``) under torch.profiler with CPU and
     CUDA activity, after one warm-up step: device busy (the union of the
     kernels' intervals) against the host wall, the top kernels, and the
-    shares of the CE kernel, the flash kernel and the plain backwards (each
-    a ``torch.profiler`` range in ``kernels/ops.py``: the device time of the
-    kernels launched inside it)."""
+    shares of the CE forward kernels, ce_probs, the flash kernel and the
+    backwards (each a ``torch.profiler`` range in ``kernels/ops.py``: the
+    device time of the kernels launched inside it; the CE backward's holds
+    ce_probs and its two cuBLAS products)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1834,11 +2167,15 @@ def profile_training_step():
         t0 = time.perf_counter()
         one()
         wall = time.perf_counter() - t0
-    counts, tc = launch_counts(), flash_tc_launches()
+    counts, tc, ce_tc = launch_counts(), flash_tc_launches(), ce_tc_launches()
+    probs_tc = probs_tc_launches()
     want = {k: 0 for k in KERNELS}
-    want.update(fused_cross_entropy=1, flash_attention=36)
+    want.update(fused_cross_entropy=1, ce_probs=CE_CHUNKS, flash_attention=36)
     require(counts == want, f"profiled step: launches {counts}, want {want}")
     require(tc == 36, f"profiled step: {tc} of 36 flash launches took the tensor-core route")
+    require(ce_tc == 1, "profiled step: the CE launch did not take the tensor-core route")
+    require(probs_tc == CE_CHUNKS, f"profiled step: {probs_tc} of {CE_CHUNKS} ce_probs "
+            "launches took the tensor-core route")
     events = prof.events()
     ranges = ("flash_attention_bwd", "fused_cross_entropy_bwd")
     # the device copies of the two ranges (user annotations) span their
@@ -1852,28 +2189,60 @@ def profile_training_step():
         by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
     rows = sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)
 
-    def range_ms(name):
-        spans = [e for e in events if e.device_type == DeviceType.CPU and e.name == name]
-        total = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
-                    for e in spans)
-        return total / 1e3, len(spans)
+    raw = prof.profiler.kineto_results.events()
+    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA
+                 and not e.is_user_annotation()]
+    launch_of = {}
+    for e in raw:
+        if e.device_type() == DeviceType.CPU and "aunch" in e.name() and e.correlation_id():
+            launch_of[e.correlation_id()] = e.start_ns()
 
+    def range_ms(name):
+        """Device time of a host range: on the one stream, every kernel
+        from the first to the last of those whose launch call (matched by
+        correlation id) falls inside one of the range's host spans. The
+        profiler's op tree alone misses kernels that no torch op launches
+        (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
+        spans = [(e.start_ns(), e.end_ns()) for e in raw
+                 if e.device_type() == DeviceType.CPU and e.name() == name]
+        total = 0
+        for a, b in spans:
+            mine = [k for k in on_device
+                    if a <= launch_of.get(k.correlation_id(), -1) <= b]
+            if mine:
+                lo = min(k.start_ns() for k in mine)
+                hi = max(k.end_ns() for k in mine)
+                total += sum(k.duration_ns() for k in on_device if lo <= k.start_ns() < hi)
+        return total / 1e6, len(spans)
+
+    ce_fwd = ("ce_fwd_mma_kernel", "ce_partial_kernel", "ce_merge_kernel")
     shares = {
+        # either route's partial kernel and the merge
         "fused_cross_entropy": (sum(us for us, _, k in rows
-                                    if "ce_partial_kernel" in k or "ce_merge_kernel" in k) / 1e3,
-                                sum(c for _, c, k in rows if "ce_partial_kernel" in k)),
+                                    if any(n in k for n in ce_fwd)) / 1e3,
+                                sum(c for _, c, k in rows if any(n in k for n in ce_fwd[:2]))),
+        "fused_cross_entropy (tensor-core kernel)": (
+            sum(us for us, _, k in rows if "ce_fwd_mma_kernel" in k) / 1e3,
+            sum(c for _, c, k in rows if "ce_fwd_mma_kernel" in k)),
+        # inside the CE backward's range below; ce_probs_mma_kernel and
+        # ce_probs_kernel, the two routes' kernels
+        "ce_probs": (sum(us for us, _, k in rows if "ce_probs" in k) / 1e3,
+                     sum(c for _, c, k in rows if "ce_probs" in k)),
+        "ce_probs (tensor-core kernel)": (
+            sum(us for us, _, k in rows if "ce_probs_mma_kernel" in k) / 1e3,
+            sum(c for _, c, k in rows if "ce_probs_mma_kernel" in k)),
         # flash_fwd_mma_kernel and flash_fwd_kernel, the two routes' kernels
         "flash_attention": (sum(us for us, _, k in rows if "flash_fwd" in k) / 1e3,
                             sum(c for _, c, k in rows if "flash_fwd" in k)),
         "flash_attention (tensor-core kernel)": (
             sum(us for us, _, k in rows if "flash_fwd_mma_kernel" in k) / 1e3,
             sum(c for _, c, k in rows if "flash_fwd_mma_kernel" in k)),
-        **{f"{name} (plain)": range_ms(name) for name in ranges},
+        **{f"{name} (range)": range_ms(name) for name in ranges},
     }
     print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
-          f"{len(kernels)} device kernels; flash_attention {tc} of 36 launches on the "
-          f"tensor-core route")
+          f"{len(kernels)} device kernels; flash_attention {tc} of 36 launches and "
+          f"fused_cross_entropy {ce_tc} of 1 on the tensor-core route")
     for k, (ms, count) in shares.items():
         print(f"    {k}: {count}x, {ms:.3f} ms ({ms / 1e3 / busy:.1%} of busy)")
     for us, count, k in rows[:10]:
@@ -2295,13 +2664,16 @@ def print_ptxas(log):
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
                          "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_mma_kernel",
-                         "flash_fwd_kernel",
-                         "ssm_scan_kernel", "ce_partial_kernel", "ce_merge_kernel"):
+                         "flash_fwd_kernel", "ssm_scan_kernel", "ce_fwd_mma_kernel",
+                         "ce_probs_mma_kernel", "ce_probs_kernel", "ce_partial_kernel",
+                         "ce_merge_kernel"):
                 if base in mangled:
                     rest = mangled.split(base, 1)[1]
                     entry = base + ("<" + rest.split("EEv")[0][1:] + ">" if "EEv" in rest
                                     else "")
                     break
+            else:
+                entry = mangled
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
         elif "Used" in line and "registers" in line:
@@ -2345,6 +2717,12 @@ def main() -> int:
         print(f"  flash_fwd_mma_kernel<{D}>: {r['threads']} threads, {r['smem_bytes']} bytes of "
               f"dynamic shared memory a block, {r['blocks_per_sm']} blocks an SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    from repro_torch.kernels.ce_loss import mma_occupancy as ce_mma_occupancy
+
+    ce_resources = ce_mma_occupancy()
+    print(f"  ce_fwd_mma_kernel and ce_probs_mma_kernel: {ce_resources['threads']} threads, "
+          f"{ce_resources['smem_bytes']} bytes of dynamic shared memory a block, "
+          f"{ce_resources['blocks_per_sm']} blocks an SM (the forward's occupancy query)")
 
     phase("3. kernel vs plain on the card")
     errs = {
@@ -2356,6 +2734,7 @@ def main() -> int:
         "flash_attention": check_flash_attention(),
         "ssm_scan": check_ssm_scan(),
         "fused_cross_entropy": check_fused_cross_entropy(),
+        "ce_probs": check_ce_probs(),
     }
     flash_lse_err = check_flash_lse()
     check_grad_guard()
@@ -2364,7 +2743,8 @@ def main() -> int:
     print(f"card: {smi}")
     timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
               "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
-              "ssm_scan": time_ssm_scan(), "fused_cross_entropy": time_fused_cross_entropy()}
+              "ssm_scan": time_ssm_scan()}
+    timing["fused_cross_entropy"], timing["ce_probs"] = time_fused_cross_entropy()
 
     phase("data: synthetic MNIST, 60,000 train / 10,000 test, seed 0")
     t0 = time.perf_counter()
@@ -2494,10 +2874,11 @@ def main() -> int:
     launches["gossip_mix"] = sum(lane["launches"] for lane in gossip)
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
-    for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy"):
+    for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
         launches[k] = launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
     flash_tc = (sum(lane["flash_tc_launches"] for lane in serving)
                 + sum(run["flash_tc_launches"] for run in training.values()))
+    ce_tc = sum(run["ce_tc_launches"] for run in training.values())
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
@@ -2508,6 +2889,9 @@ def main() -> int:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:111"),
         "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:62"),
         "fused_cross_entropy": ("ce_loss.cu", "src/repro/kernels/ce_loss.py:91"),
+        # no Pallas kernel: the reference's CE gradient is XLA's autodiff of
+        # the chunk's logits
+        "ce_probs": ("ce_loss.cu", "src/repro/models/transformer.py:363"),
     }
     at = {
         "fedavg_aggregate": {"K": MAIN_K, "N": MAIN_N["mnist_cnn"], "dtype": "float32"},
@@ -2526,12 +2910,17 @@ def main() -> int:
         "fused_cross_entropy": {"shape": "gemma-2b train step", "T": CE_SHAPE[0],
                                 "d": CE_SHAPE[1], "V": CE_SHAPE[2], "dtype": "bfloat16",
                                 "head": "tied view"},
+        "ce_probs": {"shape": "gemma-2b train step, one backward chunk", "T": CE_CHUNK_TOKENS,
+                     "d": CE_SHAPE[1], "V": CE_SHAPE[2], "dtype": "bfloat16",
+                     "head": "tied view"},
     }
     main_shape = {k: "mnist_cnn" for k in KERNELS}
     main_shape.update(gossip_mix="ring/mnist_cnn", flash_attention="jamba",
-                      ssm_scan="jamba/prefill", fused_cross_entropy="gemma-2b train")
+                      ssm_scan="jamba/prefill", fused_cross_entropy="gemma-2b train",
+                      ce_probs="gemma-2b train chunk")
     lanes_of = {"flash_attention": serving, "ssm_scan": serving,
-                "fused_cross_entropy": []}   # its lane is kernels[7]["training"]
+                "fused_cross_entropy": [],   # their lane is kernels[7]["training"]
+                "ce_probs": []}
     kernels = []
     for k in KERNELS:
         cnn = timing[k][main_shape[k]]
@@ -2563,6 +2952,10 @@ def main() -> int:
     kernels[5]["routes"] = {"mma": "flash_fwd_mma_kernel (bf16, D 64/128/256, aligned rows)",
                             "scalar": "flash_fwd_kernel (the rest)"}
     kernels[5]["mma_resources"] = mma_resources
+    kernels[7]["tc_launches"] = ce_tc
+    kernels[7]["routes"] = {"mma": "ce_fwd_mma_kernel (bf16, d % 8 == 0, aligned rows)",
+                            "scalar": "ce_partial_kernel (the rest)"}
+    kernels[7]["mma_resources"] = ce_resources
     kernels[7]["training"] = {algo: {"records": run["records"], "peak_GiB": run["peak_GiB"]}
                               for algo, run in training.items()}
     kernels[7]["training_checks"] = train_checks

@@ -12,16 +12,18 @@ Training goes through two ``torch.autograd.Function``s, because a kernel
 launched through ctypes is invisible to autograd (``grad_guard``):
 ``FlashAttention`` (``mha_flash_train``) and ``FusedCrossEntropy``
 (``ce_loss_mean``). Each forward is the kernel on a CUDA tensor and its
-plain version on a CPU tensor; each backward is plain torch on both, as the
-reference's gradients are plain JAX outside its forward-only Pallas
-kernels. Each backward is a ``torch.profiler`` range of its own
-(``flash_attention_bwd``, ``fused_cross_entropy_bwd``), so a trace shows
-what the plain backward costs."""
+plain version on a CPU tensor. The reference's gradients are plain JAX
+outside its forward-only Pallas kernels: attention's backward is plain
+torch here too; the CE backward (``ce_backward``) builds the logits'
+cotangent with the ``ce_probs`` kernels and leaves its two large products
+to cuBLAS. Each backward is a ``torch.profiler``
+range of its own (``flash_attention_bwd``, ``fused_cross_entropy_bwd``), so
+a trace shows what it costs."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ce_loss import fused_cross_entropy
+from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix
@@ -160,17 +162,60 @@ def mha_flash_train(q, k, v, *, causal=True, window=0, q_chunk=1024, k_chunk=102
     return FlashAttention.apply(q, k, v, causal, window, q_chunk, k_chunk)
 
 
+def _mm_f32(a, b):
+    """``a @ b`` with fp32 sums, as fp32: cuBLAS's bf16 product with an fp32
+    output on the card (no reduced-precision split-K reduction, whatever
+    ``allow_bf16_reduced_precision_reduction`` says), the fp32-widened
+    product elsewhere (bf16 products are exact in fp32)."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _addmm_f32_(acc, a, b):
+    """``acc += a @ b`` into the fp32 ``acc``, with fp32 sums, as
+    :func:`_mm_f32`."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        torch.addmm(acc, a, b, out_dtype=torch.float32, out=acc)
+    else:
+        acc.addmm_(a.float(), b.float())
+
+
+def ce_backward(hidden, head, labels, lse, g, chunk):
+    """(dhidden, dhead) of the per-token CE ``lse - gold`` of ``hidden @
+    head`` under the upstream gradient ``g`` (T,), over token chunks of
+    ``chunk`` (all at once for 0).
+
+    For each chunk, ``p = g (softmax - onehot)`` in head's dtype from
+    ``ce_probs`` (on the card the kernel of the forward's route, the
+    tensor-core one or the scalar one; its plain version on the CPU). Then
+    ``dhidden = p @ head^T`` and ``dhead += hidden^T p``, both with fp32
+    sums: in bf16, cuBLAS's bf16 products with an fp32 output
+    (``out_dtype``); ``dhead`` is summed across chunks in fp32 and rounded
+    to head's dtype once. In fp32 the products are fp32, as they were before
+    the kernel. The reference's gradient (XLA's autodiff of
+    ``chunked_cross_entropy``) rounds the same cotangent to bf16 before its
+    two products."""
+    T = hidden.shape[0]
+    chunk = chunk or T
+    dhidden = torch.empty_like(hidden)
+    dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
+    for t0 in range(0, T, chunk):
+        sl = slice(t0, t0 + chunk)
+        p = ce_probs(hidden[sl], head, labels[sl], lse[sl], g[sl])
+        dhidden[sl] = _mm_f32(p, head.T)
+        _addmm_f32_(dhead, hidden[sl].T, p)
+    return dhidden, dhead.to(head.dtype)
+
+
 class FusedCrossEntropy(torch.autograd.Function):
     """Per-token CE ``lse - gold`` of ``hidden @ head`` with a gradient.
 
     Forward: ``fused_cross_entropy`` (the kernel on the card, the plain
-    version on the CPU), keeping (hidden, head, labels, lse). Backward, plain
-    torch on both devices, over token chunks of ``chunk``: fp32 logits of
-    the chunk again, ``p = exp(logits - lse)``, ``p[gold] -= 1``, scaled by
-    the upstream gradient; ``dhidden = p @ head^T`` and ``dhead`` summed as
-    ``hidden^T p`` in fp32, cast to head's dtype once at the end. The
-    reference's gradient here is XLA's autodiff of
-    ``chunked_cross_entropy``; its Pallas kernel is forward only."""
+    version on the CPU), keeping (hidden, head, labels, lse). Backward:
+    :func:`ce_backward` over token chunks of ``chunk``. The reference's
+    gradient here is XLA's autodiff of ``chunked_cross_entropy``; its Pallas
+    kernel is forward only."""
 
     @staticmethod
     def forward(ctx, hidden, head, labels, chunk):
@@ -182,26 +227,9 @@ class FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden, head, labels, lse = ctx.saved_tensors
-        T = hidden.shape[0]
-        V = head.shape[1]
-        chunk = ctx.chunk or T
-        lbl = labels.long()
         with torch.profiler.record_function("fused_cross_entropy_bwd"):
-            head32 = head.float()
-            dhidden = torch.empty_like(hidden)
-            dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
-            for t0 in range(0, T, chunk):
-                sl = slice(t0, t0 + chunk)
-                h_c = hidden[sl].float()
-                # in place: one (chunk, V) fp32 buffer at a time
-                p = torch.matmul(h_c, head32).sub_(lse[sl, None]).exp_()
-                hit = (lbl[sl] >= 0) & (lbl[sl] < V)
-                rows = torch.arange(p.shape[0], device=p.device)
-                p[rows, lbl[sl].clamp(0, V - 1)] -= hit.float()
-                p *= g[sl, None]
-                dhidden[sl] = (p @ head32.T).to(hidden.dtype)
-                dhead.addmm_(h_c.T, p)
-        return dhidden, dhead.to(head.dtype), None, None
+            dhidden, dhead = ce_backward(hidden, head, labels, lse, g, ctx.chunk)
+        return dhidden, dhead, None, None
 
 
 def ce_loss_mean(hidden, head, labels, *, chunk=0):

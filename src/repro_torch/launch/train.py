@@ -51,11 +51,11 @@ def _parser():
 
 
 def _counters():
-    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
     from repro_torch.kernels.flash_attention import flash_attention
 
-    return (fused_cross_entropy, flash_attention, fedavg_aggregate)
+    return (fused_cross_entropy, ce_probs, flash_attention, fedavg_aggregate)
 
 
 def _launches():

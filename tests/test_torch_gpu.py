@@ -708,11 +708,16 @@ def _ce_case(cuda, T, d, V, dtype, tied, seed=0):
     return hidden, head, labels
 
 
-def _ce_check(hidden, head, labels):
-    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+def _ce_check(hidden, head, labels, route=None):
+    """The kernel (``route`` None: the wrapper's choice; "scalar": forced
+    through the private launcher) against the plain version."""
+    from repro_torch.kernels.ce_loss import _launch, fused_cross_entropy, fused_cross_entropy_ref
 
     before = fused_cross_entropy.launches
-    loss, lse = fused_cross_entropy(hidden, head, labels)
+    if route is None:
+        loss, lse = fused_cross_entropy(hidden, head, labels)
+    else:
+        loss, lse = _launch(hidden, head, labels, route)
     torch.cuda.synchronize()
     assert fused_cross_entropy.launches == before + 1
     ref_loss, ref_lse = fused_cross_entropy_ref(hidden.float(), head.float(), labels)
@@ -767,6 +772,189 @@ def test_ce_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert fused_cross_entropy.launches == before
 
 
+def _ce_view(cuda, T, d, V, layout, seed=0):
+    """bf16 inputs with the head as the tied view or as the first V columns
+    of a (d, V') tensor, V' a multiple of 8 above V."""
+    hidden, head, labels = _ce_case(cuda, T, d, V, torch.bfloat16, True, seed)
+    if layout == "sliced":
+        pitch = -(-V // 8) * 8 + 8
+        full = torch.zeros((d, pitch), dtype=torch.bfloat16, device=cuda)
+        full[:, :V] = head
+        head = full[:, :V]
+    return hidden, head, labels
+
+
+@pytest.mark.parametrize("T", [1, 37, 4096])
+@pytest.mark.parametrize("V", [1, 1000, 2049])
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("layout", ["tied", "sliced"])
+def test_ce_both_routes_match_plain_version(cuda, T, V, d, layout):
+    """bf16 on the tensor-core route (the wrapper's choice for these views)
+    and forced onto the scalar route, each against the plain version."""
+    from repro_torch.kernels.ce_loss import _route, fused_cross_entropy
+
+    hidden, head, labels = _ce_view(cuda, T, d, V, layout, seed=T + V + d)
+    assert _route(hidden, head) == "mma"
+    tc = fused_cross_entropy.tc_launches
+    _ce_check(hidden, head, labels)
+    assert fused_cross_entropy.tc_launches == tc + 1
+    _ce_check(hidden, head, labels, route="scalar")
+    assert fused_cross_entropy.tc_launches == tc + 1
+
+
+def test_ce_routes_of_fp32_and_unaligned_inputs(cuda):
+    """fp32 and a bf16 hidden one element into its storage take the scalar
+    kernel, and the counters show it; the tensor-core route forced on them
+    raises and launches nothing."""
+    from repro_torch.kernels.ce_loss import _launch, fused_cross_entropy
+
+    hidden, head, labels = _ce_case(cuda, 37, 64, 1000, torch.float32, True)
+    buf = torch.empty(37 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(37, 64)
+    shifted.copy_(hidden)
+    for h, w in ((hidden, head), (shifted, head.bfloat16())):
+        n, tc = fused_cross_entropy.launches, fused_cross_entropy.tc_launches
+        _ce_check(h, w, labels)
+        assert (fused_cross_entropy.launches, fused_cross_entropy.tc_launches) == (n + 1, tc)
+        with pytest.raises(ValueError, match="does not take"):
+            _launch(h, w, labels, "mma")
+        assert fused_cross_entropy.launches == n + 1
+
+
+def _probs_check(hidden, head, labels, seed=0, route=None):
+    """ce_probs on the card (``route`` None: the wrapper's choice; "scalar":
+    forced through the private launcher) against ce_probs_ref on the inputs
+    widened to fp32: rounding to the inputs' dtype (one bf16 ulp of the
+    fp32 value, as both round once; an fp32 epsilon) plus
+    |g| (1e-6 + p * 1e-5 * max(1, |lse|)): the exp's error, and the logits'
+    fp32 sums in another order carried into p (the forward's allowance).
+    Returns the route taken."""
+    from repro_torch.kernels.ce_loss import (
+        _launch_probs,
+        ce_probs,
+        ce_probs_ref,
+        fused_cross_entropy_ref,
+    )
+
+    T, V = hidden.shape[0], head.shape[1]
+    if T > 3:
+        labels[1], labels[2] = -1, V
+    r = np.random.default_rng(seed)
+    g = torch.from_numpy((r.uniform(0.5, 1.5, T) / T).astype(np.float32)).to(hidden.device)
+    h32, w32 = hidden.float(), head.float()
+    _, lse = fused_cross_entropy_ref(h32, w32, labels)
+    n, tc = ce_probs.launches, ce_probs.tc_launches
+    if route is None:
+        p = ce_probs(hidden, head, labels, lse, g)
+    else:
+        p = _launch_probs(hidden, head, labels, lse, g, route)
+    torch.cuda.synchronize()
+    assert ce_probs.launches == n + 1
+    assert p.shape == (T, V) and p.dtype == hidden.dtype
+    p_one = ce_probs_ref(h32, w32, labels, lse, torch.ones_like(g))
+    p32 = p_one * g[:, None]
+    hit = (labels >= 0) & (labels < V)
+    p_one[torch.arange(T, device=hidden.device)[hit], labels[hit].long()] += 1.0
+    if hidden.dtype == torch.bfloat16:
+        mag = p32.abs().clamp_min(2.0 ** -126)
+        rnd = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    else:
+        rnd = p32.abs() * torch.finfo(torch.float32).eps
+    tol = rnd + g[:, None] * (1e-6 + p_one * 1e-5 * max(1.0, float(lse.abs().max())))
+    assert bool(((p.float() - p32).abs() <= tol).all())
+    return "mma" if ce_probs.tc_launches == tc + 1 else "scalar"
+
+
+@pytest.mark.parametrize("T", [1, 37, 300])
+@pytest.mark.parametrize("V", [1, 1000, 2049])
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("layout", ["tied", "sliced"])
+@pytest.mark.parametrize("route", ["mma", "scalar"])
+def test_ce_probs_kernel_matches_plain_version(cuda, T, V, d, layout, route):
+    """bf16 on the tensor-core route (the wrapper's choice for these views)
+    and forced onto the scalar route."""
+    forced = None if route == "mma" else route
+    got = _probs_check(*_ce_view(cuda, T, d, V, layout, seed=T + V + d), seed=T, route=forced)
+    assert got == route
+
+
+@pytest.mark.parametrize("T", [1, 37, 300])
+@pytest.mark.parametrize("V", [1, 1000, 2049])
+@pytest.mark.parametrize("tied", [False, True])
+def test_ce_probs_scalar_kernel_on_fp32(cuda, T, V, tied):
+    """fp32 takes ce_probs_kernel, P in fp32."""
+    assert _probs_check(*_ce_case(cuda, T, 64, V, torch.float32, tied, seed=T + V),
+                        seed=T) == "scalar"
+
+
+def test_ce_probs_kernel_at_the_training_chunk(cuda):
+    """1,024 tokens (B = 2 x ce_chunk 512) of the tied 256,000-word head."""
+    assert _probs_check(*_ce_view(cuda, 1024, 2048, 256_000, "tied", seed=1)) == "mma"
+
+
+def test_ce_probs_routes_of_fp32_and_unaligned_inputs(cuda):
+    """fp32, d = 12 and a bf16 hidden one element into its storage take the
+    scalar kernel; the tensor-core route forced on them raises and launches
+    nothing, and so do inputs the wrapper refuses."""
+    from repro_torch.kernels.ce_loss import _launch_probs, ce_probs
+
+    hidden, head, labels = _ce_view(cuda, 37, 64, 1000, "tied")
+    buf = torch.empty(37 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(37, 64)
+    shifted.copy_(hidden)
+    d12 = _ce_case(cuda, 37, 12, 1000, torch.bfloat16, True, seed=3)
+    for h, w, lbl in ((hidden.float(), head.float(), labels), (shifted, head, labels), d12):
+        assert _probs_check(h, w, lbl.clone()) == "scalar"
+        lse, g = torch.zeros(37, device=cuda), torch.ones(37, device=cuda)
+        before = ce_probs.launches
+        with pytest.raises(ValueError, match="does not take"):
+            _launch_probs(h, w, lbl, lse, g, "mma")
+        assert ce_probs.launches == before
+    lse, g = torch.zeros(37, device=cuda), torch.ones(37, device=cuda)
+    before = ce_probs.launches
+    with pytest.raises(ValueError, match="does not take"):
+        _launch_probs(hidden, head, labels, lse, g, "wgmma")
+    with pytest.raises(ValueError, match="lse"):
+        ce_probs(hidden, head, labels, lse.bfloat16(), g)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ce_probs(hidden.T.contiguous().T, head, labels, lse, g)
+    with pytest.raises(ValueError, match="ops.ce_loss_mean"):
+        ce_probs(hidden.clone().requires_grad_(), head, labels, lse, g)
+    assert ce_probs.launches == before
+
+
+@pytest.mark.parametrize("chunk", [0, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ce_backward_on_card_matches_cpu(cuda, chunk, dtype):
+    """ops.ce_loss_mean's gradients, card against CPU on the same values:
+    the same P up to the exp's last bits, then fp32 sums in other orders,
+    each gradient rounded to its dtype once: within 1e-3 of each gradient's
+    norm. The card launches ce_probs once a chunk and the forward once, in
+    bf16 on the tensor-core route, in fp32 on the scalar one."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
+
+    hidden, head, labels = _ce_view(cuda, 300, 64, 1000, "tied", seed=5)
+    hidden, head = hidden.to(dtype), head.to(dtype)
+    table = head.T.contiguous()
+    tc_runs = int(dtype == torch.bfloat16)
+    grads = {}
+    for dev in (cuda, "cpu"):
+        h = hidden.reshape(2, 150, 64).to(dev).clone().requires_grad_()
+        t = table.to(dev).clone().requires_grad_()
+        n, tc = ce_probs.launches, fused_cross_entropy.tc_launches
+        probs_tc = ce_probs.tc_launches
+        ops.ce_loss_mean(h, t.T, labels.reshape(2, 150).to(dev), chunk=chunk // 2).backward()
+        if dev == cuda:
+            n_chunks = -(-300 // (chunk or 300))
+            assert ce_probs.launches - n == n_chunks
+            assert ce_probs.tc_launches - probs_tc == n_chunks * tc_runs
+            assert fused_cross_entropy.tc_launches == tc + tc_runs
+        grads[str(dev)] = (h.grad.float().cpu(), t.grad.float().cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).norm() / want.norm()) <= 1e-3
+
+
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 @pytest.mark.parametrize("shape", [(1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
                                    (2, 2048, 8, 1, 256)])   # the last: Gemma-2B's training step
@@ -791,7 +979,7 @@ def test_flash_kernel_lse_matches_plain_version(cuda, mask, shape, dtype):
 
 
 def _guard_calls(cuda):
-    from repro_torch.kernels.ce_loss import fused_cross_entropy
+    from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import ssm_scan
 
@@ -822,12 +1010,16 @@ def _guard_calls(cuda):
         "ssm_scan": (ssm_scan, lambda f: ssm_scan(dt, bc, bc, f(dt), A, h0)),
         "fused_cross_entropy": (fused_cross_entropy,
                                 lambda f: fused_cross_entropy(f(hidden), head, labels)),
+        "ce_probs": (ce_probs, lambda f: ce_probs(f(hidden.bfloat16()), head.bfloat16(), labels,
+                                                  torch.zeros(8, device=cuda),
+                                                  torch.ones(8, device=cuda))),
     }
 
 
 @pytest.mark.parametrize("name", ["fedavg_aggregate", "quantized_aggregate",
                                   "packed_quantized_aggregate", "sparse_aggregate", "gossip_mix",
-                                  "flash_attention", "ssm_scan", "fused_cross_entropy"])
+                                  "flash_attention", "ssm_scan", "fused_cross_entropy",
+                                  "ce_probs"])
 def test_grad_guard_refuses_a_differentiable_input_and_launches_nothing(cuda, name):
     wrapper, call = _guard_calls(cuda)[name]
     rg = lambda t: t.clone().requires_grad_()   # noqa: E731
