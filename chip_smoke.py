@@ -38,7 +38,8 @@ Phases, in order, each printing its own lines:
     against the same round on the CPU (same injected batches); then each
     lane runs, and ``gossip_mix`` must launch once a round;
 12. the anchor: on the full graph (100 nodes, 2NN) one gossip round equals
-    one plain FedAvg round with C = 1.0 on the same injected batches;
+    one plain FedAvg round with C = 1.0 on the same injected batches; its
+    one ``gossip_mix`` launch must take the dense route;
 13. one profiled CNN ring round: the mixing kernel's share and the card's
     idle share;
 14. serving the LM substrate: Jamba (``jamba-v0.1-52b`` at full width, one
@@ -46,7 +47,8 @@ Phases, in order, each printing its own lines:
     one request of B = 4 prompts of 2048 tokens and greedy decode to 32
     tokens through ``repro_torch.launch.serve.generate``: ``flash_attention``
     must launch once (the attention layer's prefill) and ``ssm_scan`` 224
-    times (7 Mamba layers in prefill and in each of 31 decode steps);
+    times (7 Mamba layers in prefill and in each of 31 decode steps), each
+    with the lanes a channel of its launch plan;
 15. the same for Gemma-2B, all 18 layers: ``flash_attention`` 18 times;
 16. correctness of the LM path: prefill + decode equals forward at full
     width in bf16 (both models), and the reduced configs in fp32 on the card
@@ -83,8 +85,16 @@ phase 4 times both routes in turns at the main shapes and requires the
 tensor-core route to be at least 5x faster, and times the CE backward
 against the plain one it replaced; phases 14-15, 18 and 20 require every
 flash and CE launch of the serving and training paths to take the
-tensor-core route. ``ce_probs`` (the CE gradient's kernel) ports no Pallas
-kernel; it is held, timed and counted like the eight that do. Every
+tensor-core route. ``gossip_mix`` has two routes too, the gather kernel
+(sparse plans) and the dense kernel (the full graph; ``dense_launches``
+beside ``launches``): phase 3 runs every case on the route ``_route`` picks
+and the 100-node ring, small world and full graph through each route
+forced, phase 4 times both routes in turns on those plans. ``ssm_scan``
+splits each channel's states across 1, 2 or 4 lanes (``lane_launches``):
+phase 3 runs every case with each, phase 4 times each in turns and
+requires the launch plan's to be within 5% of the fastest. ``ce_probs``
+(the CE gradient's kernel) ports no Pallas kernel; it is held, timed and
+counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
 after. Each phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
@@ -400,6 +410,10 @@ def reset_counts():
         f.launches = 0
     for name in ("flash_attention", "fused_cross_entropy", "ce_probs"):
         counters()[name].tc_launches = 0
+    counters()["gossip_mix"].dense_launches = 0
+    lanes = counters()["ssm_scan"].lane_launches
+    for k in lanes:
+        lanes[k] = 0
 
 
 def flash_tc_launches():
@@ -701,13 +715,24 @@ def gossip_tol(x, w):
     return 2 * D * 2.0 ** -24 * float(x.float().abs().max())
 
 
+def gossip_routed(x, idx, w, route=None):
+    """gossip_mix(x, idx, w), required to launch once through the route
+    ``_route`` picks, or through ``route``'s kernel forced by the module's
+    private launcher; (out, the route taken)."""
+    from repro_torch.kernels.gossip_mix import _launch, _route, gossip_mix
+
+    n, dense = gossip_mix.launches, gossip_mix.dense_launches
+    taken = route or _route(x, idx, w)
+    out = gossip_mix(x, idx, w) if route is None else _launch(x, idx, w, route)
+    require(gossip_mix.launches == n + 1
+            and gossip_mix.dense_launches == dense + (taken == "dense"),
+            f"gossip_mix took the wrong route (want {taken}) for n={x.shape[0]} "
+            f"D={idx.shape[1]}")
+    return out, taken
+
+
 def check_gossip_mix():
-    from repro_torch.kernels.gossip_mix import (
-        MAX_NODES,
-        gossip_mix,
-        gossip_mix_ref,
-        launch_config,
-    )
+    from repro_torch.kernels.gossip_mix import MAX_NODES, gossip_mix, gossip_mix_ref, launch_config
 
     name = "gossip_mix"
     cases = []
@@ -716,14 +741,17 @@ def check_gossip_mix():
             for N in (1, 33, 4097, *MAIN_N.values()):
                 for plan in gossip_plans(n):
                     cases.append(dict(n=n, N=N, dtype=dtype, plan=plan))
+        for N in (33, 4097, MAIN_N["mnist_2nn"]):   # the dense route's K panels and M chunks
+            cases.append(dict(n=MAX_NODES, N=N, dtype=dtype, plan="full"))
         for kind in ("duplicates", "out_of_range", "padded"):
             for n, N in ((17, 4097), (100, MAIN_N["mnist_2nn"])):
                 cases.append(dict(n=n, N=N, dtype=dtype, plan=kind))
-        for plan in ("ring", "full"):
-            cases.append(dict(n=100, N=MAIN_N["mnist_2nn"], dtype=dtype, plan=plan,
-                              misaligned=True))
+        for plan in ("ring", "smallworld", "full"):
+            for N in MAIN_N.values():
+                cases.append(dict(n=100, N=N, dtype=dtype, plan=plan, misaligned=True))
     before = gossip_mix.launches
     main_err = worst = worst_bf16 = 0.0
+    n_launched, by_route = 0, {"gather": 0, "dense": 0}
     for i, c in enumerate(cases):
         n, N, dtype = c["n"], c["N"], c["dtype"]
         if c["plan"] in ("duplicates", "out_of_range", "padded"):
@@ -738,31 +766,39 @@ def check_gossip_mix():
             x.copy_(torch.randn((n, N), generator=g, device="cuda"))
         else:
             x = torch.randn((n, N), generator=g, device="cuda").to(dtype)
-        out = gossip_mix(x, idx, w)
-        torch.cuda.synchronize()
-        require(out.shape == (n, N) and out.dtype == dtype, f"bad output for {c}")
         tol = gossip_tol(x, w)
         ref32 = gossip_mix_ref(x.float(), idx, w)
-        tile, vec = launch_config(x, out)
-        tag = (f"n={n:3d} N={N:8d} D={idx.shape[1]:3d} {str(dtype)[6:]:8s} {c['plan']:12s} "
-               f"tile={tile:3d} vec={vec}" + (" misaligned" if c.get("misaligned") else ""))
-        if dtype == torch.float32:
-            err = float((out - ref32).abs().max())
-            ok = err <= tol
-            worst = max(worst, err)
-            if n == N_NODES and N in MAIN_N.values() and c["plan"] in ("ring", "smallworld"):
-                main_err = max(main_err, err)
-            detail = f"max_abs_err={err:.3e} tol={tol:.3e}"
-        else:
-            # plus one rounding at the store: one bf16 ulp of the fp32 sum
-            share = float(((out.float() - ref32).abs() / (bf16_ulp(ref32) + tol)).max())
-            ok = share <= 1.0
-            worst_bf16 = max(worst_bf16, share)
-            detail = f"max_err={share:.3f} of (1 bf16 ulp + tol)"
-        print(f"  {tag}: {detail} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version: {c}")
-    require(gossip_mix.launches - before == len(cases), "one launch per case")
+        # the wrapper's route, then (on the main plans at n = 100) each route forced
+        forced = (n == N_NODES and N in MAIN_N.values()
+                  and c["plan"] in ("ring", "smallworld", "full"))
+        for route in (None, "gather", "dense") if forced else (None,):
+            out, taken = gossip_routed(x, idx, w, route)
+            torch.cuda.synchronize()
+            n_launched += 1
+            by_route[taken] += 1
+            require(out.shape == (n, N) and out.dtype == dtype, f"bad output for {c}")
+            cfg = launch_config(x, idx, out, taken)
+            tag = (f"n={n:4d} N={N:8d} D={idx.shape[1]:4d} {str(dtype)[6:]:8s} "
+                   f"{c['plan']:12s} {'forced ' if route else ''}{taken:6s} "
+                   + " ".join(f"{k}={v}" for k, v in cfg.items() if k != "route")
+                   + (" misaligned" if c.get("misaligned") else ""))
+            if dtype == torch.float32:
+                err = float((out - ref32).abs().max())
+                ok = err <= tol
+                worst = max(worst, err)
+                if n == N_NODES and N in MAIN_N.values() and c["plan"] in ("ring", "smallworld"):
+                    main_err = max(main_err, err)
+                detail = f"max_abs_err={err:.3e} tol={tol:.3e}"
+            else:
+                # plus one rounding at the store: one bf16 ulp of the fp32 sum
+                share = float(((out.float() - ref32).abs() / (bf16_ulp(ref32) + tol)).max())
+                ok = share <= 1.0
+                worst_bf16 = max(worst_bf16, share)
+                detail = f"max_err={share:.3f} of (1 bf16 ulp + tol)"
+            print(f"  {tag}: {detail} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version: {c}, {taken}")
+    require(gossip_mix.launches - before == n_launched, "one launch per case and route")
 
     ring = gossip_plans(4)["ring"]
     x = torch.randn((4, 64), device="cuda")
@@ -779,9 +815,10 @@ def check_gossip_mix():
             big, torch.arange(MAX_NODES + 1, dtype=torch.int32, device="cuda")[:, None],
             torch.ones((MAX_NODES + 1, 1), device="cuda")),
     })
-    print(f"kernels: {name} cuda ok ({len(cases)} cases, fp32 max_abs_err {worst:.3e} within "
-          f"2*D*2^-24*max|x|; bf16 max error {worst_bf16:.3f} of 1 bf16 ulp + that; "
-          f"{n_ref} refusals)")
+    print(f"kernels: {name} cuda ok ({len(cases)} cases, {n_launched} launches: "
+          f"{by_route['gather']} gather, {by_route['dense']} dense; fp32 max_abs_err "
+          f"{worst:.3e} within 2*D*2^-24*max|x|; bf16 max error {worst_bf16:.3f} of 1 bf16 "
+          f"ulp + that; {n_ref} refusals)")
     return main_err
 
 
@@ -847,9 +884,12 @@ def bound_of(nbytes, fp32_ops, int_ops=0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def timing_row(tag, fn, plain, library, nbytes, fp32_ops, flush, int_ops=0):
+def timing_row(tag, fn, plain, library, nbytes, fp32_ops, flush, int_ops=0, kernel_ms=None):
+    """Kernel, plain and library times with the bound. ``kernel_ms``: the
+    kernel's time, taken already by the caller (``fn`` is then None)."""
     bound, by = bound_of(nbytes, fp32_ops, int_ops)
-    r = {"ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
+    r = {"ms": time_ms(fn, flush) if kernel_ms is None else kernel_ms,
+         "plain_ms": time_ms(plain, flush),
          "library_ms": time_ms(library, flush), "bound_ms": bound, "bound_by": by,
          "bytes": nbytes}
     r["achieved_GBps"] = nbytes / (r["ms"] * 1e-3) / 1e9
@@ -926,9 +966,12 @@ def time_wire_kernels():
 
 
 def time_gossip_mix():
-    """The mixing kernel at n = 100 nodes on the ring, the small world and the
-    full graph, at the 2NN's and the CNN's N, fp32."""
-    from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_ref, launch_config
+    """Both routes at n = 100 nodes on the ring, the small world and the
+    full graph, at the 2NN's and the CNN's N, fp32, in turns (gather,
+    dense, dense, gather; each route's time the mean of its two medians);
+    the row's ``ms`` is the route ``_route`` picks. The bound counts the
+    plan's non-zero slots, 2 flops each an element."""
+    from repro_torch.kernels.gossip_mix import _launch, _route, gossip_mix_ref, launch_config
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = {}
@@ -940,15 +983,28 @@ def time_gossip_mix():
         for model, N in MAIN_N.items():
             x = torch.randn((N_NODES, N), generator=torch.Generator(device="cuda").manual_seed(7),
                             device="cuda")
+            route = _route(x, idx, w)
+            turns = [(r, time_ms(lambda: _launch(x, idx, w, r), flush))
+                     for r in ("gather", "dense", "dense", "gather")]
+            ms = {r: float(np.mean([t for name, t in turns if name == r]))
+                  for r in ("gather", "dense")}
+            cfg = {r: launch_config(x, idx, x, r) for r in ("gather", "dense")}
             r = timing_row(
                 f"gossip_mix {plan_name} {model}: n={N_NODES} N={N} D={plan.max_slots} "
-                f"non-zero slots {nonzero} tile, vec={launch_config(x, x)}",
-                lambda: gossip_mix(x, idx, w),
-                lambda: gossip_mix_ref(x, idx, w),
+                f"non-zero slots {nonzero}, routed {route}",
+                None, lambda: gossip_mix_ref(x, idx, w),
                 lambda: torch.matmul(W, x),      # cuBLAS, TF32 off: the reference's oracle
-                2 * N_NODES * N * 4 + idx.numel() * 8, 2 * nonzero * N, flush)
+                2 * N_NODES * N * 4 + idx.numel() * 8, 2 * nonzero * N, flush,
+                kernel_ms=ms[route])
             r.update(n=N_NODES, N=N, plan=plan_name, max_slots=plan.max_slots,
-                     nonzero_slots=nonzero)
+                     nonzero_slots=nonzero, route=route, gather_ms=ms["gather"],
+                     dense_ms=ms["dense"], turns_ms=turns, launch_config=cfg,
+                     vs_library=r["ms"] / r["library_ms"])
+            print(f"    turns (gather, dense, dense, gather): "
+                  + ", ".join(f"{t:.5f}" for _, t in turns)
+                  + f" ms; dense {ms['dense'] / ms['gather']:.3f}x the gather time, "
+                  f"{ms['dense'] / r['library_ms']:.3f}x torch.matmul's; dense block "
+                  + " ".join(f"{k}={v}" for k, v in cfg["dense"].items() if k != "route"))
             rows[f"{plan_name}/{model}"] = r
     del flush
     return rows
@@ -1100,11 +1156,30 @@ def ssm_inputs(B, T, D, N, dtype, seed, h0_scale):
     return dt, Bm, Cm, x, A, h0
 
 
+def ssm_lanes_routed(args, lanes=None):
+    """ssm_scan(*args), required to launch once with the lanes its launch
+    plan picks, or with ``lanes`` forced by the module's private launcher."""
+    from repro_torch.kernels.ssm_scan import _launch, launch_plan, ssm_scan
+
+    want = launch_plan(args[0].shape[1]) if lanes is None else lanes
+    n, per = ssm_scan.launches, dict(ssm_scan.lane_launches)
+    out = ssm_scan(*args) if lanes is None else _launch(*args, lanes)
+    per[want] += 1
+    require(ssm_scan.launches == n + 1 and ssm_scan.lane_launches == per,
+            f"ssm_scan took the wrong launch (want {want} lanes) for {tuple(args[0].shape)}")
+    return out
+
+
 def check_ssm_scan():
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    """Every case through the wrapper's launch plan, then with each lane
+    count (1, 2, 4 lanes a channel) forced."""
+    from repro_torch.kernels.ssm_scan import LANES, ssm_scan, ssm_scan_ref
 
     name = "ssm_scan"
+    # N = 1, 5, 13, 16; T off the 16-step run (8, 24, 37, 100); ragged D
+    # (129, 200); T = 1; the Jamba decode and prefill shapes
     shapes = [(1, 8, 4, 2), (2, 24, 8, 4), (1, 16, 16, 8), (2, 100, 200, 16), (3, 37, 129, 5),
+              (2, 37, 129, 1), (2, 24, 72, 13), (3, 1, 129, 5), (1, 1, 64, 16),
               (SERVE_BATCH, 1, SSM_D, SSM_N)]
     cases = [dict(shape=s, dtype=dtype, h0=1.0) for dtype in (torch.float32, torch.bfloat16)
              for s in shapes]
@@ -1112,36 +1187,51 @@ def check_ssm_scan():
                       main=True))
     before = ssm_scan.launches
     main_err, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, c in enumerate(cases):
-        args = ssm_inputs(*c["shape"], c["dtype"], i, c["h0"])
-        y, h = ssm_scan(*args)
+    n_launched = 0
+
+    def held(tag, args, y32, h32, lanes):
+        nonlocal n_launched
+        y, h = ssm_lanes_routed(args, lanes)
         torch.cuda.synchronize()
-        y32, h32 = ssm_scan_ref(*(a.float() for a in args[:4]), args[4], args[5])
+        n_launched += 1
         scale = max(1.0, float(y32.abs().max()), float(h32.abs().max()))
         ok, err = close_to_fp32(y, y32, scale)
         h_err = float((h - h32).abs().max())
-        ok = ok and h_err <= 1e-5 * scale and y.dtype == c["dtype"]
-        worst[c["dtype"]] = max(worst[c["dtype"]], err)
-        if c.get("main"):
-            main_err = max(float((y - y32).abs().max()), h_err)
-        print(f"  (B, T, D, N)={c['shape']} {str(c['dtype'])[6:]:8s} h0 x{c['h0']}: "
-              + (f"y max_abs_err={err:.3e}" if c["dtype"] == torch.float32
+        ok = ok and h_err <= 1e-5 * scale and y.dtype == args[3].dtype
+        print(f"  {tag} lanes={'plan' if lanes is None else lanes}: "
+              + (f"y max_abs_err={err:.3e}" if y.dtype == torch.float32
                  else f"y max_err={err:.3f} of (1 bf16 ulp + tol)")
-              + f", h_T max_abs_err={h_err:.3e} (scale {scale:.2f})"
-              + (" [the Jamba prefill shape]" if c.get("main") else "")
-              + (" ok" if ok else " FAIL"))
+              + f", h_T max_abs_err={h_err:.3e} (scale {scale:.2f}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version: {c}")
-    # B and C as column slices of one projection, as mamba_apply makes them in fp32
+            raise AssertionError(f"{name} disagrees with its plain version: {tag}, {lanes}")
+        return err, max(float((y.float() - y32).abs().max()), h_err)
+
+    for i, c in enumerate(cases):
+        args = ssm_inputs(*c["shape"], c["dtype"], i, c["h0"])
+        y32, h32 = ssm_scan_ref(*(a.float() for a in args[:4]), args[4], args[5])
+        tag = (f"(B, T, D, N)={c['shape']} {str(c['dtype'])[6:]:8s} h0 x{c['h0']}"
+               + (" [the Jamba prefill shape]" if c.get("main") else ""))
+        for lanes in (None, *LANES):
+            err, abs_err = held(tag, args, y32, h32, lanes)
+            worst[c["dtype"]] = max(worst[c["dtype"]], err)
+            if c.get("main") and lanes is None:
+                main_err = abs_err
+    # B and C as column slices of one projection, as mamba_apply makes them
+    # in fp32; and a time slice of a longer scan (ops.mamba_ssm_scan's chunks)
     dt, Bm, Cm, x, A, h0 = ssm_inputs(2, 50, 96, 16, torch.float32, 99, 1.0)
     dbc = torch.cat([torch.randn((2, 50, 6), device="cuda"), Bm, Cm], dim=-1)
-    y, h = ssm_scan(dt, dbc[..., 6:22], dbc[..., 22:], x, A, h0)
     y32, h32 = ssm_scan_ref(dt, Bm, Cm, x, A, h0)
-    err = max(float((y - y32).abs().max()), float((h - h32).abs().max()))
-    print(f"  strided B/C views: max_abs_err={err:.3e}")
-    require(err <= 1e-5 * max(1.0, float(y32.abs().max()), float(h32.abs().max())),
-            f"{name} disagrees with its plain version on strided views")
-    require(ssm_scan.launches - before == len(cases) + 1, "one launch per case")
+    for lanes in (None, *LANES):
+        err, _ = held("strided B/C views (2, 50, 96, 16) float32",
+                      (dt, dbc[..., 6:22], dbc[..., 22:], x, A, h0), y32, h32, lanes)
+        worst[torch.float32] = max(worst[torch.float32], err)
+    y32, h32 = ssm_scan_ref(dt[:, 13:40], Bm[:, 13:40], Cm[:, 13:40], x[:, 13:40], A, h0)
+    for lanes in (None, *LANES):
+        err, _ = held("time slice [13:40] of the views",
+                      (dt[:, 13:40], dbc[:, 13:40, 6:22], dbc[:, 13:40, 22:], x[:, 13:40], A, h0),
+                      y32, h32, lanes)
+        worst[torch.float32] = max(worst[torch.float32], err)
+    require(ssm_scan.launches - before == n_launched, "one launch per case and lane count")
 
     dt, Bm, Cm, x, A, h0 = ssm_inputs(1, 4, 8, 4, torch.float32, 0, 0.0)
     big = ssm_inputs(1, 4, 8, 17, torch.float32, 0, 0.0)
@@ -1154,8 +1244,8 @@ def check_ssm_scan():
         "a strided last axis": lambda: ssm_scan(
             dt.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, x, A, h0),
     })
-    print(f"kernels: {name} cuda ok ({len(cases) + 1} cases, fp32 max_abs_err "
-          f"{worst[torch.float32]:.3e} within 1e-5*scale; bf16 max error "
+    print(f"kernels: {name} cuda ok ({len(cases) + 2} cases, {n_launched} launches; fp32 "
+          f"max_abs_err {worst[torch.float32]:.3e} within 1e-5*scale; bf16 max error "
           f"{worst[torch.bfloat16]:.3f} of 1 bf16 ulp + that; {n_ref} refusals)")
     return main_err
 
@@ -1232,24 +1322,43 @@ def time_flash_attention():
     return rows
 
 
+SSM_PLAN_SLACK = 1.05   # the launch plan's lanes within 5% of the fastest, same run
+
+
 def time_ssm_scan():
     """At the Jamba prefill shape (T = 2048) and its decode step (T = 1), fp32
-    as mamba_apply passes it: one exp per (b, t, d, n) on the special-function
-    units, four fp32 operations beside it and one more per (b, t, d)."""
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    as mamba_apply passes it: one exp2 per (b, t, d, n) on the
+    special-function units, four fp32 operations beside it and one more per
+    (b, t, d). Every lane count in turns, forwards then backwards; each
+    one's time the mean of its two medians. The launch plan's lanes must
+    be within SSM_PLAN_SLACK of the fastest."""
+    from repro_torch.kernels.ssm_scan import LANES, _launch, launch_plan, ssm_scan_ref
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = {}
     for tag, T in (("jamba/prefill", PROMPT), ("jamba/decode", 1)):
         B, D, N = SERVE_BATCH, SSM_D, SSM_N
         args = ssm_inputs(B, T, D, N, torch.float32, 7, 1.0 if T == 1 else 0.0)
+        order = LANES
+        turns = [(lanes, time_ms(lambda: _launch(*args, lanes), flush))
+                 for lanes in order + order[::-1]]
+        ms = {lanes: float(np.mean([t for k, t in turns if k == lanes])) for lanes in order}
+        plan = launch_plan(T)
         rows[tag] = lm_row(
-            f"ssm_scan {tag}: B={B} T={T} D={D} N={N} fp32",
-            lambda: ssm_scan(*args), lambda: ssm_scan_ref(*args), None,
+            f"ssm_scan {tag}: B={B} T={T} D={D} N={N} fp32, {plan} lanes a channel (the plan)",
+            None, lambda: ssm_scan_ref(*args), None,
             (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N) * 4,
             B * T * D * (4 * N + 1), flush, sfu_ops=B * T * D * N,
-            plain_iters=3 if T > 1 else 20)
-        rows[tag].update(B=B, T=T, D=D, N=N, dtype="float32")
+            plain_iters=3 if T > 1 else 20, kernel_ms=ms[plan])
+        rows[tag].update(B=B, T=T, D=D, N=N, dtype="float32", lanes=plan, lanes_ms=ms,
+                         turns_ms=turns)
+        print(f"    turns (lanes " + ", ".join(str(k) for k, _ in turns) + "): "
+              + ", ".join(f"{t:.5f}" for _, t in turns) + " ms; by lanes "
+              + ", ".join(f"{k}: {v:.5f}" for k, v in ms.items()) + " ms")
+        fastest = min(ms[k] for k in LANES)
+        require(ms[plan] <= SSM_PLAN_SLACK * fastest,
+                f"ssm_scan {tag}: the plan's {plan} lanes take {ms[plan]:.5f} ms, the fastest "
+                f"lane count {fastest:.5f} ms")
     del flush
     return rows
 
@@ -1769,6 +1878,7 @@ def serving_lane(label, model, params):
     tokens, then greedy decode to 32 tokens (31 decode steps), through
     ``repro_torch.launch.serve.generate``, after one short warm-up request.
     Every launch count is set to 0 just before and read just after."""
+    from repro_torch.kernels.ssm_scan import launch_plan
     from repro_torch.launch.serve import generate
 
     cfg = model.cfg
@@ -1780,6 +1890,7 @@ def serving_lane(label, model, params):
     reset_counts()
     ids, prefill_s, decode_s = generate(model, params, prompt, SERVE_TOKENS)
     counts, tc = launch_counts(), flash_tc_launches()
+    lanes = dict(counters()["ssm_scan"].lane_launches)
     peak = torch.cuda.max_memory_allocated()
     n_attn = sum(s.mixer == "attn" for s in model.plan)
     n_mamba = len(model.plan) - n_attn
@@ -1787,6 +1898,11 @@ def serving_lane(label, model, params):
     want.update(flash_attention=n_attn, ssm_scan=n_mamba * SERVE_TOKENS)
     require(counts == want, f"{label}: launches {counts}, want {want}")
     require(tc == n_attn, f"{label}: {tc} of {n_attn} flash launches took the tensor-core route")
+    want_lanes = dict.fromkeys(lanes, 0)
+    want_lanes[launch_plan(PROMPT)] += n_mamba
+    want_lanes[launch_plan(1)] += n_mamba * (SERVE_TOKENS - 1)
+    require(lanes == want_lanes, f"{label}: ssm_scan launches by lanes a channel {lanes}, "
+            f"want the launch plan's {want_lanes}")
     ids = ids.cpu()
     require(ids.shape == (SERVE_BATCH, SERVE_TOKENS) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab_size, f"{label}: bad sampled ids")
@@ -1797,11 +1913,12 @@ def serving_lane(label, model, params):
           f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the request, params "
           f"included); launches: flash_attention {counts['flash_attention']} "
           f"({n_attn} a prefill; {tc} on the tensor-core route), ssm_scan {counts['ssm_scan']} ({n_mamba} a prefill + "
-          f"{n_mamba} x {SERVE_TOKENS - 1} decode steps); ids[0][:8] {ids[0, :8].tolist()}")
+          f"{n_mamba} x {SERVE_TOKENS - 1} decode steps; by lanes a channel "
+          f"{ {k: v for k, v in lanes.items() if v} }); ids[0][:8] {ids[0, :8].tolist()}")
     return {"model": label, "batch": SERVE_BATCH, "prompt": PROMPT, "tokens": SERVE_TOKENS,
             "prefill_s": prefill_s, "decode_ms_per_token": ms_token,
             "peak_device_GiB": peak / 2**30, "held_before_GiB": held / 2**30,
-            "launches": counts, "flash_tc_launches": tc}
+            "launches": counts, "flash_tc_launches": tc, "ssm_lane_launches": lanes}
 
 
 def no_drop(cfg):
@@ -1897,7 +2014,7 @@ def profile_serving(label, model, params):
         summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
         shares = {}
         for key, kernel in (("flash_fwd", "flash_attention"),   # both routes' kernels
-                            ("ssm_scan_kernel", "ssm_scan")):
+                            ("ssm_scan_", "ssm_scan")):
             mine = [r for r in rows if key in r[2]]
             shares[kernel] = {"ms": sum(r[0] for r in mine) / 1e3,
                               "count": sum(r[1] for r in mine)}
@@ -2599,9 +2716,19 @@ def gossip_lane(model_name, spec_name, data):
         ((1, UPDATE_RTOL_1), (CHECK_STEPS, UPDATE_RTOL_N))
     gossip_card_vs_cpu(f"{model_name} {topo.kind}", eng, model, cfg, steps)
     launches, walls = run_lane(f"{model_name} {topo.kind}", eng, GOSSIP_ROUNDS, "gossip_mix")
+    from repro_torch.kernels.gossip_mix import _route
+
+    route = _route(torch.empty((eng.plan.n_nodes, 1), device="meta"), eng._mix_idx,
+                   eng._mix_w)
+    dense = counters()["gossip_mix"].dense_launches
+    require(dense == (launches if route == "dense" else 0),
+            f"{spec_name}: {dense} of {launches} gossip_mix launches on the dense route, "
+            f"want the {route} route")
+    print(f"  gossip_mix route: {route} ({dense} dense launches)")
     recs = eng.history.records
     return {"model": model_name, "spec": spec_name, "topology": topo.name,
-            "kernel": "gossip_mix", "launches": launches, "rounds": GOSSIP_ROUNDS,
+            "kernel": "gossip_mix", "launches": launches, "route": route,
+            "dense_launches": dense, "rounds": GOSSIP_ROUNDS,
             "round_wall_s": walls, "consensus": [r.consensus for r in recs],
             "test_acc": [r.test_acc for r in recs],
             "peak_device_MiB": torch.cuda.max_memory_allocated() / 2**20}, eng
@@ -2633,8 +2760,10 @@ def anchor(data):
         RoundState(start, ()), RoundBatch(batch, mask, w, lr=cfg.lr))
     torch.cuda.synchronize()
     n_launched = launch_counts()
+    dense = counters()["gossip_mix"].dense_launches
     require(n_launched["gossip_mix"] == 1 and n_launched["fedavg_aggregate"] == 1,
             f"anchor launches {n_launched}")
+    require(dense == 1, "the anchor's gossip_mix launch did not take the dense route")
     mean = tree_map(lambda p: p.float().mean(dim=0), mixed)
     err = max(float((a - b.float()).abs().max())
               for a, b in zip(tree_leaves(mean), tree_leaves(state.params)))
@@ -2649,11 +2778,12 @@ def anchor(data):
           f"FedAvg params max_abs_err={err:.3e} (atol {ANCHOR_ATOL:g}); consensus "
           f"{cons:.3e} = {cons / rms:.2e} of the replicas' RMS norm {rms:.3f} (rtol "
           f"{ANCHOR_CONSENSUS_RTOL:g}); loss {l_g:.8f} vs {l_s:.8f} (rel {l_err:.2e}, "
-          f"rtol {ANCHOR_LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+          f"rtol {ANCHOR_LOSS_RTOL:g}); gossip_mix on the dense route "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the full-graph gossip round is not the FedAvg round")
     return {"max_abs_err": err, "consensus": cons, "replica_rms_norm": rms,
-            "loss_rel_err": l_err}
+            "loss_rel_err": l_err, "gossip_mix_route": "dense"}
 
 
 def print_ptxas(log):
@@ -2663,8 +2793,9 @@ def print_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
-                         "sparse_agg_kernel", "gossip_mix_kernel", "flash_fwd_mma_kernel",
-                         "flash_fwd_kernel", "ssm_scan_kernel", "ce_fwd_mma_kernel",
+                         "sparse_agg_kernel", "gossip_mix_dense_kernel", "gossip_mix_kernel",
+                         "flash_fwd_mma_kernel", "flash_fwd_kernel", "ssm_scan_ring_kernel",
+                         "ssm_scan_kernel", "ce_fwd_mma_kernel",
                          "ce_probs_mma_kernel", "ce_probs_kernel", "ce_partial_kernel",
                          "ce_merge_kernel"):
                 if base in mangled:
@@ -2811,8 +2942,8 @@ def main() -> int:
     anchor_res = anchor((train, test))
 
     phase("13. where the time goes in the gossip lane: one more CNN ring round")
-    gossip_profile = profile_round("mnist_cnn ring", eng_cnn_ring, "gossip_mix_kernel",
-                                   "gossip_mix")
+    gossip_profile = profile_round("mnist_cnn ring", eng_cnn_ring, "gossip_mix_",
+                                   "gossip_mix")   # either route's kernel
     del eng_cnn_ring
 
     from repro_torch.configs import get_config
@@ -2944,6 +3075,19 @@ def main() -> int:
     kernels[1]["cnn_rounds_in_turns_s"] = turns
     kernels[4]["anchor"] = anchor_res
     kernels[4]["cnn_ring_round_profile"] = gossip_profile
+    kernels[4]["routes"] = {
+        "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",
+        "dense": "gossip_mix_dense_kernel (the rest: the full graph)"}
+    dense = sum(lane["dense_launches"] for lane in gossip)
+    kernels[4]["route_launches"] = {"gather": launches["gossip_mix"] - dense, "dense": dense,
+                                    "dense in the anchor (phase 12)": 1}
+    from repro_torch.kernels.ssm_scan import launch_plan
+
+    kernels[6]["routes"] = {
+        f"{k} lanes": f"ssm_scan_ring_kernel with {k} lanes a channel" for k in (1, 2, 4)}
+    kernels[6]["routes"]["plan"] = {"prefill": launch_plan(PROMPT), "decode": launch_plan(1)}
+    kernels[6]["route_launches"] = {
+        f"{k} lanes": sum(lane["ssm_lane_launches"][k] for lane in serving) for k in (1, 2, 4)}
     kernels[5]["invariant"] = invariant
     kernels[5]["reduced_card_vs_cpu"] = card_vs_cpu
     kernels[6]["jamba_profile"] = serving_profile

@@ -14,25 +14,55 @@
 // Replaces repro/kernels/ssm_scan.py::ssm_scan (the Pallas _ssm_kernel).
 // That kernel tiles D by block_d across the grid and keeps a (block_d, N)
 // state resident in VMEM while a loop walks T. Here the channels, which are
-// independent, are spread one to a thread: thread (b, d) keeps its N-long
-// state in registers (N rounded up to NS = 4, 8 or 16, a template parameter;
-// the padded entries stay 0) and walks T. A block of 128 threads covers 128
-// channels of one batch row, and the last block of a row masks the ragged
-// edge of D itself (the Pallas kernel asserts D % block_d == 0). For each run
-// of kTT = 16 time steps the block stages B_t and C_t in shared memory (they
-// are shared by all channels) and each thread first issues its 16 loads of
-// dt and of x, coalesced across the channels of the block, so that their
-// latency overlaps, then runs the 16 steps.
+// independent, are spread across the card and each walks T in registers.
 //
 // What bounds it: at the Jamba prefill shape (B = 4, T = 2048, D = 8192,
 // N = 16) dt, x and y are 805 MB in fp32 (B and C 1 MB), 0.24 ms at 3.35 TB/s,
-// and the B * T * D * N = 1.07 G exponentials take about 0.26 ms on the
-// special-function units (16 a clock per SM, 132 SMs, 1.98 GHz), so the
-// bound is the exponentials, 0.26 ms. Each exponential is one ex2 of
-// dt * (A log2 e), A log2 e formed once per channel. The sequential walk over
-// T with B * D = 32,768 threads (about 8 warps an SM) leaves little to hide
-// each step's latency with: on an H100 SXM at 700 W the kernel takes 0.86 ms
-// at that shape, 30% of the bound (PERF.md keeps the numbers).
+// and the B * T * D * N = 1.07 G exponentials take 0.26 ms on the
+// special-function units (16 a clock per SM, 132 SMs, 1.98 GHz; a
+// calibration kernel reaches that rate on an H100), so the bound is the
+// exponentials. Each is one ex2 of dt * (A log2 e), A log2 e formed once per
+// channel, as ex2.approx.ftz.f32 (exp2f adds a range fix-up around the same
+// instruction; a result below 2^-126 flushes to 0, which the state's decay
+// makes harmless, and the fp32 check of 1e-5 of the scale holds). Around
+// each exponential a state needs four fp32 operations (dt * a, dt x * B, the
+// update, the product with C), so the issue slots, not the exponentials
+// alone, decide how close the scan gets.
+//
+// The design, ssm_scan_ring_kernel<T, NS, L>:
+//   - N split across L lanes. N is padded to NS = 4, 8 or 16 states (the
+//     padded ones stay 0); each channel's states are split across L = 1, 2
+//     or 4 neighbouring lanes of a warp, NS / L in each lane's registers. A
+//     lane sums its part of y_t = h_t . C_t in four interleaved sums and a
+//     tree; the L parts are combined by __shfl_xor_sync (distance 1, then
+//     2) and lane 0 writes y_t. More lanes, more warps an SM (B * D * L
+//     threads: 16 warps an SM at L = 2 on the prefill shape) to hide each
+//     step's latency, at the price of the per-step work each lane repeats
+//     (dt, x, the shuffle). kernels/ssm_scan.py::launch_plan picks L from
+//     chip_smoke.py phase 4: 2, for prefill and for decode.
+//   - A time ring in shared memory. A block covers kCh = 64 channels of one
+//     batch row; its next runs of kTT = 16 steps of dt, x (64 channels a
+//     row), B and C stream in through a kStages = 3 stage cp.async ring
+//     while it scans the current run, one __syncthreads a run handing a
+//     stage over. Each input is copied in the widest of 16, 8 or 4 bytes
+//     that its pointer, strides and extent allow (a bf16 row off a 4-byte
+//     boundary takes plain loads). B and C are read as float4s.
+//   - A whole run is unrolled with no guard, so the compiler schedules a
+//     step's loads and exponentials under the previous step's chain; the
+//     last, short run goes step by step.
+//   - y is staged in shared memory and stored a run at a time, a row of 64
+//     channels as 16-byte vectors where D allows. In decode (T = 1), h0, A
+//     and h_out move as whole 16-byte vectors a lane.
+//   - The last block of a row masks the ragged edge of D (the Pallas kernel
+//     asserts D % block_d == 0). Offsets are 64-bit.
+//
+// On an H100 SXM at 700 W (PERF.md; chip_smoke.py phase 4 and
+// kernels/probe.py): 0.47 ms at the prefill shape at L = 2, 54% of the
+// bound, against 0.86 ms for the one-thread-a-channel kernel it replaces;
+// 9 us a decode step (was 27). With the loads and the y stores cut out the
+// scan takes 0.35 ms; with the exponentials cut out, 0.48 ms, no less than
+// with them: the issue slots of the 60-odd instructions a lane spends on a
+// step hold it, not the special-function units.
 //
 // The C entry points return cudaGetLastError() after the launch; the caller
 // raises on a non-zero code. They launch on the stream they are given,
@@ -43,10 +73,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTT = 16;
+constexpr int kTT = 16;      // time steps a run
 constexpr int kMaxN = 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -55,87 +86,276 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+constexpr int kCh = 64;      // channels a block covers
+constexpr int kStages = 3;   // the time ring: runs r + 1 and r + 2 load while run r scans
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// Bytes each thread's cp.async copies for one input, or 0: staged by plain
+// element loads (bf16 rows off a 4-byte boundary).
+struct Granules {
+  int dt, x, B, C;
+};
+
 struct Args {
   int T, D, N;
   long long dt_b, dt_t, x_b, x_t, B_b, B_t, C_b, C_t;   // strides in elements
+  Granules g;
+  int vec_state;   // N = NS (4, 8 or 16) and A, h0, h_out on 16-byte boundaries
+  int vec_y;       // D a multiple of 16 bytes' elements: y rows stored as 16-byte vectors
 };
 
-template <typename T, int NS>
-__global__ void __launch_bounds__(kThreads)
-ssm_scan_kernel(const T* __restrict__ dt, const T* __restrict__ Bm, const T* __restrict__ Cm,
-                const T* __restrict__ x, const float* __restrict__ A,
-                const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ h_out,
-                Args a) {
-  __shared__ float sB[kTT][NS];
-  __shared__ float sC[kTT][NS];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = d < a.D;
-  const long long hrow = ((long long)b * a.D + d) * a.N;
-
-  float a2[NS], h[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const bool ok = live && i < a.N;
-    a2[i] = ok ? A[(long long)d * a.N + i] * kLog2e : 0.f;
-    h[i] = ok ? h0[hrow + i] : 0.f;
-  }
-  const T* dtb = dt + b * a.dt_b + d;
-  const T* xb = x + b * a.x_b + d;
-  const T* Bb = Bm + b * a.B_b;
-  const T* Cb = Cm + b * a.C_b;
-  T* yb = y + (long long)b * a.T * a.D + d;
-
-  for (int t0 = 0; t0 < a.T; t0 += kTT) {
-    const int n_t = min(kTT, a.T - t0);
-    __syncthreads();   // the previous run's B_t, C_t are no longer read
-    for (int e = threadIdx.x; e < kTT * NS; e += kThreads) {
-      const int tt = e / NS, i = e % NS;
-      const bool ok = tt < n_t && i < a.N;
-      sB[tt][i] = ok ? to_f32(Bb[(t0 + tt) * a.B_t + i]) : 0.f;
-      sC[tt][i] = ok ? to_f32(Cb[(t0 + tt) * a.C_t + i]) : 0.f;
+// Stage rows [t0, t0 + nt) of one input, `width` elements each from column
+// `col0` (masked at `extent`), into dst[tt][0 .. width) with row pitch
+// `pitch`, `gbytes` bytes a copy. The host picked gbytes so that every copy
+// is aligned and never straddles `extent`.
+template <int GBYTES, typename T>
+__device__ __forceinline__ void stage_rows_g(T* dst, int pitch, const T* src, long long st_t,
+                                             int t0, int nt, int col0, int width, int extent) {
+  constexpr int g = GBYTES ? GBYTES / (int)sizeof(T) : 1;
+  const int lg = __ffs(width / g) - 1;   // width and g are powers of two
+  for (int e = threadIdx.x; e < nt << lg; e += blockDim.x) {
+    const int tt = e >> lg, c = (e & ((1 << lg) - 1)) * g;
+    if (col0 + c >= extent) continue;
+    const T* from = src + (long long)(t0 + tt) * st_t + col0 + c;
+    T* to = dst + tt * pitch + c;
+    if constexpr (GBYTES == 0) {
+      *to = *from;
+    } else {
+      async_copy::copy<GBYTES>(to, from);
     }
-    float dtr[kTT], xr[kTT];
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) {
-      const bool ok = live && tt < n_t;
-      dtr[tt] = ok ? to_f32(dtb[(t0 + tt) * a.dt_t]) : 0.f;
-      xr[tt] = ok ? to_f32(xb[(t0 + tt) * a.x_t]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) {
-      if (tt < n_t) {
-        const float dtx = dtr[tt] * xr[tt];
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          h[i] = fmaf(exp2f(dtr[tt] * a2[i]), h[i], dtx * sB[tt][i]);
-          acc = fmaf(h[i], sC[tt][i], acc);
-        }
-        if (live) store(yb + (long long)(t0 + tt) * a.D, acc);
-      }
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < NS; ++i)
-      if (i < a.N) h_out[hrow + i] = h[i];
   }
 }
 
-template <typename T, int NS>
-int launch_ns(const T* dt, const T* Bm, const T* Cm, const T* x, const float* A,
-              const float* h0, T* y, float* h_out, int B, const Args& a, cudaStream_t s) {
-  const dim3 grid((a.D + kThreads - 1) / kThreads, B);
-  ssm_scan_kernel<T, NS><<<grid, kThreads, 0, s>>>(dt, Bm, Cm, x, A, h0, y, h_out, a);
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src, long long st_t,
+                                           int t0, int nt, int col0, int width, int extent,
+                                           int gbytes) {
+  switch (gbytes) {
+    case 16: stage_rows_g<16>(dst, pitch, src, st_t, t0, nt, col0, width, extent); break;
+    case 8: stage_rows_g<8>(dst, pitch, src, st_t, t0, nt, col0, width, extent); break;
+    case 4: stage_rows_g<4>(dst, pitch, src, st_t, t0, nt, col0, width, extent); break;
+    default: stage_rows_g<0>(dst, pitch, src, st_t, t0, nt, col0, width, extent);
+  }
+}
+
+// NSL = NS / L states of channel d in registers of each of its L lanes (the
+// L neighbouring threads of a warp); y_t = sum of the lanes' partial dot
+// products, combined by __shfl_xor_sync and written by lane 0.
+template <typename T, int NS, int L>
+__global__ void __launch_bounds__(kCh * L)
+ssm_scan_ring_kernel(const T* __restrict__ dt, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const T* __restrict__ x,
+                     const float* __restrict__ A, const float* __restrict__ h0,
+                     T* __restrict__ y, float* __restrict__ h_out, Args a) {
+  constexpr int NSL = NS / L;
+  static_assert(NS % L == 0 && (L == 1 || L == 2 || L == 4), "2^k lanes split NS states");
+  __shared__ __align__(16) T s_dt[kStages][kTT][kCh];
+  __shared__ __align__(16) T s_x[kStages][kTT][kCh];
+  __shared__ __align__(16) T s_B[kStages][kTT][NS];
+  __shared__ __align__(16) T s_C[kStages][kTT][NS];
+  __shared__ float s_y[2][kTT][kCh];
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * kCh;
+  const int ch = threadIdx.x / L, lane = threadIdx.x % L;
+  const int d = d0 + ch;
+  const bool live = d < a.D;
+  const int n0 = lane * NSL;
+  const long long hrow = ((long long)b * a.D + d) * a.N;
+
+  // B and C past N stay 0 in every stage: the padded states stay 0 and add
+  // nothing to y.
+  for (int e = threadIdx.x; e < kStages * kTT * NS; e += blockDim.x) {
+    (&s_B[0][0][0])[e] = T(0.f);
+    (&s_C[0][0][0])[e] = T(0.f);
+  }
+  __syncthreads();
+
+  float a2[NSL], h[NSL];
+  bool loaded = false;
+  if constexpr (NSL % 4 == 0) {
+    if (a.vec_state && live) {   // whole 16-byte vectors a lane
+#pragma unroll
+      for (int i = 0; i < NSL; i += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(A + (long long)d * a.N + n0 + i);
+        const float4 hv = *reinterpret_cast<const float4*>(h0 + hrow + n0 + i);
+        a2[i] = av.x * kLog2e;
+        a2[i + 1] = av.y * kLog2e;
+        a2[i + 2] = av.z * kLog2e;
+        a2[i + 3] = av.w * kLog2e;
+        h[i] = hv.x;
+        h[i + 1] = hv.y;
+        h[i + 2] = hv.z;
+        h[i + 3] = hv.w;
+      }
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int i = 0; i < NSL; ++i) {
+      const bool ok = live && n0 + i < a.N;
+      a2[i] = ok ? A[(long long)d * a.N + n0 + i] * kLog2e : 0.f;
+      h[i] = ok ? h0[hrow + n0 + i] : 0.f;
+    }
+  }
+
+  const T* dtb = dt + b * a.dt_b;
+  const T* xb = x + b * a.x_b;
+  const T* Bb = Bm + b * a.B_b;
+  const T* Cb = Cm + b * a.C_b;
+  const int runs = (a.T + kTT - 1) / kTT;
+
+  // Stage run r (if there is one) and commit a group either way, so that
+  // wait<kStages - 2> always means "run r + 1 and later may be in flight".
+  auto issue = [&](int r) {
+    if (r < runs) {
+      const int st = r % kStages, t0 = r * kTT, nt = min(kTT, a.T - t0);
+      stage_rows(&s_dt[st][0][0], kCh, dtb, a.dt_t, t0, nt, d0, kCh, a.D, a.g.dt);
+      stage_rows(&s_x[st][0][0], kCh, xb, a.x_t, t0, nt, d0, kCh, a.D, a.g.x);
+      stage_rows(&s_B[st][0][0], NS, Bb, a.B_t, t0, nt, 0, NS, a.N, a.g.B);
+      stage_rows(&s_C[st][0][0], NS, Cb, a.C_t, t0, nt, 0, NS, a.N, a.g.C);
+    }
+    async_copy::commit();
+  };
+  // y of run r, staged in s_y[r & 1], stored a row of kCh channels at a time:
+  // 16-byte vectors where the rows allow, else element by element.
+  auto store_y = [&](int r) {
+    const int t0 = r * kTT, nt = min(kTT, a.T - t0);
+    T* yb = y + ((long long)b * a.T + t0) * a.D + d0;
+    constexpr int V = 16 / sizeof(T);
+    if (a.vec_y) {
+      for (int e = threadIdx.x; e < nt * (kCh / V); e += blockDim.x) {
+        const int tt = e / (kCh / V), c = (e % (kCh / V)) * V;
+        if (d0 + c >= a.D) continue;
+        Pack<T, V> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j) store(&o.v[j], s_y[r & 1][tt][c + j]);
+        *reinterpret_cast<Pack<T, V>*>(yb + (long long)tt * a.D + c) = o;
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < nt * kCh; e += blockDim.x) {
+      const int tt = e / kCh, c = e % kCh;
+      if (d0 + c < a.D) store(yb + (long long)tt * a.D + c, s_y[r & 1][tt][c]);
+    }
+  };
+
+  for (int r = 0; r < kStages - 1; ++r) issue(r);
+  for (int r = 0; r < runs; ++r) {
+    async_copy::wait<kStages - 2>();
+    __syncthreads();   // run r is staged; run r - 1's scan and run r - 2's y stores are done
+    issue(r + kStages - 1);
+    if (r > 0) store_y(r - 1);
+    const int st = r % kStages, nt = min(kTT, a.T - r * kTT);
+    auto step = [&](int tt) {
+      const float dtv = to_f32(s_dt[st][tt][ch]);
+      const float dtx = dtv * to_f32(s_x[st][tt][ch]);
+      float bv[NSL], cv[NSL];
+      if constexpr (sizeof(T) == 4 && NSL % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < NSL; i += 4) {
+          const float4 bq = *reinterpret_cast<const float4*>(&s_B[st][tt][n0 + i]);
+          const float4 cq = *reinterpret_cast<const float4*>(&s_C[st][tt][n0 + i]);
+          bv[i] = bq.x; bv[i + 1] = bq.y; bv[i + 2] = bq.z; bv[i + 3] = bq.w;
+          cv[i] = cq.x; cv[i + 1] = cq.y; cv[i + 2] = cq.z; cv[i + 3] = cq.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NSL; ++i) {
+          bv[i] = to_f32(s_B[st][tt][n0 + i]);
+          cv[i] = to_f32(s_C[st][tt][n0 + i]);
+        }
+      }
+      // the lane's partial dot product: NP interleaved sums, then a tree
+      constexpr int NP = NSL < 4 ? NSL : 4;
+      float part[NP];
+#pragma unroll
+      for (int i = 0; i < NSL; ++i) {
+        h[i] = fmaf(ex2(dtv * a2[i]), h[i], dtx * bv[i]);
+        part[i % NP] = i < NP ? h[i] * cv[i] : fmaf(h[i], cv[i], part[i % NP]);
+      }
+      float acc = NP == 4 ? (part[0] + part[1]) + (part[2 % NP] + part[3 % NP])
+                : NP == 2 ? part[0] + part[1 % NP] : part[0];
+#pragma unroll
+      for (int o = 1; o < L; o *= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) s_y[r & 1][tt][ch] = acc;
+    };
+    // A whole run unrolled without a guard, so that the compiler schedules
+    // step tt + 1's loads and exponentials under step tt's chain; the last,
+    // short run step by step.
+    if (nt == kTT) {
+#pragma unroll
+      for (int tt = 0; tt < kTT; ++tt) step(tt);
+    } else {
+      for (int tt = 0; tt < nt; ++tt) step(tt);
+    }
+  }
+  __syncthreads();
+  store_y(runs - 1);
+
+  if (!live) return;
+  if constexpr (NSL % 4 == 0) {
+    if (a.vec_state) {
+#pragma unroll
+      for (int i = 0; i < NSL; i += 4)
+        *reinterpret_cast<float4*>(h_out + hrow + n0 + i) =
+            make_float4(h[i], h[i + 1], h[i + 2], h[i + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NSL; ++i)
+    if (n0 + i < a.N) h_out[hrow + n0 + i] = h[i];
+}
+
+// The widest copy (16, 8 or 4 bytes) that keeps every row of this input on
+// its boundary and never straddles `extent` (D or N); 0 where none does
+// (a bf16 row off a 4-byte boundary).
+int pick_granule(const void* p, long long st_b, long long st_t, int extent, int elem) {
+  for (int bytes = 16; bytes >= 4; bytes /= 2) {
+    const int g = bytes / elem;
+    if (g >= 1 && reinterpret_cast<uintptr_t>(p) % bytes == 0 && st_b % g == 0 &&
+        st_t % g == 0 && extent % g == 0)
+      return bytes;
+  }
+  return 0;
+}
+
+template <typename T, int NS, int L>
+int launch_ring(const T* dt, const T* Bm, const T* Cm, const T* x, const float* A,
+                const float* h0, T* y, float* h_out, int B, const Args& a,
+                cudaStream_t s) {
+  const dim3 grid((a.D + kCh - 1) / kCh, B);
+  ssm_scan_ring_kernel<T, NS, L><<<grid, kCh * L, 0, s>>>(dt, Bm, Cm, x, A, h0, y, h_out, a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NS>
+int launch_ring_ns(const T* dt, const T* Bm, const T* Cm, const T* x, const float* A,
+                   const float* h0, T* y, float* h_out, int B, const Args& a, int lanes,
+                   cudaStream_t s) {
+  switch (lanes) {
+    case 1: return launch_ring<T, NS, 1>(dt, Bm, Cm, x, A, h0, y, h_out, B, a, s);
+    case 2: return launch_ring<T, NS, 2>(dt, Bm, Cm, x, A, h0, y, h_out, B, a, s);
+    case 4: return launch_ring<T, NS, 4>(dt, Bm, Cm, x, A, h0, y, h_out, B, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch(const void* dt, const void* Bm, const void* Cm, const void* x, const void* A,
            const void* h0, void* y, void* h_out, int B, int T_, int D, int N,
-           const long long* st, void* stream) {
+           const long long* st, int lanes, void* stream) {
   if (B < 1 || B > 65535 || T_ < 1 || D < 1 || N < 1 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -159,26 +379,38 @@ int launch(const void* dt, const void* Bm, const void* Cm, const void* x, const 
   T* yt = static_cast<T*>(y);
   float* ht = static_cast<float*>(h_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 4) return launch_ns<T, 4>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, s);
-  if (N <= 8) return launch_ns<T, 8>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, s);
-  return launch_ns<T, 16>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, s);
+  const int NS = N <= 4 ? 4 : N <= 8 ? 8 : 16;
+  const int e = (int)sizeof(T);
+  a.g.dt = pick_granule(dt, a.dt_b, a.dt_t, D, e);
+  a.g.x = pick_granule(x, a.x_b, a.x_t, D, e);
+  a.g.B = pick_granule(Bm, a.B_b, a.B_t, N, e);
+  a.g.C = pick_granule(Cm, a.C_b, a.C_t, N, e);
+  const uintptr_t state_ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(h0) |
+                               reinterpret_cast<uintptr_t>(h_out);
+  a.vec_state = N == NS && state_ptrs % 16 == 0;
+  a.vec_y = D % (16 / e) == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (NS == 4) return launch_ring_ns<T, 4>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, lanes, s);
+  if (NS == 8) return launch_ring_ns<T, 8>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, lanes, s);
+  return launch_ring_ns<T, 16>(dtt, Bt, Ct, xt, At, h0t, yt, ht, B, a, lanes, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// strides: 8 values in elements, (batch, time) of dt, x, Bm, Cm.
+// strides: 8 values in elements, (batch, time) of dt, x, Bm, Cm. lanes: 1, 2
+// or 4 lanes a channel.
 int ssm_scan_f32(const void* dt, const void* Bm, const void* Cm, const void* x, const void* A,
                  const void* h0, void* y, void* h_out, int B, int T, int D, int N,
-                 const long long* strides, void* stream) {
-  return launch<float>(dt, Bm, Cm, x, A, h0, y, h_out, B, T, D, N, strides, stream);
+                 const long long* strides, int lanes, void* stream) {
+  return launch<float>(dt, Bm, Cm, x, A, h0, y, h_out, B, T, D, N, strides, lanes, stream);
 }
 
 int ssm_scan_bf16(const void* dt, const void* Bm, const void* Cm, const void* x, const void* A,
                   const void* h0, void* y, void* h_out, int B, int T, int D, int N,
-                  const long long* strides, void* stream) {
-  return launch<__nv_bfloat16>(dt, Bm, Cm, x, A, h0, y, h_out, B, T, D, N, strides, stream);
+                  const long long* strides, int lanes, void* stream) {
+  return launch<__nv_bfloat16>(dt, Bm, Cm, x, A, h0, y, h_out, B, T, D, N, strides, lanes,
+                               stream);
 }
 
 const char* ssm_scan_error_string(int code) {

@@ -386,6 +386,59 @@ def test_gossip_kernel_slot_semantics(cuda, kind, dtype):
         assert torch.equal(gossip_mix(x, idx_t, w_t), narrow)
 
 
+def _routed_mix_check(x, idx, w, route=None):
+    """_mix_check through ``route``'s kernel (forced by the private launcher),
+    or the route ``_route`` picks; the dense launches counted."""
+    from repro_torch.kernels.gossip_mix import _launch, _route
+
+    taken = route or _route(x, idx, w)
+    dense = gossip_mix.dense_launches
+    if route is None:
+        _mix_check(x, idx, w)
+    else:
+        before = gossip_mix.launches
+        out = _launch(x, idx, w, route)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches == before + 1
+        ref32 = gossip_mix_ref(x.float(), idx, w)
+        tol = 2 * idx.shape[1] * 2.0 ** -24 * float(x.float().abs().max())
+        if x.dtype == torch.float32:
+            assert float((out - ref32).abs().max()) <= tol
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(2.0 ** -126))) - 7)
+            assert bool(((out.float() - ref32).abs() <= ulp + tol).all())
+    assert gossip_mix.dense_launches == dense + (taken == "dense")
+    return taken
+
+
+@pytest.mark.parametrize("n", [2, 17, 100, 1024])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_dense_route_on_the_full_graph(cuda, n, misaligned, dtype):
+    """The full graph takes the dense route at every n, and holds."""
+    N = 4097
+    plan = _plans(n)["full"]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, N), generator=g, device=cuda).to(dtype)
+    if misaligned:   # a contiguous view one element off 16-byte alignment
+        x = torch.empty(n * N + 1, device=cuda, dtype=dtype)[1:].view(n, N).copy_(x)
+    idx, w = torch.from_numpy(plan.idx).to(cuda), torch.from_numpy(plan.weight).to(cuda)
+    assert _routed_mix_check(x, idx, w) == "dense"
+
+
+@pytest.mark.parametrize("kind", ["ring", "smallworld", "full"])
+@pytest.mark.parametrize("route", ["gather", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_both_routes_on_the_main_plans(cuda, kind, route, dtype):
+    """Each route forced on the 100-node plans at the 2NN's N: either takes
+    every plan."""
+    plan = _plans(100)[kind]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((100, 199_210), generator=g, device=cuda).to(dtype)
+    idx, w = torch.from_numpy(plan.idx).to(cuda), torch.from_numpy(plan.weight).to(cuda)
+    _routed_mix_check(x, idx, w, route)
+
+
 def test_gossip_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels.gossip_mix import MAX_NODES
 
@@ -610,6 +663,40 @@ def _ssm_check(dt, Bm, Cm, x, A, h0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_kernel_matches_plain_version(cuda, B, T, D, N, dtype):
     _ssm_check(*_ssm_case(cuda, B, T, D, N, dtype, seed=B * T * D * N, h0_scale=1.0))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("B,T,D,N", [(2, 37, 129, 1), (2, 37, 129, 5), (2, 24, 72, 13),
+                                     (2, 100, 200, 16), (3, 1, 129, 5), (4, 1, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_at_every_lane_count(cuda, lanes, B, T, D, N, dtype):
+    """N = 1, 5, 13, 16, T off the 16-step run, a ragged D and T = 1, each
+    with 1, 2 and 4 lanes a channel forced."""
+    from repro_torch.kernels.ssm_scan import _launch, ssm_scan, ssm_scan_ref
+
+    dt, Bm, Cm, x, A, h0 = _ssm_case(cuda, B, T, D, N, dtype, seed=B * T * D + N,
+                                     h0_scale=1.0)
+    before = dict(ssm_scan.lane_launches)
+    y, h = _launch(dt, Bm, Cm, x, A, h0, lanes)
+    torch.cuda.synchronize()
+    before[lanes] += 1
+    assert ssm_scan.lane_launches == before
+    y32, h32 = ssm_scan_ref(dt.float(), Bm.float(), Cm.float(), x.float(), A, h0)
+    scale = max(1.0, float(y32.abs().max()), float(h32.abs().max()))
+    assert _close_to_fp32(y, y32, scale)
+    assert float((h - h32).abs().max()) <= 1e-5 * scale
+
+
+def test_ssm_launch_plan_on_the_jamba_shapes(cuda):
+    """Prefill and decode take the launch plan's lanes."""
+    from repro_torch.kernels.ssm_scan import launch_plan, ssm_scan
+
+    for T in (2048, 1):
+        args = _ssm_case(cuda, 4, T, 8192, 16, torch.float32, seed=T, h0_scale=1.0)
+        before = dict(ssm_scan.lane_launches)
+        _ssm_check(*args)
+        before[launch_plan(T)] += 1
+        assert ssm_scan.lane_launches == before
 
 
 def test_ssm_kernel_on_views_and_in_chunks(cuda):
