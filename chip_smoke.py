@@ -14,7 +14,8 @@ Phases, in order, each printing its own lines:
    of shapes and dtypes, plus the refusals its wrapper must make (a refused
    call launches nothing);
 4. timing at the main paths' shapes: kernel, plain version, one library
-   call as a yardstick, and the bound (CUDA events, L2 flushed);
+   call as a yardstick, and the bound (CUDA events, L2 flushed by a read
+   that leaves it holding clean lines);
 5. the plain lane, the paper's MNIST 2NN non-IID cell at full size through
    ``RoundEngine(...).run``: one round on the card is first held against
    the same round on the CPU, then the rounds are run and timed;
@@ -92,7 +93,15 @@ and the 100-node ring, small world and full graph through each route
 forced, phase 4 times both routes in turns on those plans. ``ssm_scan``
 splits each channel's states across 1, 2 or 4 lanes (``lane_launches``):
 phase 3 runs every case with each, phase 4 times each in turns and
-requires the launch plan's to be within 5% of the fastest. ``ce_probs``
+requires the launch plan's to be within 5% of the fastest.
+``quantized_aggregate`` and ``packed_quantized_aggregate`` have two routes,
+the stream kernel (the specs' shapes: chunk 512 at q8, q16 and bits 1/2/4;
+``stream_launches`` beside ``launches``) and the general kernels (the
+rest): phase 3 runs every case on the route ``_route`` picks and every case
+the stream route takes through both routes forced, phase 4 times both
+routes in turns at the main shapes and requires the stream route to be no
+slower at the CNN shape, and phases 8-10 require every q8 and q4 launch of
+a compressed round on the stream route. ``ce_probs``
 (the CE gradient's kernel) ports no Pallas kernel; it is held, timed and
 counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
@@ -126,7 +135,13 @@ INT32_OPS = FP32_FLOPS / 2
 BF16_FLOPS = 989e12                     # dense, tensor cores
 # Special-function units (exp2): 16 a clock per SM, 132 SMs, 1.98 GHz boost.
 SFU_OPS = 16 * 132 * 1.98e9
-L2_FLUSH_BYTES = 256 * 2**20            # well above the 50 MB L2
+# The L2 flush before each timed launch reads a 256 MB buffer (well above
+# the 50 MB L2) that was written once: the L2 is left holding clean lines. A
+# flush that writes the buffer leaves 50 MB of dirty lines, and a kernel
+# that evicts them pays their write-back: at the q8 CNN bytes it cost the
+# streaming floor 1.20x the clean flush's time on an H100
+# (kernels/probe.py).
+L2_FLUSH_BYTES = 256 * 2**20
 MAIN_K = 10                             # m = C * K = 0.1 * 100 clients
 MAIN_N = {"mnist_2nn": 199_210, "mnist_cnn": 1_663_370}
 ROUNDS = {"mnist_2nn": 3, "mnist_cnn": 2}
@@ -411,6 +426,8 @@ def reset_counts():
     for name in ("flash_attention", "fused_cross_entropy", "ce_probs"):
         counters()[name].tc_launches = 0
     counters()["gossip_mix"].dense_launches = 0
+    for name in ("quantized_aggregate", "packed_quantized_aggregate"):
+        counters()[name].stream_launches = 0
     lanes = counters()["ssm_scan"].lane_launches
     for k in lanes:
         lanes[k] = 0
@@ -483,8 +500,45 @@ def sum_check(name, tag, out, ref, term_max):
     return err
 
 
+def wire_routed(name, tag, payload, lo, scale, w, ref, term_max, *, bits, chunk, levels):
+    """One wire-kernel case: the wrapper on the route ``_route`` picks, then,
+    where the stream route takes the case, each route forced through
+    ``_launch``; every output held to ``ref``, and the two forced outputs to
+    each other bit for bit. Returns the worst error and the route."""
+    from repro_torch.kernels.quantized_agg import (
+        _launch,
+        _out,
+        _route,
+        packed_quantized_aggregate,
+        quantized_aggregate,
+    )
+
+    words = payload.dtype == torch.int32
+    wrapper = packed_quantized_aggregate if words else quantized_aggregate
+    kw = dict(bits=bits, chunk=chunk, levels=levels)
+    route = _route(payload, _out(payload, lo, chunk), chunk=chunk, bits=bits, K=payload.shape[0])
+    before = (wrapper.launches, wrapper.stream_launches)
+    out = (wrapper(payload, lo, scale, w, **kw) if words else
+           wrapper(payload, lo, scale, w, chunk=chunk, levels=levels))
+    err = sum_check(name, f"{tag} routed {route}", out, ref, term_max)
+    if route == "stream":
+        forced = {r: _launch(payload, lo, scale, w, _out(payload, lo, chunk), route=r, **kw)
+                  for r in ("general", "stream")}
+        for r, got in forced.items():
+            err = max(err, sum_check(name, f"{tag} forced {r}", got, ref, term_max))
+        # the same fma chain in the same k order, on exact decodes
+        require(torch.equal(forced["general"], forced["stream"]),
+                f"{name} {tag}: the two routes differ")
+    launched = (wrapper.launches - before[0], wrapper.stream_launches - before[1])
+    want = (3, 2) if route == "stream" else (1, 0)
+    require(launched == want, f"{name} {tag}: (launches, stream launches) {launched}, "
+                              f"want {want}")
+    return err, route
+
+
 def check_quantized_aggregate():
     from repro_torch.kernels.quantized_agg import (
+        STREAM_MAX_K,
         access_width,
         dequantize_ref,
         quantized_aggregate,
@@ -501,8 +555,12 @@ def check_quantized_aggregate():
             for N in (1000, MAIN_N["mnist_2nn"]):
                 cases.append(dict(K=K, N=N, chunk=CHUNK, dtype=dtype, ghosts=max(1, K // 4)))
         cases.append(dict(K=10, N=1000, chunk=CHUNK, dtype=dtype, misaligned=True))
-    before = quantized_aggregate.launches
+        # the most rows the stream route takes, and one more (the general route)
+        for K in (STREAM_MAX_K, STREAM_MAX_K + 1):
+            cases.append(dict(K=K, N=MAIN_N["mnist_2nn"], chunk=CHUNK, dtype=dtype))
+    before = (quantized_aggregate.launches, quantized_aggregate.stream_launches)
     main_err = worst = 0.0
+    routes = {"stream": 0, "general": 0}
     for i, c in enumerate(cases):
         K, chunk, ghosts = c["K"], c["chunk"], c.get("ghosts", 0)
         C = -(-c["N"] // chunk)
@@ -513,18 +571,25 @@ def check_quantized_aggregate():
         levels = 255 if c["dtype"] == torch.uint8 else 65535
         lo, scale = ranges(K, C, seed=i, ghosts=ghosts)
         w = normalized(K, ghosts, seed=i)
-        out = quantized_aggregate(codes, lo, scale, w, chunk=chunk, levels=levels)
         ref = quantized_aggregate_ref(codes, lo, scale, w, chunk=chunk, levels=levels)
         dense = dequantize_ref(codes[: K - ghosts], lo[: K - ghosts], scale[: K - ghosts],
                                chunk=chunk, levels=levels)
         tag = (f"K={K:2d} N={c['N']:8d} chunk={chunk:3d} {str(c['dtype'])[6:]:6s} "
-               f"vec={access_width(codes, out, chunk):2d}"
+               f"vec={access_width(codes, ref, chunk):2d}"
                + (" ghosts" if ghosts else "") + (" misaligned" if c.get("misaligned") else ""))
-        err = sum_check(name, tag, out, ref, float(dense.abs().max()))
+        err, route = wire_routed(name, tag, codes, lo, scale, w, ref,
+                                 float(dense.abs().max()), bits=8 * codes.element_size(),
+                                 chunk=chunk, levels=levels)
+        routes[route] += 1
         worst = max(worst, err)
+        if K == MAIN_K and c["N"] in MAIN_N.values() and chunk == CHUNK and not ghosts:
+            require(route == "stream", f"{name} {tag}: the main shape took the {route} route")
         if K == MAIN_K and c["N"] in MAIN_N.values() and c["dtype"] == torch.uint8 and not ghosts:
             main_err = max(main_err, err)
-    require(quantized_aggregate.launches - before == len(cases), "one launch per case")
+    launched = (quantized_aggregate.launches - before[0],
+                quantized_aggregate.stream_launches - before[1])
+    require(launched == (len(cases) + 2 * routes["stream"], 2 * routes["stream"]),
+            f"{name}: {launched} launches for {len(cases)} cases")
     codes = random_codes(3, 2 * 16, torch.uint8, seed=0)
     lo, scale = ranges(3, 2, seed=0)
     w = normalized(3)
@@ -541,13 +606,15 @@ def check_quantized_aggregate():
         "accum_dtype=bfloat16 on CUDA": lambda: quantized_aggregate(
             codes, lo, scale, w, chunk=16, levels=255, accum_dtype=torch.bfloat16),
     })
-    print(f"kernels: {name} cuda ok ({len(cases)} cases, max_abs_err {worst:.3e} within "
-          f"1e-6*max|term|; {n_ref} refusals)")
+    print(f"kernels: {name} cuda ok ({len(cases)} cases: {routes['stream']} on the stream "
+          f"route and also through both forced, {routes['general']} on the general route; "
+          f"max_abs_err {worst:.3e} within 1e-6*max|term|; {n_ref} refusals)")
     return main_err
 
 
 def check_packed_quantized_aggregate():
     from repro_torch.kernels.quantized_agg import (
+        STREAM_MAX_K,
         dequantize_ref,
         packed_quantized_aggregate,
         packed_quantized_aggregate_ref,
@@ -560,10 +627,13 @@ def check_packed_quantized_aggregate():
              for bits in range(1, 16) for K in (1, 2, 10, 17)
              for N, chunk in ((250, 30), (1000, CHUNK))]
     cases += [dict(K=10, N=N, chunk=CHUNK, bits=bits)
-              for N in MAIN_N.values() for bits in (1, 3, 4, 12)]
+              for N in MAIN_N.values() for bits in (1, 2, 3, 4, 12)]
     cases += [dict(K=K, N=1000, chunk=CHUNK, bits=4, ghosts=max(1, K // 4)) for K in (2, 10, 17)]
-    before = packed_quantized_aggregate.launches
+    cases += [dict(K=K, N=MAIN_N["mnist_2nn"], chunk=CHUNK, bits=4)
+              for K in (STREAM_MAX_K, STREAM_MAX_K + 1)]
+    before = (packed_quantized_aggregate.launches, packed_quantized_aggregate.stream_launches)
     main_err = worst = 0.0
+    routes = {"stream": 0, "general": 0}
     for i, c in enumerate(cases):
         K, chunk, bits, ghosts = c["K"], c["chunk"], c["bits"], c.get("ghosts", 0)
         C = -(-c["N"] // chunk)
@@ -574,18 +644,24 @@ def check_packed_quantized_aggregate():
         lo, scale = ranges(K, C, seed=i, ghosts=ghosts)
         w = normalized(K, ghosts, seed=i)
         kw = dict(bits=bits, chunk=chunk, levels=2**bits - 1)
-        out = packed_quantized_aggregate(words, lo, scale, w, **kw)
         ref = packed_quantized_aggregate_ref(words, lo, scale, w, **kw)
         real = K - ghosts
         dense = dequantize_ref(unpack_ref(words[:real], bits=bits, chunk=chunk),
                                lo[:real], scale[:real], chunk=chunk, levels=2**bits - 1)
         tag = (f"bits={bits:2d} K={K:2d} N={c['N']:8d} chunk={chunk:3d}"
                + (" ghosts" if ghosts else ""))
-        err = sum_check(name, tag, out, ref, float(dense.abs().max()))
+        err, route = wire_routed(name, tag, words, lo, scale, w, ref, float(dense.abs().max()),
+                                 **kw)
+        routes[route] += 1
         worst = max(worst, err)
+        if K == MAIN_K and c["N"] in MAIN_N.values() and bits in (1, 2, 4):
+            require(route == "stream", f"{name} {tag}: the main shape took the {route} route")
         if K == MAIN_K and c["N"] in MAIN_N.values() and bits == 4:
             main_err = max(main_err, err)
-    require(packed_quantized_aggregate.launches - before == len(cases), "one launch per case")
+    launched = (packed_quantized_aggregate.launches - before[0],
+                packed_quantized_aggregate.stream_launches - before[1])
+    require(launched == (len(cases) + 2 * routes["stream"], 2 * routes["stream"]),
+            f"{name}: {launched} launches for {len(cases)} cases")
     words = torch.zeros((3, 4), dtype=torch.int32, device="cuda")
     lo, scale = ranges(3, 2, seed=0)
     w = normalized(3)
@@ -603,8 +679,9 @@ def check_packed_quantized_aggregate():
         "accum_dtype=bfloat16 on CUDA": lambda: packed_quantized_aggregate(
             words, lo, scale, w, accum_dtype=torch.bfloat16, **kw),
     })
-    print(f"kernels: {name} cuda ok ({len(cases)} cases, bits 1..15, max_abs_err "
-          f"{worst:.3e} within 1e-6*max|term|; {n_ref} refusals)")
+    print(f"kernels: {name} cuda ok ({len(cases)} cases, bits 1..15: {routes['stream']} on the "
+          f"stream route and also through both forced, {routes['general']} on the general "
+          f"route; max_abs_err {worst:.3e} within 1e-6*max|term|; {n_ref} refusals)")
     return main_err
 
 
@@ -826,15 +903,20 @@ def check_gossip_mix():
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
+def flush_buffer():
+    """The L2 flush's buffer (L2_FLUSH_BYTES), written once."""
+    return torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+
+
 def time_ms(fn, flush, iters=200, warmup=20):
     """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush, between CUDA events."""
+    L2 flush (a read of ``flush``: clean lines), between CUDA events."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        flush.sum()
         s.record()
         fn()
         e.record()
@@ -849,7 +931,7 @@ def time_fedavg_aggregate():
         fedavg_aggregate_ref,
     )
 
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
     rows = {}
     for model, N in MAIN_N.items():
         x, w = make_case(MAIN_K, N, torch.float32, seed=7)
@@ -900,22 +982,36 @@ def timing_row(tag, fn, plain, library, nbytes, fp32_ops, flush, int_ops=0, kern
     return r
 
 
+def time_routes(fn_of_route, flush):
+    """Both routes of a wire kernel in turns (general, stream, stream,
+    general): each route's time the mean of its two medians, and the turns."""
+    turns = [(r, time_ms(fn_of_route(r), flush))
+             for r in ("general", "stream", "stream", "general")]
+    ms = {r: float(np.mean([t for name, t in turns if name == r])) for r in ("general", "stream")}
+    return ms, turns
+
+
 def time_wire_kernels():
     """The three wire kernels at the main paths' shapes: K=10 clients, the
-    2NN's and the CNN's N, chunk 512; q8 codes, q4 words, top-5% pairs."""
+    2NN's and the CNN's N, chunk 512; q8 codes, q4 words, top-5% pairs. The
+    two codec kernels' routes are timed in turns; their row's ``ms`` is the
+    route ``_route`` picks, which must be the stream route, no slower than
+    the general one at the CNN shape."""
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
     from repro_torch.kernels.quantized_agg import (
+        _launch,
+        _out,
+        _route,
         dequantize_ref,
-        packed_quantized_aggregate,
         packed_quantized_aggregate_ref,
-        quantized_aggregate,
         quantized_aggregate_ref,
+        stream_plan,
         unpack_ref,
     )
     from repro_torch.kernels.sparse_agg import sparse_aggregate, sparse_aggregate_ref
     from repro_torch.utils.bitpack import words_per_chunk
 
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
     K = MAIN_K
     rows = {name: {} for name in WIRE_KERNELS}
     for model, N in MAIN_N.items():
@@ -924,28 +1020,49 @@ def time_wire_kernels():
         lo, scale = ranges(K, C, seed=7)
         w = normalized(K, seed=7)
         codes = random_codes(K, n_pad, torch.uint8, seed=7)
-        kw = dict(chunk=CHUNK, levels=255)
-        rows["quantized_aggregate"][model] = timing_row(
-            f"quantized_aggregate q8 {model}: K={K} N_pad={n_pad} C={C}",
-            lambda: quantized_aggregate(codes, lo, scale, w, **kw),
-            lambda: quantized_aggregate_ref(codes, lo, scale, w, **kw),
-            # yardstick: the composition the fusion removes
-            lambda: fedavg_aggregate(dequantize_ref(codes, lo, scale, **kw), w),
-            K * n_pad + 2 * K * C * 4 + n_pad * 4 + K * 4, 4 * K * n_pad, flush)
-
         wpc = words_per_chunk(CHUNK, 4)
         g = torch.Generator(device="cuda").manual_seed(7)
         words = torch.randint(-2**31, 2**31, (K, C * wpc), generator=g, dtype=torch.int32,
                               device="cuda")
-        kw4 = dict(bits=4, chunk=CHUNK, levels=15)
-        rows["packed_quantized_aggregate"][model] = timing_row(
-            f"packed_quantized_aggregate q4 {model}: K={K} words={C * wpc} C={C}",
-            lambda: packed_quantized_aggregate(words, lo, scale, w, **kw4),
-            lambda: packed_quantized_aggregate_ref(words, lo, scale, w, **kw4),
-            lambda: fedavg_aggregate(dequantize_ref(
-                unpack_ref(words, bits=4, chunk=CHUNK), lo, scale, chunk=CHUNK, levels=15), w),
-            K * C * wpc * 4 + 2 * K * C * 4 + n_pad * 4 + K * 4, 4 * K * n_pad, flush,
-            int_ops=2 * K * n_pad)
+        codecs = (
+            ("quantized_aggregate", "q8", codes, 8, 255,
+             f"K={K} N_pad={n_pad} C={C}",
+             # yardstick: the composition the fusion removes
+             lambda: fedavg_aggregate(dequantize_ref(codes, lo, scale, chunk=CHUNK, levels=255), w),
+             lambda: quantized_aggregate_ref(codes, lo, scale, w, chunk=CHUNK, levels=255),
+             K * n_pad, 0),
+            ("packed_quantized_aggregate", "q4", words, 4, 15,
+             f"K={K} words={C * wpc} C={C}",
+             lambda: fedavg_aggregate(dequantize_ref(
+                 unpack_ref(words, bits=4, chunk=CHUNK), lo, scale, chunk=CHUNK, levels=15), w),
+             lambda: packed_quantized_aggregate_ref(words, lo, scale, w, bits=4, chunk=CHUNK,
+                                                    levels=15),
+             K * C * wpc * 4, 2 * K * n_pad),
+        )
+        for name, codec, payload, bits, levels, shape, library, plain, payload_bytes, int_ops \
+                in codecs:
+            kw = dict(bits=bits, chunk=CHUNK, levels=levels)
+            out = _out(payload, lo, CHUNK)
+            route = _route(payload, out, chunk=CHUNK, bits=bits, K=K)
+            require(route == "stream", f"{name} {model}: the main shape routes to {route}")
+            ms, turns = time_routes(
+                lambda r: (lambda: _launch(payload, lo, scale, w, out, route=r, **kw)), flush)
+            r = timing_row(f"{name} {codec} {model}: {shape}, routed {route}", None, plain,
+                           library, payload_bytes + 2 * K * C * 4 + n_pad * 4 + K * 4,
+                           4 * K * n_pad, flush, int_ops=int_ops, kernel_ms=ms[route])
+            plan = stream_plan(K, C, chunk=CHUNK, bits=bits)
+            r.update(route=route, general_ms=ms["general"], stream_ms=ms["stream"],
+                     turns_ms=turns, stream_plan=plan)
+            print(f"    turns (general, stream, stream, general): "
+                  + ", ".join(f"{t:.5f}" for _, t in turns)
+                  + f" ms; stream {ms['stream'] / ms['general']:.3f}x the general time, "
+                  f"{ms['stream'] / r['library_ms']:.4f}x the yardstick's; stream block "
+                  + " ".join(f"{k}={v}" for k, v in plan.items()))
+            if model == "mnist_cnn":
+                require(ms["stream"] <= ms["general"],
+                        f"{name} {model}: the stream route ({ms['stream']:.5f} ms) is slower "
+                        f"than the general one ({ms['general']:.5f} ms)")
+            rows[name][model] = r
 
         k = N * 5 // 100
         idx, vals, w2 = sparse_case(K, N, k, torch.float32, seed=7)
@@ -973,7 +1090,7 @@ def time_gossip_mix():
     plan's non-zero slots, 2 flops each an element."""
     from repro_torch.kernels.gossip_mix import _launch, _route, gossip_mix_ref, launch_config
 
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
     rows = {}
     for plan_name, plan in gossip_plans(N_NODES).items():
         idx = torch.from_numpy(plan.idx).cuda()
@@ -1285,7 +1402,7 @@ def time_flash_attention():
     from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
     rows = {}
     for tag, (B, S, H, K, D) in FLASH_SHAPES.items():
         q, k, v = flash_inputs(B, S, S, H, K, D, torch.bfloat16, 7)
@@ -1334,7 +1451,7 @@ def time_ssm_scan():
     be within SSM_PLAN_SLACK of the fastest."""
     from repro_torch.kernels.ssm_scan import LANES, _launch, launch_plan, ssm_scan_ref
 
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
     rows = {}
     for tag, T in (("jamba/prefill", PROMPT), ("jamba/decode", 1)):
         B, D, N = SERVE_BATCH, SSM_D, SSM_N
@@ -1768,7 +1885,7 @@ def time_fused_cross_entropy():
     T, d, V = CE_SHAPE
     hidden, head, labels = ce_inputs(T, d, V, torch.bfloat16, "tied", 7)
     lbl64 = labels.long()
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buffer()
 
     def yardstick():
         return torch.nn.functional.cross_entropy((hidden @ head).float(), lbl64,
@@ -2443,10 +2560,22 @@ def run_lane(name, eng, n_rounds, kernel):
     want = {k: (n_rounds if k == kernel else 0) for k in KERNELS}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} in {n_rounds} rounds, want {want}")
+    require_stream_route(name, kernel)
     print(f"  launches in the run ({n_rounds} rounds): "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return (counts[kernel] if kernel else 0), [r.wall_s for r in hist.records]
+
+
+def require_stream_route(name, kernel):
+    """Every launch of a codec kernel since the counts were reset took the
+    stream route."""
+    if kernel in ("quantized_aggregate", "packed_quantized_aggregate"):
+        f = counters()[kernel]
+        require(f.stream_launches == f.launches,
+                f"{name}: {f.stream_launches} of {f.launches} {kernel} launches on the "
+                "stream route")
+        print(f"  {kernel}: {f.stream_launches} of {f.launches} launches on the stream route")
 
 
 def main_path(model_name, data):
@@ -2559,8 +2688,10 @@ def compressed_lane(model_name, spec_name, override, kernel, data):
           f"({4 * n / realized:.2f}x)")
     require(realized == codec.wire_bytes(n) == want,
             f"{model_name} {codec.name}: realized bytes {realized}, want {want}")
+    stream = getattr(counters().get(kernel), "stream_launches", None)
     return {"model": model_name, "codec": codec.name, "kernel": kernel,
-            "launches": launches, "rounds": COMPRESSED_ROUNDS, "round_wall_s": walls,
+            "launches": launches, "stream_launches": stream,
+            "rounds": COMPRESSED_ROUNDS, "round_wall_s": walls,
             "aggregate_err": err, "payload_bytes": realized, "dense_bytes": 4 * n}, eng
 
 
@@ -2792,7 +2923,8 @@ def print_ptxas(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            for base in ("packed_qagg_kernel", "qagg_kernel", "fedavg_agg_kernel",
+            for base in ("qagg_stream_kernel", "packed_qagg_kernel", "qagg_kernel",
+                         "fedavg_agg_kernel",
                          "sparse_agg_kernel", "gossip_mix_dense_kernel", "gossip_mix_kernel",
                          "flash_fwd_mma_kernel", "flash_fwd_kernel", "ssm_scan_ring_kernel",
                          "ssm_scan_kernel", "ce_fwd_mma_kernel",
@@ -2870,7 +3002,8 @@ def main() -> int:
     flash_lse_err = check_flash_lse()
     check_grad_guard()
 
-    phase("4. timing (CUDA events, median of 200, L2 flushed before each launch)")
+    phase("4. timing (CUDA events, median of 200, L2 flushed to clean lines before each "
+          "launch)")
     print(f"card: {smi}")
     timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
               "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
@@ -2909,10 +3042,13 @@ def main() -> int:
               f"{lane['payload_bytes']} B of {lane['dense_bytes']} dense")
 
     phase("9. where the time goes in the compressed lane: one more CNN q8 round")
-    profile_round("mnist_cnn q8", eng_cnn_q8, "qagg_kernel<", "quantized_aggregate")
+    reset_counts()
+    profile_round("mnist_cnn q8", eng_cnn_q8, "qagg_stream_kernel<", "quantized_aggregate")
+    require_stream_route("mnist_cnn q8 profiled round", "quantized_aggregate")
 
     phase("10. plain and q8 CNN rounds in turns (plain, q8, q8, plain), host clock to the synced loss")
     turns = []
+    reset_counts()
     for name, eng in (("plain", eng_cnn), ("q8", eng_cnn_q8), ("q8", eng_cnn_q8),
                       ("plain", eng_cnn)):
         torch.cuda.synchronize()
@@ -2920,6 +3056,8 @@ def main() -> int:
         float(eng.round()["loss"])
         turns.append((name, time.perf_counter() - t0))
         print(f"  {name:5s} round {turns[-1][1]:.4f} s")
+    require(launch_counts()["quantized_aggregate"] == 2, "two q8 rounds, two launches")
+    require_stream_route("plain and q8 CNN rounds in turns", "quantized_aggregate")
     del eng_cnn, eng_cnn_q8, eng
 
     phase("11. the gossip lane, full size, through RoundEngine(topology=...).run")
@@ -3075,6 +3213,14 @@ def main() -> int:
     kernels[1]["cnn_rounds_in_turns_s"] = turns
     kernels[4]["anchor"] = anchor_res
     kernels[4]["cnn_ring_round_profile"] = gossip_profile
+    for i in (1, 2):
+        kernels[i]["routes"] = {
+            "stream": "qagg_stream_kernel (uint8/uint16 codes, words at bits 1/2/4; chunk a "
+                      "whole number of 16-byte granules, >= 64 bytes; aligned; K <= 32)",
+            "general": "qagg_kernel / packed_qagg_kernel (the rest)"}
+        stream = sum(lane["stream_launches"] for lane in lanes if lane["kernel"] == KERNELS[i])
+        kernels[i]["route_launches"] = {"stream": stream,
+                                        "general": launches[KERNELS[i]] - stream}
     kernels[4]["routes"] = {
         "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",
         "dense": "gossip_mix_dense_kernel (the rest: the full graph)"}

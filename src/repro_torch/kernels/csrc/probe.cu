@@ -6,7 +6,12 @@
 //     special-function units' peak, the exp2 bound of ssm_scan);
 //   probe_outer<R, C>: gossip_mix_dense_kernel's FMA pattern, acc[R][C] +=
 //     w[r] * x[q], with w and x read from shared memory as the kernel reads
-//     them (a k-major W row group of R values, a row of X of C values).
+//     them (a k-major W row group of R values, a row of X of C values);
+//   probe_stream: the streaming floor of the codec aggregates' bytes: K rows
+//     of a payload read in coalesced 16-byte loads, one thread a 16-byte
+//     column, their words summed, and per_col float4s a column written in
+//     coalesced 16-byte stores (column j of the outputs at j * cols + c, so
+//     that a warp's stores are contiguous). Nothing else is computed.
 //
 // Plain extern "C" entry points; each returns cudaGetLastError().
 
@@ -93,6 +98,21 @@ __global__ void __launch_bounds__(256) probe_outer(float* out, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+__global__ void probe_stream(const uint4* __restrict__ in, int K, long long cols,
+                             float4* __restrict__ out, int per_col) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < cols; c += stride) {
+    unsigned s = 0;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const uint4 v = in[k * cols + c];
+      s += v.x + v.y + v.z + v.w;
+    }
+    const float f = (float)s;
+    for (int j = 0; j < per_col; ++j) out[j * cols + c] = make_float4(f, f, f, f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -115,6 +135,19 @@ int probe_outer_run(int cols, float* out, int blocks, int threads, int iters, vo
     probe_outer<8, 8><<<blocks, threads, 0, s>>>(out, iters);
   else
     probe_outer<8, 4><<<blocks, threads, 0, s>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+
+// K rows of row_bytes (a multiple of 16) in, n_out floats (a multiple of
+// 4 * row_bytes / 16) out.
+int probe_stream_run(const void* in, int K, long long row_bytes, void* out, long long n_out,
+                     void* stream) {
+  const long long cols = row_bytes / 16;
+  if (K < 1 || cols < 1 || row_bytes % 16 != 0 || n_out % (4 * cols) != 0)
+    return (int)cudaErrorInvalidValue;
+  long long blocks = (cols + 255) / 256;
+  probe_stream<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(in), K, cols, static_cast<float4*>(out), (int)(n_out / 4 / cols));
   return (int)cudaGetLastError();
 }
 

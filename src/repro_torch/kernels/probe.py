@@ -6,16 +6,32 @@
    special-function units' ex2 rate on independent chains, and
    ``gossip_mix_dense_kernel``'s 8 x 4 FMA pattern (operands from shared
    memory) at 13 and 32 warps an SM.
-2. Ablations: ``gossip_mix_dense_kernel`` on the full graph (n = 100, the
-   CNN's N) and ``ssm_scan_ring_kernel`` at the Jamba prefill shape (2 lanes
-   a channel), each rebuilt from its source with one part cut out -- the
-   loads of the next tile or run, the y stores, the exponentials -- and
-   timed beside the kernel itself. A cut kernel computes nothing useful;
-   only its time is read.
+2. The L2 flush: ``probe_stream`` (the streaming floor of the codec
+   aggregates' bytes), both routes of ``quantized_aggregate`` (q8) and
+   ``packed_quantized_aggregate`` (q4), ``fedavg_aggregate`` and
+   ``sparse_aggregate`` at the CNN and 2NN shapes (K = 10, chunk 512), each
+   timed under two flushes in turns (zeroing, clean, clean, zeroing): the
+   zeroing flush writes a 256 MB buffer and leaves the 50 MB L2 full of
+   dirty lines, which a kernel's own traffic must write back; the clean
+   flush reads the same buffer, written once, and leaves clean lines. Then
+   the same kernels' device durations as CUPTI records them
+   (``torch.profiler``) beside their CUDA-event times under the clean
+   flush: the events also hold the launch.
+3. The stream route's timeline: a build of ``qagg_stream_kernel`` that
+   stamps ``%globaltimer`` as each of a block's tiles lands, asks for the
+   next, has its steps, is decoded, stored and synced (TIMELINE_EDITS).
+4. Ablations: ``gossip_mix_dense_kernel`` on the full graph (n = 100, the
+   CNN's N), ``ssm_scan_ring_kernel`` at the Jamba prefill shape (2 lanes
+   a channel) and both routes of the codec aggregates at the CNN shape,
+   each rebuilt from its source with one part cut out -- the loads of the
+   next tile or run, the stores, the exponentials, the int-to-float
+   conversions -- and timed beside the kernel itself. A cut kernel computes
+   nothing useful; only its time is read.
 
 Times are CUDA events, median of 50 launches with the L2 cache flushed
-before each; each line names the card and its power limit. A build
-directory under ``build/repro_torch/probe`` holds the cut kernels.
+before each (the clean flush, as ``chip_smoke.py`` phase 4 times, but in
+part 2); each line names the card and its power limit. A build directory
+under ``build/repro_torch/probe`` holds the cut kernels.
 """
 from __future__ import annotations
 
@@ -29,6 +45,14 @@ import torch
 from repro_torch.kernels import build
 
 PROBE_DIR = build.BUILD_DIR / "probe"
+FLUSH_BYTES = 256 * 2**20        # well above the 50 MB L2
+# The codec aggregates' main shapes: K clients, the CNN's and the 2NN's N,
+# chunk 512 (specs/mnist_2nn_noniid_q8.json).
+WIRE_K, WIRE_CHUNK = 10, 512
+WIRE_N = {"cnn": 1_663_370, "2nn": 199_210}
+# The flush is switched when the zeroing flush costs probe_stream at the q8
+# CNN bytes this much more than the clean flush.
+FLUSH_SWITCH_RATIO = 1.10
 
 # (source, variant) -> (text to cut, what replaces it)
 CUTS = {
@@ -42,40 +66,131 @@ CUTS = {
     ("ssm_scan", "no exponentials"): [
         ('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(r) : "f"(v));\n',
          "  r = fmaf(v, 0.01f, 0.99f);\n")],
+    # the general route: its stores (kept alive by a test that never holds)
+    # and its int-to-float conversions (I2F) replaced by the stream route's
+    # bit trick
+    ("quantized_agg", "general: no stores"): [
+        ("    store_f32<VEC>(out + col, acc);\n",
+         "    if (acc[0] == 12345.f) store_f32<VEC>(out + col, acc);\n"),
+        ("      if (first + j < chunk) o[j] = acc[j];\n",
+         "      if (acc[j] == 12345.f) o[j] = acc[j];\n")],
+    ("quantized_agg", "general: bit-trick decode"): [
+        ("fmaf(static_cast<float>(p.v[j]), step, l)",
+         "fmaf(__int_as_float(0x4B000000u | p.v[j]) - 8388608.f, step, l)"),
+        ("static_cast<float>((word >> (j * BITS)) & MASK)",
+         "(__int_as_float(0x4B000000u | ((word >> (j * BITS)) & MASK)) - 8388608.f)")],
+    # the stream route: the next tile's request arrives without copying, so
+    # only a block's first tile is loaded; and the decode and fma pair cut
+    # to one add a word
+    ("quantized_agg", "stream: no next-tile copies"): [
+        ("issue(i + 1, s ^ 1, /*copy=*/true);", "issue(i + 1, s ^ 1, /*copy=*/false);")],
+    ("quantized_agg", "stream: no decode or fma"): [
+        ("""              acc[q * S::kCodesPerWord + j] = fmaf(
+                  wk, fmaf(decode<BITS>(wd[q], j), ls.y, ls.x), acc[q * S::kCodesPerWord + j]);""",
+         """              if (j == 0) acc[q * S::kCodesPerWord] += __int_as_float(wd[q]) * wk;""")],
 }
 
 
-def _cut_library(name, variant):
-    """nvcc the source with the variant's cuts into PROBE_DIR; the path."""
+# The stream kernel with %globaltimer stamps: thread 0 of each block records
+# its start and, for its first four tiles, when the tile has landed, the
+# next one is asked for, its steps are in, it is decoded, stored and the
+# block has synced (TIMELINE_STEPS), into a device array read back after
+# one launch.
+_NOW = '({ unsigned long long t_; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); t_; })'
+TIMELINE_STEPS = ("landed", "next asked", "steps in", "decoded", "stored", "synced")
+TIMELINE_BLOCKS = 1024
+
+
+def _stamp(step, indent="    "):
+    return (f"{indent}if (tid == 0 && i < 4) g_tl[blockIdx.x * 32 + 1 + i * 6 + {step}] = "
+            f"{_NOW};\n")
+
+
+TIMELINE_EDITS = [
+    ("namespace {\n", f"namespace {{\n__device__ unsigned long long g_tl[{TIMELINE_BLOCKS} * 32];\n"),
+    ("  issue(0, 0, /*copy=*/true);\n",
+     f"  if (tid == 0) g_tl[blockIdx.x * 32] = {_NOW};\n  issue(0, 0, /*copy=*/true);\n"),
+    ("    mbar_wait(&full[s], parity);\n", "    mbar_wait(&full[s], parity);\n" + _stamp(0)),
+    ("    if (i + 1 < n_tiles) issue(i + 1, s ^ 1, /*copy=*/true);\n",
+     "    if (i + 1 < n_tiles) issue(i + 1, s ^ 1, /*copy=*/true);\n" + _stamp(1)),
+    ("      d->y = d->y / levels;   // step, once per (k, chunk) of the tile\n    }\n"
+     "    __syncthreads();\n",
+     "      d->y = d->y / levels;   // step, once per (k, chunk) of the tile\n    }\n"
+     "    __syncthreads();\n" + _stamp(2)),
+    ("      int valid = (T.bytes - u0) / S::kUnitBytes;\n",
+     _stamp(3, "      ") + "      int valid = (T.bytes - u0) / S::kUnitBytes;\n"),
+    ("    __syncthreads();   // every thread is done with stage s\n",
+     _stamp(4) + "    __syncthreads();   // every thread is done with stage s\n" + _stamp(5)),
+    ('extern "C" {\n',
+     'extern "C" {\n'
+     "int probe_timeline_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_tl, sizeof(g_tl));\n}\n"
+     "int probe_timeline_clear() { return (int)cudaMemset(g_tl_ptr(), 0, sizeof(g_tl)); }\n"),
+    ("}  // namespace\n\nextern", "void* g_tl_ptr() {\n  void* p = nullptr;\n"
+     "  cudaGetSymbolAddress(&p, g_tl);\n  return p;\n}\n\n}  // namespace\n\nextern"),
+]
+
+
+def _edited_library(name, tag, edits):
+    """nvcc the source with ``edits`` (text, what replaces it) into
+    PROBE_DIR; the loaded library."""
     text = (build.CSRC / f"{name}.cu").read_text()
-    for old, new in CUTS[(name, variant)]:
+    for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}.cu no longer has the code the {variant!r} cut removes")
+            raise RuntimeError(f"{name}.cu no longer has the code the {tag!r} edit changes")
         text = text.replace(old, new)
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    tag = re.sub(r"[^a-z0-9]+", "_", variant)   # nvcc splits its arguments at commas
-    src = PROBE_DIR / f"{name}_{tag}.cu"
+    stem = re.sub(r"[^a-z0-9]+", "_", tag)   # nvcc splits its arguments at commas
+    src = PROBE_DIR / f"{name}_{stem}.cu"
     src.write_text(text)
     lib = src.with_suffix(".so")
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     proc = subprocess.run([build._nvcc(), *flags, "-I", str(build.CSRC), "-o", str(lib),
                            str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the {variant!r} cut of {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on the {tag!r} edit of {name}.cu:\n{proc.stderr}")
     return ctypes.CDLL(str(lib))
 
 
+def _cut_library(name, variant):
+    return _edited_library(name, variant, CUTS[(name, variant)])
+
+
 def _time_ms(fn, flush, iters=50):
+    """Median device time of ``fn`` over ``iters`` launches, ``flush()``
+    before each (:func:`zeroing_flush` or :func:`clean_flush`)."""
     fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        flush()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def zeroing_flush(buf):
+    """Write ``buf`` (256 MB): the L2 is left full of dirty lines."""
+    return buf.zero_
+
+
+def clean_flush(buf):
+    """Read ``buf`` (256 MB, written once) without writing it: the L2 is
+    left full of clean lines."""
+    return buf.sum
+
+
+def _flush_buffer():
+    return torch.zeros(FLUSH_BYTES // 4, device="cuda")
+
+
+def _probe_lib():
+    lib = build.load("probe")
+    lib.probe_stream_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    return lib
 
 
 def _stream():
@@ -126,7 +241,7 @@ def ablate():
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import ssm_scan as sk
 
-    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    flush = clean_flush(_flush_buffer())
     rows = {}
     plan = topology.FullTopology().build(100)
     idx, w = torch.from_numpy(plan.idx).cuda(), torch.from_numpy(plan.weight).cuda()
@@ -168,6 +283,187 @@ def ablate():
     for name, variant in CUTS:
         if name == "ssm_scan":
             rows[f"ssm_scan: {variant}"] = _time_ms(scan(_cut_library(name, variant)), flush)
+
+    from repro_torch.kernels import quantized_agg as qa
+
+    ins = _wire_inputs(WIRE_N["cnn"])
+    libs = {"the kernel": qa._lib(), **{variant: _cut_library(name, variant)
+                                        for name, variant in CUTS if name == "quantized_agg"}}
+    for variant, lib in libs.items():
+        for codec in ("q8", "q4"):
+            for route in ("general", "stream"):
+                if variant != "the kernel" and not variant.startswith(route):
+                    continue
+                rows[f"{codec} {route} CNN: {variant}"] = _time_ms(
+                    _wire_launch(lib, ins, codec, route), flush)
+    return rows
+
+
+def _wire_inputs(N):
+    """q8 codes, q4 words, (lo, scale), weights, the fedavg (K, N) fp32 stack
+    and top-5% pairs at K = WIRE_K, chunk WIRE_CHUNK, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    K, C = WIRE_K, -(-N // WIRE_CHUNK)
+    w = torch.rand(K, generator=g, device="cuda") + 0.1
+    k = N * 5 // 100
+    return {
+        "N": N, "C": C,
+        "q8": torch.randint(0, 256, (K, C * WIRE_CHUNK), generator=g, device="cuda",
+                            dtype=torch.int32).to(torch.uint8),
+        "q4": torch.randint(-2**31, 2**31, (K, C * WIRE_CHUNK // 8), generator=g, device="cuda",
+                            dtype=torch.int32),
+        "lo": torch.randn((K, C), generator=g, device="cuda"),
+        "scale": torch.rand((K, C), generator=g, device="cuda"),
+        "w": w / w.sum(),
+        "x": torch.randn((K, N), generator=g, device="cuda"),
+        "idx": torch.stack([torch.randperm(N, generator=g, device="cuda")[:k]
+                            for _ in range(K)]).to(torch.int32),
+        "vals": torch.randn((K, k), generator=g, device="cuda"),
+        "out": torch.empty(C * WIRE_CHUNK, device="cuda"),
+    }
+
+
+def _wire_launch(lib, ins, codec, route):
+    """One launch of a codec aggregate's route from ``lib`` (the kernel's
+    library or a cut of it) into ``ins["out"]``."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    payload = ins[codec]
+    bits, levels = (8, 255) if codec == "q8" else (4, 15)
+    args = [payload.data_ptr(), ins["lo"].data_ptr(), ins["scale"].data_ptr(),
+            ins["w"].data_ptr(), ins["out"].data_ptr(), WIRE_K]
+    if route == "stream":
+        fn, rest = lib.quantized_aggregate_stream, [ins["C"], WIRE_CHUNK, bits, levels]
+        fn.argtypes = [ptr] * 5 + [i32, i64, i32, i32, i32, ptr]
+    elif codec == "q8":
+        fn, rest = lib.quantized_aggregate_u8, [ins["C"] * WIRE_CHUNK, WIRE_CHUNK, levels]
+        fn.argtypes = [ptr] * 5 + [i32, i64, i32, i32, ptr]
+    else:
+        fn, rest = lib.packed_quantized_aggregate, [ins["C"], WIRE_CHUNK, bits, levels]
+        fn.argtypes = [ptr] * 5 + [i32, i64, i32, i32, i32, ptr]
+
+    def launch():
+        if fn(*args, *rest, _stream()) != 0:
+            raise RuntimeError(f"the {codec} {route} launch failed")
+    return launch
+
+
+def flushes():
+    """Each codec route, probe_stream, fedavg_aggregate and sparse_aggregate
+    at the CNN and 2NN shapes under both flushes in turns (zeroing, clean,
+    clean, zeroing; each flush's time the mean of its two medians). Returns
+    the rows {name: (zeroing ms, clean ms)} and whether the zeroing flush
+    costs probe_stream at the q8 CNN bytes FLUSH_SWITCH_RATIO or more."""
+    from repro_torch.kernels import quantized_agg as qa
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+    from repro_torch.kernels.sparse_agg import sparse_aggregate
+
+    buf = _flush_buffer()
+    both = {"zeroing": zeroing_flush(buf), "clean": clean_flush(buf)}
+    lib = _probe_lib()
+    rows = {}
+    for shape, N in WIRE_N.items():
+        ins = _wire_inputs(N)
+
+        def floor(codec, ins=ins):
+            p = ins[codec]
+            row_bytes = p.shape[1] * p.element_size()
+
+            def launch():
+                if lib.probe_stream_run(p.data_ptr(), WIRE_K, row_bytes, ins["out"].data_ptr(),
+                                        ins["out"].numel(), _stream()) != 0:
+                    raise RuntimeError("probe_stream failed to launch")
+            return launch
+
+        fns = {
+            f"probe_stream q8 bytes {shape}": floor("q8"),
+            f"probe_stream q4 bytes {shape}": floor("q4"),
+            **{f"{codec} {route} {shape}": _wire_launch(qa._lib(), ins, codec, route)
+               for codec in ("q8", "q4") for route in ("general", "stream")},
+            f"fedavg_aggregate {shape}": lambda ins=ins: fedavg_aggregate(ins["x"], ins["w"]),
+            f"sparse_aggregate top-5% {shape}": lambda ins=ins: sparse_aggregate(
+                ins["idx"], ins["vals"], ins["w"], ins["N"]),
+        }
+        for name, fn in fns.items():
+            turns = [(f, _time_ms(fn, both[f])) for f in ("zeroing", "clean", "clean", "zeroing")]
+            rows[name] = tuple(float(np.mean([t for f2, t in turns if f2 == f]))
+                               for f in ("zeroing", "clean"))
+    zero, clean = rows["probe_stream q8 bytes cnn"]
+    return rows, zero >= FLUSH_SWITCH_RATIO * clean
+
+
+def durations():
+    """The codec routes, probe_stream and fedavg_aggregate at the CNN and
+    2NN shapes under the clean flush: the kernel's device duration as CUPTI
+    records it (median of 40) beside its CUDA-event time (median of 50),
+    {name: (event ms, device ms)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import quantized_agg as qa
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+
+    flush = clean_flush(_flush_buffer())
+    lib = _probe_lib()
+    rows = {}
+    for shape, N in WIRE_N.items():
+        ins = _wire_inputs(N)
+        fns = {f"{codec} {route} {shape}": (_wire_launch(qa._lib(), ins, codec, route),
+                                            "qagg_stream" if route == "stream" else "qagg_kernel")
+               for codec in ("q8", "q4") for route in ("general", "stream")}
+        for codec in ("q8", "q4"):
+            p = ins[codec]
+            fns[f"probe_stream {codec} bytes {shape}"] = (
+                lambda p=p, ins=ins: lib.probe_stream_run(
+                    p.data_ptr(), WIRE_K, p.shape[1] * p.element_size(), ins["out"].data_ptr(),
+                    ins["out"].numel(), _stream()), "probe_stream")
+        fns[f"fedavg_aggregate {shape}"] = (
+            lambda ins=ins: fedavg_aggregate(ins["x"], ins["w"]), "fedavg_agg")
+        for name, (fn, key) in fns.items():
+            event = _time_ms(fn, flush)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(40):
+                    flush()
+                    fn()
+                torch.cuda.synchronize()
+            device = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and key in e.name]
+            if len(device) < 20:   # CUPTI may drop a few records; the median needs most
+                raise RuntimeError(f"the profiler saw {len(device)} of 40 {name} launches")
+            rows[name] = (event, float(np.median(device)))
+    return rows
+
+
+def timeline():
+    """Medians over blocks of when each of a block's first four tiles passes
+    each of TIMELINE_STEPS, in microseconds from the first block's start,
+    for both codecs' stream route at the CNN and 2NN shapes, one launch each
+    after the clean flush."""
+    lib = _edited_library("quantized_agg", "stream timeline", TIMELINE_EDITS)
+    flush = clean_flush(_flush_buffer())
+    rows = {}
+    for shape, N in WIRE_N.items():
+        ins = _wire_inputs(N)
+        for codec in ("q8", "q4"):
+            fn = _wire_launch(lib, ins, codec, "stream")
+            fn()
+            torch.cuda.synchronize()
+            if lib.probe_timeline_clear() != 0:
+                raise RuntimeError("could not clear the timeline")
+            flush()
+            fn()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (TIMELINE_BLOCKS * 32))()
+            if lib.probe_timeline_read(buf) != 0:
+                raise RuntimeError("could not read the timeline")
+            a = np.frombuffer(buf, dtype=np.uint64).reshape(TIMELINE_BLOCKS, 32)
+            a = a[a[:, 0] > 0].astype(np.int64)
+            t0 = a[:, 0].min()
+            for i in range(4):
+                steps = a[:, 1 + 6 * i: 7 + 6 * i]
+                landed = steps[:, 0] > 0
+                if landed.any():
+                    rows[f"{codec} {shape} ({len(a)} blocks) tile {i}"] = np.median(
+                        (steps[landed] - t0) / 1e3, axis=0)
     return rows
 
 
@@ -178,10 +474,25 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    rows, switch = flushes()
+    print("== the L2 flush, ms (zeroing, clean; zeroing / clean)")
+    for k, (zero, clean) in rows.items():
+        print(f"  {k}: {zero:.5f} {clean:.5f} {zero / clean:.3f}")
+    print(f"  verdict: the zeroing flush costs probe_stream at the q8 CNN bytes "
+          f"{rows['probe_stream q8 bytes cnn'][0] / rows['probe_stream q8 bytes cnn'][1]:.3f}x "
+          f"the clean flush's time: {'switch' if switch else 'keep'} "
+          f"(switch from {FLUSH_SWITCH_RATIO:.2f}x)")
+    print("== the clean flush: CUDA-event ms, device ms (CUPTI); events - device")
+    for k, (event, device) in durations().items():
+        print(f"  {k}: {event:.5f} {device:.5f}; {event - device:.5f}")
+    print("== the stream route's tiles, us from the first block's start (medians over "
+          "blocks): " + ", ".join(TIMELINE_STEPS))
+    for k, v in timeline().items():
+        print(f"  {k}: " + " ".join(f"{x:.2f}" for x in v))
     for what, rows in (("calibration", calibrate()), ("ablations, ms", ablate())):
         print(f"== {what}")
         for k, v in rows.items():
-            print(f"  {k}: {v:.4f}")
+            print(f"  {k}: {v:.5f}")
     return 0
 
 

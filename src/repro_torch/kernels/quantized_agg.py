@@ -8,9 +8,21 @@ Both compute
     out[n] = sum_k w[k] * (q[k, n] * scale[k, c] / levels + lo[k, c]),  c = n // chunk
 
 in fp32 without materializing the dense (K, N) client deltas. On a CUDA
-tensor the work goes to the hand-written kernels in
-``csrc/quantized_agg.cu`` (bound by HBM bytes; see the source note). On a
-CPU tensor it goes to the plain versions beside them:
+tensor the work goes to one of two routes of hand-written kernels in
+``csrc/quantized_agg.cu`` (bound by HBM bytes; see the source note), chosen
+by :func:`_route` from shapes, dtypes, alignment and K:
+
+- ``"stream"``, ``qagg_stream_kernel``: persistent blocks stream column
+  tiles through a ring of TMA bulk copies, decode without int-to-float
+  conversions and store whole 16-byte rows. It takes uint8/uint16 codes and
+  words at bits 1, 2 and 4 whose chunk is a whole number of 16-byte granules
+  of at least ``MIN_CHUNK_BYTES``, on 16-byte aligned pointers, with at most
+  ``STREAM_MAX_K`` rows: the specs' chunk 512 at q8, q16, q4, q2 and q1.
+- ``"general"``, ``qagg_kernel`` / ``packed_qagg_kernel``: everything else
+  (odd chunks, misaligned views, bits 3 and 5-15, larger K).
+
+Both compute the same fma chain in the same k order. On a CPU tensor the
+work goes to the plain versions beside them:
 :func:`dequantize_ref` (after :func:`unpack_ref` for packed words) then
 ``fedavg_aggregate_ref``. The tensor's device decides; a CUDA tensor
 launches the kernel or raises, with no fallback.
@@ -40,6 +52,15 @@ from repro_torch.kernels.grad_guard import NOT_DIFFERENTIATED, refuse_grad
 from repro_torch.utils.bitpack import unpack_codes, words_per_chunk
 
 CODE_DTYPES = (torch.uint8, torch.uint16)
+ROUTES = ("stream", "general")
+# csrc/quantized_agg.cu's kStreamMaxK: two ring stages of K rows of a 2 KB
+# tile (128 KB at K = 32), the store staging and the (lo, step) tables fit
+# one block's shared memory.
+STREAM_MAX_K = 32
+# csrc/quantized_agg.cu's kMinChunkBytes: a 2 KB tile row then touches at
+# most 33 chunks, which bounds a stage's (lo, step) table.
+MIN_CHUNK_BYTES = 64
+STREAM_WORD_BITS = (1, 2, 4)
 
 
 @functools.cache
@@ -52,6 +73,12 @@ def _lib() -> ctypes.CDLL:
     lib.packed_quantized_aggregate.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr]
     lib.packed_quantized_aggregate.restype = i32
+    lib.quantized_aggregate_stream.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr]
+    lib.quantized_aggregate_stream.restype = i32
+    lib.quantized_aggregate_stream_plan.argtypes = [i32, i64, i32, i32,
+                                                    ctypes.POINTER(i32)]
+    lib.quantized_aggregate_stream_plan.restype = i32
     lib.quantized_aggregate_vec.argtypes = [ptr, ptr, i32, i32]
     lib.quantized_aggregate_vec.restype = i32
     lib.quantized_aggregate_error_string.argtypes = [i32]
@@ -156,8 +183,9 @@ def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tens
     """Fused dequantize + weighted sum over the client axis:
     codes (K, N_pad) uint8/uint16 -> (N_pad,) fp32.
 
-    ``quantized_aggregate.launches`` counts kernel launches (CPU calls launch
-    nothing and count nothing)."""
+    ``quantized_aggregate.launches`` counts kernel launches, of either route;
+    ``quantized_aggregate.stream_launches`` those of the stream route (CPU
+    calls and empty outputs launch nothing and count nothing)."""
     name = "quantized_aggregate"
     if codes.ndim != 2 or chunk < 1 or codes.shape[1] % chunk:
         raise ValueError(f"codes must be (K, C*chunk); got {tuple(codes.shape)} "
@@ -169,22 +197,16 @@ def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tens
         _check_cpu_weights(name, weights)
         return quantized_aggregate_ref(codes, lo, scale, weights, chunk=chunk,
                                        levels=levels, accum_dtype=accum_dtype)
-    K, n_pad = codes.shape
+    K = codes.shape[0]
     _check_cuda(name, (codes, lo, scale, weights), accum_dtype, K)
-    out = torch.empty(n_pad, dtype=torch.float32, device=codes.device)
-    if n_pad == 0:
-        return out
-    lib = _lib()
-    fn = lib.quantized_aggregate_u8 if codes.dtype == torch.uint8 \
-        else lib.quantized_aggregate_u16
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    _raise_on(fn(codes.data_ptr(), lo.data_ptr(), scale.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), K, n_pad, chunk, levels, stream), name)
-    quantized_aggregate.launches += 1
-    return out
+    bits = 8 * codes.element_size()
+    out = _out(codes, lo, chunk)
+    return _launch(codes, lo, scale, weights, out, bits=bits, chunk=chunk, levels=levels,
+                   route=_route(codes, out, chunk=chunk, bits=bits, K=K))
 
 
 quantized_aggregate.launches = 0
+quantized_aggregate.stream_launches = 0
 
 
 def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
@@ -193,7 +215,9 @@ def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: tor
     """Fused unpack + dequantize + weighted sum: words (K, C * wpc) int32
     (uint32 bit patterns) -> (C * chunk,) fp32, for bits 1..15.
 
-    ``packed_quantized_aggregate.launches`` counts kernel launches."""
+    ``packed_quantized_aggregate.launches`` counts kernel launches, of
+    either route; ``packed_quantized_aggregate.stream_launches`` those of
+    the stream route."""
     name = "packed_quantized_aggregate"
     if not 1 <= bits <= 15:
         raise ValueError(f"packed aggregation is for bits in 1..15, got {bits}")
@@ -214,18 +238,13 @@ def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: tor
                                               accum_dtype=accum_dtype)
     K = words.shape[0]
     _check_cuda(name, (words, lo, scale, weights), accum_dtype, K)
-    out = torch.empty(C * chunk, dtype=torch.float32, device=words.device)
-    if C == 0:
-        return out
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    _raise_on(_lib().packed_quantized_aggregate(
-        words.data_ptr(), lo.data_ptr(), scale.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), K, C, chunk, bits, levels, stream), name)
-    packed_quantized_aggregate.launches += 1
-    return out
+    out = _out(words, lo, chunk)
+    return _launch(words, lo, scale, weights, out, bits=bits, chunk=chunk, levels=levels,
+                   route=_route(words, out, chunk=chunk, bits=bits, K=K))
 
 
 packed_quantized_aggregate.launches = 0
+packed_quantized_aggregate.stream_launches = 0
 
 
 def access_width(codes: torch.Tensor, out: torch.Tensor, chunk: int) -> int:
@@ -233,3 +252,78 @@ def access_width(codes: torch.Tensor, out: torch.Tensor, chunk: int) -> int:
     scalar path)."""
     return _lib().quantized_aggregate_vec(
         codes.data_ptr(), out.data_ptr(), chunk, codes.element_size())
+
+
+# ---------------------------------------------------------------------------
+# routes
+# ---------------------------------------------------------------------------
+
+def _out(payload: torch.Tensor, lo: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The (C * chunk,) fp32 output of either wrapper."""
+    return torch.empty(lo.shape[1] * chunk, dtype=torch.float32, device=payload.device)
+
+
+def _route(payload: torch.Tensor, out: torch.Tensor, *, chunk: int, bits: int, K: int) -> str:
+    """``"stream"`` when ``qagg_stream_kernel`` takes the call, else
+    ``"general"``. ``payload`` is uint8/uint16 codes (``bits`` 8 or 16) or
+    int32 words (``bits`` 1..15). The stream kernel moves 16-byte granules,
+    so a chunk must be a whole number of them (for words: ``32 % bits == 0``
+    and no slack codes in a frame) and at least ``MIN_CHUNK_BYTES``, both
+    pointers 16-byte aligned, and K at most ``STREAM_MAX_K``. It reads
+    shapes, dtypes, ``data_ptr() % 16`` and K only, on any device, before
+    any build."""
+    ok_bits = bits in (STREAM_WORD_BITS if payload.dtype == torch.int32 else (8, 16))
+    chunk_bits = chunk * bits
+    if (ok_bits and chunk_bits % 128 == 0 and chunk_bits >= 8 * MIN_CHUNK_BYTES
+            and payload.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+            and 1 <= K <= STREAM_MAX_K):
+        return "stream"
+    return "general"
+
+
+def _launch(payload, lo, scale, weights, out, *, bits, chunk, levels, route):
+    """One launch of ``route``'s kernel into ``out`` (:func:`_out`) on CUDA
+    tensors that the wrappers have checked: codes (uint8/uint16, ``bits`` 8
+    or 16) for :func:`quantized_aggregate`, int32 words for
+    :func:`packed_quantized_aggregate`, whose counters it advances.
+    Module-private: ``chip_smoke.py`` and the card's tests force each route
+    through it. It refuses an unknown route, or ``"stream"`` where
+    :func:`_route` says no, before any build."""
+    if route not in ROUTES:
+        raise ValueError(f"quantized aggregation has no route {route!r}")
+    words = payload.dtype == torch.int32
+    wrapper = packed_quantized_aggregate if words else quantized_aggregate
+    K, C = lo.shape
+    if route == "stream" and _route(payload, out, chunk=chunk, bits=bits, K=K) != "stream":
+        raise ValueError(
+            f"the stream route does not take {wrapper.__name__} with K={K}, chunk={chunk}, "
+            f"bits={bits}, payload {payload.dtype} at {payload.data_ptr() % 16} bytes past "
+            "a 16-byte boundary")
+    if C == 0:
+        return out
+    lib = _lib()
+    args = (payload.data_ptr(), lo.data_ptr(), scale.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), K)
+    stream = torch.cuda.current_stream(payload.device).cuda_stream
+    if route == "stream":
+        rc = lib.quantized_aggregate_stream(*args, C, chunk, bits, levels, stream)
+    elif words:
+        rc = lib.packed_quantized_aggregate(*args, C, chunk, bits, levels, stream)
+    else:
+        fn = lib.quantized_aggregate_u8 if bits == 8 else lib.quantized_aggregate_u16
+        rc = fn(*args, C * chunk, chunk, levels, stream)
+    _raise_on(rc, f"{wrapper.__name__} {route}")
+    wrapper.launches += 1
+    if route == "stream":
+        wrapper.stream_launches += 1
+    return out
+
+
+def stream_plan(K: int, C: int, *, chunk: int, bits: int) -> dict:
+    """The stream route's launch for K rows of C chunks: threads a block,
+    tile bytes a row, ring stages, dynamic shared memory, blocks an SM (the
+    occupancy query) and the grid."""
+    geom = (ctypes.c_int * 6)()
+    _raise_on(_lib().quantized_aggregate_stream_plan(K, C, chunk, bits, geom), "stream plan")
+    keys = ("threads", "tile_bytes", "stages", "smem_bytes", "blocks_per_sm", "grid")
+    return dict(zip(keys, geom))

@@ -190,12 +190,13 @@ def test_digest_follows_every_included_header(tmp_path):
 
 def test_flash_attention_digest_covers_the_shared_mma_header():
     # the tensor-core flash and CE kernels share the mma header, the dense
-    # gossip route and the scan the cp.async one; the others include none
+    # gossip route, the scan and the quantize stream route the cp.async one;
+    # the others include none
     for name in ("flash_attention", "ce_loss"):
         assert build.included_headers(build.CSRC / f"{name}.cu") == [
             build.CSRC / "mma_bf16.cuh"]
-    for name in ("gossip_mix", "ssm_scan"):
+    for name in ("gossip_mix", "ssm_scan", "quantized_agg"):
         assert build.included_headers(build.CSRC / f"{name}.cu") == [
             build.CSRC / "async_copy.cuh"]
-    for name in ("fedavg_agg", "quantized_agg", "sparse_agg"):
+    for name in ("fedavg_agg", "sparse_agg"):
         assert build.included_headers(build.CSRC / f"{name}.cu") == []

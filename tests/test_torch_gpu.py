@@ -18,6 +18,10 @@ from repro_torch.kernels.fedavg_agg import (  # noqa: E402
 )
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_ref  # noqa: E402
 from repro_torch.kernels.quantized_agg import (  # noqa: E402
+    STREAM_MAX_K,
+    _launch,
+    _out,
+    _route,
     dequantize_ref,
     packed_quantized_aggregate,
     packed_quantized_aggregate_ref,
@@ -156,7 +160,37 @@ def _ranges(cuda, K, C, seed=0):
     return torch.from_numpy(lo).to(cuda), torch.from_numpy(scale).to(cuda)
 
 
-@pytest.mark.parametrize("K", [1, 2, 10, 17])
+def _both_routes(wrapper, payload, lo, scale, w, ref, tol, *, bits, chunk, levels):
+    """The wrapper on the route ``_route`` picks (one launch, and one stream
+    launch where it is the stream route); where that is the stream route,
+    each route forced through ``_launch`` too. Every output within ``tol``
+    of ``ref``, and the two forced outputs equal."""
+    kw = dict(bits=bits, chunk=chunk, levels=levels)
+    route = _route(payload, _out(payload, lo, chunk), chunk=chunk, bits=bits,
+                   K=payload.shape[0])
+    before = (wrapper.launches, wrapper.stream_launches)
+    if payload.dtype == torch.int32:
+        out = wrapper(payload, lo, scale, w, **kw)
+    else:
+        out = wrapper(payload, lo, scale, w, chunk=chunk, levels=levels)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.stream_launches) == (
+        before[0] + 1, before[1] + (route == "stream"))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= tol
+    if route == "stream":
+        got = {r: _launch(payload, lo, scale, w, _out(payload, lo, chunk), route=r, **kw)
+               for r in ("general", "stream")}
+        torch.cuda.synchronize()
+        for r in got:
+            assert float((got[r] - ref).abs().max()) <= tol, r
+        # the same fma chain in the same k order, on exact decodes
+        assert torch.equal(got["general"], got["stream"])
+        assert wrapper.stream_launches == before[1] + 2
+    return route
+
+
+@pytest.mark.parametrize("K", [1, 2, 10, 17, 33])
 @pytest.mark.parametrize("N,chunk", [(1000, 512), (4097, 16), (100, 30), (199_210, 512)])
 @pytest.mark.parametrize("code_dtype", [torch.uint8, torch.uint16])
 def test_quantized_kernel_matches_plain_version(cuda, K, N, chunk, code_dtype):
@@ -167,19 +201,17 @@ def test_quantized_kernel_matches_plain_version(cuda, K, N, chunk, code_dtype):
     codes = codes.to(code_dtype).to(cuda)
     lo, scale = _ranges(cuda, K, C, seed=K)
     w = _weights(cuda, K, ghosts=K // 4)
-    before = quantized_aggregate.launches
-    out = quantized_aggregate(codes, lo, scale, w, chunk=chunk, levels=levels)
-    torch.cuda.synchronize()
-    assert quantized_aggregate.launches == before + 1
-    assert out.shape == (C * chunk,) and out.dtype == torch.float32
     ref = quantized_aggregate_ref(codes, lo, scale, w, chunk=chunk, levels=levels)
     # fp32 sums over K rows in another order (fma): 1e-6 of the largest term
     term = float(dequantize_ref(codes, lo, scale, chunk=chunk, levels=levels).abs().max())
-    assert float((out - ref).abs().max()) <= 1e-6 * term
+    route = _both_routes(quantized_aggregate, codes, lo, scale, w, ref, 1e-6 * term,
+                         bits=8 * codes.element_size(), chunk=chunk, levels=levels)
+    assert route == ("stream" if chunk == 512 and K <= STREAM_MAX_K else "general")
 
 
 @pytest.mark.parametrize("bits", range(1, 16))
-@pytest.mark.parametrize("K,N,chunk", [(1, 1000, 512), (17, 250, 30), (10, 199_210, 512)])
+@pytest.mark.parametrize("K,N,chunk", [(1, 1000, 512), (17, 250, 30), (10, 199_210, 512),
+                                       (33, 1000, 512)])
 def test_packed_kernel_matches_plain_version(cuda, bits, K, N, chunk):
     C = -(-N // chunk)
     g = torch.Generator(device=cuda).manual_seed(bits * K)
@@ -188,14 +220,11 @@ def test_packed_kernel_matches_plain_version(cuda, bits, K, N, chunk):
     lo, scale = _ranges(cuda, K, C, seed=bits)
     w = _weights(cuda, K)
     kw = dict(bits=bits, chunk=chunk, levels=2**bits - 1)
-    before = packed_quantized_aggregate.launches
-    out = packed_quantized_aggregate(words, lo, scale, w, **kw)
-    torch.cuda.synchronize()
-    assert packed_quantized_aggregate.launches == before + 1
     ref = packed_quantized_aggregate_ref(words, lo, scale, w, **kw)
     term = float((lo.abs() + scale.abs()).max())
-    assert out.shape == (C * chunk,)
-    assert float((out - ref).abs().max()) <= 1e-6 * term
+    route = _both_routes(packed_quantized_aggregate, words, lo, scale, w, ref, 1e-6 * term, **kw)
+    assert route == ("stream" if bits in (1, 2, 4) and chunk == 512 and K <= STREAM_MAX_K
+                     else "general")
 
 
 @pytest.mark.parametrize("K", [1, 2, 10, 17])
@@ -296,11 +325,14 @@ def test_compressed_round_on_card(cuda, codec_name, kernel):
                       FedAvgConfig(C=0.67, E=1, B=4, lr=0.05, seed=0),
                       codec=codec._replace(encode=encode, aggregate=aggregate), device=cuda)
     before = None if kernel is None else kernel.launches
+    stream_before = getattr(kernel, "stream_launches", None)
     hist = eng.run(2)
     torch.cuda.synchronize()
     assert all(np.isfinite(r.train_loss) for r in hist.records)
     if kernel is not None:
         assert kernel.launches == before + 2
+    if stream_before is not None:   # the codec kernels: every round on the stream route
+        assert kernel.stream_launches == stream_before + 2
     # the last round's payloads aggregated again on the CPU, by the plain versions
     host = {k: v.cpu() for k, v in box["payloads"].items()}
     plain = comp.decode_aggregate(codec, host, torch.as_tensor(box["weights"]), box["n"])
