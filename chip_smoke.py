@@ -15,7 +15,8 @@ Phases, in order, each printing its own lines:
    call launches nothing);
 4. timing at the main paths' shapes: kernel, plain version, one library
    call as a yardstick, and the bound (CUDA events, L2 flushed by a read
-   that leaves it holding clean lines);
+   that leaves it holding clean lines); ``fedavg_aggregate`` also at the
+   Gemma-2B training leaves (11 bf16 launches of K = 2 a group average);
 5. the plain lane, the paper's MNIST 2NN non-IID cell at full size through
    ``RoundEngine(...).run``: one round on the card is first held against
    the same round on the CPU, then the rounds are run and timed;
@@ -101,7 +102,15 @@ rest): phase 3 runs every case on the route ``_route`` picks and every case
 the stream route takes through both routes forced, phase 4 times both
 routes in turns at the main shapes and requires the stream route to be no
 slower at the CNN shape, and phases 8-10 require every q8 and q4 launch of
-a compressed round on the stream route. ``ce_probs``
+a compressed round on the stream route. ``sparse_aggregate`` has two
+routes, the fused kernel (one cooperative launch that zeroes the output and
+scatters; k % 4 == 0 on aligned rows, the specs' top-5%;
+``fused_launches`` beside ``launches``) and a fill then the scatter kernel
+(the rest): phase 3 runs every case on the route ``_route`` picks and every
+case the fused route takes through both routes forced, phase 4 times both
+routes in turns at the main shapes and requires the fused route to be no
+slower at the CNN shape, and phase 8 requires every top-k launch of a
+compressed round on the fused route. ``ce_probs``
 (the CE gradient's kernel) ports no Pallas kernel; it is held, timed and
 counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
@@ -428,6 +437,7 @@ def reset_counts():
     counters()["gossip_mix"].dense_launches = 0
     for name in ("quantized_aggregate", "packed_quantized_aggregate"):
         counters()[name].stream_launches = 0
+    counters()["sparse_aggregate"].fused_launches = 0
     lanes = counters()["ssm_scan"].lane_launches
     for k in lanes:
         lanes[k] = 0
@@ -685,7 +695,10 @@ def check_packed_quantized_aggregate():
     return main_err
 
 
-def sparse_case(K, n, k, dtype, seed, *, unique=True, ghosts=0, out_of_range=False):
+def sparse_case(K, n, k, dtype, seed, *, unique=True, ghosts=0, out_of_range=False,
+                misaligned=None):
+    """(idx, vals, w) on the card; ``misaligned``: "idx" or "vals" is a
+    contiguous view one element past a 16-byte boundary."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     if unique:
         idx = torch.stack([torch.randperm(n, generator=g, device="cuda")[:k] for _ in range(K)])
@@ -697,7 +710,36 @@ def sparse_case(K, n, k, dtype, seed, *, unique=True, ghosts=0, out_of_range=Fal
     vals = torch.randn((K, k), generator=g, device="cuda")
     if ghosts:
         vals[K - ghosts:] = 1e4
-    return idx.contiguous(), vals.to(dtype).contiguous(), normalized(K, ghosts, seed)
+    vals = vals.to(dtype)
+    if misaligned == "idx":
+        idx = torch.empty(K * k + 1, dtype=torch.int32, device="cuda")[1:].view(K, k).copy_(idx)
+    if misaligned == "vals":
+        vals = torch.empty(K * k + 1, dtype=dtype, device="cuda")[1:].view(K, k).copy_(vals)
+    return idx.contiguous(), vals.contiguous(), normalized(K, ghosts, seed)
+
+
+def sparse_routed(name, tag, idx, vals, w, n, ref, term_max):
+    """One sparse case: the wrapper on the route ``_route`` picks, then, where
+    the fused route takes the case, each route forced through ``_launch``;
+    every output held to ``ref`` (atomics add in an order that varies from
+    run to run: not bitwise). Returns the worst error and the route."""
+    from repro_torch.kernels.sparse_agg import ROUTES, _launch, _route, sparse_aggregate
+
+    K, k = idx.shape
+    route = _route(idx, vals, torch.empty(n, device="cuda"), K=K, k=k)
+    before = (sparse_aggregate.launches, sparse_aggregate.fused_launches)
+    err = sum_check(name, f"{tag} routed {route}", sparse_aggregate(idx, vals, w, n), ref,
+                    term_max)
+    if route == "fused":
+        for r in ROUTES:
+            got = _launch(idx, vals, w, torch.empty(n, device="cuda"), r)
+            err = max(err, sum_check(name, f"{tag} forced {r}", got, ref, term_max))
+    launched = (sparse_aggregate.launches - before[0],
+                sparse_aggregate.fused_launches - before[1])
+    want = (3, 2) if route == "fused" else (1, 0)
+    require(launched == want, f"{name} {tag}: (launches, fused launches) {launched}, "
+                              f"want {want}")
+    return err, route
 
 
 def check_sparse_aggregate():
@@ -713,24 +755,35 @@ def check_sparse_aggregate():
             cases.append(dict(K=K, n=MAIN_N["mnist_2nn"], dtype=dtype, ghosts=max(1, K // 4)))
         cases.append(dict(K=10, n=513, dtype=dtype, unique=False))
         cases.append(dict(K=10, n=5000, dtype=dtype, unique=False, out_of_range=True))
-    before = sparse_aggregate.launches
+        # the same on the fused route (k = 256)
+        cases.append(dict(K=10, n=5120, dtype=dtype, unique=False))
+        cases.append(dict(K=10, n=5120, dtype=dtype, unique=False, out_of_range=True))
+        # misaligned views: the scatter route at the main 2NN shape
+        for which in ("idx", "vals"):
+            cases.append(dict(K=10, n=MAIN_N["mnist_2nn"], dtype=dtype, misaligned=which))
     main_err = worst = 0.0
+    routes = {"fused": 0, "scatter": 0}
     for i, c in enumerate(cases):
         K, n, ghosts = c["K"], c["n"], c.get("ghosts", 0)
         k = max(n * 5 // 100, 1)
         idx, vals, w = sparse_case(K, n, k, c["dtype"], seed=i, unique=c.get("unique", True),
-                                   ghosts=ghosts, out_of_range=c.get("out_of_range", False))
-        out = sparse_aggregate(idx, vals, w, n)
+                                   ghosts=ghosts, out_of_range=c.get("out_of_range", False),
+                                   misaligned=c.get("misaligned"))
         ref = sparse_aggregate_ref(idx, vals, w, n)
         tag = (f"K={K:2d} n={n:8d} k={k:6d} {str(c['dtype'])[6:]:8s}"
                + (" ghosts" if ghosts else "") + (" duplicates" if not c.get("unique", True) else "")
-               + (" out-of-range dropped" if c.get("out_of_range") else ""))
-        # atomics add in an order that varies from run to run: not bitwise
-        err = sum_check(name, tag, out, ref, float(vals[: K - ghosts].float().abs().max()))
+               + (" out-of-range dropped" if c.get("out_of_range") else "")
+               + (f" misaligned {c['misaligned']}" if c.get("misaligned") else ""))
+        err, route = sparse_routed(name, tag, idx, vals, w, n, ref,
+                                   float(vals[: K - ghosts].float().abs().max()))
+        routes[route] += 1
         worst = max(worst, err)
-        if K == MAIN_K and n in MAIN_N.values() and c["dtype"] == torch.float32:
+        main = K == MAIN_K and n in MAIN_N.values() and not c.get("misaligned")
+        if main:
+            require(route == "fused", f"{name} {tag}: the main shape took the {route} route")
+        if main and c["dtype"] == torch.float32:
             main_err = max(main_err, err)
-    require(sparse_aggregate.launches - before == len(cases), "one launch per case")
+    require(routes["scatter"] > 0 and routes["fused"] > 0, f"{name}: routes {routes}")
     idx, vals, w = sparse_case(3, 64, 4, torch.float32, seed=0)
     n_ref = check_refusals(name, sparse_aggregate, {
         "unnormalized CPU weights": lambda: sparse_aggregate(
@@ -744,8 +797,9 @@ def check_sparse_aggregate():
         "accum_dtype=bfloat16 on CUDA": lambda: sparse_aggregate(
             idx, vals, w, 64, accum_dtype=torch.bfloat16),
     })
-    print(f"kernels: {name} cuda ok ({len(cases)} cases, max_abs_err {worst:.3e} within "
-          f"1e-6*max|term|; {n_ref} refusals)")
+    print(f"kernels: {name} cuda ok ({len(cases)} cases: {routes['fused']} on the fused "
+          f"route and also through both forced, {routes['scatter']} on the scatter route; "
+          f"max_abs_err {worst:.3e} within 1e-6*max|term|; {n_ref} refusals)")
     return main_err
 
 
@@ -958,6 +1012,57 @@ def time_fedavg_aggregate():
     return rows
 
 
+def time_fedavg_training_leaves():
+    """``fedavg_aggregate`` as one Gemma-2B group average launches it
+    (``ops.tree_weighted_mean``: K = TRAIN_G groups, each bf16 leaf viewed
+    (K, -1), equal weights), on zero-filled stacks of the leaves' real
+    shapes: each leaf's time, their sum and the largest leaf's, against the
+    bound (the leaves' bytes, each read once and the average written once,
+    over the HBM rate) and a one-call yardstick, ``torch.mv`` on the bf16
+    (N, K) view with bf16 weights (cuBLAS sums in fp32; 1 / K is exact in
+    bf16 at K = 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves
+
+    flush = flush_buffer()
+    K = TRAIN_G
+    w = torch.full((K,), 1.0 / K, device="cuda")
+    w16 = w.to(torch.bfloat16)
+    require(torch.equal(w16.float(), w), "the group weights round in bf16")
+    shapes = [tuple(p.shape) for p in tree_leaves(
+        TransformerLM(get_config("gemma-2b"), device="meta").param_shapes())]
+    leaves = []
+    for shape in shapes:
+        x = torch.zeros((K, math.prod(shape)), dtype=torch.bfloat16, device="cuda")
+        leaves.append({"shape": shape, "N": x.shape[1],
+                       "ms": time_ms(lambda: fedavg_aggregate(x, w), flush, iters=50, warmup=5),
+                       "library_ms": time_ms(lambda: torch.mv(x.t(), w16), flush, iters=50,
+                                             warmup=5)})
+        del x
+    n_params = sum(leaf["N"] for leaf in leaves)
+    nbytes = n_params * 2 * (K + 1)
+    r = {"K": K, "dtype": "bfloat16", "leaves": leaves, "n_params": n_params, "bytes": nbytes,
+         "ms": sum(leaf["ms"] for leaf in leaves),
+         "library_ms": sum(leaf["library_ms"] for leaf in leaves),
+         "largest_leaf": max(leaves, key=lambda leaf: leaf["N"]),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    big = r["largest_leaf"]
+    print(f"  gemma-2b training leaves: {len(leaves)} launches (K={K} bf16, zero-filled), "
+          f"{n_params:,} params, {nbytes / 1e9:.3f} GB: kernel_ms={r['ms']:.5f} in all "
+          f"bound_ms={r['bound_ms']:.5f} ({r['bound_share']:.1%} of bound) library_ms="
+          f"{r['library_ms']:.5f} (torch.mv, bf16 weights, yardstick only); largest leaf "
+          f"{big['shape']} kernel_ms={big['ms']:.5f} library_ms={big['library_ms']:.5f} "
+          f"bound_ms={big['N'] * 2 * (K + 1) / HBM_BYTES_PER_S * 1e3:.5f}")
+    for leaf in leaves:
+        print(f"    {leaf['shape']}: kernel_ms={leaf['ms']:.5f} library_ms={leaf['library_ms']:.5f}")
+    del flush
+    free_card()
+    return r
+
+
 def bound_of(nbytes, fp32_ops, int_ops=0):
     """Least time on the card (ms) and what sets it: bytes over the HBM rate
     against operations over the peak rate of their type."""
@@ -982,21 +1087,22 @@ def timing_row(tag, fn, plain, library, nbytes, fp32_ops, flush, int_ops=0, kern
     return r
 
 
-def time_routes(fn_of_route, flush):
-    """Both routes of a wire kernel in turns (general, stream, stream,
-    general): each route's time the mean of its two medians, and the turns."""
-    turns = [(r, time_ms(fn_of_route(r), flush))
-             for r in ("general", "stream", "stream", "general")]
-    ms = {r: float(np.mean([t for name, t in turns if name == r])) for r in ("general", "stream")}
+def time_routes(fn_of_route, flush, routes=("general", "stream")):
+    """Both routes of a wire kernel in turns (a, b, b, a for ``routes`` (a,
+    b)): each route's time the mean of its two medians, and the turns."""
+    a, b = routes
+    turns = [(r, time_ms(fn_of_route(r), flush)) for r in (a, b, b, a)]
+    ms = {r: float(np.mean([t for name, t in turns if name == r])) for r in routes}
     return ms, turns
 
 
 def time_wire_kernels():
     """The three wire kernels at the main paths' shapes: K=10 clients, the
-    2NN's and the CNN's N, chunk 512; q8 codes, q4 words, top-5% pairs. The
-    two codec kernels' routes are timed in turns; their row's ``ms`` is the
-    route ``_route`` picks, which must be the stream route, no slower than
-    the general one at the CNN shape."""
+    2NN's and the CNN's N, chunk 512; q8 codes, q4 words, top-5% pairs. Each
+    kernel's two routes are timed in turns; its row's ``ms`` is the route
+    ``_route`` picks, which must be the codec kernels' stream route and the
+    top-k kernel's fused route, no slower than the other route at the CNN
+    shape."""
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
     from repro_torch.kernels.quantized_agg import (
         _launch,
@@ -1008,7 +1114,7 @@ def time_wire_kernels():
         stream_plan,
         unpack_ref,
     )
-    from repro_torch.kernels.sparse_agg import sparse_aggregate, sparse_aggregate_ref
+    from repro_torch.kernels import sparse_agg
     from repro_torch.utils.bitpack import words_per_chunk
 
     flush = flush_buffer()
@@ -1072,12 +1178,29 @@ def time_wire_kernels():
             out = torch.zeros(N, device="cuda")
             return out.index_add_(0, flat_idx, (vals * w2[:, None]).view(-1))
 
-        rows["sparse_aggregate"][model] = timing_row(
-            f"sparse_aggregate top{TOPK:g} {model}: K={K} k={k} n={N}",
-            lambda: sparse_aggregate(idx, vals, w2, N),
-            lambda: sparse_aggregate_ref(idx, vals, w2, N),
-            index_add,
-            K * k * 8 + K * 4 + N * 4, 2 * K * k, flush)
+        out = torch.empty(N, device="cuda")
+        route = sparse_agg._route(idx, vals, out, K=K, k=k)
+        require(route == "fused", f"sparse_aggregate {model}: the main shape routes to {route}")
+        ms, turns = time_routes(
+            lambda r: (lambda: sparse_agg._launch(idx, vals, w2, out, r)), flush,
+            routes=("scatter", "fused"))
+        r = timing_row(f"sparse_aggregate top{TOPK:g} {model}: K={K} k={k} n={N}, routed {route}",
+                       None, lambda: sparse_agg.sparse_aggregate_ref(idx, vals, w2, N),
+                       index_add, K * k * 8 + K * 4 + N * 4, 2 * K * k, flush,
+                       kernel_ms=ms[route])
+        plan = sparse_agg.fused_plan(N)
+        r.update(route=route, scatter_ms=ms["scatter"], fused_ms=ms["fused"], turns_ms=turns,
+                 fused_plan=plan)
+        print(f"    turns (scatter, fused, fused, scatter): "
+              + ", ".join(f"{t:.5f}" for _, t in turns)
+              + f" ms; fused {ms['fused'] / ms['scatter']:.3f}x the scatter time, "
+              f"{ms['fused'] / r['library_ms']:.4f}x the yardstick's; fused grid "
+              + " ".join(f"{key}={v}" for key, v in plan.items()))
+        if model == "mnist_cnn":
+            require(ms["fused"] <= ms["scatter"],
+                    f"sparse_aggregate {model}: the fused route ({ms['fused']:.5f} ms) is slower "
+                    f"than the scatter one ({ms['scatter']:.5f} ms)")
+        rows["sparse_aggregate"][model] = r
     del flush
     return rows
 
@@ -2560,22 +2683,35 @@ def run_lane(name, eng, n_rounds, kernel):
     want = {k: (n_rounds if k == kernel else 0) for k in KERNELS}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} in {n_rounds} rounds, want {want}")
-    require_stream_route(name, kernel)
+    require_main_route(name, kernel)
     print(f"  launches in the run ({n_rounds} rounds): "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return (counts[kernel] if kernel else 0), [r.wall_s for r in hist.records]
 
 
-def require_stream_route(name, kernel):
-    """Every launch of a codec kernel since the counts were reset took the
-    stream route."""
+def route_launches(kernel):
+    """Launches of a wire kernel's main route since the counts were reset
+    (the codec kernels' stream route, the top-k kernel's fused one), with
+    the route's name; None for the other kernels."""
     if kernel in ("quantized_aggregate", "packed_quantized_aggregate"):
+        return "stream", counters()[kernel].stream_launches
+    if kernel == "sparse_aggregate":
+        return "fused", counters()[kernel].fused_launches
+    return None
+
+
+def require_main_route(name, kernel):
+    """Every launch of a wire kernel since the counts were reset took its
+    main route: the stream route for the codec kernels, the fused route for
+    the top-k one."""
+    main = route_launches(kernel)
+    if main is not None:
+        route, n = main
         f = counters()[kernel]
-        require(f.stream_launches == f.launches,
-                f"{name}: {f.stream_launches} of {f.launches} {kernel} launches on the "
-                "stream route")
-        print(f"  {kernel}: {f.stream_launches} of {f.launches} launches on the stream route")
+        require(n == f.launches, f"{name}: {n} of {f.launches} {kernel} launches on the "
+                                 f"{route} route")
+        print(f"  {kernel}: {n} of {f.launches} launches on the {route} route")
 
 
 def main_path(model_name, data):
@@ -2688,9 +2824,10 @@ def compressed_lane(model_name, spec_name, override, kernel, data):
           f"({4 * n / realized:.2f}x)")
     require(realized == codec.wire_bytes(n) == want,
             f"{model_name} {codec.name}: realized bytes {realized}, want {want}")
-    stream = getattr(counters().get(kernel), "stream_launches", None)
+    main = route_launches(kernel)
     return {"model": model_name, "codec": codec.name, "kernel": kernel,
-            "launches": launches, "stream_launches": stream,
+            "launches": launches, "main_route": main and main[0],
+            "main_route_launches": main and main[1],
             "rounds": COMPRESSED_ROUNDS, "round_wall_s": walls,
             "aggregate_err": err, "payload_bytes": realized, "dense_bytes": 4 * n}, eng
 
@@ -2924,7 +3061,7 @@ def print_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             for base in ("qagg_stream_kernel", "packed_qagg_kernel", "qagg_kernel",
-                         "fedavg_agg_kernel",
+                         "fedavg_agg_kernel", "sparse_agg_fused_kernel",
                          "sparse_agg_kernel", "gossip_mix_dense_kernel", "gossip_mix_kernel",
                          "flash_fwd_mma_kernel", "flash_fwd_kernel", "ssm_scan_ring_kernel",
                          "ssm_scan_kernel", "ce_fwd_mma_kernel",
@@ -3005,7 +3142,9 @@ def main() -> int:
     phase("4. timing (CUDA events, median of 200, L2 flushed to clean lines before each "
           "launch)")
     print(f"card: {smi}")
-    timing = {"fedavg_aggregate": time_fedavg_aggregate(), **time_wire_kernels(),
+    timing = {"fedavg_aggregate": {**time_fedavg_aggregate(),
+                                   "gemma-2b train leaves": time_fedavg_training_leaves()},
+              **time_wire_kernels(),
               "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
               "ssm_scan": time_ssm_scan()}
     timing["fused_cross_entropy"], timing["ce_probs"] = time_fused_cross_entropy()
@@ -3044,7 +3183,7 @@ def main() -> int:
     phase("9. where the time goes in the compressed lane: one more CNN q8 round")
     reset_counts()
     profile_round("mnist_cnn q8", eng_cnn_q8, "qagg_stream_kernel<", "quantized_aggregate")
-    require_stream_route("mnist_cnn q8 profiled round", "quantized_aggregate")
+    require_main_route("mnist_cnn q8 profiled round", "quantized_aggregate")
 
     phase("10. plain and q8 CNN rounds in turns (plain, q8, q8, plain), host clock to the synced loss")
     turns = []
@@ -3057,7 +3196,7 @@ def main() -> int:
         turns.append((name, time.perf_counter() - t0))
         print(f"  {name:5s} round {turns[-1][1]:.4f} s")
     require(launch_counts()["quantized_aggregate"] == 2, "two q8 rounds, two launches")
-    require_stream_route("plain and q8 CNN rounds in turns", "quantized_aggregate")
+    require_main_route("plain and q8 CNN rounds in turns", "quantized_aggregate")
     del eng_cnn, eng_cnn_q8, eng
 
     phase("11. the gossip lane, full size, through RoundEngine(topology=...).run")
@@ -3218,9 +3357,17 @@ def main() -> int:
             "stream": "qagg_stream_kernel (uint8/uint16 codes, words at bits 1/2/4; chunk a "
                       "whole number of 16-byte granules, >= 64 bytes; aligned; K <= 32)",
             "general": "qagg_kernel / packed_qagg_kernel (the rest)"}
-        stream = sum(lane["stream_launches"] for lane in lanes if lane["kernel"] == KERNELS[i])
+        stream = sum(lane["main_route_launches"] for lane in lanes
+                     if lane["kernel"] == KERNELS[i])
         kernels[i]["route_launches"] = {"stream": stream,
                                         "general": launches[KERNELS[i]] - stream}
+    kernels[3]["routes"] = {
+        "fused": "sparse_agg_fused_kernel (k % 4 == 0; idx, fp32 vals and out 16-byte "
+                 "aligned, bf16 vals 8-byte aligned): one cooperative launch zeroes and "
+                 "scatters",
+        "scatter": "a fill, then sparse_agg_kernel (the rest)"}
+    fused = sum(lane["main_route_launches"] for lane in lanes if lane["kernel"] == KERNELS[3])
+    kernels[3]["route_launches"] = {"fused": fused, "scatter": launches[KERNELS[3]] - fused}
     kernels[4]["routes"] = {
         "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",
         "dense": "gossip_mix_dense_kernel (the rest: the full graph)"}

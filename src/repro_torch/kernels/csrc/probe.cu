@@ -12,6 +12,11 @@
 //     column, their words summed, and per_col float4s a column written in
 //     coalesced 16-byte stores (column j of the outputs at j * cols + c, so
 //     that a warp's stores are contiguous). Nothing else is computed.
+//   probe_red: the RED floor of sparse_aggregate: one fp32 reduction
+//     (atomicAdd of 1.0 whose result is unused, which compiles to RED) at
+//     each of n_idx int32 indices, one index a thread, coalesced loads.
+//     Nothing else is loaded or computed, so the indices' pattern alone
+//     sets its time.
 //
 // Plain extern "C" entry points; each returns cudaGetLastError().
 
@@ -113,6 +118,12 @@ __global__ void probe_stream(const uint4* __restrict__ in, int K, long long cols
   }
 }
 
+__global__ void probe_red(const int* __restrict__ idx, long long n_idx,
+                          float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n_idx) atomicAdd(out + idx[t], 1.f);
+}
+
 }  // namespace
 
 extern "C" {
@@ -148,6 +159,14 @@ int probe_stream_run(const void* in, int K, long long row_bytes, void* out, long
   long long blocks = (cols + 255) / 256;
   probe_stream<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(in), K, cols, static_cast<float4*>(out), (int)(n_out / 4 / cols));
+  return (int)cudaGetLastError();
+}
+
+// n_idx indices, each in [0, size of out).
+int probe_red_run(const void* idx, long long n_idx, void* out, void* stream) {
+  if (n_idx < 1) return (int)cudaErrorInvalidValue;
+  probe_red<<<(unsigned)((n_idx + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), n_idx, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

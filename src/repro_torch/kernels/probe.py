@@ -17,10 +17,18 @@
    the same kernels' device durations as CUPTI records them
    (``torch.profiler``) beside their CUDA-event times under the clean
    flush: the events also hold the launch.
-3. The stream route's timeline: a build of ``qagg_stream_kernel`` that
+3. ``sparse_aggregate``'s gap (:func:`sparse`): ``probe_red``, the RED
+   floor (fp32 reductions at the pairs' indices and nothing else), on
+   coalesced, uniform random and real top-k indices; both routes' event
+   and device times at the CNN and 2NN shapes and on one real CNN top-5%
+   round's payload, with its share of distinct indices; both routes with
+   parts cut out (CUTS: the REDs, the division, the zero phase and grid
+   sync, the L2 policies, the unroll, the grid); and which part holds
+   each route.
+4. The stream route's timeline: a build of ``qagg_stream_kernel`` that
    stamps ``%globaltimer`` as each of a block's tiles lands, asks for the
    next, has its steps, is decoded, stored and synced (TIMELINE_EDITS).
-4. Ablations: ``gossip_mix_dense_kernel`` on the full graph (n = 100, the
+5. Ablations: ``gossip_mix_dense_kernel`` on the full graph (n = 100, the
    CNN's N), ``ssm_scan_ring_kernel`` at the Jamba prefill shape (2 lanes
    a channel) and both routes of the codec aggregates at the CNN shape,
    each rebuilt from its source with one part cut out -- the loads of the
@@ -53,6 +61,10 @@ WIRE_N = {"cnn": 1_663_370, "2nn": 199_210}
 # The flush is switched when the zeroing flush costs probe_stream at the q8
 # CNN bytes this much more than the clean flush.
 FLUSH_SWITCH_RATIO = 1.10
+
+# An L2 cache-hint policy in a variable pol (evict_first or evict_last).
+_POLICY = ('  uint64_t pol;\n  asm volatile("createpolicy.fractional.L2::evict_{}.b64 %0, 1.0;" '
+           ': "=l"(pol));\n')
 
 # (source, variant) -> (text to cut, what replaces it)
 CUTS = {
@@ -88,6 +100,56 @@ CUTS = {
         ("""              acc[q * S::kCodesPerWord + j] = fmaf(
                   wk, fmaf(decode<BITS>(wd[q], j), ls.y, ls.x), acc[q * S::kCodesPerWord + j]);""",
          """              if (j == 0) acc[q * S::kCodesPerWord] += __int_as_float(wd[q]) * wk;""")],
+    # sparse_aggregate's scatter route (its kernel alone, without the fill):
+    # its REDs (the loads kept alive by a test that never holds), and its
+    # 64-bit division t / k made a 32-bit one
+    ("sparse_agg", "scatter: no REDs"): [
+        ("    if (i >= 0 && i < n) atomicAdd(out + i, w[t / k] * to_f32(vals[t]));\n",
+         "    const float v = w[t / k] * to_f32(vals[t]);\n"
+         "    if (v == 12345.f && i >= 0 && i < n) atomicAdd(out + i, v);\n")],
+    ("sparse_agg", "scatter: 32-bit row"): [
+        ("    if (i >= 0 && i < n) atomicAdd(out + i, w[t / k] * to_f32(vals[t]));\n",
+         "    if (i >= 0 && i < n) atomicAdd(out + i, w[(int)t / (int)k] * to_f32(vals[t]));\n")],
+    # the fused route: its zero phase and grid sync, its REDs; the loads
+    # asked for after the sync in place of before the zero phase; the first
+    # design's 4 items a thread at 2 blocks an SM; and evict-first loads with
+    # evict-last REDs (L2 cache-hint policies)
+    ("sparse_agg", "fused: no zero phase or grid sync"): [
+        ("""  for (long long i = z0 + threadIdx.x; i < z1; i += kFusedThreads)
+    out4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) out[(n4 << 2) + threadIdx.x] = 0.f;
+  cooperative_groups::this_grid().sync();
+""", "  (void)z1;\n  (void)out4;\n")],
+    ("sparse_agg", "fused: no REDs"): [
+        ("  if (i >= 0 && i < n) atomicAdd(out + i, v);\n",
+         "  if (v == 12345.f && i >= 0 && i < n) atomicAdd(out + i, v);\n")],
+    ("sparse_agg", "fused: loads after the zero phase"): [
+        ("  Batch<T> b;\n  b.load(idx, vals, w, K, k, groups, step, c, g);\n", "  Batch<T> b;\n"),
+        ("  cooperative_groups::this_grid().sync();\n",
+         "  cooperative_groups::this_grid().sync();\n"
+         "  b.load(idx, vals, w, K, k, groups, step, c, g);\n")],
+    ("sparse_agg", "fused: 4 items a thread, 2 blocks an SM"): [
+        ("constexpr int kUnroll = 8;", "constexpr int kUnroll = 4;"),
+        ("constexpr int kBlocksPerSm = 1;", "constexpr int kBlocksPerSm = 2;")],
+    ("sparse_agg", "fused: L2 hints"): [
+        ("  return __ldg(reinterpret_cast<const int4*>(p));\n",
+         "  int4 v;\n" + _POLICY.format("first") +
+         '  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, '
+         '[%4], %5;" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));\n'
+         "  return v;\n"),
+        ("  return __ldg(reinterpret_cast<const float4*>(p));\n",
+         "  float4 v;\n" + _POLICY.format("first") +
+         '  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, '
+         '[%4], %5;" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol));\n'
+         "  return v;\n"),
+        ("  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));\n",
+         "  uint2 u;\n" + _POLICY.format("first") +
+         '  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;" '
+         ': "=r"(u.x), "=r"(u.y) : "l"(p), "l"(pol));\n'),
+        ("  if (i >= 0 && i < n) atomicAdd(out + i, v);\n",
+         "  if (i >= 0 && i < n) {\n" + _POLICY.format("last") +
+         '  asm volatile("red.global.add.L2::cache_hint.f32 [%0], %1, %2;" :: "l"(out + i), '
+         '"f"(v), "l"(pol) : "memory");\n  }\n')],
 }
 
 
@@ -190,7 +252,33 @@ def _probe_lib():
     lib = build.load("probe")
     lib.probe_stream_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.probe_red_run.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                  ctypes.c_void_p]
     return lib
+
+
+def _device_ms(fn, keys, flush, reps=40):
+    """Each kernel's device duration as CUPTI records it (torch.profiler):
+    over ``reps`` launches of ``fn``, each after ``flush()``, the median of
+    the records whose name holds each of ``keys``, {key: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key in keys:
+        device = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and key in e.name]
+        if len(device) < reps // 2:   # CUPTI may drop a few records; the median needs most
+            seen = sorted({e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA})
+            raise RuntimeError(f"the profiler saw {len(device)} of {reps} {key} launches; "
+                               f"kernels seen: {seen}")
+        out[key] = float(np.median(device))
+    return out
 
 
 def _stream():
@@ -392,14 +480,14 @@ def flushes():
 
 
 def durations():
-    """The codec routes, probe_stream and fedavg_aggregate at the CNN and
-    2NN shapes under the clean flush: the kernel's device duration as CUPTI
-    records it (median of 40) beside its CUDA-event time (median of 50),
-    {name: (event ms, device ms)}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """The codec routes, probe_stream, fedavg_aggregate and both routes of
+    sparse_aggregate at the CNN and 2NN shapes under the clean flush: the
+    CUDA-event time (median of 50) beside each of the kernels' device
+    durations as CUPTI records them (median of 40; the sparse scatter
+    route's fill and scatter kernel are two records), {name: (event ms,
+    {kernel: device ms})}."""
     from repro_torch.kernels import quantized_agg as qa
+    from repro_torch.kernels import sparse_agg
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 
     flush = clean_flush(_flush_buffer())
@@ -408,29 +496,164 @@ def durations():
     for shape, N in WIRE_N.items():
         ins = _wire_inputs(N)
         fns = {f"{codec} {route} {shape}": (_wire_launch(qa._lib(), ins, codec, route),
-                                            "qagg_stream" if route == "stream" else "qagg_kernel")
+                                            ["qagg_stream" if route == "stream" else "qagg_kernel"])
                for codec in ("q8", "q4") for route in ("general", "stream")}
         for codec in ("q8", "q4"):
             p = ins[codec]
             fns[f"probe_stream {codec} bytes {shape}"] = (
                 lambda p=p, ins=ins: lib.probe_stream_run(
                     p.data_ptr(), WIRE_K, p.shape[1] * p.element_size(), ins["out"].data_ptr(),
-                    ins["out"].numel(), _stream()), "probe_stream")
+                    ins["out"].numel(), _stream()), ["probe_stream"])
         fns[f"fedavg_aggregate {shape}"] = (
-            lambda ins=ins: fedavg_aggregate(ins["x"], ins["w"]), "fedavg_agg")
-        for name, (fn, key) in fns.items():
-            event = _time_ms(fn, flush)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(40):
-                    flush()
-                    fn()
-                torch.cuda.synchronize()
-            device = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                      if e.device_type == DeviceType.CUDA and key in e.name]
-            if len(device) < 20:   # CUPTI may drop a few records; the median needs most
-                raise RuntimeError(f"the profiler saw {len(device)} of 40 {name} launches")
-            rows[name] = (event, float(np.median(device)))
+            lambda ins=ins: fedavg_aggregate(ins["x"], ins["w"]), ["fedavg_agg"])
+        for route, keys in SPARSE_KERNELS.items():
+            fns[f"sparse_aggregate {route} top-5% {shape}"] = (
+                lambda ins=ins, route=route: sparse_agg._launch(
+                    ins["idx"], ins["vals"], ins["w"], ins["out"][:ins["N"]], route), keys)
+        for name, (fn, keys) in fns.items():
+            rows[name] = (_time_ms(fn, flush), _device_ms(fn, keys, flush))
     return rows
+
+
+# sparse_aggregate's kernels by route, as CUPTI names them: the scatter
+# route is torch's fill of the output, then sparse_agg_kernel
+SPARSE_KERNELS = {"scatter": ["FillFunctor", "sparse_agg_kernel"],
+                  "fused": ["sparse_agg_fused_kernel"]}
+
+
+def topk_round_payload():
+    """What one CNN top-5% round's clients upload, at full size: the (K, k)
+    int32 indices and fp32 values, their normalized weights and n. The
+    round is ``RoundEngine(codec=topk_codec(0.05)).round()`` on the card with
+    specs/mnist_cnn_noniid.json's fedavg and partition sections on synthetic
+    MNIST (60,000 examples, seed 0), from the model's seed-0 params."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.core import compression as comp
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.partition import partition_pathological_noniid
+    from repro_torch.data.synthetic import make_image_classification
+    from repro_torch.kernels.ops import normalized_weights
+    from repro_torch.models import paper
+
+    spec = json.loads((Path(__file__).resolve().parents[3] / "specs" /
+                       "mnist_cnn_noniid.json").read_text())
+    fed, part = spec["fedavg"], spec["partition"]
+    train, _, _ = make_image_classification(60_000, 10_000, seed=0)
+    split = partition_pathological_noniid(train.y, part["n_clients"], part["shards_per_client"],
+                                          seed=part["seed"])
+    cfg = FedAvgConfig(C=fed["C"], E=fed["E"], B=fed["B"], lr=fed["lr"],
+                       lr_decay=fed["lr_decay"], seed=fed["seed"])
+    model = paper.mnist_cnn(device="cuda")
+    codec = comp.topk_codec(0.05)
+    box = {}
+
+    def aggregate(payloads, weights, n):
+        box.update(payloads=payloads, weights=weights, n=n)
+        return codec.aggregate(payloads, weights, n)
+
+    eng = RoundEngine(model.loss, model.init(fed["seed"]),
+                      [(train.x[i], train.y[i]) for i in split.client_indices], cfg,
+                      codec=codec._replace(aggregate=aggregate), device="cuda")
+    eng.round()
+    torch.cuda.synchronize()
+    pay = box["payloads"]
+    return (pay["idx"].contiguous(), pay["values"].contiguous(),
+            normalized_weights(box["weights"], "cuda"), box["n"])
+
+
+def sparse(timed):
+    """sparse_aggregate's gap, attributed. ``timed``: :func:`durations`'
+    rows, which hold both routes at the CNN and 2NN shapes (K = 10, top-5%,
+    uniform distinct indices a client). Measured here: probe_red's RED
+    floor on the same indices, on coalesced ones (t mod n) and on one real
+    CNN top-k round's payload; both routes on that payload; the share of
+    distinct indices among the K * k pairs; the cuts (CUTS) at the CNN
+    shape. Then, for each route at the CNN shape, the time each part takes:
+    the launch (event time less device time), the fill (scatter) or the zero
+    phase and grid sync (fused), the division (scatter), the RED rate
+    (probe_red on uniform indices) and collisions (probe_red on the real
+    payload less on uniform indices); the largest holds the route. Returns
+    (rows, verdicts): {name: (event ms, {kernel: device ms}) or a share},
+    {route: ({part: ms}, part)}."""
+    from repro_torch.kernels import sparse_agg
+
+    flush = clean_flush(_flush_buffer())
+    lib = _probe_lib()
+    rows = {}
+
+    def red_floor(tag, idx, n):
+        sink = torch.zeros(n, device="cuda")
+        fn = lambda: lib.probe_red_run(idx.data_ptr(), idx.numel(), sink.data_ptr(),  # noqa: E731
+                                       _stream())
+        rows[f"probe_red {tag}"] = (_time_ms(fn, flush), _device_ms(fn, ["probe_red"], flush))
+
+    def routes(tag, idx, vals, w, n, lib=None, only=None):
+        out = torch.empty(n, device="cuda")
+        for route, keys in SPARSE_KERNELS.items():
+            if only is not None and route != only:
+                continue
+            if lib is None:
+                fn = lambda route=route: sparse_agg._launch(idx, vals, w, out, route)  # noqa: E731
+            else:   # a cut: its kernel alone (no fill), launched from its library
+                c_fn = getattr(lib, "sparse_aggregate_fused_f32" if route == "fused"
+                               else "sparse_aggregate_f32")
+                c_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                                         ctypes.c_longlong, ctypes.c_void_p]
+                keys = keys[-1:]
+                fn = lambda c_fn=c_fn: c_fn(idx.data_ptr(), vals.data_ptr(), w.data_ptr(),  # noqa: E731
+                                            out.data_ptr(), *idx.shape, n, _stream())
+            rows[f"sparse_aggregate {route} {tag}"] = (_time_ms(fn, flush),
+                                                       _device_ms(fn, keys, flush))
+
+    for shape, N in WIRE_N.items():
+        ins = _wire_inputs(N)
+        idx = ins["idx"]
+        K, k = idx.shape
+        coalesced = (torch.arange(K * k, device="cuda") % N).to(torch.int32).view(K, k)
+        red_floor(f"coalesced {shape}", coalesced, N)
+        red_floor(f"uniform {shape}", idx, N)
+        rows[f"distinct share uniform {shape}"] = idx.unique().numel() / idx.numel()
+
+    idx, vals, w, n = topk_round_payload()
+    red_floor("real cnn", idx, n)
+    routes("real cnn", idx, vals, w, n)
+    rows["distinct share real cnn"] = idx.unique().numel() / idx.numel()
+
+    ins = _wire_inputs(WIRE_N["cnn"])
+    routes("uniform cnn: the kernel", ins["idx"], ins["vals"], ins["w"], ins["N"],
+           lib=sparse_agg._lib())
+    for name, variant in CUTS:
+        if name == "sparse_agg":
+            routes(f"uniform cnn: {variant}", ins["idx"], ins["vals"], ins["w"], ins["N"],
+                   lib=_cut_library(name, variant), only=variant.split(":")[0])
+
+    def dev(name, key):
+        return rows[name][1][key]
+
+    red = dev("probe_red uniform cnn", "probe_red")
+    collide = dev("probe_red real cnn", "probe_red") - red
+    ev_s, parts_s = timed["sparse_aggregate scatter top-5% cnn"]
+    ev_f, parts_f = timed["sparse_aggregate fused top-5% cnn"]
+    verdicts = {
+        "scatter": {
+            "launch": ev_s - sum(parts_s.values()),
+            "fill": parts_s["FillFunctor"],
+            "division": (dev("sparse_aggregate scatter uniform cnn: the kernel", "sparse_agg_kernel")
+                         - dev("sparse_aggregate scatter uniform cnn: scatter: 32-bit row",
+                               "sparse_agg_kernel")),
+            "RED rate": red, "collisions": collide},
+        "fused": {
+            "launch": ev_f - parts_f["sparse_agg_fused_kernel"],
+            "zero phase and grid sync": (
+                dev("sparse_aggregate fused uniform cnn: the kernel", "sparse_agg_fused_kernel")
+                - dev("sparse_aggregate fused uniform cnn: fused: no zero phase or grid sync",
+                      "sparse_agg_fused_kernel")),
+            "RED rate": red, "collisions": collide},
+    }
+    return rows, {r: (parts, max(parts, key=parts.get)) for r, parts in verdicts.items()}
 
 
 def timeline():
@@ -467,6 +690,15 @@ def timeline():
     return rows
 
 
+def _parts(parts):
+    """A route's device ms: their sum, then each kernel's where there are
+    several."""
+    total = f"{sum(parts.values()):.5f}"
+    if len(parts) == 1:
+        return total
+    return total + " (" + ", ".join(f"{k} {t:.5f}" for k, t in parts.items()) + ")"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probe: this needs a CUDA card")
@@ -482,9 +714,20 @@ def main() -> int:
           f"{rows['probe_stream q8 bytes cnn'][0] / rows['probe_stream q8 bytes cnn'][1]:.3f}x "
           f"the clean flush's time: {'switch' if switch else 'keep'} "
           f"(switch from {FLUSH_SWITCH_RATIO:.2f}x)")
-    print("== the clean flush: CUDA-event ms, device ms (CUPTI); events - device")
-    for k, (event, device) in durations().items():
-        print(f"  {k}: {event:.5f} {device:.5f}; {event - device:.5f}")
+    print("== the clean flush: CUDA-event ms, device ms (CUPTI; the sum of a route's "
+          "kernels, then each); events - device")
+    timed = durations()
+    for k, (event, parts) in timed.items():
+        print(f"  {k}: {event:.5f} {_parts(parts)}; {event - sum(parts.values()):.5f}")
+    rows, verdicts = sparse(timed)
+    print("== sparse_aggregate (the clean flush): CUDA-event ms, device ms (CUPTI); "
+          "distinct shares")
+    for k, v in rows.items():
+        print(f"  {k}: " + (f"{v:.5f}" if isinstance(v, float) else f"{v[0]:.5f} {_parts(v[1])}"))
+    for route, (parts, largest) in verdicts.items():
+        print(f"  verdict, {route} route at the CNN shape (device ms; launch is events less "
+              f"device): " + ", ".join(f"{p} {t:.5f}" for p, t in parts.items())
+              + f": held by {largest}")
     print("== the stream route's tiles, us from the first block's start (medians over "
           "blocks): " + ", ".join(TIMELINE_STEPS))
     for k, v in timeline().items():

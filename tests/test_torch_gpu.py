@@ -28,6 +28,7 @@ from repro_torch.kernels.quantized_agg import (  # noqa: E402
     quantized_aggregate,
     quantized_aggregate_ref,
 )
+from repro_torch.kernels import sparse_agg  # noqa: E402
 from repro_torch.kernels.sparse_agg import (  # noqa: E402
     sparse_aggregate,
     sparse_aggregate_ref,
@@ -227,6 +228,32 @@ def test_packed_kernel_matches_plain_version(cuda, bits, K, N, chunk):
                      else "general")
 
 
+def _sparse_both_routes(idx, vals, w, n):
+    """The wrapper on the route ``_route`` picks (one launch, and one fused
+    launch where it is the fused route); where that is the fused route, each
+    route forced through ``_launch`` too. Every output within 1e-6 of the
+    largest term of the plain version (atomic adds in a run-dependent
+    order)."""
+    K, k = idx.shape
+    route = sparse_agg._route(idx, vals, torch.empty(n, device=idx.device), K=K, k=k)
+    before = (sparse_aggregate.launches, sparse_aggregate.fused_launches)
+    outs = {route: sparse_aggregate(idx, vals, w, n)}
+    torch.cuda.synchronize()
+    assert (sparse_aggregate.launches, sparse_aggregate.fused_launches) == (
+        before[0] + 1, before[1] + (route == "fused"))
+    if route == "fused":
+        for r in sparse_agg.ROUTES:
+            outs[f"forced {r}"] = sparse_agg._launch(idx, vals, w,
+                                                     torch.empty(n, device=idx.device), r)
+        torch.cuda.synchronize()
+        assert sparse_aggregate.fused_launches == before[1] + 2
+    ref = sparse_aggregate_ref(idx, vals, w, n)
+    for r, out in outs.items():
+        assert out.shape == (n,) and out.dtype == torch.float32
+        assert float((out - ref).abs().max()) <= 1e-6 * float(vals.float().abs().max()), r
+    return route
+
+
 @pytest.mark.parametrize("K", [1, 2, 10, 17])
 @pytest.mark.parametrize("n", [37, 513, 199_210])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -237,13 +264,55 @@ def test_sparse_kernel_matches_plain_version(cuda, K, n, dtype):
     idx = idx.to(torch.int32).contiguous()
     vals = torch.randn((K, k), generator=g, device=cuda).to(dtype)
     w = _weights(cuda, K, ghosts=K // 4)
-    before = sparse_aggregate.launches
-    out = sparse_aggregate(idx, vals, w, n)
-    torch.cuda.synchronize()
-    assert sparse_aggregate.launches == before + 1
-    ref = sparse_aggregate_ref(idx, vals, w, n)
-    # atomic adds in a run-dependent order: within 1e-6 of the largest term
-    assert float((out - ref).abs().max()) <= 1e-6 * float(vals.float().abs().max())
+    route = _sparse_both_routes(idx, vals, w, n)
+    assert route == ("fused" if k % 4 == 0 else "scatter")
+
+
+@pytest.mark.parametrize("misaligned", ["idx", "vals", None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_misaligned_views_take_the_scatter_route(cuda, misaligned, dtype):
+    K, n, k = 10, 199_210, 9960
+    r = np.random.default_rng(5)
+    idx = torch.from_numpy(np.stack([r.permutation(n)[:k] for _ in range(K)]).astype(np.int32))
+    vals = torch.from_numpy(r.normal(size=(K, k)).astype(np.float32)).to(dtype)
+
+    def on_card(t, offset):   # a contiguous copy, offset elements past an aligned base
+        base = torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)
+        return base[offset:].view(t.shape).copy_(t)
+
+    idx_d = on_card(idx, int(misaligned == "idx"))
+    vals_d = on_card(vals, int(misaligned == "vals"))
+    route = _sparse_both_routes(idx_d, vals_d, _weights(cuda, K), n)
+    assert route == ("scatter" if misaligned else "fused")
+
+
+def test_sparse_fused_launch_replays_under_stream_capture(cuda):
+    """A CUDA graph captures the fused route's cooperative launch, and a
+    replay recomputes the aggregate from the inputs' current values."""
+    K, n, k = 10, 199_210, 9960
+    g = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.stack([torch.randperm(n, generator=g, device=cuda)[:k]
+                       for _ in range(K)]).to(torch.int32)
+    vals = torch.randn((K, k), generator=g, device=cuda)
+    w = _weights(cuda, K)
+    assert sparse_agg._route(idx, vals, torch.empty(n, device=cuda), K=K, k=k) == "fused"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sparse_aggregate(idx, vals, w, n)            # warm up: build and load off capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sparse_aggregate.fused_launches
+    with torch.cuda.graph(graph):
+        out = sparse_aggregate(idx, vals, w, n)
+    assert sparse_aggregate.fused_launches == before + 1
+    for scale in (1.0, -2.0):
+        vals.mul_(scale)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        err = float((out - sparse_aggregate_ref(idx, vals, w, n)).abs().max())
+        assert err <= 1e-6 * float(vals.abs().max())
 
 
 def test_sparse_kernel_duplicates_add_and_ghosts_are_inert(cuda):
@@ -325,14 +394,16 @@ def test_compressed_round_on_card(cuda, codec_name, kernel):
                       FedAvgConfig(C=0.67, E=1, B=4, lr=0.05, seed=0),
                       codec=codec._replace(encode=encode, aggregate=aggregate), device=cuda)
     before = None if kernel is None else kernel.launches
-    stream_before = getattr(kernel, "stream_launches", None)
+    main_route = {"q8": "stream_launches", "q4": "stream_launches",
+                  "top": "fused_launches"}.get(codec_name)
+    main_before = main_route and getattr(kernel, main_route)
     hist = eng.run(2)
     torch.cuda.synchronize()
     assert all(np.isfinite(r.train_loss) for r in hist.records)
     if kernel is not None:
         assert kernel.launches == before + 2
-    if stream_before is not None:   # the codec kernels: every round on the stream route
-        assert kernel.stream_launches == stream_before + 2
+    if main_route:   # every round on the codec kernels' stream route, top-k's fused one
+        assert getattr(kernel, main_route) == main_before + 2
     # the last round's payloads aggregated again on the CPU, by the plain versions
     host = {k: v.cpu() for k, v in box["payloads"].items()}
     plain = comp.decode_aggregate(codec, host, torch.as_tensor(box["weights"]), box["n"])
