@@ -74,6 +74,21 @@ Phases, in order, each printing its own lines:
 20. one profiled Gemma-2B training step: device busy, idle share, the top
     kernels and the shares of the CE kernels (forward and ``ce_probs``), the
     flash kernel and the two backwards.
+21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
+    through ``repro_torch.specs``; the 4 the port has no lane for are
+    refused by ``RoundEngine.from_spec``, each naming its ROADMAP item; the
+    other 11 run 2 rounds each at full size through
+    ``RoundEngine.from_spec(spec, clients, eval_fn=...).run`` on the
+    partition the spec builds, each lane's kernel once a round on its main
+    route (``fedavg_aggregate`` on the plain, FedSGD and FedAvgM lanes, the
+    stream route of ``quantized_aggregate`` for q8, the fused route of
+    ``sparse_aggregate`` for top-k, the gather route of ``gossip_mix`` for
+    the ring and the small world, no kernel for low-rank); then 4 rounds
+    against 2 + ``save`` + ``restore`` into a fresh engine + 2, bitwise for
+    FedAvgM (params and velocity) and q8, within ``TOPK_RESUME_RTOL`` for
+    top-k, the cohorts of rounds 3-4 identical; and
+    ``launch.train --checkpoint-dir`` on a reduced Gemma-2B in bf16, read
+    back bitwise through ``repro_torch.checkpoint``.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -268,6 +283,40 @@ CE_MATERIALIZED_RTOL = 1e-5
 # FusedCrossEntropy's bf16 gradients against autograd through materialized
 # fp32 logits, rounded to bf16 alike.
 CE_GRAD_RTOL = 1e-3
+
+# Phase 21, the spec front door: each runnable spec of specs/*.json at full
+# size through RoundEngine.from_spec, with the kernel its lane must launch
+# once a round (None: low-rank aggregates by an einsum, no hand kernel).
+SPEC_ROUNDS = 2
+SPEC_KERNELS = {
+    "mnist_2nn_iid": "fedavg_aggregate", "mnist_2nn_noniid": "fedavg_aggregate",
+    "mnist_cnn_iid": "fedavg_aggregate", "mnist_cnn_noniid": "fedavg_aggregate",
+    "mnist_2nn_fedsgd": "fedavg_aggregate", "mnist_2nn_noniid_fedavgm": "fedavg_aggregate",
+    "mnist_2nn_noniid_q8": "quantized_aggregate", "mnist_2nn_noniid_topk": "sparse_aggregate",
+    "mnist_2nn_noniid_lowrank": None,
+    "mnist_2nn_noniid_ring": "gossip_mix", "mnist_2nn_noniid_smallworld": "gossip_mix",
+}
+# The specs the port has no lane for yet, and the ROADMAP item each must name.
+SPEC_REFUSED = {"mnist_2nn_iid_superstep": "ROADMAP Queue 1 item 6",
+                "mnist_2nn_noniid_async": "ROADMAP Queue 1 item 8",
+                "mnist_2nn_noniid_fedasync": "ROADMAP Queue 1 item 8",
+                "shakespeare_lstm": "ROADMAP Queue 1 item 10"}
+# Resume on the card: 4 rounds against 2 + save + restore + 2. FedAvgM's and
+# q8's rounds run no atomics (fedavg_agg.cu and quantized_agg.cu hold none),
+# cuBLAS and cuDNN pick the same algorithms for the same shapes in one
+# process, and every random draw is seeded from the restored host stream, so
+# those must be bitwise equal. sparse_agg.cu scatters with fp32 REDs, whose
+# order changes a colliding index's sum by an ulp or so (half the top-5%
+# indices of a round collide); two rounds of SGD from such a start stay far
+# inside 1e-3 of the 4 rounds' update in L2.
+TOPK_RESUME_RTOL = 1e-3
+RESUME_SPECS = (("mnist_2nn_noniid_fedavgm", None), ("mnist_2nn_noniid_q8", None),
+                ("mnist_2nn_noniid_topk", TOPK_RESUME_RTOL))
+# launch.train's checkpoint: Gemma-2B's reduced config (2 layers,
+# d_model 256, vocab 512) in bf16 on the card, 2 FedAvg rounds.
+LM_CKPT_ARGV = ["--arch", "gemma-2b", "--n-layers", "2", "--dtype", "bfloat16", "--groups", "2",
+                "--local-steps", "2", "--global-batch", "4", "--seq", "128", "--rounds", "2",
+                "--device", "cuda"]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2754,20 +2803,6 @@ def main_path(model_name, data):
     return launches, walls, eng
 
 
-def codec_from_spec(c):
-    """The port's codec for a spec's ``codec`` section (the port has no spec
-    loader yet)."""
-    from repro_torch.core import compression as comp
-
-    if c["kind"] == "quantize":
-        return comp.quantize_codec(c["bits"], chunk=c["chunk"])
-    if c["kind"] == "topk":
-        return comp.topk_codec(c["keep_frac"])
-    if c["kind"] == "lowrank":
-        return comp.lowrank_codec(c["rank"])
-    raise ValueError(f"no codec for {c['kind']!r}")
-
-
 def recording(codec, box):
     """``codec`` with its encode and aggregate wrapped to keep the last
     round's payloads, weights and card aggregate in ``box``; the codec's
@@ -2789,9 +2824,9 @@ def compressed_lane(model_name, spec_name, override, kernel, data):
     last round's payloads aggregated again on the CPU (plain versions) and
     their realized bytes against the wire-bytes table."""
     from repro_torch.core.compression import decode_aggregate, realized_device_bytes
+    from repro_torch.specs import get_spec
 
-    codec = codec_from_spec(dict(
-        json.loads((ROOT / "specs" / f"{spec_name}.json").read_text())["codec"], **override))
+    codec = dataclasses.replace(get_spec(spec_name).codec, **override).build()
     print(f"  codec {codec.name} from specs/{spec_name}.json"
           + (f" with {override}" if override else "")
           + f"; aggregate through {kernel or 'an einsum (no hand kernel)'}")
@@ -2896,15 +2931,6 @@ def profile_round(name, eng, key, label):
             "launches": launched, "kernel_ms": agg * 1e3 if mine else None}
 
 
-def spec_topology(spec_name):
-    """The ``Topology`` of a spec's ``topology`` section, its ``None``
-    fields dropped as the reference's ``TopologySpec.build`` drops them."""
-    from repro_torch.core.topology import topology_from_json
-
-    t = json.loads((ROOT / "specs" / f"{spec_name}.json").read_text())["topology"]
-    return topology_from_json({k: v for k, v in t.items() if v is not None})
-
-
 def gossip_card_vs_cpu(name, eng, model, cfg, steps):
     """One gossip round of ``steps[i][0]`` steps on the card against the same
     round on the CPU: same replicas, same plan, same injected batches.
@@ -2973,7 +2999,9 @@ def gossip_round_fp64(eng, model, batch, mask, lr):
 def gossip_lane(model_name, spec_name, data):
     """The gossip lane through ``RoundEngine(topology=...).run`` at full size,
     after a card-vs-CPU round on injected batches."""
-    topo = spec_topology(spec_name)
+    from repro_torch.specs import get_spec
+
+    topo = get_spec(spec_name).topology.build()
     eng, model, cfg = make_engine(model_name, data, spec_name=spec_name, topology=topo)
     require(eng.num_clients == N_NODES and eng.plan.n_nodes == N_NODES,
             f"{spec_name}: {eng.num_clients} nodes")
@@ -3052,6 +3080,218 @@ def anchor(data):
         raise AssertionError("the full-graph gossip round is not the FedAvg round")
     return {"max_abs_err": err, "consensus": cons, "replica_rms_norm": rms,
             "loss_rel_err": l_err, "gossip_mix_route": "dense"}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the spec front door and checkpoints
+# ---------------------------------------------------------------------------
+
+def record_cohorts(eng):
+    """Wrap ``eng``'s cohort draw to keep each round's ids; returns the list
+    they are appended to."""
+    ids = []
+    draw = eng._next_round_inputs
+
+    def recorded():
+        out = draw()
+        ids.append(np.asarray(out[0]).tolist())
+        return out
+
+    eng._next_round_inputs = recorded
+    return ids
+
+
+def spec_clients(spec, train):
+    """The clients of the partition ``spec`` names, built by the spec."""
+    split = spec.build_partition(train.y)
+    return [(train.x[i], train.y[i]) for i in split.client_indices]
+
+
+def spec_eval_fn(spec, test):
+    from repro_torch.core.simulation import make_eval_fn
+
+    return make_eval_fn(spec.build_model(device="cuda").apply, test.x, test.y, device="cuda")
+
+
+def load_specs():
+    """Every ``specs/*.json`` through ``repro_torch.specs``: each equals its
+    preset and writes back the same JSON."""
+    from repro_torch.specs import PAPER_SPECS, ExperimentSpec
+
+    files = sorted((ROOT / "specs").glob("*.json"))
+    require({f.stem for f in files} == set(PAPER_SPECS) and len(files) == 15,
+            f"specs/ holds {[f.stem for f in files]}, the registry {sorted(PAPER_SPECS)}")
+    for f in files:
+        spec = ExperimentSpec.from_json(f.read_text())
+        require(spec == PAPER_SPECS[f.stem], f"{f.name} differs from its preset")
+        require(ExperimentSpec.from_json(spec.to_json()) == spec, f"{f.name} does not round-trip")
+    print(f"  {len(files)} specs loaded through repro_torch.specs, each equal to its preset")
+    return [f.stem for f in files]
+
+
+def spec_refusals(train):
+    """The specs the port has no lane for refuse in ``from_spec``, before any
+    state is built, each naming its ROADMAP item."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import get_spec
+
+    clients = spec_clients(get_spec("mnist_2nn_iid"), train)
+    for name, item in SPEC_REFUSED.items():
+        try:
+            RoundEngine.from_spec(get_spec(name), clients)
+        except ValueError as e:
+            require(item in str(e), f"{name} refused without naming {item}: {e}")
+            print(f"  {name}: refused, naming {item}")
+        else:
+            raise AssertionError(f"{name} was not refused")
+
+
+def spec_lane(name, train, test):
+    """One runnable spec through ``RoundEngine.from_spec(...).run`` at full
+    size: its partition built by the spec, its model initialized from its
+    seed by the port; its lane's kernel once a round on its main route."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import get_spec
+
+    spec = get_spec(name)
+    kernel = SPEC_KERNELS[name]
+    clients = spec_clients(spec, train)
+    eng = RoundEngine.from_spec(spec, clients, eval_fn=spec_eval_fn(spec, test))
+    print(f"  {name}: {len(clients)} clients ({spec.partition.kind}), C={spec.fedavg.C} "
+          f"E={spec.fedavg.E} B={spec.fedavg.B} lr={spec.fedavg.lr}, strategy "
+          f"{spec.strategy.name}" + (f", codec {eng.codec.name}" if eng.codec else "")
+          + (f", topology {eng.topology.name}" if eng.topology else "")
+          + f"; through {kernel or 'no hand kernel (an einsum)'}")
+    launches, walls = run_lane(name, eng, SPEC_ROUNDS, kernel)
+    if kernel == "gossip_mix":
+        dense = counters()["gossip_mix"].dense_launches
+        require(dense == 0, f"{name}: {dense} gossip_mix launches on the dense route")
+        print(f"  gossip_mix: {launches} launches on the gather route")
+    accs = [r.test_acc for r in eng.history.records]
+    print(f"  {name}: seconds a round " + ", ".join(f"{t:.4f}" for t in walls)
+          + ", test_acc " + ", ".join(f"{a:.4f}" for a in accs))
+    main = route_launches(kernel)
+    return {"spec": name, "kernel": kernel, "launches": launches, "rounds": SPEC_ROUNDS,
+            "round_wall_s": walls, "test_acc": accs, "main_route": main and main[0],
+            "main_route_launches": main and main[1],
+            "dense_launches": counters()["gossip_mix"].dense_launches
+            if kernel == "gossip_mix" else None}
+
+
+def host_leaves(tree):
+    from repro_torch.utils.tree import tree_leaves
+
+    return [t.detach().cpu() for t in tree_leaves(tree)]
+
+
+def spec_resume(name, train, test, rtol, ckpt_root):
+    """4 uninterrupted rounds against 2 rounds, ``save``, ``restore`` into a
+    freshly built engine and 2 more: params and strategy state bitwise
+    equal (``rtol`` None) or within ``rtol`` of the 4 rounds' update in L2,
+    and the cohort ids of rounds 3-4 identical."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import get_spec
+
+    spec = get_spec(name)
+    clients = spec_clients(spec, train)
+    ev = spec_eval_fn(spec, test)
+
+    def fresh():
+        return RoundEngine.from_spec(spec, clients, eval_fn=ev)
+
+    whole = fresh()
+    start = host_leaves(whole.params)
+    ids_whole = record_cohorts(whole)
+    whole.run(4)
+    first = fresh()
+    first.run(2)
+    t0 = time.perf_counter()
+    path = first.save(ckpt_root / name)
+    t_save = time.perf_counter() - t0
+    del first
+    resumed = fresh()
+    t0 = time.perf_counter()
+    require(resumed.restore(ckpt_root / name) == 2, f"{name}: restored a wrong round")
+    t_restore = time.perf_counter() - t0
+    ids_resumed = record_cohorts(resumed)
+    resumed.run(2)
+    torch.cuda.synchronize()
+    require(ids_resumed == ids_whole[2:], f"{name}: cohorts {ids_resumed} after the resume, "
+                                          f"{ids_whole[2:]} uninterrupted")
+    a = host_leaves(whole.params) + host_leaves(whole.outer_state)
+    b = host_leaves(resumed.params) + host_leaves(resumed.outer_state)
+    require(len(a) == len(b), f"{name}: {len(a)} leaves against {len(b)}")
+    differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    max_abs = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    update = math.sqrt(sum(float(((x - s).double() ** 2).sum())
+                           for x, s in zip(host_leaves(whole.params), start)))
+    diff = math.sqrt(sum(float(((x - y).double() ** 2).sum()) for x, y in zip(a, b)))
+    rel = diff / update
+    n_state = len(host_leaves(whole.outer_state))
+    ok = differ == 0 if rtol is None else rel <= rtol
+    print(f"  {name}: 4 rounds vs 2 + save ({t_save:.3f} s, {path}) + restore "
+          f"({t_restore:.3f} s) + 2: {len(a)} leaves ({n_state} of strategy state), {differ} "
+          f"not bitwise equal, max abs diff {max_abs:.3e}, |diff|/|4-round update| {rel:.3e} ("
+          + ("bitwise required" if rtol is None else f"rtol {rtol:g}")
+          + f"); cohorts of rounds 3-4 identical: {ids_resumed == ids_whole[2:]} "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: the resumed run is not the uninterrupted run")
+    return {"spec": name, "leaves": len(a), "state_leaves": n_state, "not_bitwise": differ,
+            "max_abs_diff": max_abs, "rel_diff": rel, "rtol": rtol, "save_s": t_save,
+            "restore_s": t_restore, "cohorts_equal": True}
+
+
+def lm_checkpoint(ckpt_root):
+    """``launch.train --checkpoint-dir`` on a reduced Gemma-2B in
+    bf16 on the card: the checkpoint read back through
+    ``repro_torch.checkpoint`` is bitwise the params ``run`` returned."""
+    from repro_torch.checkpoint import peek_metadata, restore_checkpoint
+    from repro_torch.launch import train
+
+    d = ckpt_root / "lm"
+    records, final = train.run(LM_CKPT_ARGV + ["--checkpoint-dir", str(d)])
+    back, meta = restore_checkpoint(d, final)
+    a, b = host_leaves(final), host_leaves(back)
+    require(all(t.dtype == torch.bfloat16 for t in a), "the reduced LM is not in bf16")
+    equal = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.int16), y.view(torch.int16))
+        for x, y in zip(a, b))
+    require(meta == peek_metadata(d) == {"algo": "fedavg", "arch": "gemma-2b"},
+            f"checkpoint metadata {meta}")
+    n_bytes = sum(t.numel() * 2 for t in a)
+    print(f"  launch.train {' '.join(LM_CKPT_ARGV)} --checkpoint-dir: {len(records)} rounds, "
+          f"loss {records[-1]['loss']:.4f}; {len(a)} bf16 leaves ({n_bytes / 2**20:.1f} MiB) "
+          f"read back bitwise: {equal} {'ok' if equal else 'FAIL'}")
+    require(equal, "the LM checkpoint does not read back bitwise")
+    return {"argv": LM_CKPT_ARGV, "leaves": len(a), "bytes": n_bytes, "bitwise": equal,
+            "rounds": len(records)}
+
+
+def spec_front_door(train, test):
+    """Phase 21: load and refuse, the 11 runnable specs, the resumes, the LM
+    checkpoint. Checkpoints go to a directory under ``build/``, removed
+    after."""
+    import shutil
+    import tempfile
+
+    spec_names = load_specs()
+    spec_refusals(train)
+    spec_lanes = [spec_lane(name, train, test) for name in spec_names if name in SPEC_KERNELS]
+    require(len(spec_lanes) == 11, f"{len(spec_lanes)} runnable specs")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    try:
+        resumes = [spec_resume(name, train, test, rtol, ckpt_root) for name, rtol in RESUME_SPECS]
+        lm_ckpt = lm_checkpoint(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root)
+    free_card()
+    for lane in spec_lanes:
+        print(f"  {lane['spec']:28s} {lane['kernel'] or 'no hand kernel':20s} "
+              f"{lane['launches']} launches in {lane['rounds']} rounds; seconds a round "
+              + ", ".join(f"{t:.4f}" for t in lane["round_wall_s"])
+              + f"; test_acc {lane['test_acc'][-1]:.4f}")
+    return spec_lanes, resumes, lm_ckpt
 
 
 def print_ptxas(log):
@@ -3275,11 +3515,18 @@ def main() -> int:
     train_profile = profile_training_step()
     free_card()
 
+    phase("21. the spec front door and checkpoints, full size, through "
+          "RoundEngine.from_spec(get_spec(name), ...).run and save/restore")
+    spec_lanes, resumes, lm_ckpt = spec_front_door(train, test)
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
         launches[k] = sum(lane["launches"] for lane in lanes if lane["kernel"] == k)
     launches["gossip_mix"] = sum(lane["launches"] for lane in gossip)
+    for lane in spec_lanes:
+        if lane["kernel"]:
+            launches[lane["kernel"]] += lane["launches"]
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
@@ -3349,6 +3596,12 @@ def main() -> int:
             "lanes": lanes_of.get(k, [lane for lane in lanes + gossip if lane["kernel"] == k]),
         })
     kernels[0]["round_wall_s"] = {"mnist_2nn": wall_2nn, "mnist_cnn": wall_cnn}
+    for k in kernels:
+        k["spec_lanes"] = [lane for lane in spec_lanes if lane["kernel"] == k["name"]]
+    kernels[0]["spec_front_door"] = {"refused": SPEC_REFUSED, "resume": resumes,
+                                     "lm_checkpoint": lm_ckpt,
+                                     "lowrank": [lane for lane in spec_lanes
+                                                 if lane["kernel"] is None]}
     kernels[1]["cnn_rounds_in_turns_s"] = turns
     kernels[4]["anchor"] = anchor_res
     kernels[4]["cnn_ring_round_profile"] = gossip_profile
@@ -3357,7 +3610,7 @@ def main() -> int:
             "stream": "qagg_stream_kernel (uint8/uint16 codes, words at bits 1/2/4; chunk a "
                       "whole number of 16-byte granules, >= 64 bytes; aligned; K <= 32)",
             "general": "qagg_kernel / packed_qagg_kernel (the rest)"}
-        stream = sum(lane["main_route_launches"] for lane in lanes
+        stream = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
                      if lane["kernel"] == KERNELS[i])
         kernels[i]["route_launches"] = {"stream": stream,
                                         "general": launches[KERNELS[i]] - stream}
@@ -3366,7 +3619,8 @@ def main() -> int:
                  "aligned, bf16 vals 8-byte aligned): one cooperative launch zeroes and "
                  "scatters",
         "scatter": "a fill, then sparse_agg_kernel (the rest)"}
-    fused = sum(lane["main_route_launches"] for lane in lanes if lane["kernel"] == KERNELS[3])
+    fused = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
+                if lane["kernel"] == KERNELS[3])
     kernels[3]["route_launches"] = {"fused": fused, "scatter": launches[KERNELS[3]] - fused}
     kernels[4]["routes"] = {
         "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",

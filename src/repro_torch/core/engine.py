@@ -1,7 +1,10 @@
 """RoundEngine: Algorithm 1 over a device-resident client pool (counterpart
 of ``repro/core/engine.py``: its plain lane, with ``codec=`` its
 compressed-upload lane, and with ``topology=`` its decentralized gossip
-lane).
+lane; ``strategy=`` swaps the server step on the star lanes, ``from_spec``
+builds an engine from an ``ExperimentSpec``, and ``save``/``restore``
+checkpoint it in the reference's layout, so that either package resumes the
+other's checkpoints).
 
 One round::
 
@@ -49,12 +52,19 @@ loss and the consensus distance back in one sync a round.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import (
+    latest_step,
+    peek_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.core.compression import Codec, build_compressed_round_step
 from repro_torch.core.fedavg import (
     FedAvgConfig,
@@ -70,7 +80,12 @@ from repro_torch.data.batching import pack_clients
 from repro_torch.data.pool import device_pool_budget
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_map, tree_ravel_stacked, tree_unravel_stacked
+from repro_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_ravel_stacked,
+    tree_unravel_stacked,
+)
 
 
 class RoundState(NamedTuple):
@@ -162,6 +177,10 @@ class RoundRecord:
     test_acc: Optional[float] = None
     test_loss: Optional[float] = None
     wall_s: float = 0.0
+    # Simulated duration under a straggler model (the async lane, ROADMAP
+    # Queue 1 item 8); the sync lanes leave it at 0.0. Kept in the
+    # reference's field order so that a checkpoint's history loads as is.
+    sim_s: float = 0.0
     # Gossip lane only: the post-mix consensus distance (RMS over nodes of
     # each replica's L2 distance to the node mean). None on the star lanes.
     consensus: Optional[float] = None
@@ -219,8 +238,13 @@ class RoundEngine:
     ``topology`` (a ``core.topology`` registry name or ``Topology``) switches
     to the gossip lane: one node per packed client, each with its own
     replica, mixed with its neighbours every round. It needs ``cfg.C ==
-    1.0`` and the FedAvg strategy, and takes no codec, as the reference's
-    refusals say."""
+    1.0`` and an identity strategy (FedAvg or FedSGD), and takes no codec,
+    as the reference's refusals say.
+
+    ``strategy`` (``core.strategies``: None, a registry name or an instance)
+    is the server's update rule over the aggregated fp32 delta; its
+    ``validate_cfg`` runs before its state is built, and its state (FedAvgM's
+    fp32 velocity) rides in ``outer_state``."""
 
     def __init__(
         self,
@@ -244,6 +268,7 @@ class RoundEngine:
         self.eval_fn = eval_fn
         self.rng = np.random.default_rng(cfg.seed)
         self.strategy = resolve_strategy(strategy)
+        self.strategy.validate_cfg(cfg)
         self.outer_state = self.strategy.init_state(self.params)
         self.round_idx = 0
         self.history = History()
@@ -281,7 +306,7 @@ class RoundEngine:
             raise ValueError(
                 f"topology= is incompatible with the {self.strategy.kind!r} server "
                 "strategy: there is no server, the Metropolis-Hastings mixing step "
-                "IS the update rule. Use FedAvg"
+                "IS the update rule. Use FedAvg/FedSGD (identity)"
             )
         if float(self.cfg.C) != 1.0:
             raise ValueError(
@@ -304,6 +329,74 @@ class RoundEngine:
         )
         self._gossip_step = build_gossip_round_step(loss_fn)
 
+    @classmethod
+    def from_spec(
+        cls,
+        spec,
+        client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+        *,
+        loss_fn: Optional[Callable] = None,
+        init_params=None,
+        eval_fn: Optional[Callable] = None,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+        device="cuda",
+    ) -> "RoundEngine":
+        """An engine from a ``repro_torch.specs.ExperimentSpec`` (the
+        reference's ``RoundEngine.from_spec``, ``engine.py:746``).
+
+        ``client_data`` stays an argument: a spec describes an experiment,
+        not a dataset. ``loss_fn`` and ``init_params`` default to the spec's
+        model built on ``device`` (``model_kwargs`` override its fields) and
+        initialized from ``spec.fedavg.seed`` by the port's own ``init``,
+        whose draws are not the reference's. A spec field the port has no
+        lane for yet is refused before any state is built, naming its
+        ROADMAP item."""
+        ex = spec.execution
+        if ex.device_sampling or ex.rounds_per_step is not None:
+            raise ValueError(
+                f"spec {spec.name!r} sets execution.device_sampling/rounds_per_step: the "
+                "superstep lane is not ported to repro_torch yet (ROADMAP Queue 1 item 6)")
+        if spec.async_spec is not None:
+            if spec.codec is not None:
+                raise ValueError(
+                    f"spec {spec.name!r} sets both codec= and async_spec=: the "
+                    "buffered-async lane has no codec path, so the run would ship dense "
+                    f"fp32 deltas while the spec claims {spec.codec.kind!r} compression; "
+                    "drop one of the two fields")
+            raise ValueError(
+                f"spec {spec.name!r} sets async_spec: the buffered-async lane is not "
+                "ported to repro_torch yet (ROADMAP Queue 1 item 8)")
+        if ex.mesh_axes is not None:
+            raise ValueError(
+                f"spec {spec.name!r} sets execution.mesh_axes: cohort sharding is not "
+                "ported to repro_torch yet (ROADMAP Queue 1 item 7)")
+        if ex.pool == "streamed":
+            raise ValueError(
+                f"spec {spec.name!r} sets execution.pool='streamed': the streamed pool is "
+                "not ported to repro_torch yet (ROADMAP Queue 1 item 9); 'auto' and "
+                "'device' keep the population on the device")
+        if ex.accum_dtype != "float32":
+            raise ValueError(
+                f"spec {spec.name!r} sets execution.accum_dtype={ex.accum_dtype!r}: the "
+                "port's aggregation kernels accumulate in float32 only (a shared gap of "
+                "ROADMAP Queue 2)")
+        if ex.interpret is not None:
+            raise ValueError(
+                f"spec {spec.name!r} sets execution.interpret={ex.interpret!r}: the port "
+                "has no kernel interpreter; the CPU path is chosen by device='cpu'")
+        if loss_fn is None or init_params is None:
+            model = spec.build_model(**{**(model_kwargs or {}), "device": device})
+            loss_fn = loss_fn if loss_fn is not None else model.loss
+            if init_params is None:
+                init_params = model.init(spec.fedavg.seed)
+        return cls(
+            loss_fn, init_params, client_data, spec.fedavg, eval_fn,
+            strategy=spec.build_strategy(),
+            codec=spec.build_codec(),
+            topology=spec.topology.build() if spec.topology is not None else None,
+            device=device,
+        )
+
     @property
     def num_clients(self) -> int:
         return self.packed.num_clients
@@ -319,8 +412,11 @@ class RoundEngine:
         return tree_map(lambda p: p.float().mean(dim=0).to(p.dtype), self.params)
 
     def lr_at(self, rnd: int) -> float:
-        """Client lr for round ``rnd``: ``cfg.lr`` decayed by ``cfg.lr_decay``
-        per round."""
+        """Client lr for round ``rnd``. A callable ``cfg.lr`` is the complete
+        round -> lr schedule and is used as it is; ``lr_decay`` applies only
+        to a scalar ``cfg.lr``."""
+        if callable(self.cfg.lr):
+            return float(self.cfg.lr(rnd))
         return float(self.cfg.lr) * self.cfg.lr_decay**rnd
 
     def _next_round_inputs(self):
@@ -330,6 +426,82 @@ class RoundEngine:
         ids = sample_clients(self.rng, self.num_clients, self.cfg.C)
         seed = int(self.rng.integers(2**31))
         return ids, seed, lr
+
+    def save(self, ckpt_dir) -> str:
+        """Checkpoint params, the strategy's state, the round counter, the
+        cohort stream and the history in the reference's layout and metadata
+        (``engine.py:1309``), so either package resumes the other's
+        checkpoint. The numpy bit-generator state rides as JSON (its 128-bit
+        integers overflow msgpack's ints). ``sample_key`` is what a
+        host-sampling reference engine holds, ``jax.random.PRNGKey(seed)``:
+        ``[0, seed]`` for a seed below 2**32."""
+        return save_checkpoint(
+            ckpt_dir,
+            {"params": self.params, "strategy_state": self.outer_state},
+            step=self.round_idx,
+            metadata={
+                "round_idx": self.round_idx,
+                "rng_state": json.dumps(self.rng.bit_generator.state),
+                "sample_key": [int(self.cfg.seed) >> 32, int(self.cfg.seed) & 0xFFFFFFFF],
+                "device_sampling": False,
+                "strategy": self.strategy.name,
+                "topology": self.topology.name if self.topology is not None else None,
+                "history": [dataclasses.asdict(r) for r in self.history.records],
+            },
+        )
+
+    def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
+        """Restore what :meth:`save` wrote (either package's) into this
+        engine, built with the same population and config; returns the
+        restored round index. The step is pinned once, and every guard runs
+        on the metadata alone before any state changes: the sampling mode,
+        the topology, the strategy, and a checkpoint that predates
+        strategies loaded into a stateful one. Leaves land on the engine's
+        device in the dtypes it holds."""
+        if step is None:
+            step = latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        meta = peek_metadata(ckpt_dir, step=step)
+        if meta.get("device_sampling"):
+            raise ValueError(
+                "checkpoint was written by a device_sampling=True engine but this engine "
+                "draws its cohorts on the host: resuming across sampling modes would "
+                "silently continue with a different cohort stream (the device stream is "
+                "ROADMAP Queue 1 item 6)")
+        rec_topo = meta.get("topology")
+        eng_topo = self.topology.name if self.topology is not None else None
+        if rec_topo != eng_topo:
+            raise ValueError(
+                f"checkpoint was written by a topology={rec_topo} engine but this engine "
+                f"has topology={eng_topo}: restoring across communication graphs would "
+                "silently continue a different mixing process")
+        recorded = meta.get("strategy")
+        if recorded is not None and recorded != self.strategy.name:
+            raise ValueError(
+                f"checkpoint was written by a {recorded} engine but this engine runs "
+                f"{self.strategy.name}: restoring across server strategies would "
+                "silently continue a different algorithm")
+        if recorded is None:
+            # A checkpoint from before strategies holds the params alone.
+            if tree_leaves(self.outer_state):
+                raise ValueError(
+                    "checkpoint predates server strategies (no recorded strategy state) "
+                    f"but this engine runs {self.strategy.name}, which carries state: "
+                    "resume it with a FedAvg/FedSGD engine instead")
+            params, meta = restore_checkpoint(ckpt_dir, self.params, step=step)
+        else:
+            tree, meta = restore_checkpoint(
+                ckpt_dir, {"params": self.params, "strategy_state": self.outer_state},
+                step=step)
+            params = tree["params"]
+            self.outer_state = tree["strategy_state"]
+        self.params = params
+        self.round_idx = int(meta["round_idx"])
+        self.rng.bit_generator.state = json.loads(meta["rng_state"])
+        if "history" in meta:
+            self.history = History([RoundRecord(**dict(d)) for d in meta["history"]])
+        return self.round_idx
 
     def materialize_round_batch(self, ids, generator_seed: int):
         """(batch, step_mask, weights) for cohort ``ids``, permutations drawn

@@ -75,6 +75,14 @@ def _upsample(img: np.ndarray, hw) -> np.ndarray:
     return (top * (1 - wy) + bot * wy).astype(np.float32)
 
 
+# The character corpus's alphabet (the Shakespeare stand-in); its size is
+# the ``char_lstm`` spec's vocab.
+CHAR_VOCAB = (
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ .,;:!?'-\n0123456789"
+)
+CHAR_VOCAB_SIZE = len(CHAR_VOCAB)  # 72
+
+
 def make_word_corpus(
     n_authors: int = 512,
     *,

@@ -16,12 +16,19 @@ device; tokens from ``make_word_corpus``, one shard per group.
 The reference's mesh flags have no counterpart: the groups run one after
 another on one device. ``--device`` defaults to ``cuda``: attention, the
 cross-entropy and the group average then run the hand-written kernels.
+``--dtype`` sets the model's parameter and compute dtype (by default the
+config's own: float32 for a reduced config, bfloat16 for Gemma-2B's).
+``--checkpoint-dir`` saves the final params (group 0's replica on the
+FedAvg path) at ``step=--rounds`` with ``{"algo", "arch"}`` metadata, in
+the reference's layout (``repro_torch.checkpoint``), as the reference does.
 :func:`main` returns one record a round (FedSGD: a step) with its seconds,
-tokens/s, loss, peak device memory and the kernels' launches in it.
+tokens/s, loss, peak device memory and the kernels' launches in it;
+:func:`run` returns those records and the final params.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -45,6 +52,8 @@ def _parser():
     ap.add_argument("--n-layers", type=int, default=6)
     ap.add_argument("--groups", type=int, default=2, help="G: client groups")
     ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                    help="parameter and compute dtype (default: the config's own)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -63,11 +72,14 @@ def _launches():
 
 
 def main(argv=None):
-    args = _parser().parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints are not ported to repro_torch yet: ROADMAP Queue 1 item 5")
+    return run(argv)[0]
 
+
+def run(argv=None):
+    """Train as the flags say; returns (records, final params)."""
+    args = _parser().parse_args(argv)
+
+    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ModelConfig, reduced
     from repro_torch.core.local_sgd import (
@@ -93,6 +105,8 @@ def main(argv=None):
             d_model=args.d_model, n_heads=4, n_kv_heads=2, head_dim=64,
             d_ff=4 * args.d_model, vocab_size=8192, scan_layers=True,
         )
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
     model = TransformerLM(cfg, device=args.device)
     dev = model.device
     params = model.init(args.seed)
@@ -161,6 +175,7 @@ def main(argv=None):
             rec["round"] = r + 1
             records.append(rec)
             _report(f"round {r + 1:3d}", rec)
+        final = unreplicate(params_g)
     else:
         step_fn = build_fedsgd_train_step(model.train_loss, inner)
         opt_state = inner.init(params)
@@ -178,7 +193,12 @@ def main(argv=None):
             rec["step"] = r + 1
             records.append(rec)
             _report(f"step {r + 1:4d}", rec)
-    return records
+        final = params
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, final, step=args.rounds,
+                        metadata={"algo": args.algo, "arch": cfg.name})
+        print("checkpoint ->", args.checkpoint_dir, flush=True)
+    return records, final
 
 
 def _report(tag, rec):

@@ -23,6 +23,7 @@ from repro.core.engine import RoundState as RefState  # noqa: E402
 from repro.core.engine import build_simulation_round_step as ref_round_step  # noqa: E402
 from repro.core.simulation import make_eval_fn as ref_make_eval_fn  # noqa: E402
 from repro.core.strategies import FedAvg as RefFedAvg  # noqa: E402
+from repro.core.strategies import resolve_strategy as ref_resolve_strategy  # noqa: E402
 from repro.models import paper as ref_paper  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
@@ -233,13 +234,15 @@ def test_round_engine_cuda_raises_without_a_card():
 # ---------------------------------------------------------------------------
 
 def test_only_fedavg_is_ported():
+    """Every strategy of the reference resolves now: each registry name to
+    that strategy with its defaults, by the reference's identity string."""
     assert isinstance(resolve_strategy(None), FedAvg)
     assert isinstance(resolve_strategy("fedavg"), FedAvg)
     s = FedAvg()
     assert resolve_strategy(s) is s
     for name in ("fedsgd", "fedavgm", "fedasync"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1: strategies"):
-            resolve_strategy(name)
+        got = resolve_strategy(name)
+        assert got.kind == name and got.name == ref_resolve_strategy(name).name
     p = {"a": {"w": torch.ones(3)}}
     _, new = FedAvg().apply((), p, {"a": {"w": torch.full((3,), 0.5)}})
     assert torch.equal(new["a"]["w"], torch.full((3,), 1.5))
@@ -272,10 +275,11 @@ def _imported_roots(tree: ast.Module):
 
 def _forbidden(source: str):
     return [(root, line) for root, line in _imported_roots(ast.parse(source))
-            if root in ("jax", "jaxlib", "repro")]
+            if root in ("jax", "jaxlib", "repro", "msgpack")]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
+    """Nor msgpack: the card's machine has none (``checkpoint.msgpack_lite``)."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
@@ -283,6 +287,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert bad == []
     # the check itself catches every spelling, and tells repro_torch from repro
     probe = ("import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"
-             "import repro.core\nfrom repro.data import batching\nfrom repro import core\n")
-    assert [line for _, line in _forbidden(probe)] == [1, 2, 3, 4, 5, 6]
+             "import repro.core\nfrom repro.data import batching\nfrom repro import core\n"
+             "import msgpack\nfrom msgpack import packb\n")
+    assert [line for _, line in _forbidden(probe)] == [1, 2, 3, 4, 5, 6, 7, 8]
     assert _forbidden("import repro_torch\nfrom repro_torch.core import engine\n") == []

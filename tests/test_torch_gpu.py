@@ -1336,3 +1336,23 @@ def test_ce_split_plan_fills_its_waves(cuda):
     blocks = (4096 // TILE) * splits
     assert slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
     assert blocks >= 0.95 * -(-blocks // slots) * slots
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_restores_onto_the_card_bitwise(cuda, dtype, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    r = np.random.default_rng(0)
+    tree = {"w": torch.from_numpy(r.normal(size=(33, 7)).astype(np.float32)).to(cuda, dtype),
+            "v": [torch.from_numpy(r.normal(size=(5,)).astype(np.float32)).to(cuda)]}
+    save_checkpoint(tmp_path, tree, step=4, metadata={"round_idx": 4})
+    like = {"w": torch.zeros(33, 7, dtype=dtype, device=cuda),
+            "v": [torch.zeros(5, device=cuda)]}
+    back, meta = restore_checkpoint(tmp_path, like)
+    assert meta == {"round_idx": 4}
+    for a, b in ((back["w"], tree["w"]), (back["v"][0], tree["v"][0])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)

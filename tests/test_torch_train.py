@@ -33,6 +33,7 @@ from repro.models import attention_core as ref_core  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 import repro.optim as ref_optim  # noqa: E402
 from repro_torch import optim  # noqa: E402
+from repro_torch.checkpoint import latest_step, peek_metadata  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
@@ -495,7 +496,7 @@ def test_tree_weighted_mean_goes_leaf_by_leaf_through_the_aggregate(rng):
 # launch.train, the corpus, the grad guard
 # ---------------------------------------------------------------------------
 
-def test_train_main_runs_fedavg_and_fedsgd_on_the_cpu():
+def test_train_main_runs_fedavg_and_fedsgd_on_the_cpu(tmp_path):
     argv = ["--arch", "gemma-2b", "--device", "cpu", "--rounds", "2", "--local-steps", "2",
             "--global-batch", "4", "--seq", "16", "--n-layers", "2"]
     recs = train.main(argv)
@@ -504,8 +505,10 @@ def test_train_main_runs_fedavg_and_fedsgd_on_the_cpu():
     assert all(set(r["launches"].values()) == {0} for r in recs)   # the CPU runs no kernel
     steps = train.main(argv + ["--algo", "fedsgd", "--rounds", "1"])
     assert [r["step"] for r in steps] == [1, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        train.main(argv + ["--checkpoint-dir", "ck"])
+    ck = tmp_path / "ck"                 # --checkpoint-dir writes the final params
+    steps = train.main(argv + ["--algo", "fedsgd", "--rounds", "1", "--checkpoint-dir", str(ck)])
+    assert [r["step"] for r in steps] == [1, 2] and latest_step(ck) == 1
+    assert peek_metadata(ck) == {"algo": "fedsgd", "arch": "gemma-2b"}
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--arch", "gemma-2b"])
