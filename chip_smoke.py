@@ -75,12 +75,16 @@ Phases, in order, each printing its own lines:
     kernels and the shares of the CE kernels (forward and ``ce_probs``), the
     flash kernel and the two backwards.
 21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
-    through ``repro_torch.specs``; the 4 the port has no lane for are
+    through ``repro_torch.specs``; the 3 the port has no lane for are
     refused by ``RoundEngine.from_spec``, each naming its ROADMAP item; the
-    other 11 run 2 rounds each at full size through
+    other 12 run 1 round each at full size (2 for FedAvgM, the ring and the
+    small world) through
     ``RoundEngine.from_spec(spec, clients, eval_fn=...).run`` on the
     partition the spec builds, each lane's kernel once a round on its main
-    route (``fedavg_aggregate`` on the plain, FedSGD and FedAvgM lanes, the
+    route (``mnist_2nn_iid_superstep`` as one replay of its captured round,
+    the wrappers counting the warm-up's launch before the capture, then a
+    profiled chunk of 4 replays whose kernel records count their launches;
+    ``fedavg_aggregate`` on the plain, FedSGD and FedAvgM lanes, the
     stream route of ``quantized_aggregate`` for q8, the fused route of
     ``sparse_aggregate`` for top-k, the gather route of ``gossip_mix`` for
     the ring and the small world, no kernel for low-rank); then 4 rounds
@@ -88,7 +92,29 @@ Phases, in order, each printing its own lines:
     FedAvgM (params and velocity) and q8, within ``TOPK_RESUME_RTOL`` for
     top-k, the cohorts of rounds 3-4 identical; and
     ``launch.train --checkpoint-dir`` on a reduced Gemma-2B in bf16, read
-    back bitwise through ``repro_torch.checkpoint``.
+    back bitwise through ``repro_torch.checkpoint``;
+22. the superstep lane at full paper size (``RoundEngine(...,
+    device_sampling=True).run(n, rounds_per_step=20)``: one round captured
+    as a CUDA graph, replayed once a round): the 2NN and CNN non-IID plain
+    lanes, the 2NN q8 and top-k lanes and the ``mnist_2nn_iid_superstep``
+    spec. Each lane first holds one captured round against one eager round
+    from the same generator state (bitwise on the 2NN plain and q8 lanes,
+    within ``CAPTURE_RTOL`` of the update on top-k; the CNN bitwise on an
+    engine with ``cudnn.deterministic``, its default-mode gap printed beside
+    two eager rounds' own) and prints
+    the warm-up, capture and instantiation seconds, the graph count and the
+    peak memory; then times host-sampled rounds against superstep chunks in
+    turns (host, superstep, superstep, host) and adds a ragged chunk without
+    a second graph. The 2NN plain lane also runs a warm chunk under
+    ``transfer_guard``, shows that a sync inside the round raises there,
+    and resumes from ``save``: 20 replays of ``round()`` in a fresh engine
+    equal the saved engine's chunk of 20, bitwise. Each lane then profiles
+    one chunk: device busy, idle share, device ops, and the replays'
+    launches, which the wrappers do not see: the profiler's records must
+    hold the lane's main-route kernel once a replay and no other hand
+    kernel. On top-k, superstep(20) is held against 20 ``round()`` calls of
+    a second engine (every round's loss, the final params, the generator
+    state). The spec runs its chunk of 20, then a profiled chunk.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -129,7 +155,9 @@ compressed round on the fused route. ``ce_probs``
 (the CE gradient's kernel) ports no Pallas kernel; it is held, timed and
 counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
-after. Each phase prints its seconds.
+after; a wrapper counts the launches it makes, and a CUDA graph's replays
+(phases 21-22) are counted from the profiler's kernel records instead. Each
+phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before those lines; so does a machine without a card.
@@ -140,6 +168,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -195,7 +224,9 @@ KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregat
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
-COMPRESSED_ROUNDS = 2
+# One round a lane: the script is kept near 500 s, and phase 22 runs 40 rounds
+# of each of its lanes.
+COMPRESSED_ROUNDS = 1
 # (model, spec whose codec the lane uses, codec override, kernel of the aggregate)
 LANES = (
     ("mnist_2nn", "mnist_2nn_noniid_q8", {}, "quantized_aggregate"),
@@ -216,7 +247,7 @@ WIRE_BYTES = {
 LOWRANK_RTOL = 1e-5
 
 N_NODES = 100                           # the gossip specs: every client is a node
-GOSSIP_ROUNDS = 2
+GOSSIP_ROUNDS = 1                       # one round a lane, as COMPRESSED_ROUNDS
 # (model, spec whose topology, fedavg and partition sections the lane uses);
 # no CNN gossip spec exists, so the CNN takes the 2NN ring spec's sections.
 GOSSIP_LANES = (
@@ -287,7 +318,12 @@ CE_GRAD_RTOL = 1e-3
 # Phase 21, the spec front door: each runnable spec of specs/*.json at full
 # size through RoundEngine.from_spec, with the kernel its lane must launch
 # once a round (None: low-rank aggregates by an einsum, no hand kernel).
-SPEC_ROUNDS = 2
+SPEC_ROUNDS = 1                         # one round a spec, as COMPRESSED_ROUNDS
+# Two rounds where the second starts from state the first left: FedAvgM's
+# velocity, the gossip replicas after a mix. (The codec stream's second draw
+# is run by the q8 and top-k resumes' 4 rounds.)
+SPEC_ROUNDS_OF = {"mnist_2nn_noniid_fedavgm": 2, "mnist_2nn_noniid_ring": 2,
+                  "mnist_2nn_noniid_smallworld": 2}
 SPEC_KERNELS = {
     "mnist_2nn_iid": "fedavg_aggregate", "mnist_2nn_noniid": "fedavg_aggregate",
     "mnist_cnn_iid": "fedavg_aggregate", "mnist_cnn_noniid": "fedavg_aggregate",
@@ -295,10 +331,10 @@ SPEC_KERNELS = {
     "mnist_2nn_noniid_q8": "quantized_aggregate", "mnist_2nn_noniid_topk": "sparse_aggregate",
     "mnist_2nn_noniid_lowrank": None,
     "mnist_2nn_noniid_ring": "gossip_mix", "mnist_2nn_noniid_smallworld": "gossip_mix",
+    "mnist_2nn_iid_superstep": "fedavg_aggregate",
 }
 # The specs the port has no lane for yet, and the ROADMAP item each must name.
-SPEC_REFUSED = {"mnist_2nn_iid_superstep": "ROADMAP Queue 1 item 6",
-                "mnist_2nn_noniid_async": "ROADMAP Queue 1 item 8",
+SPEC_REFUSED = {"mnist_2nn_noniid_async": "ROADMAP Queue 1 item 8",
                 "mnist_2nn_noniid_fedasync": "ROADMAP Queue 1 item 8",
                 "shakespeare_lstm": "ROADMAP Queue 1 item 10"}
 # Resume on the card: 4 rounds against 2 + save + restore + 2. FedAvgM's and
@@ -312,6 +348,48 @@ SPEC_REFUSED = {"mnist_2nn_iid_superstep": "ROADMAP Queue 1 item 6",
 TOPK_RESUME_RTOL = 1e-3
 RESUME_SPECS = (("mnist_2nn_noniid_fedavgm", None), ("mnist_2nn_noniid_q8", None),
                 ("mnist_2nn_noniid_topk", TOPK_RESUME_RTOL))
+# Phase 22, the superstep lane: each lane at full paper size as one captured
+# round replayed once a round, R = 20 rounds a chunk (the superstep spec's).
+# Lanes: (model, spec whose codec the lane takes or None, kernel).
+SUPERSTEP_R = 20
+SUPERSTEP_LANES = (
+    ("mnist_2nn", None, "fedavg_aggregate"),
+    ("mnist_cnn", None, "fedavg_aggregate"),
+    ("mnist_2nn", "mnist_2nn_noniid_q8", "quantized_aggregate"),
+    ("mnist_2nn", "mnist_2nn_noniid_topk", "sparse_aggregate"),
+)
+# Host-sampled rounds a turn, beside each superstep chunk of SUPERSTEP_R.
+SUPERSTEP_HOST_ROUNDS = {"mnist_2nn": 2, "mnist_cnn": 1}
+# The profiled chunk of each lane (CUPTI records every replayed kernel: a 2NN
+# round runs ~17,000 device ops, a CNN round ~53,000). A replay runs on the
+# card without the kernel wrappers, so their counters count only eager
+# launches (the warm-up's); the replays' launches are the profiler's records
+# of the lane's main-route kernel, by name, r in a chunk of r.
+SUPERSTEP_PROFILE_R = {"mnist_2nn": 4, "mnist_cnn": 2}
+# A profiled chunk short of the kernel's records (CUPTI lost a block of them)
+# is profiled again, up to this many chunks in all (profile_chunk).
+PROFILE_ATTEMPTS = 3
+# run_lane profiles a chunk of this many replays after a device-sampling
+# lane's run (the superstep spec, a 2NN); the run itself, with its warm-up
+# and capture, stays out of the profile.
+LANE_PROFILE_R = SUPERSTEP_PROFILE_R["mnist_2nn"]
+# A captured round against an eager one from the same generator state: the
+# 2NN plain and q8 rounds run no atomics and must be bitwise equal; top-k's
+# fp32 REDs sum in their own order, so it is held to this fraction of the
+# round's update in L2. cuDNN's default CNN backward is nondeterministic and
+# 300 SGD steps carry its ulps far (two eager rounds from one state differ by
+# about a tenth of the update; phase 22 prints it): the CNN is held bitwise
+# with cudnn.deterministic on, on an engine of its own.
+CAPTURE_RTOL = 1e-4
+# superstep(20) against 20 x round() on the 2NN top-k lane, two engines built
+# alike: both are replays of the same captured round, but every replay's REDs
+# add in their own order, and 20 rounds of 300 SGD steps carry the ulps on.
+# Each round's loss is held to TOPK_REPLAY_LOSS_RTOL of itself and the final
+# params to TOPK_REPLAY_RTOL of the 20 rounds' update in L2; the generator
+# states, which the draws advance whatever the values, bitwise. On an H100
+# 4 repeats gave at most 1.6e-3 and 7.5e-3: about a sixth of each.
+TOPK_REPLAY_LOSS_RTOL = 1e-2
+TOPK_REPLAY_RTOL = 5e-2
 # launch.train's checkpoint: Gemma-2B's reduced config (2 layers,
 # d_model 256, vocab 512) in bf16 on the card, 2 FedAvg rounds.
 LM_CKPT_ARGV = ["--arch", "gemma-2b", "--n-layers", "2", "--dtype", "bfloat16", "--groups", "2",
@@ -476,6 +554,31 @@ def counters():
 
 def launch_counts():
     return {name: f.launches for name, f in counters().items()}
+
+
+# Every hand kernel by its own name, as ptxas and the profiler's records give
+# it (a name that contains another comes first), and the one each wrapper of
+# the superstep lanes launches on its main route.
+HAND_KERNELS = ("qagg_stream_kernel", "packed_qagg_kernel", "qagg_kernel",
+                "fedavg_agg_kernel", "sparse_agg_fused_kernel", "sparse_agg_kernel",
+                "gossip_mix_dense_kernel", "gossip_mix_kernel", "flash_fwd_mma_kernel",
+                "flash_fwd_kernel", "ssm_scan_ring_kernel", "ssm_scan_kernel",
+                "ce_fwd_mma_kernel", "ce_probs_mma_kernel", "ce_probs_kernel",
+                "ce_partial_kernel", "ce_merge_kernel")
+MAIN_ROUTE_KERNEL = {"fedavg_aggregate": "fedavg_agg_kernel",
+                     "quantized_aggregate": "qagg_stream_kernel",
+                     "sparse_aggregate": "sparse_agg_fused_kernel"}
+
+
+def kernel_records(ops):
+    """{hand kernel: records} among a profile's device ops, matched on the
+    kernel's own name (``void (anonymous namespace)::qagg_stream_kernel<8>(...)``)."""
+    found = {}
+    for e in ops:
+        m = re.match(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(?:\w+::)*(\w+)", e.name)
+        if m and m.group(1) in HAND_KERNELS:
+            found[m.group(1)] = found.get(m.group(1), 0) + 1
+    return found
 
 
 def reset_counts():
@@ -2669,7 +2772,8 @@ def host_vector(tree) -> torch.Tensor:
     return tree_ravel(tree_map(lambda p: p.detach().cpu().double(), tree))[0]
 
 
-def make_engine(model_name, data, codec=None, spec_name=None, topology=None):
+def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
+                device_sampling=False):
     """``RoundEngine`` on the card for ``model_name`` at full size, with the
     fedavg and partition sections of ``specs/<spec_name>.json`` (read as
     JSON; by default the model's own non-IID cell ``<model>_noniid``);
@@ -2696,47 +2800,65 @@ def make_engine(model_name, data, codec=None, spec_name=None, topology=None):
     require(n_params == MAIN_N[model_name], f"{model_name} has {n_params} params")
     eng = RoundEngine(model.loss, params, clients, cfg,
                       eval_fn=make_eval_fn(model.apply, test.x, test.y, device="cuda"),
-                      codec=codec, topology=topology, device="cuda")
+                      codec=codec, topology=topology, device_sampling=device_sampling,
+                      device="cuda")
     print(f"  {spec['name']}" + ("" if spec["model"]["kind"] == model_name else
                                  f" (its sections, with {model_name})")
           + f": {len(clients)} clients x {int(split.client_sizes[0])} examples, "
           f"C={cfg.C} E={cfg.E} B={cfg.B} lr={cfg.lr}, {n_params} params, "
           f"{eng.packed.max_real_steps_per_epoch * cfg.E} steps/round"
           + (f", codec {codec.name}" if codec is not None else "")
-          + (f", topology {topology.name}" if topology is not None else ""))
+          + (f", topology {topology.name}" if topology is not None else "")
+          + (", device sampling" if device_sampling else ""))
     return eng, model, cfg
 
 
 def run_lane(name, eng, n_rounds, kernel):
     """One lane's main path: every launch count set to 0, ``RoundEngine.run``,
     the counts read. ``kernel`` must have launched once a round and every
-    other kernel never (``None``: no hand kernel at all)."""
+    other kernel never (``None``: no hand kernel at all). A device-sampling
+    engine's rounds are replays, which the wrappers do not count: its
+    counters hold the warm-up's eager launch before the capture, and one
+    more chunk of ``LANE_PROFILE_R`` replays is profiled after the run
+    (``profile_chunk``) to count the replays' launches. Returns the
+    launches (the warm-up's and the profiled replays' on that lane), the
+    rounds' ``wall_s`` and the chunk's profile (None on the other lanes)."""
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    graphed = eng.device_sampling
+    warmup = int(graphed and eng.num_compilations == 0)
     hist = eng.run(n_rounds, eval_every=1)
     torch.cuda.synchronize()
     counts = launch_counts()
     for r in hist.records:
         cons = "" if r.consensus is None else f"consensus {r.consensus:.6f} "
-        print(f"  round {r.round}: loss {r.train_loss:.6f} {cons}test_acc {r.test_acc:.4f} "
-              f"test_loss {r.test_loss:.6f} wall_s {r.wall_s:.4f}")
+        ev = ("not evaluated (inside a chunk) " if r.test_acc is None else
+              f"test_acc {r.test_acc:.4f} test_loss {r.test_loss:.6f} ")
+        print(f"  round {r.round}: loss {r.train_loss:.6f} {cons}{ev}wall_s {r.wall_s:.4f}")
     if eng.topology is not None and not all(
             math.isfinite(r.consensus) and r.consensus >= 0 for r in hist.records):
         raise AssertionError(f"{name}: bad consensus distances")
     losses = [r.train_loss for r in hist.records]
     if len(hist.records) != n_rounds or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{name}: non-finite or missing round losses {losses}")
-    accs = [r.test_acc for r in hist.records]
-    if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+    accs = [r.test_acc for r in hist.records if r.test_acc is not None]
+    if hist.records[-1].test_acc is None or not all(
+            math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
         raise AssertionError(f"{name}: bad test accuracies {accs}")
-    want = {k: (n_rounds if k == kernel else 0) for k in KERNELS}
+    want = {k: ((warmup if graphed else n_rounds) if k == kernel else 0) for k in KERNELS}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} in {n_rounds} rounds, want {want}")
     require_main_route(name, kernel)
-    print(f"  launches in the run ({n_rounds} rounds): "
+    print(f"  launches counted by the wrappers in the run ({n_rounds} rounds"
+          + (f", replays of a captured round; {warmup} the warm-up's before the capture"
+             if graphed else "") + "): "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    return (counts[kernel] if kernel else 0), [r.wall_s for r in hist.records]
+    walls = [r.wall_s for r in hist.records]
+    if graphed:
+        prof = profile_chunk(name, eng, kernel, LANE_PROFILE_R)
+        return warmup + prof["launches"], walls, prof
+    return (counts[kernel] if kernel else 0), walls, None
 
 
 def route_launches(kernel):
@@ -2799,7 +2921,7 @@ def main_path(model_name, data):
             raise AssertionError(
                 f"{model_name}: the round on the card disagrees with the CPU round")
 
-    launches, walls = run_lane(model_name, eng, ROUNDS[model_name], "fedavg_aggregate")
+    launches, walls, _ = run_lane(model_name, eng, ROUNDS[model_name], "fedavg_aggregate")
     return launches, walls, eng
 
 
@@ -2807,8 +2929,8 @@ def recording(codec, box):
     """``codec`` with its encode and aggregate wrapped to keep the last
     round's payloads, weights and card aggregate in ``box``; the codec's
     own functions do the work."""
-    def encode(seed, flat):
-        box["payloads"] = codec.encode(seed, flat)
+    def encode(gen, flat):
+        box["payloads"] = codec.encode(gen, flat)
         return box["payloads"]
 
     def aggregate(payloads, weights, n):
@@ -2832,7 +2954,7 @@ def compressed_lane(model_name, spec_name, override, kernel, data):
           + f"; aggregate through {kernel or 'an einsum (no hand kernel)'}")
     box = {}
     eng, _, _ = make_engine(model_name, data, codec=recording(codec, box))
-    launches, walls = run_lane(f"{model_name} {codec.name}", eng, COMPRESSED_ROUNDS, kernel)
+    launches, walls, _ = run_lane(f"{model_name} {codec.name}", eng, COMPRESSED_ROUNDS, kernel)
 
     n = box["n"]
     host = {k: v.cpu() for k, v in box["payloads"].items()}
@@ -3011,7 +3133,7 @@ def gossip_lane(model_name, spec_name, data):
     steps = ((1, GOSSIP_CNN_RTOL_1),) if model_name == "mnist_cnn" else \
         ((1, UPDATE_RTOL_1), (CHECK_STEPS, UPDATE_RTOL_N))
     gossip_card_vs_cpu(f"{model_name} {topo.kind}", eng, model, cfg, steps)
-    launches, walls = run_lane(f"{model_name} {topo.kind}", eng, GOSSIP_ROUNDS, "gossip_mix")
+    launches, walls, _ = run_lane(f"{model_name} {topo.kind}", eng, GOSSIP_ROUNDS, "gossip_mix")
     from repro_torch.kernels.gossip_mix import _route
 
     route = _route(torch.empty((eng.plan.n_nodes, 1), device="meta"), eng._mix_idx,
@@ -3162,16 +3284,17 @@ def spec_lane(name, train, test):
           f"{spec.strategy.name}" + (f", codec {eng.codec.name}" if eng.codec else "")
           + (f", topology {eng.topology.name}" if eng.topology else "")
           + f"; through {kernel or 'no hand kernel (an einsum)'}")
-    launches, walls = run_lane(name, eng, SPEC_ROUNDS, kernel)
+    rounds = SPEC_ROUNDS_OF.get(name, SPEC_ROUNDS)
+    launches, walls, _ = run_lane(name, eng, rounds, kernel)
     if kernel == "gossip_mix":
         dense = counters()["gossip_mix"].dense_launches
         require(dense == 0, f"{name}: {dense} gossip_mix launches on the dense route")
         print(f"  gossip_mix: {launches} launches on the gather route")
-    accs = [r.test_acc for r in eng.history.records]
+    accs = [r.test_acc for r in eng.history.records if r.test_acc is not None]
     print(f"  {name}: seconds a round " + ", ".join(f"{t:.4f}" for t in walls)
           + ", test_acc " + ", ".join(f"{a:.4f}" for a in accs))
     main = route_launches(kernel)
-    return {"spec": name, "kernel": kernel, "launches": launches, "rounds": SPEC_ROUNDS,
+    return {"spec": name, "kernel": kernel, "launches": launches, "rounds": rounds,
             "round_wall_s": walls, "test_acc": accs, "main_route": main and main[0],
             "main_route_launches": main and main[1],
             "dense_launches": counters()["gossip_mix"].dense_launches
@@ -3268,7 +3391,7 @@ def lm_checkpoint(ckpt_root):
 
 
 def spec_front_door(train, test):
-    """Phase 21: load and refuse, the 11 runnable specs, the resumes, the LM
+    """Phase 21: load and refuse, the 12 runnable specs, the resumes, the LM
     checkpoint. Checkpoints go to a directory under ``build/``, removed
     after."""
     import shutil
@@ -3277,7 +3400,7 @@ def spec_front_door(train, test):
     spec_names = load_specs()
     spec_refusals(train)
     spec_lanes = [spec_lane(name, train, test) for name in spec_names if name in SPEC_KERNELS]
-    require(len(spec_lanes) == 11, f"{len(spec_lanes)} runnable specs")
+    require(len(spec_lanes) == 12, f"{len(spec_lanes)} runnable specs")
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
     try:
@@ -3294,19 +3417,337 @@ def spec_front_door(train, test):
     return spec_lanes, resumes, lm_ckpt
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the superstep lane
+# ---------------------------------------------------------------------------
+
+def captured_vs_eager(name, eng, kernel, check):
+    """One eager device-sampling round on clones of the params, then the
+    generator put back and ``round()``: the first call warms up, captures
+    and replays. ``check`` is "bitwise" or "rtol" (within ``CAPTURE_RTOL``
+    of the update), or "report": the CNN under cuDNN's default,
+    nondeterministic backward, whose 300 SGD steps carry an ulp's
+    difference far (two eager rounds differ as much), so the gap is printed
+    beside a second eager round's and not held. Prints the capture's
+    seconds, the graph count and the peak memory."""
+    from repro_torch.utils.tree import tree_map
+
+    state = eng._gen.get_state()
+    start = host_vector(eng.params)
+    lr = torch.tensor(eng.lr_at(eng.round_idx), dtype=torch.float32, device=eng.device)
+
+    def eager():
+        eng._gen.set_state(state)
+        p, _, loss = eng._device_round(tree_map(torch.clone, eng.params),
+                                       tree_map(torch.clone, eng.outer_state), lr)
+        return host_vector(p) - start, float(loss)
+
+    d_eager, loss_eager = eager()
+    spread = None
+    if check == "report":
+        d_again, _ = eager()
+        spread = float((d_again - d_eager).norm() / d_eager.norm())
+    eng._gen.set_state(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = float(eng.round()["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    counts = {k: v for k, v in launch_counts().items() if v}
+    require(counts == {kernel: 1}, f"{name}: the wrappers counted {counts} in the warm-up, "
+                                   f"capture and first replay, want {{{kernel!r}: 1}}")
+    require_main_route(f"{name} warm-up", kernel)
+    d_cap = host_vector(eng.params) - start
+    rel = float((d_cap - d_eager).norm() / d_eager.norm())
+    same = bool(torch.equal(d_cap, d_eager)) and loss == loss_eager
+    if check == "bitwise":
+        ok, held = same, "bitwise required"
+    elif check == "rtol":
+        ok, held = rel <= CAPTURE_RTOL, f"rtol {CAPTURE_RTOL:g}"
+    else:
+        ok, held = True, f"not held: a second eager round differs by {spread:.3e}"
+    g = eng._graph
+    print(f"  {name}: warm-up {g.warmup_s:.3f} s, capture and instantiation {g.capture_s:.3f} s, "
+          f"{eng.num_compilations} graph, peak device memory {peak:.0f} MiB (the warm-up's "
+          f"eager round and the graph's pool); the wrappers counted {counts}: the warm-up's "
+          "eager launch (a capture records launches, a replay runs without the wrappers)")
+    print(f"  {name}: captured round vs eager round from the same generator state: update "
+          f"|d_cap - d_eager|/|d_eager| = {rel:.3e}, loss {loss:.6f} vs {loss_eager:.6f}, "
+          f"bitwise {same} ({held}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: the captured round disagrees with the eager round")
+    return {"warmup_s": g.warmup_s, "capture_s": g.capture_s, "graphs": eng.num_compilations,
+            "peak_MiB": peak, "bitwise": same, "rel_diff": rel, "eager_spread": spread,
+            "warmup_launches": counts[kernel]}
+
+
+def deterministic_capture_check(model_name, data):
+    """The CNN's captured round against its eager round with
+    ``torch.backends.cudnn.deterministic`` on: both bitwise equal, on an
+    engine of its own (the timed lane keeps cuDNN's default)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        chk, _, _ = make_engine(model_name, data, device_sampling=True)
+        res = captured_vs_eager(f"{model_name} plain, cudnn.deterministic", chk,
+                                "fedavg_aggregate", "bitwise")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del chk
+    free_card()
+    return res
+
+
+def superstep_turns(name, host, eng, model_name):
+    """Host-sampled rounds and superstep chunks in turns (host, superstep,
+    superstep, host): seconds a round from ``wall_s``. The wrappers must
+    count nothing in a chunk: its rounds are replays, and a round that fell
+    back to eager would count its launch (the replays' own launches are
+    counted by ``profile_chunk``)."""
+    n_host = SUPERSTEP_HOST_ROUNDS[model_name]
+    turns = []
+    for which in ("host", "superstep", "superstep", "host"):
+        reset_counts()
+        if which == "host":
+            recs = host.run(n_host).records[-n_host:]
+        else:
+            recs = eng.run(SUPERSTEP_R, rounds_per_step=SUPERSTEP_R).records[-SUPERSTEP_R:]
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            require(not counts, f"{name}: the wrappers counted {counts} in a chunk of replays")
+        walls = [r.wall_s for r in recs]
+        require(all(math.isfinite(r.train_loss) for r in recs), f"{name}: non-finite losses")
+        turns.append((which, sum(walls) / len(walls)))
+        print(f"  {name} {which:9s}: {len(recs):2d} rounds, {turns[-1][1]:.4f} s a round, "
+              f"last loss {recs[-1].train_loss:.6f}, test_acc {recs[-1].test_acc:.4f}")
+    host_s = [t for w, t in turns if w == "host"]
+    step_s = [t for w, t in turns if w == "superstep"]
+    print(f"  {name}: host-sampled {host_s[0]:.4f} / {host_s[1]:.4f} s a round, superstep "
+          f"{step_s[0]:.4f} / {step_s[1]:.4f} s a round "
+          f"({min(host_s) / max(step_s):.1f}x to {max(host_s) / min(step_s):.1f}x); "
+          "the wrappers counted no launch in the chunks")
+    before = eng.round_idx
+    eng.run(5, rounds_per_step=4)        # a chunk of 4 and a ragged 1
+    require(eng.num_compilations == 1 and eng.round_idx == before + 5,
+            f"{name}: {eng.num_compilations} graphs after a ragged chunk")
+    print(f"  {name}: after two chunks of {SUPERSTEP_R} and a ragged chunk (4 + 1): "
+          f"{eng.num_compilations} graph ok")
+    return {"turns": turns}
+
+
+def replays_vs_rounds(name, model_name, codec, data):
+    """superstep(20) == 20 x round() on the top-k lane, from two engines
+    built alike: every round's loss, the final params and the generator
+    states, held as ``TOPK_REPLAY_*`` says."""
+    a, _, _ = make_engine(model_name, data, codec=codec, device_sampling=True)
+    b, _, _ = make_engine(model_name, data, codec=codec, device_sampling=True)
+    start = host_vector(a.params)
+    la = [r.train_loss for r in a.run(SUPERSTEP_R, rounds_per_step=SUPERSTEP_R).records]
+    lb = torch.stack([b.round()["loss"] for _ in range(SUPERSTEP_R)]).cpu().tolist()
+    pa, pb = host_vector(a.params), host_vector(b.params)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+    worst = max(range(SUPERSTEP_R), key=lambda j: abs(la[j] - lb[j]) / abs(lb[j]))
+    rel = float((pa - pb).norm() / (pb - start).norm())
+    gens = torch.equal(a._gen.get_state(), b._gen.get_state())
+    ok = (loss_rel <= TOPK_REPLAY_LOSS_RTOL and rel <= TOPK_REPLAY_RTOL and gens
+          and all(math.isfinite(x) for x in la))
+    print(f"  {name}: superstep({SUPERSTEP_R}) vs {SUPERSTEP_R} x round(): losses within "
+          f"{loss_rel:.3e} of each other (round {worst + 1} the farthest; rtol "
+          f"{TOPK_REPLAY_LOSS_RTOL:g}), first round {abs(la[0] - lb[0]) / abs(lb[0]):.3e}; "
+          f"final params |a - b| / |update| = {rel:.3e} (rtol {TOPK_REPLAY_RTOL:g}); "
+          f"generator states equal {gens} {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: superstep({SUPERSTEP_R}) disagrees with {SUPERSTEP_R} x round()")
+    return {"loss_max_rel_diff": loss_rel, "params_rel_diff": rel, "generators_equal": gens}
+
+
+def superstep_guards_and_resume(name, eng, model_name, data, ckpt_root):
+    """The 2NN plain lane's card checks: a warm chunk under
+    ``transfer_guard`` and ``retrace_guard`` raises nothing; a sync inside
+    the round raises there (before any capture); a fresh engine restored
+    from ``save`` replays 20 ``round()`` calls bitwise equal to the saved
+    engine's chunk of 20 (params, losses, generator state)."""
+    from repro_torch.analysis import retrace_guard, transfer_guard
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.core.strategies import FedAvg
+    from repro_torch.models import paper
+
+    with transfer_guard():
+        with retrace_guard(lambda: eng.num_compilations, what=name):
+            eng.run(SUPERSTEP_R, rounds_per_step=SUPERSTEP_R)
+    print(f"  {name}: a warm chunk of {SUPERSTEP_R} under transfer_guard() and retrace_guard(): "
+          "no sync, no new graph ok")
+
+    class SyncingFedAvg(FedAvg):
+        def apply(self, opt_state, params, agg_delta):
+            float(agg_delta["out"]["b"].sum())         # a sync inside the round
+            return super().apply(opt_state, params, agg_delta)
+
+    model = paper.mnist_2nn(device="cuda")
+    r = np.random.default_rng(0)
+    clients = [(r.normal(size=(20, 784)).astype(np.float32),
+                r.integers(0, 10, 20).astype(np.int32)) for _ in range(10)]
+    bad = RoundEngine(model.loss, model.init(0), clients,
+                      FedAvgConfig(C=0.5, E=1, B=10, lr=0.1, seed=0),
+                      strategy=SyncingFedAvg(), device_sampling=True, device="cuda")
+    try:
+        with transfer_guard():
+            bad.run(1)
+    except RuntimeError as e:
+        require("synchroniz" in str(e), f"{name}: an unexpected error {e}")
+        print(f"  {name}: a .item() inside the round under transfer_guard(): raised "
+              f"({str(e).splitlines()[0][:80]}), {bad.num_compilations} graphs ok")
+    else:
+        raise AssertionError(f"{name}: a sync inside the round did not raise")
+    del bad
+
+    path = eng.save(ckpt_root / "superstep")
+    whole = eng.run(SUPERSTEP_R, rounds_per_step=SUPERSTEP_R).records[-SUPERSTEP_R:]
+    fresh, _, _ = make_engine(model_name, data, device_sampling=True)
+    require(fresh.restore(ckpt_root / "superstep") == eng.round_idx - SUPERSTEP_R,
+            f"{name}: restored a wrong round")
+    losses = torch.stack([fresh.round()["loss"] for _ in range(SUPERSTEP_R)]).cpu().tolist()
+    torch.cuda.synchronize()
+    a, b = host_leaves(eng.params), host_leaves(fresh.params)
+    differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    ok = (differ == 0 and losses == [r.train_loss for r in whole]
+          and torch.equal(eng._gen.get_state(), fresh._gen.get_state()))
+    print(f"  {name}: save ({path}) + restore into a fresh engine + {SUPERSTEP_R} x round() "
+          f"against the saved engine's chunk of {SUPERSTEP_R}: {len(a)} leaves, {differ} not "
+          f"bitwise equal, losses equal {losses == [r.train_loss for r in whole]}, generator "
+          f"states equal {torch.equal(eng._gen.get_state(), fresh._gen.get_state())} "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: superstep(20) != 20 x round() after a resume")
+    return {"guarded_chunk": True, "sync_raised": True, "resume_bitwise": True}
+
+
+def profile_chunk(name, eng, kernel, r):
+    """One superstep chunk of r rounds under torch.profiler: its host wall,
+    device busy (the union of the ops' intervals), idle share and device
+    ops. The profile must hold device ops, and among the hand kernels only
+    the lane's main-route kernel, r records, one a replay; the wrappers must
+    count nothing. CUPTI on the card sometimes loses a block of records,
+    the kernel's among them: a chunk short of the kernel's records is
+    profiled again (up to ``PROFILE_ATTEMPTS`` chunks in all), and a short
+    chunk passes only if it also lacks other device ops of the complete
+    one, so a replay that skipped the kernel fails. Every chunk is printed;
+    the launches returned are the records of all of them."""
+    main = MAIN_ROUTE_KERNEL[kernel]
+    tries = []
+    for _ in range(PROFILE_ATTEMPTS):
+        reset_counts()
+        wall, ops, rows = device_profile(lambda: eng._superstep(r))
+        records = kernel_records(ops)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+        tries.append({"rounds": r, "wall_s": wall, "device_busy_s": busy,
+                      "idle_share": 1 - busy / wall if ops else None, "device_ops": len(ops),
+                      "kernel_records": records})
+        print(f"  {name}: a chunk of {r} rounds under the profiler: wall {wall:.4f} s "
+              f"({wall / r:.4f} s a round), device busy {busy:.4f} s (idle share "
+              f"{1 - busy / wall:.1%}), {len(ops)} device ops ({len(ops) / r:.0f} a round); "
+              f"hand kernels in the records {records}")
+        require(ops, f"{name}: the profiler saw no device op in a chunk of {r} replays")
+        require(not counts, f"{name}: the wrappers counted {counts} in a chunk of replays")
+        require(set(records) <= {main} and records.get(main, 0) <= r,
+                f"{name}: hand kernels in the profiler's records of a chunk of {r} replays "
+                f"{records}, want only {main}, once a replay")
+        if records.get(main, 0) == r:
+            break
+    else:
+        raise AssertionError(f"{name}: {PROFILE_ATTEMPTS} profiled chunks of {r} replays, none "
+                             f"with {r} {main} records")
+    complete = tries[-1]["device_ops"]
+    require(all(t["device_ops"] + r - t["kernel_records"].get(main, 0) < complete
+                for t in tries[:-1]),
+            f"{name}: a chunk lacked {main} records but no other device op of the complete "
+            "chunk")
+    if len(tries) > 1:
+        print(f"  {name}: {len(tries) - 1} chunk(s) short of {main} records and of device ops "
+              f"({', '.join(str(t['device_ops']) for t in tries[:-1])} against {complete}): "
+              "records lost by the profiler")
+    for us, count, k in rows[:5]:
+        print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+    print(f"  {name}: {main} once a replay in the profiler's records")
+    return {**tries[-1], "attempts": tries,
+            "launches": sum(t["kernel_records"].get(main, 0) for t in tries)}
+
+
+def superstep_spec(train, test):
+    """``mnist_2nn_iid_superstep`` through ``RoundEngine.from_spec``: one
+    run of 20 rounds at the spec's R = 20, one chunk, then ``run_lane``'s
+    profiled chunk."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import get_spec
+
+    spec = get_spec("mnist_2nn_iid_superstep")
+    eng = RoundEngine.from_spec(spec, spec_clients(spec, train), eval_fn=spec_eval_fn(spec, test))
+    require(eng.device_sampling and eng.default_rounds_per_step == SUPERSTEP_R,
+            "the superstep spec did not build a device-sampling engine at R = 20")
+    launches, walls, prof = run_lane(spec.name, eng, SUPERSTEP_R, "fedavg_aggregate")
+    print(f"  {spec.name}: {SUPERSTEP_R} rounds in one chunk, {walls[0]:.4f} s a round "
+          f"(capture included), {eng.num_compilations} graph, test_acc "
+          f"{eng.history.records[-1].test_acc:.4f}")
+    return {"spec": spec.name, "launches": launches, "rounds": SUPERSTEP_R,
+            "round_wall_s": walls[0], "test_acc": eng.history.records[-1].test_acc,
+            "profile": prof}
+
+
+def superstep_phase(train, test):
+    """Phase 22 (module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.specs import get_spec
+
+    lanes = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_superstep_", dir=ROOT / "build"))
+    try:
+        for model_name, spec_name, kernel in SUPERSTEP_LANES:
+            codec = get_spec(spec_name).codec.build() if spec_name else None
+            name = f"{model_name} {codec.name if codec else 'plain'}"
+            host, _, _ = make_engine(model_name, (train, test), codec=codec)
+            eng, _, _ = make_engine(model_name, (train, test), codec=codec, device_sampling=True)
+            check = ("report" if model_name == "mnist_cnn" else
+                     "rtol" if kernel == "sparse_aggregate" else "bitwise")
+            lane = {"lane": name, "kernel": kernel}
+            if model_name == "mnist_cnn":
+                lane["deterministic"] = deterministic_capture_check(model_name, (train, test))
+            lane.update(**captured_vs_eager(name, eng, kernel, check),
+                        **superstep_turns(name, host, eng, model_name))
+            if name == "mnist_2nn plain":
+                lane.update(superstep_guards_and_resume(name, eng, model_name, (train, test),
+                                                        ckpt_root))
+            lane["profile"] = profile_chunk(name, eng, kernel, SUPERSTEP_PROFILE_R[model_name])
+            lane["launches"] = lane["warmup_launches"] + lane["profile"]["launches"]
+            del host, eng
+            free_card()
+            if kernel == "sparse_aggregate":
+                lane["replays_vs_rounds"] = replays_vs_rounds(name, model_name, codec,
+                                                              (train, test))
+                free_card()
+            lanes.append(lane)
+    finally:
+        shutil.rmtree(ckpt_root)
+    spec = superstep_spec(train, test)
+    free_card()
+    for lane in lanes:
+        (h0, s0), (h1, s1) = (lane["turns"][0][1], lane["turns"][1][1]), \
+            (lane["turns"][3][1], lane["turns"][2][1])
+        print(f"  {lane['lane']:18s} host {h0:.4f} / {h1:.4f} s, superstep {s0:.4f} / {s1:.4f} s "
+              f"a round; capture {lane['capture_s']:.3f} s; peak {lane['peak_MiB']:.0f} MiB; "
+              f"idle {lane['profile']['idle_share']:.1%} of a profiled chunk")
+    return lanes, spec
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            for base in ("qagg_stream_kernel", "packed_qagg_kernel", "qagg_kernel",
-                         "fedavg_agg_kernel", "sparse_agg_fused_kernel",
-                         "sparse_agg_kernel", "gossip_mix_dense_kernel", "gossip_mix_kernel",
-                         "flash_fwd_mma_kernel", "flash_fwd_kernel", "ssm_scan_ring_kernel",
-                         "ssm_scan_kernel", "ce_fwd_mma_kernel",
-                         "ce_probs_mma_kernel", "ce_probs_kernel", "ce_partial_kernel",
-                         "ce_merge_kernel"):
+            for base in HAND_KERNELS:
                 if base in mangled:
                     rest = mangled.split(base, 1)[1]
                     entry = base + ("<" + rest.split("EEv")[0][1:] + ">" if "EEv" in rest
@@ -3519,6 +3960,11 @@ def main() -> int:
           "RoundEngine.from_spec(get_spec(name), ...).run and save/restore")
     spec_lanes, resumes, lm_ckpt = spec_front_door(train, test)
 
+    phase(f"22. the superstep lane, full size, through RoundEngine(..., device_sampling=True)"
+          f".run(n, rounds_per_step={SUPERSTEP_R}): one round captured as a CUDA graph")
+    print(f"card: {smi}")
+    superstep_lanes, superstep_spec_lane = superstep_phase(train, test)
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
@@ -3527,6 +3973,9 @@ def main() -> int:
     for lane in spec_lanes:
         if lane["kernel"]:
             launches[lane["kernel"]] += lane["launches"]
+    for lane in superstep_lanes:
+        launches[lane["kernel"]] += lane["launches"]
+    launches["fedavg_aggregate"] += superstep_spec_lane["launches"]
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
@@ -3602,6 +4051,11 @@ def main() -> int:
                                      "lm_checkpoint": lm_ckpt,
                                      "lowrank": [lane for lane in spec_lanes
                                                  if lane["kernel"] is None]}
+    kernels[0]["superstep"] = {"lanes": [l for l in superstep_lanes
+                                         if l["kernel"] == "fedavg_aggregate"],
+                               "spec": superstep_spec_lane}
+    for i in (1, 3):
+        kernels[i]["superstep"] = [l for l in superstep_lanes if l["kernel"] == KERNELS[i]]
     kernels[1]["cnn_rounds_in_turns_s"] = turns
     kernels[4]["anchor"] = anchor_res
     kernels[4]["cnn_ring_round_profile"] = gossip_profile
@@ -3611,7 +4065,8 @@ def main() -> int:
                       "whole number of 16-byte granules, >= 64 bytes; aligned; K <= 32)",
             "general": "qagg_kernel / packed_qagg_kernel (the rest)"}
         stream = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
-                     if lane["kernel"] == KERNELS[i])
+                     if lane["kernel"] == KERNELS[i]) + sum(
+            lane["launches"] for lane in superstep_lanes if lane["kernel"] == KERNELS[i])
         kernels[i]["route_launches"] = {"stream": stream,
                                         "general": launches[KERNELS[i]] - stream}
     kernels[3]["routes"] = {
@@ -3620,7 +4075,8 @@ def main() -> int:
                  "scatters",
         "scatter": "a fill, then sparse_agg_kernel (the rest)"}
     fused = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
-                if lane["kernel"] == KERNELS[3])
+                if lane["kernel"] == KERNELS[3]) + sum(
+        lane["launches"] for lane in superstep_lanes if lane["kernel"] == KERNELS[3])
     kernels[3]["route_launches"] = {"fused": fused, "scatter": launches[KERNELS[3]] - fused}
     kernels[4]["routes"] = {
         "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",

@@ -15,13 +15,17 @@ bit-packed twin), the top-k codec into the CUDA ``sparse_aggregate``; the
 identity and mask codecs decode and go through ``fedavg_aggregate``; the
 low-rank codec is one ``einsum``.
 
-Noise: ``encode(seed, flat)`` draws every random number the codec needs
-from a ``torch.Generator`` seeded with the host integer ``seed``, then
-calls a noise-free core that takes the noise as an argument (the uniform
-draw for quantize, the Bernoulli mask for mask, the Gaussian sketch for
-low-rank). The cores are what the tests hold against the reference with
-the same numpy noise. torch's generators are not JAX's, so payloads are
-never the reference's bit for bit.
+Noise: ``encode(gen, flat)`` draws every random number the codec needs
+from the ``torch.Generator`` ``gen``, then calls a noise-free core that
+takes the noise as an argument (the uniform draw for quantize, the
+Bernoulli mask for mask, the Gaussian sketch for low-rank). The cores are
+what the tests hold against the reference with the same numpy noise.
+torch's generators are not JAX's, so payloads are never the reference's bit
+for bit. The host-sampled round builds ``gen`` from a host integer
+(:func:`codec_generator`); the superstep lane passes the engine's own
+device generator, so nothing in its round creates a generator. Low-rank
+draws on a CPU generator (``host_noise``) and copies its sketches up, which
+a captured round cannot do.
 
 The payloads are the wire: sub-byte and odd widths ship bit-packed 32-bit
 words (``utils.bitpack``), byte-wide codes ship truncated to the true n,
@@ -58,13 +62,16 @@ SEED_BYTES = 8
 class Codec(NamedTuple):
     """A statically shaped update codec over stacked (m, n) delta rows.
 
-    ``encode(seed, flat)`` returns a payload dict of (m, ...) tensors;
+    ``encode(gen, flat)`` returns a payload dict of (m, ...) tensors, its
+    noise drawn from the ``torch.Generator`` ``gen``;
     ``decode(payloads, n)`` rebuilds the (m, n) fp32 delta estimates.
     ``wire_bytes(n)`` is one client's upload size from shapes alone;
     ``payload_bytes(payload)`` the realized size of one client's payload
     (leaves without the client axis). ``aggregate(payloads, weights, n)``,
     where present, fuses decode into the weighted server mean (RAW count
-    weights); :func:`decode_aggregate` is the entry point.
+    weights); :func:`decode_aggregate` is the entry point. ``host_noise``
+    marks a codec whose ``gen`` must be a CPU generator whatever the
+    payload's device (low-rank's sketch seeds).
     """
 
     name: str
@@ -74,12 +81,20 @@ class Codec(NamedTuple):
     payload_bytes: Callable
     unbiased: bool
     aggregate: Optional[Callable] = None
+    host_noise: bool = False
 
 
 def _generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def codec_generator(codec: Codec, seed: int, device) -> torch.Generator:
+    """The generator ``codec.encode`` takes on the host-sampled lane: seeded
+    with the host integer ``seed``, on ``device``, or on the CPU for a
+    ``host_noise`` codec."""
+    return _generator(seed, "cpu" if codec.host_noise else device)
 
 
 def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -164,7 +179,7 @@ def _lowrank_aggregate_core(a, b, w, n):
 def identity_codec() -> Codec:
     """fp32 passthrough: the compressed lane equals the plain lane."""
 
-    def encode(seed, flat):
+    def encode(gen, flat):
         return {"values": flat.to(torch.float32)}
 
     def decode(payloads, n):
@@ -197,9 +212,8 @@ def quantize_codec(bits: int = 8, chunk: int = 512) -> Codec:
     packed = bits % 8 != 0
     wpc = words_per_chunk(chunk, bits) if packed else None
 
-    def encode(seed, flat):
+    def encode(gen, flat):
         m, n = flat.shape
-        gen = _generator(seed, flat.device)
         u = torch.rand((m, -(-n // chunk), chunk), generator=gen, device=flat.device)
         return _quantize_core(flat, u, bits=bits, chunk=chunk)
 
@@ -257,8 +271,7 @@ def mask_codec(keep_frac: float = 0.1) -> Codec:
     if not 0.0 < keep_frac <= 1.0:
         raise ValueError(f"keep_frac must be in (0, 1], got {keep_frac}")
 
-    def encode(seed, flat):
-        gen = _generator(seed, flat.device)
+    def encode(gen, flat):
         mask = torch.rand(flat.shape, generator=gen, device=flat.device) < keep_frac
         return _mask_core(flat, mask, keep_frac)
 
@@ -285,7 +298,7 @@ def topk_codec(keep_frac: float = 0.05) -> Codec:
     def k_of(n: int) -> int:
         return max(n * frac_ppb // 10**9, 1)
 
-    def encode(seed, flat):
+    def encode(gen, flat):
         flat = flat.to(torch.float32)
         _, idx = torch.topk(flat.abs(), k_of(flat.shape[1]), dim=1)
         return {"idx": idx.to(torch.int32), "values": torch.gather(flat, 1, idx)}
@@ -315,16 +328,17 @@ def lowrank_codec(rank: int = 8) -> Codec:
     B = A^T M for a Gaussian A of shape (d1, rank), plus the int64 seed that
     regrows A (the ``key`` leaf, charged at ``SEED_BYTES``). Decode is
     A B / rank, unbiased since E[A A^T] = rank I. The seeds are host
-    integers and A is drawn by the CPU generator, then moved to the
-    payload's device, so the server regrows the same A on any device. The
+    integers drawn from ``gen``, a CPU generator (``host_noise``), and A is
+    drawn by the CPU generator, then moved to the payload's device, so the
+    server regrows the same A on any device. The
     aggregate Σ_k w_k A_k B_k / rank is one ``einsum`` over (client, rank);
     the reference's is an XLA ``dot_general``, not a Pallas kernel."""
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
 
-    def encode(seed, flat):
+    def encode(gen, flat):
         m, n = flat.shape
-        seeds = torch.randint(0, 2**62, (m,), generator=_generator(seed, "cpu"))
+        seeds = torch.randint(0, 2**62, (m,), generator=gen)
         a = _lowrank_sketch(seeds, _lowrank_dims(n)[0], rank, flat.device)
         return {"b": _lowrank_core(flat, a), "key": seeds}
 
@@ -350,6 +364,7 @@ def lowrank_codec(rank: int = 8) -> Codec:
         payload_bytes=lambda p: 4 * p["b"].numel() + SEED_BYTES,
         unbiased=True,
         aggregate=aggregate,
+        host_noise=True,
     )
 
 
@@ -373,7 +388,7 @@ def decode_aggregate(codec: Codec, payloads, weights, n: int) -> torch.Tensor:
 def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=None):
     """``round_step(state, batch) -> (state, {"loss": ...})`` for the
     compressed lane: ClientUpdate for the cohort, the fp32 deltas raveled
-    to (m, n) and encoded with ``batch.seed``, decode + weighted average
+    to (m, n) and encoded with the generator ``batch.gen``, decode + weighted average
     through :func:`decode_aggregate`, then ``strategy.apply``. The loss is
     the plain lane's, so the identity codec reproduces the plain step
     exactly. The reference's ``build_compressed_round_step``
@@ -381,9 +396,10 @@ def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=Non
     strategy = resolve_strategy(strategy)
 
     def round_step(state, rb):
-        if rb.seed is None:
-            raise ValueError("the compressed round step needs RoundBatch.seed "
-                             "(the codec stream's seed)")
+        if rb.gen is None:
+            raise ValueError("the compressed round step needs RoundBatch.gen, the codec "
+                             "stream's torch.Generator (seeded from the round's host seed "
+                             "on the host-sampled lane)")
         client_params, losses = client_update(
             loss_fn, state.params, rb.data, rb.step_mask, rb.lr
         )
@@ -391,7 +407,7 @@ def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=Non
         loss = masked_weighted_loss(losses, rb.step_mask, w.to(losses.device))
         deltas = tree_map(lambda c, p: (c - p).float(), client_params, state.params)
         flat, spec = tree_ravel_stacked(deltas)
-        payloads = codec.encode(rb.seed, flat)
+        payloads = codec.encode(rb.gen, flat)
         agg_delta = tree_unravel(spec, decode_aggregate(codec, payloads, w, spec.total_size))
         outer, new_params = strategy.apply(state.outer_state, state.params, agg_delta)
         return state._replace(params=new_params, outer_state=outer), {"loss": loss}

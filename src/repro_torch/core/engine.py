@@ -48,6 +48,19 @@ cannot be reproduced here, so each gossip round instead draws one
 compared with the reference in a band, and exact checks inject the
 reference's batches through ``build_gossip_round_step``. ``run`` reads the
 loss and the consensus distance back in one sync a round.
+
+Supersteps (the reference's ``device_sampling=True`` and ``run(...,
+rounds_per_step=R)``): the engine holds one ``torch.Generator`` on its
+device, seeded with ``cfg.seed``, and every round draws from it in a fixed
+order: the cohort uniforms (K,) (``sample_clients_device``), the batch
+uniforms (m, E, n_pad), then the codec's noise. The counts and steps per
+epoch moved to the device at construction, so the weights, the step mask
+and the real-row counts come from the device ids, and the round reads no
+host value. That round is captured once as a CUDA graph (``core.graphs``)
+and replayed once a round; the host uploads a chunk's R learning rates
+once and reads its R losses back once. On the CPU the same body runs
+eagerly. The cohorts are Philox's, not threefry's: the same distribution as
+the reference's, other realizations.
 """
 from __future__ import annotations
 
@@ -59,21 +72,29 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import sanctioned_staging
 from repro_torch.checkpoint.io import (
     latest_step,
     peek_metadata,
     restore_checkpoint,
     save_checkpoint,
 )
-from repro_torch.core.compression import Codec, build_compressed_round_step
+from repro_torch.core.compression import (
+    Codec,
+    build_compressed_round_step,
+    codec_generator,
+)
 from repro_torch.core.fedavg import (
     FedAvgConfig,
     client_update,
     client_update_stacked,
+    cohort_size,
     masked_weighted_loss,
     sample_clients,
+    sample_clients_device,
     server_aggregate,
 )
+from repro_torch.core.graphs import RoundGraph
 from repro_torch.core.strategies import FedAvg, ServerStrategy, resolve_strategy
 from repro_torch.core.topology import Topology, resolve_topology
 from repro_torch.data.batching import pack_clients
@@ -106,17 +127,18 @@ class RoundBatch(NamedTuple):
     step_mask:      (m, n_steps) 0/1 float; padded steps are no-ops.
     client_weights: (m,) RAW example counts n_k, on the host or the device;
                     normalized once, inside ``server_aggregate``.
-    lr:             client learning rate for this round.
-    seed:           host integer seeding the codec's generator (the
-                    reference's ``RoundBatch.key``); the compressed round
-                    step needs it, the plain one ignores it.
+    lr:             client learning rate for this round: a float, or a 0-d
+                    fp32 tensor on the device.
+    gen:            the ``torch.Generator`` the codec draws its noise from
+                    (the reference's ``RoundBatch.key``); the compressed
+                    round step needs it, the plain one ignores it.
     """
 
     data: Any
     step_mask: torch.Tensor
     client_weights: torch.Tensor
     lr: Any = None
-    seed: Optional[int] = None
+    gen: Optional[torch.Generator] = None
 
 
 def build_simulation_round_step(
@@ -244,7 +266,15 @@ class RoundEngine:
     ``strategy`` (``core.strategies``: None, a registry name or an instance)
     is the server's update rule over the aggregated fp32 delta; its
     ``validate_cfg`` runs before its state is built, and its state (FedAvgM's
-    fp32 velocity) rides in ``outer_state``."""
+    fp32 velocity) rides in ``outer_state``.
+
+    ``device_sampling=True`` draws every round's cohort, batches and codec
+    noise on the device from the engine's generator (module docstring),
+    and ``run(n, rounds_per_step=R)`` then runs R rounds a host sync;
+    ``rounds_per_step`` here is ``run``'s default (the spec's
+    ``execution.rounds_per_step``). It takes the plain and FedAvgM lanes
+    and the codecs whose noise is drawn on the device; low-rank and gossip
+    are refused (ROADMAP Queue 1 item 6)."""
 
     def __init__(
         self,
@@ -257,8 +287,21 @@ class RoundEngine:
         strategy=None,
         codec: Optional[Codec] = None,
         topology=None,
+        device_sampling: bool = False,
+        rounds_per_step: Optional[int] = None,
         device="cuda",
     ):
+        if device_sampling and topology is not None:
+            raise ValueError(
+                "topology= is incompatible with device_sampling=True: the gossip lane runs "
+                "every node every round (no cohort draw to move to the device); its own "
+                "superstep is not ported yet (ROADMAP Queue 1 item 6), so construct the "
+                "engine without device_sampling")
+        if device_sampling and codec is not None and codec.host_noise:
+            raise ValueError(
+                f"codec {codec.name!r} draws its noise on the host and copies it to the "
+                "device every round, which a captured round cannot do: low-rank under "
+                "device_sampling=True is not ported yet (ROADMAP Queue 1 item 6)")
         self.device = resolve_device(device)
         # A private copy: the caller's tensors are never updated.
         self.params = tree_map(
@@ -278,10 +321,20 @@ class RoundEngine:
                               max_bytes=device_pool_budget(self.device))
         self._x = torch.from_numpy(packed.x).to(self.device)
         self._y = torch.from_numpy(packed.y).to(self.device)
-        # Keep only the metadata: counts and steps stay on the host, where
-        # the cohort is drawn.
+        # Keep only the metadata on the host, where the host-sampled lane
+        # draws its cohort; a device-sampling engine also holds device copies
+        # of the counts and steps per epoch, its generator and its graph.
         self.packed = packed._replace(x=None, y=None)
         self.codec = codec
+        self.device_sampling = bool(device_sampling)
+        self.default_rounds_per_step = rounds_per_step
+        self._gen = self._graph = None
+        if self.device_sampling:
+            self._counts = torch.from_numpy(packed.counts).to(self.device)
+            self._spe = torch.from_numpy(packed.steps_per_epoch.astype(np.int64)).to(self.device)
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(int(cfg.seed))
+            self._graph = RoundGraph(self._gen)
         self.topology: Optional[Topology] = None
         if topology is not None:
             self._init_gossip(loss_fn, resolve_topology(topology))
@@ -352,10 +405,6 @@ class RoundEngine:
         lane for yet is refused before any state is built, naming its
         ROADMAP item."""
         ex = spec.execution
-        if ex.device_sampling or ex.rounds_per_step is not None:
-            raise ValueError(
-                f"spec {spec.name!r} sets execution.device_sampling/rounds_per_step: the "
-                "superstep lane is not ported to repro_torch yet (ROADMAP Queue 1 item 6)")
         if spec.async_spec is not None:
             if spec.codec is not None:
                 raise ValueError(
@@ -394,12 +443,23 @@ class RoundEngine:
             strategy=spec.build_strategy(),
             codec=spec.build_codec(),
             topology=spec.topology.build() if spec.topology is not None else None,
+            device_sampling=ex.device_sampling,
+            rounds_per_step=ex.rounds_per_step,
             device=device,
         )
 
     @property
     def num_clients(self) -> int:
         return self.packed.num_clients
+
+    @property
+    def num_compilations(self) -> int:
+        """Round programs behind the device-sampling loop (the reference's
+        jit cache sizes, ``engine.py:840``): the one captured CUDA graph on
+        a card, whatever R is, a ragged last chunk and ``round()`` included;
+        on the CPU the eager round body, once it has run. 0 on the
+        host-sampled lanes, which run eagerly and hold no graph."""
+        return 0 if self._graph is None else self._graph.programs
 
     def consensus_params(self):
         """The node-mean parameter tree on the gossip lane (fp32 mean over
@@ -434,20 +494,27 @@ class RoundEngine:
         checkpoint. The numpy bit-generator state rides as JSON (its 128-bit
         integers overflow msgpack's ints). ``sample_key`` is what a
         host-sampling reference engine holds, ``jax.random.PRNGKey(seed)``:
-        ``[0, seed]`` for a seed below 2**32."""
+        ``[0, seed]`` for a seed below 2**32. A device-sampling engine also
+        writes its generator's ``get_state()`` bytes as hex
+        (``torch_generator_state``) and the generator's device type
+        (``torch_generator_device``): the device stream it resumes from."""
+        metadata = {
+            "round_idx": self.round_idx,
+            "rng_state": json.dumps(self.rng.bit_generator.state),
+            "sample_key": [int(self.cfg.seed) >> 32, int(self.cfg.seed) & 0xFFFFFFFF],
+            "device_sampling": self.device_sampling,
+            "strategy": self.strategy.name,
+            "topology": self.topology.name if self.topology is not None else None,
+            "history": [dataclasses.asdict(r) for r in self.history.records],
+        }
+        if self.device_sampling:
+            metadata["torch_generator_state"] = self._gen.get_state().numpy().tobytes().hex()
+            metadata["torch_generator_device"] = self.device.type
         return save_checkpoint(
             ckpt_dir,
             {"params": self.params, "strategy_state": self.outer_state},
             step=self.round_idx,
-            metadata={
-                "round_idx": self.round_idx,
-                "rng_state": json.dumps(self.rng.bit_generator.state),
-                "sample_key": [int(self.cfg.seed) >> 32, int(self.cfg.seed) & 0xFFFFFFFF],
-                "device_sampling": False,
-                "strategy": self.strategy.name,
-                "topology": self.topology.name if self.topology is not None else None,
-                "history": [dataclasses.asdict(r) for r in self.history.records],
-            },
+            metadata=metadata,
         )
 
     def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
@@ -455,20 +522,38 @@ class RoundEngine:
         engine, built with the same population and config; returns the
         restored round index. The step is pinned once, and every guard runs
         on the metadata alone before any state changes: the sampling mode,
-        the topology, the strategy, and a checkpoint that predates
-        strategies loaded into a stateful one. Leaves land on the engine's
-        device in the dtypes it holds."""
+        the device stream (a reference device-sampling checkpoint holds a
+        threefry key, which Philox cannot continue; a generator state of
+        another device type), the topology, the strategy, and a checkpoint
+        that predates strategies loaded into a stateful one. Leaves land on
+        the engine's device in the dtypes it holds."""
         if step is None:
             step = latest_step(ckpt_dir)
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         meta = peek_metadata(ckpt_dir, step=step)
-        if meta.get("device_sampling"):
+        recorded_ds = bool(meta.get("device_sampling", False))
+        if recorded_ds != self.device_sampling:
             raise ValueError(
-                "checkpoint was written by a device_sampling=True engine but this engine "
-                "draws its cohorts on the host: resuming across sampling modes would "
-                "silently continue with a different cohort stream (the device stream is "
-                "ROADMAP Queue 1 item 6)")
+                f"checkpoint was written by a device_sampling={recorded_ds} engine but this "
+                f"engine has device_sampling={self.device_sampling}: resuming across sampling "
+                "modes would silently continue with a different cohort stream")
+        gen_state = None
+        if self.device_sampling:
+            if "torch_generator_state" not in meta:
+                raise ValueError(
+                    "checkpoint was written by the reference's device_sampling=True engine: "
+                    "it carries a threefry sample_key and no torch generator state, and "
+                    "Philox cannot continue threefry's stream; resume it in the reference, "
+                    "or start this engine's device stream afresh")
+            gen_device = meta.get("torch_generator_device")
+            if gen_device != self.device.type:
+                raise ValueError(
+                    f"checkpoint's torch generator state is a {gen_device} generator's but "
+                    f"this engine draws on {self.device.type}: the two devices' generators "
+                    "are different streams, so the run could not continue bit for bit")
+            gen_state = torch.frombuffer(
+                bytearray(bytes.fromhex(meta["torch_generator_state"])), dtype=torch.uint8)
         rec_topo = meta.get("topology")
         eng_topo = self.topology.name if self.topology is not None else None
         if rec_topo != eng_topo:
@@ -499,32 +584,25 @@ class RoundEngine:
         self.params = params
         self.round_idx = int(meta["round_idx"])
         self.rng.bit_generator.state = json.loads(meta["rng_state"])
+        if gen_state is not None:
+            self._gen.set_state(gen_state)
         if "history" in meta:
             self.history = History([RoundRecord(**dict(d)) for d in meta["history"]])
         return self.round_idx
 
-    def materialize_round_batch(self, ids, generator_seed: int):
-        """(batch, step_mask, weights) for cohort ``ids``, permutations drawn
-        from a device generator seeded with ``generator_seed``.
-
-        One draw order per (client, epoch): sorting by ``u + 2*(row >= n_k)``
-        puts a uniform permutation of the client's n_k real rows first and
-        the tiled padding rows after, so the active steps (ceil(n_k / B) per
-        epoch) see every real example exactly once per epoch. Weights are
-        the host float32 counts."""
-        ids = np.asarray(ids)
+    def _permuted_batches(self, idx: torch.Tensor, n_real: torch.Tensor, u: torch.Tensor):
+        """(bx, by) of the cohort ``idx`` (m,) on the device: one draw order
+        per (client, epoch) from the (m, E, n_pad) uniforms ``u``. Sorting by
+        ``u + 2*(row >= n_k)`` puts a uniform permutation of the client's n_k
+        real rows first and the tiled padding rows after, so the active
+        steps (ceil(n_k / B) per epoch) see every real example exactly once
+        per epoch."""
         E = self.cfg.E
         spe = self.packed.max_real_steps_per_epoch
         B = self.packed.batch_size
         dev = self.device
-        idx = torch.from_numpy(ids.astype(np.int64)).to(dev)
         xs = self._x.index_select(0, idx)                       # (m, n_pad, ...)
         m, n_pad = xs.shape[:2]
-        counts = self.packed.counts[ids]
-        n_real = torch.from_numpy(counts.astype(np.int64)).to(dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(generator_seed))
-        u = torch.rand((m, E, n_pad), generator=gen, device=dev)
         is_pad = torch.arange(n_pad, device=dev) >= n_real[:, None, None]
         perm = torch.argsort(u + 2.0 * is_pad, dim=-1)[:, :, : spe * B]
         perm = perm.reshape(m, E * spe * B)
@@ -532,25 +610,97 @@ class RoundEngine:
         bx = xs[rows, perm].reshape((m, E * spe, B) + tuple(xs.shape[2:]))
         ys = self._y.index_select(0, idx)
         by = ys[rows, perm].reshape((m, E * spe, B) + tuple(ys.shape[2:]))
+        return bx, by
+
+    def _batch_uniforms(self, m: int, gen: torch.Generator) -> torch.Tensor:
+        return torch.rand((m, self.cfg.E, self._x.shape[1]), generator=gen, device=self.device)
+
+    def materialize_round_batch(self, ids, generator_seed: int):
+        """(batch, step_mask, weights) for host cohort ``ids``, the
+        permutations drawn from a device generator seeded with
+        ``generator_seed``: the host-sampled lane's batches. The step mask
+        comes from the host steps per epoch; the weights are the host
+        float32 counts."""
+        ids = np.asarray(ids)
+        dev = self.device
+        idx = torch.from_numpy(ids.astype(np.int64)).to(dev)
+        counts = self.packed.counts[ids]
+        n_real = torch.from_numpy(counts.astype(np.int64)).to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(generator_seed))
+        batch = self._permuted_batches(idx, n_real, self._batch_uniforms(len(ids), gen))
+        E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
         spe_k = self.packed.steps_per_epoch[ids]
         mask = (np.arange(E * spe)[None, :] % spe < spe_k[:, None]).astype(np.float32)
-        return (bx, by), torch.from_numpy(mask).to(dev), torch.from_numpy(counts.copy())
+        return batch, torch.from_numpy(mask).to(dev), torch.from_numpy(counts.copy())
+
+    def assemble_round_batch(self, ids: torch.Tensor, u: torch.Tensor):
+        """(batch, step_mask, weights) for the device cohort ``ids`` (int64)
+        and the (m, E, n_pad) uniforms ``u``, all computed on the device from
+        the device counts and steps per epoch (the reference's
+        ``_assemble_batches``, ``engine.py:1498``): the device-sampling
+        round's batches, which read no host value. For the same ids and
+        uniforms they equal :meth:`materialize_round_batch`'s."""
+        E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
+        w = self._counts.index_select(0, ids)
+        batch = self._permuted_batches(ids, w.long(), u)
+        spe_k = self._spe.index_select(0, ids)
+        steps = torch.arange(E * spe, device=self.device) % spe
+        mask = (steps[None, :] < spe_k[:, None]).to(torch.float32)
+        return batch, mask, w
+
+    def _device_round(self, params, outer_state, lr):
+        """The device-sampling round body (``core.graphs``): cohort, batch
+        uniforms and codec noise from the engine's generator, in that order,
+        then the lane's round step. Returns (params, outer_state, loss)."""
+        gen = self._gen
+        m = cohort_size(self.num_clients, self.cfg.C)
+        ids = sample_clients_device(gen, self.num_clients, m)
+        batch, mask, w = self.assemble_round_batch(ids, self._batch_uniforms(m, gen))
+        state, metrics = self._round_step(
+            RoundState(params, outer_state=outer_state),
+            RoundBatch(batch, mask, w, lr=lr, gen=gen),
+        )
+        return state.params, state.outer_state, metrics["loss"]
 
     def round(self) -> Dict[str, torch.Tensor]:
         """One synchronous round; returns {'loss': device scalar}, plus
-        'consensus' on the gossip lane."""
+        'consensus' on the gossip lane. On a device-sampling engine it is
+        one replay of the captured round (one eager body on the CPU)."""
         if self.topology is not None:
             return self._round_gossip()
+        if self.device_sampling:
+            return {"loss": self._advance(1)[0]}
         ids, seed, lr = self._next_round_inputs()
         batch, mask, w = self.materialize_round_batch(ids, seed)
-        codec_seed = None if self.codec is None else seed ^ 0x5EED
+        codec_gen = None if self.codec is None else codec_generator(
+            self.codec, seed ^ 0x5EED, self.device)
         state, metrics = self._round_step(
             RoundState(self.params, outer_state=self.outer_state),
-            RoundBatch(batch, mask, w, lr=lr, seed=codec_seed),
+            RoundBatch(batch, mask, w, lr=lr, gen=codec_gen),
         )
         self.params, self.outer_state = state.params, state.outer_state
         self.round_idx += 1
         return metrics
+
+    def _advance(self, r: int) -> torch.Tensor:
+        """r device-sampling rounds through the round graph; the (r,) losses
+        stay on the device. The r learning rates are uploaded once, the one
+        host to device copy of the chunk."""
+        with sanctioned_staging():
+            lrs = torch.tensor([self.lr_at(self.round_idx + j) for j in range(r)],
+                               dtype=torch.float32).to(self.device)
+        self.params, self.outer_state, losses = self._graph.run(
+            self._device_round, self.params, self.outer_state, lrs)
+        self.round_idx += r
+        return losses
+
+    def _superstep(self, r: int) -> np.ndarray:
+        """Advance r rounds with one host sync (the reference's
+        ``engine.py:1120``); returns the (r,) losses, read back once."""
+        losses = self._advance(r)
+        with sanctioned_staging():
+            return losses.cpu().numpy()
 
     def _round_gossip(self) -> Dict[str, torch.Tensor]:
         """Every node trains its own client from its replica, then one
@@ -565,18 +715,53 @@ class RoundEngine:
         self.round_idx += 1
         return metrics
 
+    def _resolve_rounds_per_step(self, rounds_per_step, n_rounds: int,
+                                 eval_every: int) -> int:
+        """The reference's ``engine.py:1092``: ``None`` takes the engine's
+        default, then auto-selects: a host-sampled engine runs a round a
+        step; a device-sampling one a chunk per evaluation (``eval_every``)
+        with an ``eval_fn``, else the whole run."""
+        if rounds_per_step is None:
+            rounds_per_step = self.default_rounds_per_step
+        if rounds_per_step is None:
+            if not self.device_sampling:
+                return 1
+            return max(1, int(eval_every)) if self.eval_fn is not None \
+                else max(1, int(n_rounds))
+        R = int(rounds_per_step)
+        if R < 1:
+            raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
+        if R > 1 and self.topology is not None:
+            raise ValueError(
+                "rounds_per_step > 1 on the gossip lane: the gossip superstep is not "
+                "ported yet (ROADMAP Queue 1 item 6)")
+        if R > 1 and not self.device_sampling:
+            raise ValueError(
+                "rounds_per_step > 1 needs RoundEngine(device_sampling=True): the "
+                "superstep draws its cohorts on the device from the engine's generator, "
+                "which this engine's numpy stream cannot feed without a host sync a round")
+        return R
+
     def run(
         self,
         n_rounds: int,
         eval_every: int = 1,
         target_acc: Optional[float] = None,
         verbose: bool = False,
+        rounds_per_step: Optional[int] = None,
     ) -> History:
         """Run ``n_rounds`` of Algorithm 1, evaluating every ``eval_every``
         rounds and after the last; stop early once ``target_acc`` is met.
         Each record's ``wall_s`` ends at the synced loss read. On the gossip
         lane each record also carries the consensus distance, read in the
-        same sync as the loss, and evaluation sees ``consensus_params()``."""
+        same sync as the loss, and evaluation sees ``consensus_params()``.
+
+        A device-sampling engine runs chunks of ``rounds_per_step=R`` rounds
+        (``None`` auto-selects, :meth:`_resolve_rounds_per_step`), one host
+        sync a chunk: evaluation and ``target_acc`` then act at chunk
+        boundaries (an eval whenever a chunk crosses an eval point, so the
+        target overshoots by at most R - 1 rounds), and each round's
+        ``wall_s`` is the chunk's time / r."""
         if int(eval_every) < 1:
             raise ValueError(
                 f"eval_every must be >= 1, got {eval_every} (use a large "
@@ -586,6 +771,9 @@ class RoundEngine:
             raise ValueError(
                 "run(target_acc=...) needs an eval_fn to measure accuracy"
             )
+        R = self._resolve_rounds_per_step(rounds_per_step, n_rounds, eval_every)
+        if self.device_sampling:
+            return self._run_supersteps(n_rounds, R, eval_every, target_acc, verbose)
         for i in range(n_rounds):
             t0 = time.perf_counter()
             metrics = self.round()
@@ -600,13 +788,40 @@ class RoundEngine:
             if self.eval_fn is not None and (
                 self.round_idx % eval_every == 0 or i == n_rounds - 1
             ):
-                ev = self.eval_fn(self.consensus_params())
-                rec.test_acc = float(ev["acc"])
-                rec.test_loss = float(ev.get("loss", np.nan))
-                if verbose:
-                    cons = "" if consensus is None else f"consensus {consensus:.2e} "
-                    print(f"round {self.round_idx:5d} loss {rec.train_loss:.4f} "
-                          f"{cons}test_acc {rec.test_acc:.4f}")
-                if target_acc is not None and rec.test_acc >= target_acc:
+                acc = self._evaluate(rec, verbose)
+                if target_acc is not None and acc >= target_acc:
                     break
         return self.history
+
+    def _run_supersteps(self, n_rounds, R, eval_every, target_acc, verbose) -> History:
+        """The reference's ``_run_supersteps`` (``engine.py:1203``)."""
+        done = 0
+        while done < n_rounds:
+            r = min(R, n_rounds - done)
+            t0 = time.perf_counter()
+            losses = self._superstep(r)
+            chunk_s = time.perf_counter() - t0
+            done += r
+            for j in range(r):
+                self.history.records.append(RoundRecord(
+                    round=self.round_idx - r + j + 1, train_loss=float(losses[j]),
+                    wall_s=chunk_s / r))
+            crossed = self.round_idx // eval_every > (self.round_idx - r) // eval_every
+            if self.eval_fn is not None and (crossed or done >= n_rounds):
+                acc = self._evaluate(self.history.records[-1], verbose)
+                if target_acc is not None and acc >= target_acc:
+                    break
+        return self.history
+
+    def _evaluate(self, rec: RoundRecord, verbose: bool) -> float:
+        """``eval_fn`` on ``consensus_params()`` into ``rec``; returns the
+        accuracy. Evaluation reads its result back: a sanctioned sync."""
+        with sanctioned_staging():
+            ev = self.eval_fn(self.consensus_params())
+            rec.test_acc = float(ev["acc"])
+            rec.test_loss = float(ev.get("loss", np.nan))
+        if verbose:
+            cons = "" if rec.consensus is None else f"consensus {rec.consensus:.2e} "
+            print(f"round {self.round_idx:5d} loss {rec.train_loss:.4f} "
+                  f"{cons}test_acc {rec.test_acc:.4f}")
+        return rec.test_acc

@@ -9,6 +9,8 @@
 - ``sample_clients``     S_t = random set of m = max(C*K, 1) clients, the
                          same numpy draw as the reference, so the same seed
                          picks the same cohort ids.
+- ``sample_clients_device``  the same draw on the device from a
+                         ``torch.Generator`` (the superstep lane).
 """
 from __future__ import annotations
 
@@ -44,8 +46,23 @@ class FedAvgConfig:
 
 def sample_clients(rng: np.random.Generator, n_clients: int, C: float) -> np.ndarray:
     """S_t <- random set of m clients, m = max(C*K, 1)."""
-    m = max(int(round(C * n_clients)), 1)
-    return rng.choice(n_clients, size=m, replace=False)
+    return rng.choice(n_clients, size=cohort_size(n_clients, C), replace=False)
+
+
+def cohort_size(n_clients: int, C: float) -> int:
+    """m = max(round(C * K), 1), as ``sample_clients`` draws it."""
+    return max(int(round(C * n_clients)), 1)
+
+
+def sample_clients_device(gen: torch.Generator, n_clients: int, m: int) -> torch.Tensor:
+    """On-device S_t draw (the reference's ``fedavg.py:57``): m distinct
+    client ids, uniform without replacement, as the argsort of
+    ``n_clients`` uniforms from ``gen``, the first m kept; int64 on
+    ``gen``'s device. No host value is read, so the draw can sit inside a
+    captured CUDA graph. A different stream from :func:`sample_clients`:
+    the same distribution, other realizations for the same seed."""
+    u = torch.rand(n_clients, generator=gen, device=gen.device)
+    return torch.argsort(u)[:m]
 
 
 def client_update_stacked(loss_fn: Callable, stacked, batches, step_mask, lr):
@@ -53,7 +70,10 @@ def client_update_stacked(loss_fn: Callable, stacked, batches, step_mask, lr):
     (m, ...) ``stacked`` params (the gossip lane's per-node replicas).
 
     ``batches``: tuple of tensors with leading (m, n_steps, B, ...) axes;
-    ``step_mask``: (m, n_steps) 0/1 float. Each step computes every
+    ``step_mask``: (m, n_steps) 0/1 float; ``lr`` a float or a 0-d fp32
+    tensor on the params' device (the superstep lane's static buffer,
+    which a captured graph reads on every replay where a float would be
+    baked in as a constant); both give the same bits. Each step computes every
     client's gradient with one vmapped call and applies
     ``p - lr * mask * g``; a padded step (mask 0) still computes its
     gradient and leaves the client unchanged, as the reference's scan does.

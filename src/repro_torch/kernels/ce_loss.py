@@ -280,9 +280,10 @@ def _launch(hidden, head, labels, route):
     if rc != 0:
         msg = lib.fused_cross_entropy_error_string(rc).decode()
         raise RuntimeError(f"fused_cross_entropy {route} kernel launch failed: {msg} ({rc})")
-    fused_cross_entropy.launches += 1
-    if route == "mma":
-        fused_cross_entropy.tc_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        fused_cross_entropy.launches += 1
+        if route == "mma":
+            fused_cross_entropy.tc_launches += 1
     return loss, lse
 
 
@@ -303,7 +304,8 @@ def ce_probs(hidden, head, labels, lse, g):
     buffer whose rows are padded to a multiple of 8 columns.
     ``ce_probs.launches`` counts the launches of both routes,
     ``ce_probs.tc_launches`` those of the tensor-core one (CPU calls and
-    T = 0 launch nothing and count nothing)."""
+    T = 0 launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     _check(hidden, head, labels)
     T = hidden.shape[0]
     for name, t in (("lse", lse), ("g", g)):
@@ -351,9 +353,10 @@ def _launch_probs(hidden, head, labels, lse, g, route):
     if rc != 0:
         msg = lib.fused_cross_entropy_error_string(rc).decode()
         raise RuntimeError(f"ce_probs {route} kernel launch failed: {msg} ({rc})")
-    ce_probs.launches += 1
-    if route == "mma":
-        ce_probs.tc_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        ce_probs.launches += 1
+        if route == "mma":
+            ce_probs.tc_launches += 1
     return out[:, :V]
 
 

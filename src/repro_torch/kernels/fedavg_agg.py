@@ -81,7 +81,8 @@ def fedavg_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
     storage dtype, accumulated in fp32.
 
     ``fedavg_aggregate.launches`` counts kernel launches (CPU calls and
-    empty outputs launch nothing and count nothing)."""
+    empty outputs launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     _check(stacked, weights)
     if stacked.device.type == "cpu":
         s = float(weights.sum())
@@ -116,7 +117,8 @@ def fedavg_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
     if rc != 0:
         msg = lib.fedavg_aggregate_error_string(rc).decode()
         raise RuntimeError(f"fedavg_aggregate kernel launch failed: {msg} ({rc})")
-    fedavg_aggregate.launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        fedavg_aggregate.launches += 1
     return out
 
 

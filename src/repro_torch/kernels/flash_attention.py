@@ -141,7 +141,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
 
     ``flash_attention.launches`` counts kernel launches, of either route;
     ``flash_attention.tc_launches`` those of the tensor-core route (CPU
-    calls and empty outputs launch nothing and count nothing)."""
+    calls and empty outputs launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     q4, k4, v4, single = _model_layout(q, k, v)
     _check(q4, k4, v4)
 
@@ -195,9 +196,10 @@ def _launch(q4, k4, v4, causal, window, return_lse, route):
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention {route} kernel launch failed: {msg} ({rc})")
-    flash_attention.launches += 1
-    if route == "mma":
-        flash_attention.tc_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        flash_attention.launches += 1
+        if route == "mma":
+            flash_attention.tc_launches += 1
     return out, lse
 
 

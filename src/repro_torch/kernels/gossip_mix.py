@@ -124,7 +124,8 @@ def gossip_mix(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, *,
 
     ``gossip_mix.launches`` counts kernel launches, of either route;
     ``gossip_mix.dense_launches`` those of the dense route (CPU calls and
-    empty outputs launch nothing and count nothing)."""
+    empty outputs launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     _check(x, idx, weight)
     if x.device.type == "cpu":
         err = float((weight.sum(dim=1) - 1.0).abs().max())
@@ -172,9 +173,10 @@ def _launch(x, idx, weight, route):
     if rc != 0:
         msg = lib.gossip_mix_error_string(rc).decode()
         raise RuntimeError(f"gossip_mix {route} kernel launch failed: {msg} ({rc})")
-    gossip_mix.launches += 1
-    if route == "dense":
-        gossip_mix.dense_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        gossip_mix.launches += 1
+        if route == "dense":
+            gossip_mix.dense_launches += 1
     return out
 
 

@@ -185,7 +185,8 @@ def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tens
 
     ``quantized_aggregate.launches`` counts kernel launches, of either route;
     ``quantized_aggregate.stream_launches`` those of the stream route (CPU
-    calls and empty outputs launch nothing and count nothing)."""
+    calls and empty outputs launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     name = "quantized_aggregate"
     if codes.ndim != 2 or chunk < 1 or codes.shape[1] % chunk:
         raise ValueError(f"codes must be (K, C*chunk); got {tuple(codes.shape)} "
@@ -217,7 +218,8 @@ def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: tor
 
     ``packed_quantized_aggregate.launches`` counts kernel launches, of
     either route; ``packed_quantized_aggregate.stream_launches`` those of
-    the stream route."""
+    the stream route (a call under a CUDA stream capture, which only
+    records the launch, counts nothing)."""
     name = "packed_quantized_aggregate"
     if not 1 <= bits <= 15:
         raise ValueError(f"packed aggregation is for bits in 1..15, got {bits}")
@@ -313,9 +315,10 @@ def _launch(payload, lo, scale, weights, out, *, bits, chunk, levels, route):
         fn = lib.quantized_aggregate_u8 if bits == 8 else lib.quantized_aggregate_u16
         rc = fn(*args, C * chunk, chunk, levels, stream)
     _raise_on(rc, f"{wrapper.__name__} {route}")
-    wrapper.launches += 1
-    if route == "stream":
-        wrapper.stream_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        wrapper.launches += 1
+        if route == "stream":
+            wrapper.stream_launches += 1
     return out
 
 

@@ -84,7 +84,8 @@ def sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor, weights: torch.Tenso
 
     ``sparse_aggregate.launches`` counts kernel launches, of either route;
     ``sparse_aggregate.fused_launches`` those of the fused route (CPU calls
-    and k = 0 launch nothing and count nothing)."""
+    and k = 0 launch nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     if idx.ndim != 2 or tuple(idx.shape) != tuple(vals.shape):
         raise ValueError(f"idx and vals must share a (K, k) shape; got idx "
                          f"{tuple(idx.shape)}, vals {tuple(vals.shape)}")
@@ -177,9 +178,10 @@ def _launch(idx, vals, weights, out, route):
     if rc != 0:
         msg = lib.sparse_aggregate_error_string(rc).decode()
         raise RuntimeError(f"sparse_aggregate {route} kernel launch failed: {msg} ({rc})")
-    sparse_aggregate.launches += 1
-    if route == "fused":
-        sparse_aggregate.fused_launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        sparse_aggregate.launches += 1
+        if route == "fused":
+            sparse_aggregate.fused_launches += 1
     return out
 
 

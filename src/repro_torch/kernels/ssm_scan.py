@@ -95,7 +95,8 @@ def ssm_scan(dt, Bm, Cm, x, A, h0):
 
     ``ssm_scan.launches`` counts kernel launches; ``ssm_scan.lane_launches``
     splits them by lanes a channel (CPU calls and empty inputs launch
-    nothing and count nothing)."""
+    nothing and count nothing, and neither does a
+    call under a CUDA stream capture, which only records the launch)."""
     _check(dt, Bm, Cm, x, A, h0)
     if dt.device.type == "cpu":
         return ssm_scan_ref(dt, Bm, Cm, x, A, h0)
@@ -146,8 +147,9 @@ def _launch(dt, Bm, Cm, x, A, h0, lanes):
     if rc != 0:
         msg = lib.ssm_scan_error_string(rc).decode()
         raise RuntimeError(f"ssm_scan kernel launch failed: {msg} ({rc})")
-    ssm_scan.launches += 1
-    ssm_scan.lane_launches[lanes] += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        ssm_scan.launches += 1
+        ssm_scan.lane_launches[lanes] += 1
     return y, h_out
 
 

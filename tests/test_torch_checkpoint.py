@@ -276,11 +276,15 @@ def test_port_checkpoint_resumes_in_the_reference(strategy, tmp_path):
     _next_round_both(ref, eng, ref_model, model, strategy)
 
 
-@pytest.mark.parametrize("lane", ["fedavg", "fedavgm", "q8", "ring"])
+@pytest.mark.parametrize("lane", ["fedavg", "fedavgm", "q8", "ring", "superstep",
+                                  "superstep_fedavgm"])
 def test_resume_in_the_port_is_bit_for_bit(lane, tmp_path):
-    """4 rounds equal 2 rounds, save, restore into a fresh engine, 2 more."""
+    """4 rounds equal 2 rounds, save, restore into a fresh engine, 2 more;
+    on the superstep lanes the device generator's stream continues too."""
     kw = {"fedavgm": dict(strategy=FedAvgM(0.9)), "q8": dict(codec=quantize_codec(8, 256)),
-          "ring": dict(topology="ring"), "fedavg": {}}[lane]
+          "ring": dict(topology="ring"), "fedavg": {},
+          "superstep": dict(device_sampling=True),
+          "superstep_fedavgm": dict(device_sampling=True, strategy=FedAvgM(0.9))}[lane]
     cfg = FedAvgConfig(**{**CFG, "C": 1.0 if lane == "ring" else CFG["C"]})
     _, model = _models()
 
@@ -299,6 +303,10 @@ def test_resume_in_the_port_is_bit_for_bit(lane, tmp_path):
     assert [dataclasses.asdict(r) | {"wall_s": 0} for r in a.history.records] == \
         [dataclasses.asdict(r) | {"wall_s": 0} for r in c.history.records]
     assert a.rng.bit_generator.state == c.rng.bit_generator.state
+    if a.device_sampling:
+        assert torch.equal(a._gen.get_state(), c._gen.get_state())
+    else:
+        assert a._gen is c._gen is None
 
 
 def _state(eng):
@@ -317,10 +325,10 @@ def _unchanged(eng, before):
 def test_restore_guards_refuse_before_any_state_changes(tmp_path):
     _, model = _models()
 
-    def engine(strategy=None, topology=None, C=0.6):
+    def engine(strategy=None, topology=None, C=0.6, device_sampling=False):
         return RoundEngine(model.loss, model.init(0), _clients(),
                            FedAvgConfig(**{**CFG, "C": C}), strategy=strategy,
-                           topology=topology, device="cpu")
+                           topology=topology, device_sampling=device_sampling, device="cpu")
 
     src = engine(FedAvgM(0.9))
     src.run(1)
@@ -356,14 +364,28 @@ def test_restore_guards_refuse_before_any_state_changes(tmp_path):
     ok = engine()
     assert ok.restore(tmp_path / "old") == 1 and _equal(ok.params, plain.params)
 
-    meta = peek_metadata(tmp_path / "fedavgm")
-    save_checkpoint(tmp_path / "device", {"params": src.params, "strategy_state": src.outer_state},
-                    step=1, metadata={**meta, "device_sampling": True})
-    eng = engine(FedAvgM(0.9))
-    before = _state(eng)
-    with pytest.raises(ValueError, match="device_sampling=True"):
-        eng.restore(tmp_path / "device")
-    _unchanged(eng, before)
+    # a device-sampling checkpoint of the reference: a threefry key, which
+    # neither a host-sampling engine nor the port's device stream can resume
+    ref_model, _ = _models()
+    ref = RefEngine(ref_model.loss, ref_model.init(jax.random.PRNGKey(3)), _clients(),
+                    RefConfig(**CFG), interpret=True, strategy=_ref_twin(FedAvgM(0.9)),
+                    device_sampling=True)
+    ref.run(1, rounds_per_step=1)
+    ref.save(tmp_path / "ref_device")
+    for eng, match in ((engine(FedAvgM(0.9)), "device_sampling=True"),
+                       (engine(FedAvgM(0.9), device_sampling=True), "threefry")):
+        before = _state(eng)
+        with pytest.raises(ValueError, match=match):
+            eng.restore(tmp_path / "ref_device")
+        _unchanged(eng, before)
+    # the port's own device-sampling checkpoint resumes in a device-sampling engine
+    dev = engine(FedAvgM(0.9), device_sampling=True)
+    dev.run(1)
+    dev.save(tmp_path / "port_device")
+    ok = engine(FedAvgM(0.9), device_sampling=True)
+    assert ok.restore(tmp_path / "port_device") == 1
+    assert _equal(ok.params, dev.params) and _equal(ok.outer_state, dev.outer_state)
+    assert torch.equal(ok._gen.get_state(), dev._gen.get_state())
 
 
 def test_restore_pins_the_step(tmp_path):

@@ -80,6 +80,12 @@ def _t(a):
     return torch.from_numpy(np.array(a))       # a writable copy
 
 
+def _gen(seed):
+    """The CPU generator ``encode`` draws from, seeded as the host-sampled
+    round seeds it."""
+    return torch.Generator().manual_seed(seed)
+
+
 def _words_t(words):
     """Reference uint32 words -> the port's int32 carrier, same bits."""
     return _t(np.asarray(words).view(np.int32))
@@ -349,7 +355,7 @@ def test_lowrank_core_matches_reference_encode(rng):
 def test_topk_encode_matches_reference(rng):
     flat = _flat(rng, 400)
     want = ref_comp.topk_codec(0.05).encode(jax.random.PRNGKey(0), jnp.asarray(flat))
-    got = comp.topk_codec(0.05).encode(0, _t(flat)[None])
+    got = comp.topk_codec(0.05).encode(_gen(0), _t(flat)[None])
     assert got["idx"].dtype == torch.int32
     np.testing.assert_array_equal(got["idx"][0].numpy(), np.asarray(want["idx"]))
     np.testing.assert_array_equal(got["values"][0].numpy(), np.asarray(want["values"]))
@@ -419,7 +425,7 @@ def test_lowrank_aggregate_matches_reference_on_the_same_sketches(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     # the port's own codec: decode_aggregate equals the weighted mean of decodes
     codec = comp.lowrank_codec(rank)
-    own = codec.encode(11, _t(flats))
+    own = codec.encode(_gen(11), _t(flats))
     agg = comp.decode_aggregate(codec, own, counts, n)
     w = counts / counts.sum()
     mean = (codec.decode(own, n) * _t(w)[:, None]).sum(0)
@@ -436,7 +442,7 @@ def test_quantize_unbiased(rng, bits):
     reps = 150
     codec = comp.quantize_codec(bits, chunk=64)
     rows = _t(np.tile(flat, (reps, 1)))               # each row draws its own noise
-    mean = codec.decode(codec.encode(1234, rows), 200).mean(0).numpy()
+    mean = codec.decode(codec.encode(_gen(1234), rows), 200).mean(0).numpy()
     step = float(np.abs(flat).max() * 2) / (2**bits - 1)
     np.testing.assert_allclose(mean, flat, atol=4 * step / (2 * np.sqrt(reps)) + 1e-3)
 
@@ -445,7 +451,7 @@ def test_mask_unbiased(rng):
     flat = _flat(rng)
     reps = 400
     codec = comp.mask_codec(0.25)
-    payloads = codec.encode(99, _t(np.tile(flat, (reps, 1))))
+    payloads = codec.encode(_gen(99), _t(np.tile(flat, (reps, 1))))
     mean = codec.decode(payloads, flat.size).mean(0).numpy()
     np.testing.assert_allclose(mean, flat, rtol=3.5 * np.sqrt((1 / 0.25 - 1) / reps),
                                atol=0.05)
@@ -458,7 +464,7 @@ def test_lowrank_unbiased(rng):
     reps = 200
     codec = comp.lowrank_codec(8)
     assert codec.unbiased
-    mean = codec.decode(codec.encode(7, _t(np.tile(flat, (reps, 1)))), 300).mean(0).numpy()
+    mean = codec.decode(codec.encode(_gen(7), _t(np.tile(flat, (reps, 1)))), 300).mean(0).numpy()
     d1 = comp._lowrank_dims(300)[0]
     sigma = float(np.linalg.norm(flat) / np.sqrt(d1)) * np.sqrt((d1 + 1) / 8 / reps)
     assert float(np.abs(mean - flat).mean()) <= 5 * sigma + 1e-3
@@ -478,14 +484,14 @@ def test_realized_bytes_equal_wire_bytes_and_reference(n):
         assert codec.wire_bytes(n) == ref_codec.wire_bytes(n) == want, name
         if name == "mask":      # a dense simulation store: realized != wire (reference too)
             continue
-        payload = {k: v[0] for k, v in codec.encode(0, flat).items()}
+        payload = {k: v[0] for k, v in codec.encode(_gen(0), flat).items()}
         assert comp.realized_device_bytes(payload) == want, name
         assert codec.payload_bytes(payload) == want, name
 
 
 def test_mask_payload_bytes_track_the_realized_mask(rng):
     codec = comp.mask_codec(0.1)
-    payload = {k: v[0] for k, v in codec.encode(3, _t(_flat(rng, 5000))[None]).items()}
+    payload = {k: v[0] for k, v in codec.encode(_gen(3), _t(_flat(rng, 5000))[None]).items()}
     kept = int(payload["kept"])
     assert codec.payload_bytes(payload) == 4 * kept + comp.SEED_BYTES
     assert kept == int((payload["values"] != 0).sum())
