@@ -16,7 +16,8 @@ Phases, in order, each printing its own lines:
 4. timing at the main paths' shapes: kernel, plain version, one library
    call as a yardstick, and the bound (CUDA events, L2 flushed by a read
    that leaves it holding clean lines); ``fedavg_aggregate`` also at the
-   Gemma-2B training leaves (11 bf16 launches of K = 2 a group average);
+   rounds of the char-LSTM, CIFAR CNN and word-LSTM (K = 115, 10, 51) and at
+   the Gemma-2B training leaves (11 bf16 launches of K = 2 a group average);
 5. the plain lane, the paper's MNIST 2NN non-IID cell at full size through
    ``RoundEngine(...).run``: one round on the card is first held against
    the same round on the CPU, then the rounds are run and timed;
@@ -75,12 +76,16 @@ Phases, in order, each printing its own lines:
     kernels and the shares of the CE kernels (forward and ``ce_probs``), the
     flash kernel and the two backwards.
 21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
-    through ``repro_torch.specs``; the 3 the port has no lane for are
-    refused by ``RoundEngine.from_spec``, each naming its ROADMAP item; the
-    other 12 run 1 round each at full size (2 for FedAvgM, the ring and the
-    small world) through
+    through ``repro_torch.specs``; the 2 the port has no lane for (async)
+    are refused by ``RoundEngine.from_spec``, each naming its ROADMAP item;
+    the other 13 run 1 round each at full size (2 for FedAvgM, the ring and
+    the small world) through
     ``RoundEngine.from_spec(spec, clients, eval_fn=...).run`` on the
-    partition the spec builds, each lane's kernel once a round on its main
+    partition the spec builds (``shakespeare_lstm``: the 1146 roles of
+    ``make_char_corpus()`` cut into windows of 80, 115 a round, 275 masked
+    steps, evaluated on every role's test windows; the device ops of one of
+    its ClientUpdate steps are counted under torch.profiler), each lane's
+    kernel once a round on its main
     route (``mnist_2nn_iid_superstep`` as one replay of its captured round,
     the wrappers counting the warm-up's launch before the capture, then a
     profiled chunk of 4 replays whose kernel records count their launches;
@@ -114,7 +119,15 @@ Phases, in order, each printing its own lines:
     hold the lane's main-route kernel once a replay and no other hand
     kernel. On top-k, superstep(20) is held against 20 ``round()`` calls of
     a second engine (every round's loss, the final params, the generator
-    state). The spec runs its chunk of 20, then a profiled chunk.
+    state). The spec runs its chunk of 20, then a profiled chunk;
+23. the paper's other models at full size, one round each, ``fedavg_aggregate``
+    once a round: the CIFAR CNN (100 IID clients of 500 24x24x3 crops,
+    C=0.1 E=5 B=50) through ``FederatedTrainer``, the word-LSTM
+    (``make_word_corpus()``, windows of 10, 51 authors a round, E=1 B=8)
+    through ``RoundEngine``; ``python -m repro_torch.examples.shakespeare_lstm``
+    in a process of its own, which must exit 0; and each of the three models
+    at full width on a reduced population, a round on the card against the
+    same round on the CPU.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -173,6 +186,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -197,6 +211,11 @@ SFU_OPS = 16 * 132 * 1.98e9
 L2_FLUSH_BYTES = 256 * 2**20
 MAIN_K = 10                             # m = C * K = 0.1 * 100 clients
 MAIN_N = {"mnist_2nn": 199_210, "mnist_cnn": 1_663_370}
+# fedavg_aggregate at the paper's other models' rounds (K = the cohort):
+# the Shakespeare spec's char-LSTM (115 of 1146 roles; hidden 128, V 72),
+# the CIFAR CNN (10 of 100) and the word-LSTM (51 of 512 authors).
+PAPER_AGG_SHAPES = {"char_lstm": (115, 211_592), "cifar_cnn": (10, 1_068_298),
+                    "word_lstm": (51, 4_359_120)}
 ROUNDS = {"mnist_2nn": 3, "mnist_cnn": 2}
 CHECK_STEPS = 3                         # the longer card-vs-CPU round: E=1, 3 steps
 # Card vs CPU round, both in fp32, compared on the round's update in L2
@@ -214,6 +233,10 @@ LOSS_RTOL = 1e-4
 # held to it: there the CPU's own fp32 round measured 8.1e-5 from fp64 and
 # the card's 1.5e-4, so fp32 rounding alone moves this round by ~1e-4.
 GOSSIP_CNN_RTOL_1 = 1e-3
+# The same fp64 round on the card against the CPU's: the same function,
+# parted only by sums in other orders and by the loss's softmax, which the
+# port's cross-entropy takes in fp32 (~6e-8 relative) in fp64 rounds too.
+FP64_RTOL = 1e-6
 
 # The eight ported TPU kernels, then ce_probs: the CE gradient's kernel on the
 # training path, which ports no Pallas kernel (the reference's CE gradient is
@@ -331,12 +354,15 @@ SPEC_KERNELS = {
     "mnist_2nn_noniid_q8": "quantized_aggregate", "mnist_2nn_noniid_topk": "sparse_aggregate",
     "mnist_2nn_noniid_lowrank": None,
     "mnist_2nn_noniid_ring": "gossip_mix", "mnist_2nn_noniid_smallworld": "gossip_mix",
-    "mnist_2nn_iid_superstep": "fedavg_aggregate",
+    "mnist_2nn_iid_superstep": "fedavg_aggregate", "shakespeare_lstm": "fedavg_aggregate",
 }
 # The specs the port has no lane for yet, and the ROADMAP item each must name.
 SPEC_REFUSED = {"mnist_2nn_noniid_async": "ROADMAP Queue 1 item 8",
-                "mnist_2nn_noniid_fedasync": "ROADMAP Queue 1 item 8",
-                "shakespeare_lstm": "ROADMAP Queue 1 item 10"}
+                "mnist_2nn_noniid_fedasync": "ROADMAP Queue 1 item 8"}
+# The Shakespeare spec's clients: one a role of make_char_corpus at its
+# defaults (the spec's 1146 roles, 3,110 mean characters), cut into windows
+# at the paper's unroll of 80; its test windows are every role's test text.
+CHAR_UNROLL = 80
 # Resume on the card: 4 rounds against 2 + save + restore + 2. FedAvgM's and
 # q8's rounds run no atomics (fedavg_agg.cu and quantized_agg.cu hold none),
 # cuBLAS and cuDNN pick the same algorithms for the same shapes in one
@@ -395,6 +421,40 @@ TOPK_REPLAY_RTOL = 5e-2
 LM_CKPT_ARGV = ["--arch", "gemma-2b", "--n-layers", "2", "--dtype", "bfloat16", "--groups", "2",
                 "--local-steps", "2", "--global-batch", "4", "--seq", "128", "--rounds", "2",
                 "--device", "cuda"]
+# Phase 23, the paper's other models, one round each at full size. The CIFAR
+# CNN through FederatedTrainer at the paper's CIFAR split (100 IID clients of
+# 500 24x24x3 crops) and benchmarks/table3_cifar.py's lr; the word-LSTM
+# through RoundEngine on make_word_corpus at its defaults (512 authors,
+# V = 10,000), cut at the paper's unroll of 10 (its lr: SGD's usual 1.0 for
+# an LSTM LM, no reference config names one).
+CIFAR_DATA = dict(n_train=50_000, n_test=10_000, image_shape=(24, 24, 3), seed=11,
+                  difficulty=1.2)
+CIFAR_CLIENTS = 100
+CIFAR_CFG = dict(C=0.1, E=5, B=50, lr=0.1, seed=0)
+WORD_UNROLL = 10
+WORD_CFG = dict(C=0.1, E=1, B=8, lr=1.0, seed=0)
+# The Shakespeare example run as a user runs it, in a process of its own.
+EXAMPLE_ROUNDS = 2
+EXAMPLE_ARGV = ["-m", "repro_torch.examples.shakespeare_lstm", "--roles", "60",
+                "--rounds", str(EXAMPLE_ROUNDS)]
+# Card vs CPU at a reduced population (each model at its full width): the
+# clients of a few roles / authors / CIFAR clients, rounds of 1 and of
+# CHECK_STEPS steps held to UPDATE_RTOL_1 and UPDATE_RTOL_N as the MNIST
+# models are. The embedding's backward on the card accumulates with atomics
+# (index_put_), so the card's rounds are not bitwise; that is ulps, far
+# inside UPDATE_RTOL_1.
+REDUCED_CLIENTS = 12
+REDUCED_C = 0.25
+# The CIFAR CNN's 1-step round measured 2.0e-4 card vs CPU on an H100 (the
+# LSTMs 3.7e-7): its 64-channel 5x5 convolutions sum 1,600 products an
+# output in cuDNN's order, and a near-tie in a max-pool window routes a
+# unit's gradient elsewhere. Its limit is GOSSIP_CNN_RTOL_1, backed by
+# ``fp64_witness``: on an H100 the CPU's fp32 round measured 1.9e-6 from the
+# fp64 round, the card's 2.0e-4 (conv2's weights 4.0e-4), the card's with
+# cuDNN off 1.9e-6 and the card's fp64 round 3.7e-8: the gap is cuDNN's
+# fp32 convolution algorithms, not the port.
+PAPER_RTOL_1 = {"char_lstm": UPDATE_RTOL_1, "cifar_cnn": GOSSIP_CNN_RTOL_1,
+                "word_lstm": UPDATE_RTOL_1}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -474,6 +534,8 @@ def check_fedavg_aggregate():
                 cases.append(dict(K=K, N=N, dtype=dtype, ghosts=max(1, K // 4)))
         for N in (1000, 199_210):
             cases.append(dict(K=10, N=N, dtype=dtype, misaligned=True))
+    # the paper's other models' rounds, fp32 as their engines average
+    cases += [dict(K=K, N=N, dtype=torch.float32) for K, N in PAPER_AGG_SHAPES.values()]
     worst_fp32 = 0.0
     main_err = 0.0
     worst_bf16 = 0.0
@@ -492,7 +554,8 @@ def check_fedavg_aggregate():
             err = float((out - ref).abs().max())
             ok = err <= sum_tol
             worst_fp32 = max(worst_fp32, err)
-            if c["K"] == MAIN_K and c["N"] in MAIN_N.values() and not tag:
+            if (c["K"] == MAIN_K and c["N"] in MAIN_N.values()
+                    or (c["K"], c["N"]) in PAPER_AGG_SHAPES.values()) and not tag:
                 main_err = max(main_err, err)
             detail = f"max_abs_err={err:.3e} tol={sum_tol:.3e}"
         else:
@@ -503,7 +566,7 @@ def check_fedavg_aggregate():
             ok = share <= 1.0
             worst_bf16 = max(worst_bf16, share)
             detail = f"max_err={share:.3f} of (1 bf16 ulp + tol), {ulps:.3f} ulp"
-        print(f"  K={c['K']:2d} N={c['N']:8d} {str(c['dtype'])[6:]:8s} vec={vec}{tag}: "
+        print(f"  K={c['K']:3d} N={c['N']:8d} {str(c['dtype'])[6:]:8s} vec={vec}{tag}: "
               f"{detail} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"fedavg_aggregate disagrees with its plain version: {c}")
@@ -1139,13 +1202,14 @@ def time_fedavg_aggregate():
 
     flush = flush_buffer()
     rows = {}
-    for model, N in MAIN_N.items():
-        x, w = make_case(MAIN_K, N, torch.float32, seed=7)
-        nbytes = MAIN_K * N * 4 + N * 4 + MAIN_K * 4
-        flops = 2 * MAIN_K * N
+    shapes = {**{model: (MAIN_K, N) for model, N in MAIN_N.items()}, **PAPER_AGG_SHAPES}
+    for model, (K, N) in shapes.items():
+        x, w = make_case(K, N, torch.float32, seed=7)
+        nbytes = K * N * 4 + N * 4 + K * 4
+        flops = 2 * K * N
         bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         r = {
-            "K": MAIN_K, "N": N, "dtype": "float32",
+            "K": K, "N": N, "dtype": "float32",
             "ms": time_ms(lambda: fedavg_aggregate(x, w), flush),
             "plain_ms": time_ms(lambda: fedavg_aggregate_ref(x, w), flush),
             "library_ms": time_ms(lambda: torch.mv(x.t(), w), flush),
@@ -1156,10 +1220,11 @@ def time_fedavg_aggregate():
         r["achieved_GBps"] = nbytes / (r["ms"] * 1e-3) / 1e9
         r["bound_share"] = r["bound_ms"] / r["ms"]
         rows[model] = r
-        print(f"  {model}: K={MAIN_K} N={N} fp32 vec={r['vec']} kernel_ms={r['ms']:.5f} "
+        print(f"  {model}: K={K} N={N} fp32 vec={r['vec']} kernel_ms={r['ms']:.5f} "
               f"bound_ms={bound:.5f} ({r['bound_share']:.1%} of bound, "
               f"{r['achieved_GBps']:.0f} GB/s) plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} (torch.mv, yardstick only)")
+        del x, w
     del flush
     return rows
 
@@ -2813,9 +2878,9 @@ def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
     return eng, model, cfg
 
 
-def run_lane(name, eng, n_rounds, kernel):
-    """One lane's main path: every launch count set to 0, ``RoundEngine.run``,
-    the counts read. ``kernel`` must have launched once a round and every
+def run_lane(name, eng, n_rounds, kernel, runner=None):
+    """One lane's main path: every launch count set to 0, ``RoundEngine.run``
+    (or ``runner.run``, a ``FederatedTrainer`` over ``eng``), the counts read. ``kernel`` must have launched once a round and every
     other kernel never (``None``: no hand kernel at all). A device-sampling
     engine's rounds are replays, which the wrappers do not count: its
     counters hold the warm-up's eager launch before the capture, and one
@@ -2827,7 +2892,7 @@ def run_lane(name, eng, n_rounds, kernel):
     reset_counts()
     graphed = eng.device_sampling
     warmup = int(graphed and eng.num_compilations == 0)
-    hist = eng.run(n_rounds, eval_every=1)
+    hist = (runner or eng).run(n_rounds, eval_every=1)
     torch.cuda.synchronize()
     counts = launch_counts()
     for r in hist.records:
@@ -2886,19 +2951,29 @@ def require_main_route(name, kernel):
 
 
 def main_path(model_name, data):
+    eng, model, cfg = make_engine(model_name, data)
+    round_card_vs_cpu(model_name, eng, model.loss, cfg)
+    launches, walls, _ = run_lane(model_name, eng, ROUNDS[model_name], "fedavg_aggregate")
+    return launches, walls, eng
+
+
+def round_card_vs_cpu(model_name, eng, loss_fn, cfg, rtol_1=UPDATE_RTOL_1):
+    """A round on the card against the same round on the CPU: same params,
+    same injected batches (``materialize_round_batch``), short rounds of 1
+    step (held to ``rtol_1``) and of CHECK_STEPS steps; returns the two
+    updates' relative gaps. A 1-step limit above UPDATE_RTOL_1 must be fp32
+    rounding: ``fp64_witness`` holds it to the round in fp64; its readings
+    are returned under "to_fp64"."""
     from repro_torch.core.engine import RoundBatch, RoundState, build_simulation_round_step
     from repro_torch.core.fedavg import sample_clients
     from repro_torch.utils.tree import tree_map
 
-    eng, model, cfg = make_engine(model_name, data)
-
-    # A round on the card against the same round on the CPU: same params,
-    # same injected batches, short E=1 rounds of 1 and of CHECK_STEPS steps.
     ids = sample_clients(np.random.default_rng(1234), eng.num_clients, cfg.C)
     batch, mask, w = eng.materialize_round_batch(ids, generator_seed=1234)
-    step = build_simulation_round_step(model.loss)
+    step = build_simulation_round_step(loss_fn)
     start = host_vector(eng.params)
-    for n_steps, rtol in ((1, UPDATE_RTOL_1), (CHECK_STEPS, UPDATE_RTOL_N)):
+    gaps = []
+    for n_steps, rtol in ((1, rtol_1), (CHECK_STEPS, UPDATE_RTOL_N)):
         b = tuple(x[:, :n_steps].contiguous() for x in batch)
         msk = mask[:, :n_steps].contiguous()
         gpu_state, gpu_m = step(RoundState(eng.params, ()), RoundBatch(b, msk, w, lr=cfg.lr))
@@ -2920,9 +2995,67 @@ def main_path(model_name, data):
         if not ok:
             raise AssertionError(
                 f"{model_name}: the round on the card disagrees with the CPU round")
+        gaps.append(rel)
+        if n_steps == 1 and rtol > UPDATE_RTOL_1:
+            gaps.append({"to_fp64": fp64_witness(model_name, eng, loss_fn, cfg, b, msk, w,
+                                                 start, d_gpu, d_cpu, rtol)})
+    return gaps
 
-    launches, walls, _ = run_lane(model_name, eng, ROUNDS[model_name], "fedavg_aggregate")
-    return launches, walls, eng
+
+def fp64_witness(model_name, eng, loss_fn, cfg, b, msk, w, start, d_gpu, d_cpu, rtol):
+    """The 1-step round in fp64 on the CPU (d_64) as the witness of a loose
+    1-step limit: both fp32 rounds within ``rtol`` of it, the card's fp64
+    round within FP64_RTOL (the same function), and the card's fp32 round
+    with cuDNN off (PyTorch's own convolutions) within UPDATE_RTOL_1, which
+    puts the rest of the card's gap in cuDNN's algorithms. Prints the leaf
+    where the card's fp32 round is furthest from d_64; returns the gaps."""
+    from repro_torch.core.engine import RoundBatch, RoundState, build_simulation_round_step
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    d_64 = star_round_fp64(loss_fn, eng.params, b, msk, w, cfg.lr, "cpu") - start
+    d_64_card = star_round_fp64(loss_fn, eng.params, b, msk, w, cfg.lr, "cuda") - start
+    with torch.backends.cudnn.flags(enabled=False):
+        state, _ = build_simulation_round_step(loss_fn)(RoundState(eng.params, ()),
+                                                        RoundBatch(b, msk, w, lr=cfg.lr))
+        d_plain = host_vector(state.params) - start
+    to64 = {k: float((d - d_64).norm() / d_64.norm())
+            for k, d in (("card", d_gpu), ("cpu", d_cpu), ("card_fp64", d_64_card),
+                         ("card_without_cudnn", d_plain))}
+    sizes = [p.numel() for p in tree_leaves(eng.params)]
+    leaf_gaps = [float((g - e).norm() / e.norm())
+                 for g, e in zip(d_gpu.split(sizes), d_64.split(sizes))]
+    worst = int(np.argmax(leaf_gaps))
+    to64["worst_leaf"] = "/".join(map(str, tree_paths(eng.params)[worst]))
+    to64["worst_leaf_card"] = leaf_gaps[worst]
+    ok = (max(to64["card"], to64["cpu"]) <= rtol and to64["card_fp64"] <= FP64_RTOL
+          and to64["card_without_cudnn"] <= UPDATE_RTOL_1)
+    print(f"    the same round in fp64 on the CPU (d_64): |d_card - d_64|/|d_64| = "
+          f"{to64['card']:.3e}, |d_cpu - d_64|/|d_64| = {to64['cpu']:.3e} (rtol {rtol:g}); "
+          f"the card in fp64 {to64['card_fp64']:.3e} (rtol {FP64_RTOL:g}); the card in fp32 "
+          f"without cuDNN {to64['card_without_cudnn']:.3e} (rtol {UPDATE_RTOL_1:g}); the card's "
+          f"furthest leaf {to64['worst_leaf']} {leaf_gaps[worst]:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{model_name}: the fp64 witness does not back the 1-step limit")
+    return to64
+
+
+def star_round_fp64(loss_fn, params, batch, mask, weights, lr, device):
+    """The global params after one star round computed on ``device`` in fp64
+    (the weighted sum of the deltas in plain torch, as the kernel wrapper
+    takes only fp32 and bf16; the loss's softmax stays fp32, as the port's
+    cross-entropy casts its logits, ~6e-8 relative), as one host vector in
+    ``host_vector``'s layout."""
+    from repro_torch.core.fedavg import client_update
+    from repro_torch.utils.tree import tree_map
+
+    def f64(t):
+        return t.detach().to(device).double() if t.is_floating_point() else t.to(device)
+
+    p64 = tree_map(f64, params)
+    trained, _ = client_update(loss_fn, p64, tuple(f64(x) for x in batch), f64(mask), lr)
+    w = torch.as_tensor(weights).to(device).double()
+    w = w / w.sum()
+    return host_vector(tree_map(lambda c, p: p + torch.tensordot(w, c - p, dims=1), trained, p64))
 
 
 def recording(codec, box):
@@ -3223,16 +3356,52 @@ def record_cohorts(eng):
     return ids
 
 
-def spec_clients(spec, train):
-    """The clients of the partition ``spec`` names, built by the spec."""
+class CharData(NamedTuple):
+    """The Shakespeare spec's federated corpus: one client of (n, 80)
+    windows a role, and every role's test windows."""
+
+    clients: list
+    x_test: np.ndarray
+    y_test: np.ndarray
+
+
+def shakespeare_data():
+    """``make_char_corpus`` at its defaults, the spec's 1146 roles, cut into
+    windows at ``CHAR_UNROLL``; made once and shared by phases 21 and 23."""
+    from repro_torch.data import make_char_corpus, windows_from_sequence
+    from repro_torch.specs import get_spec
+
+    t0 = time.perf_counter()
+    train, test, V = make_char_corpus()
+    spec = get_spec("shakespeare_lstm")
+    require(len(train) == spec.partition.n_clients and V == spec.model.kwargs["vocab_size"],
+            f"{len(train)} roles and V = {V} for the spec's {spec.partition.n_clients} roles "
+            f"and V = {spec.model.kwargs['vocab_size']}")
+    clients = [windows_from_sequence(t, CHAR_UNROLL) for t in train]
+    tx, ty = zip(*(windows_from_sequence(t, CHAR_UNROLL) for t in test))
+    data = CharData(clients, np.concatenate(tx), np.concatenate(ty))
+    sizes = np.array([len(x) for x, _ in clients])
+    print(f"  make_char_corpus(): {len(train)} roles, {sum(len(t) for t in train):,} train "
+          f"chars, V = {V}; {sizes.sum():,} train windows of {CHAR_UNROLL} (a client "
+          f"{sizes.min()}..{sizes.max()}), {len(data.x_test):,} test windows; made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return data
+
+
+def spec_clients(spec, train, chars=None):
+    """The clients of the partition ``spec`` names, built by the spec; a
+    ``natural`` partition's are the corpus's own (``chars``)."""
+    if spec.partition.kind == "natural":
+        return chars.clients
     split = spec.build_partition(train.y)
     return [(train.x[i], train.y[i]) for i in split.client_indices]
 
 
-def spec_eval_fn(spec, test):
+def spec_eval_fn(spec, test, chars=None):
     from repro_torch.core.simulation import make_eval_fn
 
-    return make_eval_fn(spec.build_model(device="cuda").apply, test.x, test.y, device="cuda")
+    x, y = (chars.x_test, chars.y_test) if spec.partition.kind == "natural" else (test.x, test.y)
+    return make_eval_fn(spec.build_model(device="cuda").apply, x, y, device="cuda")
 
 
 def load_specs():
@@ -3268,24 +3437,30 @@ def spec_refusals(train):
             raise AssertionError(f"{name} was not refused")
 
 
-def spec_lane(name, train, test):
+def spec_lane(name, train, test, chars=None):
     """One runnable spec through ``RoundEngine.from_spec(...).run`` at full
-    size: its partition built by the spec, its model initialized from its
-    seed by the port; its lane's kernel once a round on its main route."""
+    size: its partition built by the spec (the Shakespeare roles: the
+    corpus's), its model initialized from its seed by the port; its lane's
+    kernel once a round on its main route. On the char-LSTM the device ops
+    of one ClientUpdate step are counted too (``lstm_step_ops``)."""
     from repro_torch.core.engine import RoundEngine
     from repro_torch.specs import get_spec
 
     spec = get_spec(name)
     kernel = SPEC_KERNELS[name]
-    clients = spec_clients(spec, train)
-    eng = RoundEngine.from_spec(spec, clients, eval_fn=spec_eval_fn(spec, test))
+    clients = spec_clients(spec, train, chars)
+    eng = RoundEngine.from_spec(spec, clients, eval_fn=spec_eval_fn(spec, test, chars))
+    steps = eng.packed.max_real_steps_per_epoch * spec.fedavg.E
     print(f"  {name}: {len(clients)} clients ({spec.partition.kind}), C={spec.fedavg.C} "
           f"E={spec.fedavg.E} B={spec.fedavg.B} lr={spec.fedavg.lr}, strategy "
           f"{spec.strategy.name}" + (f", codec {eng.codec.name}" if eng.codec else "")
           + (f", topology {eng.topology.name}" if eng.topology else "")
+          + f", {steps} masked steps a round, pool {eng._x.nbytes + eng._y.nbytes:,} B"
           + f"; through {kernel or 'no hand kernel (an einsum)'}")
     rounds = SPEC_ROUNDS_OF.get(name, SPEC_ROUNDS)
     launches, walls, _ = run_lane(name, eng, rounds, kernel)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    step_ops = lstm_step_ops(eng, steps) if spec.model.kind == "char_lstm" else None
     if kernel == "gossip_mix":
         dense = counters()["gossip_mix"].dense_launches
         require(dense == 0, f"{name}: {dense} gossip_mix launches on the dense route")
@@ -3295,7 +3470,9 @@ def spec_lane(name, train, test):
           + ", test_acc " + ", ".join(f"{a:.4f}" for a in accs))
     main = route_launches(kernel)
     return {"spec": name, "kernel": kernel, "launches": launches, "rounds": rounds,
-            "round_wall_s": walls, "test_acc": accs, "main_route": main and main[0],
+            "round_wall_s": walls, "test_acc": accs, "steps_a_round": steps,
+            "peak_device_MiB": peak_mib, "client_update_step": step_ops,
+            "main_route": main and main[0],
             "main_route_launches": main and main[1],
             "dense_launches": counters()["gossip_mix"].dense_launches
             if kernel == "gossip_mix" else None}
@@ -3390,8 +3567,42 @@ def lm_checkpoint(ckpt_root):
             "rounds": len(records)}
 
 
-def spec_front_door(train, test):
-    """Phase 21: load and refuse, the 12 runnable specs, the resumes, the LM
+def lstm_step_ops(eng, steps):
+    """Device ops of one ClientUpdate step of ``eng``'s char-LSTM at its
+    round's shape, counted by torch.profiler: one vmapped
+    ``grad_and_value`` over a whole cohort on the first step of its
+    batches, called alone after a warm-up (a whole round, ~1-2 M ops, would
+    swamp CUPTI's buffers). Only what was measured goes into the result;
+    the count times the round's ``steps`` is printed as worked out, not
+    measured, and it is a floor: the SGD apply, the step mask and the
+    aggregate add launches of their own."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.core.fedavg import sample_clients
+    from repro_torch.utils.tree import tree_map
+
+    ids = sample_clients(np.random.default_rng(1234), eng.num_clients, eng.cfg.C)
+    batch, _, _ = eng.materialize_round_batch(ids, generator_seed=1234)
+    first = tuple(b[:, 0].contiguous() for b in batch)
+    stacked = tree_map(lambda p: p.unsqueeze(0).expand((len(ids),) + tuple(p.shape)).clone(),
+                       eng.params)
+    step = vmap(grad_and_value(eng.loss_fn, has_aux=True))
+    step(stacked, first)
+    wall, ops, rows = device_profile(lambda: step(stacked, first))
+    out = {"device_ops": len(ops), "wall_s_profiled": wall,
+           "busy_s": busy_seconds([(e.time_range.start, e.time_range.end) for e in ops]),
+           "steps_a_round": steps}
+    print(f"  one ClientUpdate step ({len(ids)} clients x {tuple(first[0].shape[1:])} tokens, "
+          f"vmap(grad_and_value), profiled alone): {len(ops)} device ops, "
+          f"{wall * 1e3:.2f} ms wall, {out['busy_s'] * 1e3:.3f} ms busy; x {steps} steps = "
+          f"{len(ops) * steps:,} ops a round (worked out, not measured, a floor: without the "
+          f"SGD apply, the step mask and the aggregate); top: "
+          + "; ".join(f"{n} x{c} {us / 1e3:.3f} ms" for us, c, n in rows[:4]))
+    return out
+
+
+def spec_front_door(train, test, chars):
+    """Phase 21: load and refuse, the 13 runnable specs, the resumes, the LM
     checkpoint. Checkpoints go to a directory under ``build/``, removed
     after."""
     import shutil
@@ -3399,8 +3610,9 @@ def spec_front_door(train, test):
 
     spec_names = load_specs()
     spec_refusals(train)
-    spec_lanes = [spec_lane(name, train, test) for name in spec_names if name in SPEC_KERNELS]
-    require(len(spec_lanes) == 12, f"{len(spec_lanes)} runnable specs")
+    spec_lanes = [spec_lane(name, train, test, chars) for name in spec_names
+                  if name in SPEC_KERNELS]
+    require(len(spec_lanes) == 13, f"{len(spec_lanes)} runnable specs")
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
     try:
@@ -3741,6 +3953,146 @@ def superstep_phase(train, test):
     return lanes, spec
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the paper's other models
+# ---------------------------------------------------------------------------
+
+def cifar_lane():
+    """The CIFAR CNN through ``FederatedTrainer`` at the paper's CIFAR split,
+    one round; returns the lane's record and its clients."""
+    from repro_torch.core import FedAvgConfig, FederatedTrainer, make_eval_fn
+    from repro_torch.data import make_image_classification, partition_iid
+    from repro_torch.models import paper
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    d = dict(CIFAR_DATA)
+    train, test, _ = make_image_classification(d.pop("n_train"), d.pop("n_test"), **d)
+    split = partition_iid(len(train), CIFAR_CLIENTS, seed=0)
+    clients = [(train.x[i], train.y[i]) for i in split.client_indices]
+    made = time.perf_counter() - t0
+    model = paper.cifar_cnn(device="cuda")
+    params = model.init(CIFAR_CFG["seed"])
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == 1_068_298, f"cifar_cnn has {n_params} params")
+    cfg = FedAvgConfig(**CIFAR_CFG)
+    tr = FederatedTrainer(model.loss, params, clients, cfg,
+                          eval_fn=make_eval_fn(model.apply, test.x, test.y, device="cuda"),
+                          device="cuda")
+    steps = tr.engine.packed.max_real_steps_per_epoch * cfg.E
+    print(f"  cifar_cnn: {len(clients)} IID clients x {len(clients[0][0])} crops "
+          f"{train.x.shape[1:]} (made in {made:.2f} s), C={cfg.C} E={cfg.E} B={cfg.B} "
+          f"lr={cfg.lr}, {n_params:,} params, {steps} steps a round, through FederatedTrainer")
+    launches, walls, _ = run_lane("cifar_cnn", tr.engine, 1, "fedavg_aggregate", runner=tr)
+    acc = tr.history.records[-1].test_acc
+    return {"model": "cifar_cnn", "entry": "FederatedTrainer", "launches": launches,
+            "rounds": 1, "round_wall_s": walls, "test_acc": acc, "steps_a_round": steps,
+            "peak_device_MiB": torch.cuda.max_memory_allocated() / 2**20}, (clients, cfg)
+
+
+def word_data():
+    """``make_word_corpus`` at its defaults, cut into windows of WORD_UNROLL."""
+    from repro_torch.data import make_word_corpus, windows_from_sequence
+
+    t0 = time.perf_counter()
+    train, test, V = make_word_corpus()
+    clients = [windows_from_sequence(t, WORD_UNROLL) for t in train]
+    tx, ty = zip(*(windows_from_sequence(t, WORD_UNROLL) for t in test))
+    sizes = np.array([len(x) for x, _ in clients])
+    print(f"  make_word_corpus(): {len(train)} authors, V = {V}, {sizes.sum():,} train "
+          f"windows of {WORD_UNROLL} (a client {sizes.min()}..{sizes.max()}), "
+          f"{sum(len(x) for x in tx):,} test windows; made in {time.perf_counter() - t0:.2f} s")
+    return clients, np.concatenate(tx), np.concatenate(ty), V
+
+
+def word_lane(words):
+    """The word-LSTM through ``RoundEngine``, one round."""
+    from repro_torch.core import FedAvgConfig, RoundEngine, make_eval_fn
+    from repro_torch.models import paper
+    from repro_torch.utils.tree import tree_leaves
+
+    clients, x_test, y_test, V = words
+    model = paper.word_lstm(V, device="cuda")
+    params = model.init(WORD_CFG["seed"])
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == 4_359_120, f"word_lstm has {n_params} params")
+    cfg = FedAvgConfig(**WORD_CFG)
+    eng = RoundEngine(model.loss, params, clients, cfg,
+                      eval_fn=make_eval_fn(model.apply, x_test, y_test, device="cuda"),
+                      device="cuda")
+    steps = eng.packed.max_real_steps_per_epoch * cfg.E
+    print(f"  word_lstm: {len(clients)} clients, C={cfg.C} E={cfg.E} B={cfg.B} lr={cfg.lr}, "
+          f"{n_params:,} params, {steps} steps a round, through RoundEngine")
+    launches, walls, _ = run_lane("word_lstm", eng, 1, "fedavg_aggregate")
+    return {"model": "word_lstm", "entry": "RoundEngine", "launches": launches, "rounds": 1,
+            "round_wall_s": walls, "test_acc": eng.history.records[-1].test_acc,
+            "steps_a_round": steps,
+            "peak_device_MiB": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def shakespeare_example():
+    """``python -m repro_torch.examples.shakespeare_lstm`` as a user runs it,
+    on the card, in a process of its own (the kernels' build is cached)."""
+    import os
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable] + EXAMPLE_ARGV, cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.strip().splitlines()[-4:]:
+        print(f"    | {line}")
+    if res.returncode != 0:
+        print(res.stderr[-3000:])
+    rounds = [line for line in res.stdout.splitlines() if line.startswith("round ")]
+    require(res.returncode == 0 and len(rounds) == EXAMPLE_ROUNDS,
+            f"the example exited {res.returncode} after {len(rounds)} rounds")
+    print(f"  python {' '.join(EXAMPLE_ARGV)}: exit 0, {len(rounds)} rounds, {wall:.2f} s "
+          "wall (its start, corpus and rounds)")
+    return {"argv": EXAMPLE_ARGV, "returncode": res.returncode, "wall_s": wall,
+            "rounds": rounds}
+
+
+def paper_models_card_vs_cpu(chars, cifar, words):
+    """Each model at its full width on a reduced population: a round on the
+    card against the same round on the CPU (``round_card_vs_cpu``)."""
+    from repro_torch.core import FedAvgConfig, RoundEngine
+    from repro_torch.models import paper
+    from repro_torch.specs import get_spec
+
+    spec = get_spec("shakespeare_lstm")
+    char = spec.build_model(device="cuda")
+    cifar_model = paper.cifar_cnn(device="cuda")
+    word = paper.word_lstm(words[3], device="cuda")
+    cases = (("char_lstm", char, chars.clients, spec.fedavg),
+             ("cifar_cnn", cifar_model, cifar[0], cifar[1]),
+             ("word_lstm", word, words[0], FedAvgConfig(**WORD_CFG)))
+    gaps = {}
+    for name, model, clients, cfg in cases:
+        eng = RoundEngine(model.loss, model.init(0), clients[:REDUCED_CLIENTS],
+                          dataclasses.replace(cfg, C=REDUCED_C), device="cuda")
+        print(f"  {name}: {eng.num_clients} clients, C={REDUCED_C}")
+        gaps[name] = round_card_vs_cpu(name, eng, model.loss, eng.cfg, PAPER_RTOL_1[name])
+        del eng
+    return gaps
+
+
+def paper_models_phase(chars):
+    """Phase 23: the CIFAR CNN through FederatedTrainer and the word-LSTM
+    through RoundEngine, one round each at full size; the Shakespeare
+    example in its own process; card vs CPU for the three models."""
+    cifar, cifar_clients = cifar_lane()
+    free_card()
+    words = word_data()
+    word = word_lane(words)
+    free_card()
+    example = shakespeare_example()
+    gaps = paper_models_card_vs_cpu(chars, cifar_clients, words)
+    free_card()
+    return {"cifar_cnn": cifar, "word_lstm": word, "example": example,
+            "card_vs_cpu_update_rtol": gaps}
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
@@ -3956,14 +4308,23 @@ def main() -> int:
     train_profile = profile_training_step()
     free_card()
 
+    phase("data: the Shakespeare spec's corpus, make_char_corpus() at its 1146 roles")
+    chars = shakespeare_data()
+
     phase("21. the spec front door and checkpoints, full size, through "
           "RoundEngine.from_spec(get_spec(name), ...).run and save/restore")
-    spec_lanes, resumes, lm_ckpt = spec_front_door(train, test)
+    spec_lanes, resumes, lm_ckpt = spec_front_door(train, test, chars)
 
     phase(f"22. the superstep lane, full size, through RoundEngine(..., device_sampling=True)"
           f".run(n, rounds_per_step={SUPERSTEP_R}): one round captured as a CUDA graph")
     print(f"card: {smi}")
     superstep_lanes, superstep_spec_lane = superstep_phase(train, test)
+
+    phase("23. the paper's other models, full size: the CIFAR CNN through FederatedTrainer, "
+          "the word-LSTM through RoundEngine, the Shakespeare example, card vs CPU")
+    print(f"card: {smi}")
+    paper_models = paper_models_phase(chars)
+    del chars
 
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
@@ -3976,6 +4337,8 @@ def main() -> int:
     for lane in superstep_lanes:
         launches[lane["kernel"]] += lane["launches"]
     launches["fedavg_aggregate"] += superstep_spec_lane["launches"]
+    launches["fedavg_aggregate"] += sum(paper_models[m]["launches"]
+                                        for m in ("cifar_cnn", "word_lstm"))
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
@@ -4051,6 +4414,7 @@ def main() -> int:
                                      "lm_checkpoint": lm_ckpt,
                                      "lowrank": [lane for lane in spec_lanes
                                                  if lane["kernel"] is None]}
+    kernels[0]["paper_models"] = paper_models
     kernels[0]["superstep"] = {"lanes": [l for l in superstep_lanes
                                          if l["kernel"] == "fedavg_aggregate"],
                                "spec": superstep_spec_lane}

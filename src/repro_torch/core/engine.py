@@ -307,6 +307,7 @@ class RoundEngine:
         self.params = tree_map(
             lambda p: torch.as_tensor(p).to(self.device, copy=True), init_params
         )
+        self.loss_fn = loss_fn
         self.cfg = cfg
         self.eval_fn = eval_fn
         self.rng = np.random.default_rng(cfg.seed)

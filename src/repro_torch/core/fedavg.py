@@ -43,6 +43,11 @@ class FedAvgConfig:
     lr_decay: float = 1.0
     seed: int = 0
 
+    def expected_updates_per_round(self, n: int, K: int) -> float:
+        """u = E * n / (K * B), Table 2's ordering statistic."""
+        b = self.B if self.B is not None else n / K
+        return self.E * n / (K * b)
+
 
 def sample_clients(rng: np.random.Generator, n_clients: int, C: float) -> np.ndarray:
     """S_t <- random set of m clients, m = max(C*K, 1)."""

@@ -1,4 +1,5 @@
-"""Classification loss and accuracy (counterpart of ``repro/core/losses.py``)."""
+"""Classification and next-token losses and accuracy (counterpart of
+``repro/core/losses.py``)."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,11 @@ def classification_loss(apply_fn):
         return softmax_cross_entropy(logits, y), {"acc": accuracy(logits, y)}
 
     return loss
+
+
+def lm_loss(apply_fn):
+    """loss(params, batch=(tokens, labels)) for next-token LMs:
+    ``apply_fn(params, tokens)`` gives (B, T, V) logits, and the CE and the
+    accuracy are means over every token, as ``classification_loss``'s are
+    over every leading axis."""
+    return classification_loss(apply_fn)

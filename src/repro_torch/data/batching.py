@@ -1,17 +1,52 @@
-"""Static packing of a client population, copied from
-``repro/data/batching.py`` (``pool_metadata`` .. ``pad_cohort``).
+"""Client batching, copied from ``repro/data/batching.py``: the static
+packing of a client population (``pool_metadata`` .. ``pad_cohort``), one
+client's E-epoch batch schedule (``client_epoch_batches``, the host round
+assembly of ``core.simulation.build_round_batch_host``), an endless
+shuffled iterator and the LM windows of a token sequence.
 
 ``pack_clients`` turns per-client ``(x, y)`` arrays into one
 ``(K, n_pad, ...)`` pool, tiled as ``x[i % n_k]``; ``RoundEngine`` uploads
 it to the device once and gathers cohorts from it every round. Counts and
-the per-client step schedule ride along for weighting and masking. The
-output is byte-identical to the reference's (tested).
+the per-client step schedule ride along for weighting and masking. Every
+output is byte-identical to the reference's for the same inputs and seeds
+(tested).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def client_epoch_batches(
+    x: np.ndarray,
+    y: Optional[np.ndarray],
+    batch_size: Optional[int],
+    epochs: int,
+    seed: int,
+):
+    """(bx, by) of shapes (n_steps, B, ...) covering E epochs of
+    ClientUpdate: ceil(n / B) steps an epoch, each epoch a fresh
+    permutation, the ragged final batch filled by resampling within the
+    client. ``batch_size=None`` is B = inf: one full batch an epoch."""
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    b = n if batch_size is None else min(batch_size, n)
+    steps_per_epoch = -(-n // b) if batch_size is not None else 1
+    xs, ys = [], []
+    for _ in range(epochs):
+        perm = rng.permutation(n)
+        for s in range(steps_per_epoch):
+            idx = perm[s * b : (s + 1) * b]
+            if len(idx) < b:  # ragged tail: resample within client
+                extra = rng.integers(0, n, b - len(idx))
+                idx = np.concatenate([idx, extra])
+            xs.append(x[idx])
+            if y is not None:
+                ys.append(y[idx])
+    bx = np.stack(xs)
+    by = np.stack(ys) if y is not None else None
+    return bx, by
 
 
 class PackedClients(NamedTuple):
@@ -162,3 +197,28 @@ def pad_cohort(ids: np.ndarray, multiple: int) -> Tuple[np.ndarray, np.ndarray]:
     if pad:
         valid[-pad:] = 0.0
     return padded, valid
+
+
+def batch_iterator(x, y, batch_size, seed=0, drop_last=True):
+    """Endless minibatches of (x, y), a fresh permutation every pass."""
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    while True:
+        perm = rng.permutation(n)
+        for s in range(n // batch_size if drop_last else (n + batch_size - 1) // batch_size):
+            idx = perm[s * batch_size : (s + 1) * batch_size]
+            yield (x[idx], y[idx] if y is not None else None)
+
+
+def windows_from_sequence(seq: np.ndarray, unroll: int):
+    """Cut a 1-D token array into (n, unroll + 1) windows: inputs
+    ``w[:, :-1]``, labels ``w[:, 1:]``, int32 (the paper's unroll is 80 for
+    characters, 10 for words). A sequence shorter than one window is tiled
+    first."""
+    n = (len(seq) - 1) // unroll
+    if n <= 0:
+        reps = int(np.ceil((unroll + 1) / max(len(seq), 1)))
+        seq = np.tile(seq, reps + 1)
+        n = (len(seq) - 1) // unroll
+    w = np.stack([seq[i * unroll : i * unroll + unroll + 1] for i in range(n)])
+    return w[:, :-1].astype(np.int32), w[:, 1:].astype(np.int32)

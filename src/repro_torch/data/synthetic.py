@@ -1,13 +1,17 @@
 """Synthetic data, copied from ``repro/data/synthetic.py``: the
-procedural MNIST stand-in and the word-level corpus that ``launch/train.py``
-reads its tokens from.
+procedural MNIST/CIFAR stand-in, the role-partitioned character corpus
+(the Shakespeare stand-in) and the word-level corpus that ``word_lstm`` and
+``launch/train.py`` read their tokens from.
 
 The port keeps its own copy rather than importing ``repro``; for the same
 seed its output is byte-identical to the reference (tested).
 
 Images: each class c has a smooth random template T_c; a sample is a
-randomly shifted, scaled copy of its template plus Gaussian noise. Words: a
-Zipf vocabulary and a per-author mixture of topics.
+randomly shifted, scaled copy of its template plus Gaussian noise.
+Characters: a first-order Markov chain per role, each role's transitions
+half a shared base and half one of a few styles, role sizes log-normal (the
+paper's unbalanced, non-IID Shakespeare roles). Words: a Zipf vocabulary
+and a per-author mixture of topics.
 """
 from __future__ import annotations
 
@@ -81,6 +85,54 @@ CHAR_VOCAB = (
     "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ .,;:!?'-\n0123456789"
 )
 CHAR_VOCAB_SIZE = len(CHAR_VOCAB)  # 72
+
+
+def make_char_corpus(
+    n_roles: int = 1146,
+    *,
+    mean_chars_per_role: int = 3_110,
+    seed: int = 0,
+    n_styles: int = 8,
+):
+    """Per-role int32 character sequences (train, test) and the vocab size.
+
+    Role r draws its text from ``0.5 * base + 0.5 * styles[r % n_styles]``;
+    sizes are log-normal around ``mean_chars_per_role`` (at least 64), and
+    each role's last 20% is its test text."""
+    rng = np.random.default_rng(seed)
+    V = CHAR_VOCAB_SIZE
+    base = rng.dirichlet(np.full(V, 0.02), size=V).astype(np.float32)
+    styles = [
+        rng.dirichlet(np.full(V, 0.02), size=V).astype(np.float32)
+        for _ in range(n_styles)
+    ]
+
+    sizes = rng.lognormal(mean=np.log(mean_chars_per_role), sigma=1.0, size=n_roles)
+    sizes = np.maximum(sizes.astype(int), 64)
+
+    train, test = [], []
+    for r in range(n_roles):
+        style = styles[r % n_styles]
+        trans = 0.5 * base + 0.5 * style
+        n = int(sizes[r])
+        seq = _markov_sample(trans, n, rng)
+        split = max(int(0.8 * n), 1)
+        train.append(seq[:split])
+        test.append(seq[split:] if split < n else seq[-16:])
+    return train, test, V
+
+
+def _markov_sample(trans: np.ndarray, n: int, rng) -> np.ndarray:
+    """First-order chain: ``trans`` is (V, V) rows P(next | prev)."""
+    V = trans.shape[-1]
+    out = np.empty(n, np.int32)
+    out[0] = rng.integers(V)
+    cdf = np.cumsum(trans, axis=-1)
+    u = rng.random(n)
+    for i in range(1, n):
+        row = cdf[out[i - 1]]
+        out[i] = np.searchsorted(row, u[i] * row[-1])
+    return np.minimum(out, V - 1)
 
 
 def make_word_corpus(

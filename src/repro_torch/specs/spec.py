@@ -12,9 +12,7 @@ strategy, upload codec, gossip topology, async schedule, execution lane)::
 The JSON form is the reference's exactly (``to_json`` gives the same
 string), so ``specs/*.json`` drive both packages. The ``build`` methods return the
 port's objects: ``ModelSpec.build`` the port's models, ``CodecSpec.build``
-its codecs, ``TopologySpec.build`` its topologies. A model family the port
-does not have yet raises when it is built, not when a spec naming it is
-loaded.
+its codecs, ``TopologySpec.build`` its topologies.
 """
 from __future__ import annotations
 
@@ -31,14 +29,12 @@ from repro_torch.core.strategies import (
     strategy_to_json,
 )
 
-# Model families of the reference that the port has not ported yet.
-NOT_PORTED_MODELS = ("cifar_cnn", "char_lstm", "word_lstm")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """A registered model family plus its construction kwargs; ``build``
-    overrides them (e.g. ``device=``)."""
+    """A registered model family plus its construction kwargs
+    (``repro_torch.models.paper``'s five); ``build`` overrides them, e.g.
+    ``device=``, or a ``vocab_size`` that resolves only at data time."""
 
     kind: str
     kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -46,16 +42,12 @@ class ModelSpec:
     def build(self, **overrides):
         from repro_torch.models import paper
 
-        models = {"mnist_2nn": paper.mnist_2nn, "mnist_cnn": paper.mnist_cnn}
-        if self.kind in NOT_PORTED_MODELS:
-            raise ValueError(
-                f"model kind {self.kind!r} is not ported to repro_torch yet: the "
-                "paper's remaining models wait in ROADMAP Queue 1 item 10"
-            )
+        models = {"mnist_2nn": paper.mnist_2nn, "mnist_cnn": paper.mnist_cnn,
+                  "cifar_cnn": paper.cifar_cnn, "char_lstm": paper.char_lstm,
+                  "word_lstm": paper.word_lstm}
         if self.kind not in models:
             raise ValueError(
-                f"unknown model kind {self.kind!r}; known: "
-                f"{sorted(list(models) + list(NOT_PORTED_MODELS))}"
+                f"unknown model kind {self.kind!r}; known: {sorted(models)}"
             )
         return models[self.kind](**{**dict(self.kwargs), **overrides})
 
