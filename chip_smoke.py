@@ -16,8 +16,9 @@ Phases, in order, each printing its own lines:
 4. timing at the main paths' shapes: kernel, plain version, one library
    call as a yardstick, and the bound (CUDA events, L2 flushed by a read
    that leaves it holding clean lines); ``fedavg_aggregate`` also at the
-   rounds of the char-LSTM, CIFAR CNN and word-LSTM (K = 115, 10, 51) and at
-   the Gemma-2B training leaves (11 bf16 launches of K = 2 a group average);
+   rounds of the char-LSTM, CIFAR CNN and word-LSTM (K = 115, 10, 51), at the
+   buffered-async apply (K = buffer_k = 3, the 2NN's N) and at the Gemma-2B
+   training leaves (11 bf16 launches of K = 2 a group average);
 5. the plain lane, the paper's MNIST 2NN non-IID cell at full size through
    ``RoundEngine(...).run``: one round on the card is first held against
    the same round on the CPU, then the rounds are run and timed;
@@ -76,10 +77,12 @@ Phases, in order, each printing its own lines:
     kernels and the shares of the CE kernels (forward and ``ce_probs``), the
     flash kernel and the two backwards.
 21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
-    through ``repro_torch.specs``; the 2 the port has no lane for (async)
-    are refused by ``RoundEngine.from_spec``, each naming its ROADMAP item;
-    the other 13 run 1 round each at full size (2 for FedAvgM, the ring and
-    the small world) through
+    through ``repro_torch.specs`` and run at full size, 1 round each (2 for
+    FedAvgM, the ring and the small world; 10 applies for the two
+    buffered-async specs, ``fedavg_aggregate`` once an apply, whose ``sim_s``
+    sequence must equal, float for float, the same spec's schedule run by
+    the port on the CPU after the card's lanes, its client and apply phases
+    stood in for by zeros of their shapes) through
     ``RoundEngine.from_spec(spec, clients, eval_fn=...).run`` on the
     partition the spec builds (``shakespeare_lstm``: the 1146 roles of
     ``make_char_corpus()`` cut into windows of 80, 115 a round, 275 masked
@@ -127,7 +130,23 @@ Phases, in order, each printing its own lines:
     through ``RoundEngine``; ``python -m repro_torch.examples.shakespeare_lstm``
     in a process of its own, which must exit 0; and each of the three models
     at full width on a reduced population, a round on the card against the
-    same round on the CPU.
+    same round on the CPU;
+24. the buffered-async lane and the streamed pool at full size: (a) the
+    degenerate schedule (``buffer_k == concurrency == m``, zero latency)
+    against the sync lane on the 2NN, 3 rounds, params bitwise after every
+    one; (b) ``mnist_2nn_noniid_async`` against the 2NN's sync lane under the
+    same straggler model, 3 applies and rounds (seconds, ``sim_s``), and one
+    profiled ``run(1)`` of the async engine (idle share); (c) the 2NN (3
+    rounds; prefetch 1 and 0) and the CNN (2 rounds, ``cudnn.deterministic``)
+    with ``pool`` a ``StreamedClientPool`` against the device pool, and one
+    q8 2NN round, params and losses bitwise; (d) 2NN rounds in turns
+    (device, streamed, streamed, device), the bytes staged a round, and one
+    profiled streamed round: whether its side stream's host-to-device copies
+    ran beside a kernel; (e) ``pool="auto"`` under a
+    ``REPRO_DEVICE_POOL_BUDGET`` below the 2NN pool's estimate selects the
+    streamed pool; (f) the population gate of ``benchmarks/round_engine.py``
+    on the host-sampled lane: 10^5 generated clients (416 MB on disk), 10
+    rounds of m = 20, RSS growth under 256 MB.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -216,6 +235,10 @@ MAIN_N = {"mnist_2nn": 199_210, "mnist_cnn": 1_663_370}
 # the CIFAR CNN (10 of 100) and the word-LSTM (51 of 512 authors).
 PAPER_AGG_SHAPES = {"char_lstm": (115, 211_592), "cifar_cnn": (10, 1_068_298),
                     "word_lstm": (51, 4_359_120)}
+# ... and at the buffered-async apply of the async specs: K = buffer_k = 3
+# buffered 2NN updates (phases 21 and 24).
+ASYNC_AGG_SHAPES = {"async_apply": (3, 199_210)}
+AGG_SHAPES = {**PAPER_AGG_SHAPES, **ASYNC_AGG_SHAPES}
 ROUNDS = {"mnist_2nn": 3, "mnist_cnn": 2}
 CHECK_STEPS = 3                         # the longer card-vs-CPU round: E=1, 3 steps
 # Card vs CPU round, both in fp32, compared on the round's update in L2
@@ -347,6 +370,13 @@ SPEC_ROUNDS = 1                         # one round a spec, as COMPRESSED_ROUNDS
 # is run by the q8 and top-k resumes' 4 rounds.)
 SPEC_ROUNDS_OF = {"mnist_2nn_noniid_fedavgm": 2, "mnist_2nn_noniid_ring": 2,
                   "mnist_2nn_noniid_smallworld": 2}
+# The buffered-async specs run this many applies (each one fedavg_aggregate
+# launch over K = buffer_k = 3 buffered updates), and their sim_s sequence
+# must equal, float for float, the same spec's on the CPU: the event
+# schedule is host numpy only.
+ASYNC_SPECS = ("mnist_2nn_noniid_async", "mnist_2nn_noniid_fedasync")
+ASYNC_APPLIES = 10
+SPEC_ROUNDS_OF.update({name: ASYNC_APPLIES for name in ASYNC_SPECS})
 SPEC_KERNELS = {
     "mnist_2nn_iid": "fedavg_aggregate", "mnist_2nn_noniid": "fedavg_aggregate",
     "mnist_cnn_iid": "fedavg_aggregate", "mnist_cnn_noniid": "fedavg_aggregate",
@@ -355,10 +385,8 @@ SPEC_KERNELS = {
     "mnist_2nn_noniid_lowrank": None,
     "mnist_2nn_noniid_ring": "gossip_mix", "mnist_2nn_noniid_smallworld": "gossip_mix",
     "mnist_2nn_iid_superstep": "fedavg_aggregate", "shakespeare_lstm": "fedavg_aggregate",
+    "mnist_2nn_noniid_async": "fedavg_aggregate", "mnist_2nn_noniid_fedasync": "fedavg_aggregate",
 }
-# The specs the port has no lane for yet, and the ROADMAP item each must name.
-SPEC_REFUSED = {"mnist_2nn_noniid_async": "ROADMAP Queue 1 item 8",
-                "mnist_2nn_noniid_fedasync": "ROADMAP Queue 1 item 8"}
 # The Shakespeare spec's clients: one a role of make_char_corpus at its
 # defaults (the spec's 1146 roles, 3,110 mean characters), cut into windows
 # at the paper's unroll of 80; its test windows are every role's test text.
@@ -455,6 +483,19 @@ REDUCED_C = 0.25
 # fp32 convolution algorithms, not the port.
 PAPER_RTOL_1 = {"char_lstm": UPDATE_RTOL_1, "cifar_cnn": GOSSIP_CNN_RTOL_1,
                 "word_lstm": UPDATE_RTOL_1}
+# Phase 24, the buffered-async lane and the streamed pool at full size. (a)
+# and (b): rounds (applies) a lane; (c): rounds a model, streamed against
+# the device pool (the CNN under cudnn.deterministic, whose default backward
+# is not); (f) the population gate of benchmarks/round_engine.py
+# (_population_scaling) on the host-sampled lane: K = 10^5 clients of 16 x 64
+# fp32 rows from a generator into shards of 4096 (~416 MB on disk), m = 20,
+# 10 rounds, the process's RSS growth under 256 MB.
+ASYNC_ROUNDS = 3
+STREAMED_ROUNDS = {"mnist_2nn": 3, "mnist_cnn": 2}
+POP_K, POP_ROWS, POP_D, POP_SHARD = 100_000, 16, 64, 4096
+POP_M, POP_ROUNDS = 20, 10
+POP_RSS_MB = 256.0
+POP_WARM = 256                          # the warm-up population (population_gate)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -534,8 +575,9 @@ def check_fedavg_aggregate():
                 cases.append(dict(K=K, N=N, dtype=dtype, ghosts=max(1, K // 4)))
         for N in (1000, 199_210):
             cases.append(dict(K=10, N=N, dtype=dtype, misaligned=True))
-    # the paper's other models' rounds, fp32 as their engines average
-    cases += [dict(K=K, N=N, dtype=torch.float32) for K, N in PAPER_AGG_SHAPES.values()]
+    # the paper's other models' rounds and the async apply, fp32 as their
+    # engines average
+    cases += [dict(K=K, N=N, dtype=torch.float32) for K, N in AGG_SHAPES.values()]
     worst_fp32 = 0.0
     main_err = 0.0
     worst_bf16 = 0.0
@@ -555,7 +597,7 @@ def check_fedavg_aggregate():
             ok = err <= sum_tol
             worst_fp32 = max(worst_fp32, err)
             if (c["K"] == MAIN_K and c["N"] in MAIN_N.values()
-                    or (c["K"], c["N"]) in PAPER_AGG_SHAPES.values()) and not tag:
+                    or (c["K"], c["N"]) in AGG_SHAPES.values()) and not tag:
                 main_err = max(main_err, err)
             detail = f"max_abs_err={err:.3e} tol={sum_tol:.3e}"
         else:
@@ -1202,7 +1244,7 @@ def time_fedavg_aggregate():
 
     flush = flush_buffer()
     rows = {}
-    shapes = {**{model: (MAIN_K, N) for model, N in MAIN_N.items()}, **PAPER_AGG_SHAPES}
+    shapes = {**{model: (MAIN_K, N) for model, N in MAIN_N.items()}, **AGG_SHAPES}
     for model, (K, N) in shapes.items():
         x, w = make_case(K, N, torch.float32, seed=7)
         nbytes = K * N * 4 + N * 4 + K * 4
@@ -2837,26 +2879,36 @@ def host_vector(tree) -> torch.Tensor:
     return tree_ravel(tree_map(lambda p: p.detach().cpu().double(), tree))[0]
 
 
+def noniid_clients(train, spec):
+    """The clients of ``spec``'s (a spec's JSON dict) pathological non-IID
+    partition of ``train``."""
+    from repro_torch.data.partition import partition_pathological_noniid
+
+    part = spec["partition"]
+    require(part["kind"] == "pathological_noniid", f"unexpected spec {spec['name']}")
+    split = partition_pathological_noniid(
+        train.y, part["n_clients"], part["shards_per_client"], seed=part["seed"])
+    return [(train.x[i], train.y[i]) for i in split.client_indices]
+
+
 def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
-                device_sampling=False):
+                device_sampling=False, **engine_kw):
     """``RoundEngine`` on the card for ``model_name`` at full size, with the
     fedavg and partition sections of ``specs/<spec_name>.json`` (read as
     JSON; by default the model's own non-IID cell ``<model>_noniid``);
-    returns the engine, the model and its config."""
+    ``engine_kw`` go to the engine as they are (``latency``,
+    ``async_config``, ``pool``, ...). Returns the engine, the model and its
+    config."""
     from repro_torch.core.engine import RoundEngine
     from repro_torch.core.fedavg import FedAvgConfig
     from repro_torch.core.simulation import make_eval_fn
-    from repro_torch.data.partition import partition_pathological_noniid
     from repro_torch.models import paper
     from repro_torch.utils.tree import tree_leaves
 
     spec = json.loads((ROOT / "specs" / f"{spec_name or model_name + '_noniid'}.json").read_text())
-    fed, part = spec["fedavg"], spec["partition"]
-    require(part["kind"] == "pathological_noniid", f"unexpected spec {spec['name']}")
+    fed = spec["fedavg"]
     train, test = data
-    split = partition_pathological_noniid(
-        train.y, part["n_clients"], part["shards_per_client"], seed=part["seed"])
-    clients = [(train.x[i], train.y[i]) for i in split.client_indices]
+    clients = noniid_clients(train, spec)
     cfg = FedAvgConfig(C=fed["C"], E=fed["E"], B=fed["B"], lr=fed["lr"],
                        lr_decay=fed["lr_decay"], seed=fed["seed"])
     model = getattr(paper, model_name)(device="cuda")
@@ -2866,15 +2918,17 @@ def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
     eng = RoundEngine(model.loss, params, clients, cfg,
                       eval_fn=make_eval_fn(model.apply, test.x, test.y, device="cuda"),
                       codec=codec, topology=topology, device_sampling=device_sampling,
-                      device="cuda")
+                      device="cuda", **engine_kw)
     print(f"  {spec['name']}" + ("" if spec["model"]["kind"] == model_name else
                                  f" (its sections, with {model_name})")
-          + f": {len(clients)} clients x {int(split.client_sizes[0])} examples, "
+          + f": {len(clients)} clients x {len(clients[0][0])} examples, "
           f"C={cfg.C} E={cfg.E} B={cfg.B} lr={cfg.lr}, {n_params} params, "
           f"{eng.packed.max_real_steps_per_epoch * cfg.E} steps/round"
           + (f", codec {codec.name}" if codec is not None else "")
           + (f", topology {topology.name}" if topology is not None else "")
-          + (", device sampling" if device_sampling else ""))
+          + (", device sampling" if device_sampling else "")
+          + "".join(f", {k}={v!r}" for k, v in engine_kw.items() if k != "pool")
+          + f", pool {eng.pool_kind}")
     return eng, model, cfg
 
 
@@ -2899,7 +2953,8 @@ def run_lane(name, eng, n_rounds, kernel, runner=None):
         cons = "" if r.consensus is None else f"consensus {r.consensus:.6f} "
         ev = ("not evaluated (inside a chunk) " if r.test_acc is None else
               f"test_acc {r.test_acc:.4f} test_loss {r.test_loss:.6f} ")
-        print(f"  round {r.round}: loss {r.train_loss:.6f} {cons}{ev}wall_s {r.wall_s:.4f}")
+        sim = f"sim_s {r.sim_s!r} " if r.sim_s else ""
+        print(f"  round {r.round}: loss {r.train_loss:.6f} {cons}{ev}{sim}wall_s {r.wall_s:.4f}")
     if eng.topology is not None and not all(
             math.isfinite(r.consensus) and r.consensus >= 0 for r in hist.records):
         raise AssertionError(f"{name}: bad consensus distances")
@@ -3420,21 +3475,52 @@ def load_specs():
     return [f.stem for f in files]
 
 
-def spec_refusals(train):
-    """The specs the port has no lane for refuse in ``from_spec``, before any
-    state is built, each naming its ROADMAP item."""
+def async_schedule_on_cpu(name, train):
+    """The async spec ``name``'s event schedule, run by the port on the CPU
+    after the card's lanes: the spec's engine built on the CPU from the same
+    partition, its client and apply phases stood in for by zeros of their
+    shapes (the schedule reads none of their numbers: it is host numpy, the
+    cohort draws, the latency model's stream, the heap; the client phase
+    draws nothing from the engine's stream), ``ASYNC_APPLIES`` applies.
+    Returns the records' ``[round, sim_s]``, the numpy stream's state and
+    the seconds it took."""
     from repro_torch.core.engine import RoundEngine
     from repro_torch.specs import get_spec
+    from repro_torch.utils.tree import tree_leaves
 
-    clients = spec_clients(get_spec("mnist_2nn_iid"), train)
-    for name, item in SPEC_REFUSED.items():
-        try:
-            RoundEngine.from_spec(get_spec(name), clients)
-        except ValueError as e:
-            require(item in str(e), f"{name} refused without naming {item}: {e}")
-            print(f"  {name}: refused, naming {item}")
-        else:
-            raise AssertionError(f"{name} was not refused")
+    t0 = time.perf_counter()
+    spec = get_spec(name)
+    eng = RoundEngine.from_spec(spec, spec_clients(spec, train), device="cpu")
+    n = sum(p.numel() for p in tree_leaves(eng.params))
+    eng._client_phase = lambda ids, seed, lr: (torch.zeros(len(ids), n),
+                                               torch.zeros(len(ids)), torch.ones(len(ids)))
+    eng._apply_buffer = lambda flat, per_loss, w, stale: torch.zeros(())
+    hist = eng.run(ASYNC_APPLIES, eval_every=1)
+    return {"records": [[r.round, r.sim_s] for r in hist.records],
+            "rng": json.loads(json.dumps(eng.rng.bit_generator.state)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def check_async_schedules(train, spec_lanes):
+    """The card's async spec lanes against the same specs' schedules run by
+    the port on the CPU (``async_schedule_on_cpu``): every record's round
+    and ``sim_s`` must be equal float for float, and so must the numpy
+    streams' states after the run."""
+    for lane in spec_lanes:
+        card = lane["async_schedule"]
+        if card is None:
+            continue
+        name = lane["spec"]
+        want = async_schedule_on_cpu(name, train)
+        require(card["records"] == want["records"],
+                f"{name}: the card's schedule {card['records']} is not the CPU's {want['records']}")
+        require(card.pop("rng") == want["rng"], f"{name}: the numpy streams differ after the run")
+        sim = [v for _, v in card["records"]]
+        card.update(sim_s=sim, cpu_wall_s=want["wall_s"], equal_to_cpu=True)
+        print(f"  {name}: sim_s a apply " + ", ".join(repr(v) for v in sim)
+              + f" ({sum(sim):.4f} s simulated in all): equal float for float to the same "
+              f"spec's schedule of {len(sim)} applies on the CPU, its phases stood in for "
+              f"({want['wall_s']:.2f} s there, after the card's lanes), the numpy streams equal")
 
 
 def spec_lane(name, train, test, chars=None):
@@ -3455,11 +3541,17 @@ def spec_lane(name, train, test, chars=None):
           f"E={spec.fedavg.E} B={spec.fedavg.B} lr={spec.fedavg.lr}, strategy "
           f"{spec.strategy.name}" + (f", codec {eng.codec.name}" if eng.codec else "")
           + (f", topology {eng.topology.name}" if eng.topology else "")
+          + (f", buffered-async K={eng.async_config.buffer_k} of "
+             f"{eng.async_config.concurrency or eng._m} in flight under {eng.latency}"
+             if eng.async_config else "")
           + f", {steps} masked steps a round, pool {eng._x.nbytes + eng._y.nbytes:,} B"
           + f"; through {kernel or 'no hand kernel (an einsum)'}")
     rounds = SPEC_ROUNDS_OF.get(name, SPEC_ROUNDS)
     launches, walls, _ = run_lane(name, eng, rounds, kernel)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    schedule = None if spec.async_spec is None else {
+        "records": [[r.round, r.sim_s] for r in eng.history.records],
+        "rng": json.loads(json.dumps(eng.rng.bit_generator.state))}
     step_ops = lstm_step_ops(eng, steps) if spec.model.kind == "char_lstm" else None
     if kernel == "gossip_mix":
         dense = counters()["gossip_mix"].dense_launches
@@ -3472,6 +3564,7 @@ def spec_lane(name, train, test, chars=None):
     return {"spec": name, "kernel": kernel, "launches": launches, "rounds": rounds,
             "round_wall_s": walls, "test_acc": accs, "steps_a_round": steps,
             "peak_device_MiB": peak_mib, "client_update_step": step_ops,
+            "async_schedule": schedule,
             "main_route": main and main[0],
             "main_route_launches": main and main[1],
             "dense_launches": counters()["gossip_mix"].dense_launches
@@ -3602,17 +3695,17 @@ def lstm_step_ops(eng, steps):
 
 
 def spec_front_door(train, test, chars):
-    """Phase 21: load and refuse, the 13 runnable specs, the resumes, the LM
+    """Phase 21: load the 15 specs and run each, the resumes, the LM
     checkpoint. Checkpoints go to a directory under ``build/``, removed
     after."""
     import shutil
     import tempfile
 
     spec_names = load_specs()
-    spec_refusals(train)
-    spec_lanes = [spec_lane(name, train, test, chars) for name in spec_names
-                  if name in SPEC_KERNELS]
-    require(len(spec_lanes) == 13, f"{len(spec_lanes)} runnable specs")
+    require(set(spec_names) == set(SPEC_KERNELS), f"specs {spec_names}, lanes {sorted(SPEC_KERNELS)}")
+    spec_lanes = [spec_lane(name, train, test, chars) for name in spec_names]
+    check_async_schedules(train, spec_lanes)
+    require(len(spec_lanes) == 15, f"{len(spec_lanes)} specs run")
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
     try:
@@ -4093,6 +4186,354 @@ def paper_models_phase(chars):
             "card_vs_cpu_update_rtol": gaps}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the buffered-async lane and the streamed pool
+# ---------------------------------------------------------------------------
+
+def leaves_equal(a, b):
+    from repro_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def rss_mb() -> float:
+    """This process's resident set (VmRSS) in MB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024.0
+    raise AssertionError("no VmRSS in /proc/self/status")
+
+
+def synth_clients(K, n_per, d, seed=0):
+    """K equal synthetic clients, one at a time (``benchmarks/round_engine.py``
+    ``_synth_clients``): the population never exists in host RAM at once."""
+    rng = np.random.default_rng(seed)
+    for _ in range(K):
+        yield (rng.standard_normal((n_per, d), dtype=np.float32) * 0.1,
+               rng.integers(0, 5, n_per).astype(np.int32))
+
+
+def degenerate_async(data):
+    """(a) ``buffer_k == concurrency == m`` with zero latency against the sync
+    lane on the 2NN at full size: ``ASYNC_ROUNDS`` calls of ``run(1)`` each,
+    the params bitwise equal after every one, the numpy streams in step,
+    ``fedavg_aggregate`` once an apply and no other kernel."""
+    from repro_torch.core import AsyncConfig, LatencyModel
+
+    sync, _, _ = make_engine("mnist_2nn", data)
+    m = sync._m
+    asy, _, _ = make_engine("mnist_2nn", data, async_config=AsyncConfig(m, m),
+                            latency=LatencyModel())
+    launches, rows = 0, []
+    for _ in range(ASYNC_ROUNDS):
+        sync.run(1)
+        reset_counts()
+        asy.run(1)
+        counts = launch_counts()
+        want = {k: int(k == "fedavg_aggregate") for k in KERNELS}
+        require(counts == want, f"degenerate apply: launches {counts}, want {want}")
+        launches += 1
+        same = leaves_equal(sync.params, asy.params)
+        stream = sync.rng.bit_generator.state == asy.rng.bit_generator.state
+        a, b = sync.history.records[-1], asy.history.records[-1]
+        rows.append({"round": a.round, "params_bitwise": same, "streams_equal": stream,
+                     "loss_sync": a.train_loss, "loss_async": b.train_loss,
+                     "wall_s_sync": a.wall_s, "wall_s_async": b.wall_s})
+        print(f"  round {a.round}: params bitwise {same}, numpy streams equal {stream}; loss "
+              f"sync {a.train_loss!r} async {b.train_loss!r} (rel {abs(a.train_loss - b.train_loss) / a.train_loss:.2e}); "
+              f"wall_s sync {a.wall_s:.4f} async {b.wall_s:.4f}")
+        require(same and stream, "the degenerate async schedule left the sync lane")
+    return {"rounds": rows, "launches": launches}
+
+
+def async_vs_straggler_sync(train, test):
+    """(b) ``mnist_2nn_noniid_async`` (K = 3 of m = 10 in flight) against the
+    2NN's sync lane under the same straggler model, ``ASYNC_ROUNDS`` applies
+    and rounds: seconds each, ``sim_s``, accuracy by simulated time; then one
+    more ``run(1)`` of the async engine profiled (a fresh schedule: the
+    first dispatch of m clients, the K-th arrival's apply)."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import get_spec
+
+    spec = get_spec("mnist_2nn_noniid_async")
+    eng = RoundEngine.from_spec(spec, spec_clients(spec, train),
+                                eval_fn=spec_eval_fn(spec, test))
+    a_launch, a_walls, _ = run_lane(spec.name, eng, ASYNC_ROUNDS, "fedavg_aggregate")
+    sync, _, _ = make_engine("mnist_2nn", (train, test), latency=spec.async_spec.latency)
+    s_launch, s_walls, _ = run_lane("mnist_2nn_noniid + straggler model", sync, ASYNC_ROUNDS,
+                                    "fedavg_aggregate")
+    out = {}
+    for name, e, walls in (("async", eng, a_walls), ("sync", sync, s_walls)):
+        sim = [r.sim_s for r in e.history.records]
+        acc = [r.test_acc for r in e.history.records]
+        out[name] = {"wall_s": walls, "sim_s": sim, "test_acc": acc,
+                     "sim_s_total": sum(sim)}
+        print(f"  {name:5s}: seconds a {'apply' if name == 'async' else 'round'} "
+              + ", ".join(f"{t:.4f}" for t in walls) + "; sim_s " + ", ".join(f"{v:.4f}" for v in sim)
+              + f" ({sum(sim):.4f} simulated s); test_acc " + ", ".join(f"{a:.4f}" for a in acc))
+    eval_fn, eng.eval_fn = eng.eval_fn, None
+    before = counters()["fedavg_aggregate"].launches
+    wall, ops, rows = device_profile(lambda: eng.run(1))
+    eng.eval_fn = eval_fn
+    launched = counters()["fedavg_aggregate"].launches - before
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    records = kernel_records(ops)
+    require(launched == 1 and records == {"fedavg_agg_kernel": 1},
+            f"profiled apply: {launched} launches, kernel records {records}")
+    prof = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_ops": len(ops), "kernel_records": records}
+    print(f"  one profiled run(1) of the async engine (its first dispatch of {eng._m} clients, "
+          f"then the apply at the {spec.async_spec.buffer_k}rd arrival): wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), {len(ops)} device ops, "
+          f"kernel records {records}")
+    for us, count, k in rows[:5]:
+        print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+    out["profiled_apply"] = prof
+    out["launches"] = a_launch + s_launch + launched
+    return out
+
+
+def copies_beside_kernels(ops):
+    """The profiled round's host-to-device copies on streams that run no
+    kernel (the stager's side stream) and how much of their time some
+    kernel ran beside them: (those copies, their µs, overlapped µs, the
+    host-to-device copies on any stream)."""
+    copies = [e for e in ops if "HtoD" in e.name]
+    kernels = [e for e in ops if "Memcpy" not in e.name and "Memset" not in e.name]
+    kernel_streams = {e.device_resource_id for e in kernels}
+    side = [e for e in copies if e.device_resource_id not in kernel_streams]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    total = overlapped = 0.0
+    for c in side:
+        s, t = c.time_range.start, c.time_range.end
+        total += t - s
+        overlapped += busy_seconds((max(a, s), min(b, t)) for a, b in spans
+                                   if a < t and b > s) * 1e6
+    return side, total, overlapped, len(copies)
+
+
+def streamed_vs_device(data, spool):
+    """(c) and (d): the 2NN and the CNN on the streamed pool against the
+    device pool (rounds and params bitwise), the 2NN with prefetch 0, one q8
+    2NN round on each; then 2NN rounds in turns (device, streamed, streamed,
+    device) and one profiled streamed round."""
+    from repro_torch.specs import get_spec
+
+    out, launches = {"lanes": []}, {"fedavg_aggregate": 0, "quantized_aggregate": 0}
+    main_route = {"quantized_aggregate": 0}   # read from the wrapper's route counter
+    keep = {}
+    q8 = get_spec("mnist_2nn_noniid_q8").build_codec()
+    cases = (("mnist_2nn", None, {}), ("mnist_2nn", None, {"prefetch": 0}),
+             ("mnist_cnn", None, {}), ("mnist_2nn", q8, {}))
+    for model_name, codec, kw in cases:
+        kernel = "fedavg_aggregate" if codec is None else "quantized_aggregate"
+        n = STREAMED_ROUNDS[model_name] if codec is None else COMPRESSED_ROUNDS
+        tag = model_name + (f" {codec.name}" if codec else "") + "".join(
+            f" {k}={v}" for k, v in kw.items())
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = model_name == "mnist_cnn" or deterministic
+        try:
+            dev = keep.get((model_name, codec))
+            if dev is None:
+                dev, _, _ = make_engine(model_name, data, codec=codec, pool="device")
+                d_launch, d_walls, _ = run_lane(f"{tag} device pool", dev, n, kernel)
+                launches[kernel] += d_launch
+                if kernel in main_route:
+                    main_route[kernel] += route_launches(kernel)[1]
+            else:
+                d_walls = [r.wall_s for r in dev.history.records]
+            st, _, _ = make_engine(model_name, data, codec=codec, pool=spool, **kw)
+            s_launch, s_walls, _ = run_lane(f"{tag} streamed pool", st, n, kernel)
+            launches[kernel] += s_launch
+            if kernel in main_route:
+                main_route[kernel] += route_launches(kernel)[1]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        same = leaves_equal(dev.params, st.params) and leaves_equal(
+            dev.outer_state, st.outer_state) and [r.train_loss for r in dev.history.records] \
+            == [r.train_loss for r in st.history.records]
+        print(f"  {tag}: streamed == device over {n} rounds, params and losses bitwise: {same} "
+              f"({'ok' if same else 'FAIL'}); staged {st.staged_bytes:,} B a round")
+        require(same, f"{tag}: the streamed pool's rounds are not the device pool's")
+        out["lanes"].append({"lane": tag, "rounds": n, "bitwise": same,
+                             "staged_bytes": st.staged_bytes, "device_wall_s": d_walls,
+                             "streamed_wall_s": s_walls})
+        if (model_name, codec, tuple(kw)) == ("mnist_2nn", None, ()):
+            keep[(model_name, codec)] = dev
+            keep["streamed"] = st
+        del st
+        free_card()
+    dev, st = keep[("mnist_2nn", None)], keep["streamed"]
+    turns = []
+    before = counters()["fedavg_aggregate"].launches
+    for name, eng in (("device", dev), ("streamed", st), ("streamed", st), ("device", dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._read_loss(eng.round()["loss"])
+        turns.append((name, time.perf_counter() - t0))
+        print(f"  {name:8s} round {turns[-1][1]:.4f} s")
+    mean = {k: float(np.mean([t for n, t in turns if n == k])) for k in ("device", "streamed")}
+    ratio = mean["streamed"] / mean["device"]
+    print(f"  2NN rounds in turns (device, streamed, streamed, device): streamed / device = "
+          f"{ratio:.4f}; {st.staged_bytes:,} B staged host to device a streamed round")
+    wall, ops, _ = device_profile(lambda: float(st.round()["loss"]))
+    launches["fedavg_aggregate"] += counters()["fedavg_aggregate"].launches - before
+    side, copy_us, over_us, n_copies = copies_beside_kernels(ops)
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    verdict = (("overlap" if over_us > 0 else "do not overlap") + " the round's kernels"
+               if side else "not measured: the profiler's records hold no side-stream copy "
+               "(CUPTI drops a block of records now and then)")
+    print(f"  one profiled streamed round: wall {wall:.4f} s, device busy {busy:.4f} s (idle "
+          f"share {1 - busy / wall:.1%}), {len(ops)} device ops, {n_copies} host-to-device "
+          f"copies in all; {len(side)} on the side stream (the next round's cohort, staged "
+          f"after this round's dispatch), {copy_us:.1f} us, of which {over_us:.1f} us ran "
+          f"beside a kernel: the copies {verdict}")
+    out.update(turns=turns, streamed_over_device=ratio, staged_bytes=st.staged_bytes,
+               profiled_round={"wall_s": wall, "device_busy_s": busy,
+                               "idle_share": 1 - busy / wall, "device_ops": len(ops),
+                               "htod_copies": n_copies,
+                               "side_copies": len(side), "side_copy_us": copy_us,
+                               "overlapped_us": over_us})
+    for kernel, n in main_route.items():
+        require(n == launches[kernel], f"{n} of {launches[kernel]} {kernel} launches of "
+                                       "the streamed-vs-device lanes on the stream route")
+    out["launches"], out["main_route_launches"] = launches, main_route
+    return out
+
+
+def auto_selects_streamed(data, spool, root):
+    """(e) ``pool="auto"`` with ``REPRO_DEVICE_POOL_BUDGET`` below the 2NN
+    pool's estimate selects the streamed pool."""
+    import os
+
+    est = spool.estimated_device_nbytes()
+    os.environ["REPRO_DEVICE_POOL_BUDGET"] = str(est // 2)
+    try:
+        eng, _, _ = make_engine("mnist_2nn", data, pool="auto", pool_dir=root / "auto")
+    finally:
+        del os.environ["REPRO_DEVICE_POOL_BUDGET"]
+    require(eng.pool_kind == "streamed", f"pool='auto' under a budget of {est // 2} B chose "
+                                         f"{eng.pool_kind}")
+    print(f"  pool='auto' with REPRO_DEVICE_POOL_BUDGET={est // 2} (the packed estimate "
+          f"{est:,} B): {eng.pool_kind}, {eng.pool.num_shards} shards, "
+          f"{eng.pool.nbytes_on_disk():,} B on disk")
+    return {"budget": est // 2, "estimate": est, "pool_kind": eng.pool_kind}
+
+
+def population_gate(root):
+    """(f) ``benchmarks/round_engine.py``'s population gate on the
+    host-sampled lane: K = 10^5 generated clients into shards of 4096 (one
+    shard in RAM at a time), m = 20, ``POP_ROUNDS`` streamed rounds; the
+    process's RSS growth from before the build to after the rounds must stay
+    under ``POP_RSS_MB`` with the pool larger than that on disk. The start
+    is read after two warm-up rounds of the same model and cohort shape on a
+    population of ``POP_WARM`` clients, so that the CUDA libraries' loads on
+    first use (the first round of a new shape grew this process by ~1.2 GB
+    on an H100 machine, with no population at all) are not charged to the
+    population; the warm-up's own growth is printed beside."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.pool import StreamedClientPool
+    from repro_torch.models import paper
+
+    model = paper.mnist_2nn(n_classes=5, d_in=POP_D, device="cuda")
+    gc.collect()
+    rss_w = rss_mb()
+    warm = StreamedClientPool.from_generator(synth_clients(POP_WARM, POP_ROWS, POP_D, seed=2),
+                                             POP_ROWS, shard_clients=POP_SHARD,
+                                             root=root / "warm-up")
+    RoundEngine(model.loss, model.init(2), None,
+                FedAvgConfig(C=POP_M / POP_WARM, E=1, B=POP_ROWS, lr=0.1, seed=0), pool=warm,
+                device="cuda").run(2)
+    del warm
+    gc.collect()
+    rss0 = rss_mb()
+    print(f"  warm-up: 2 rounds of m={POP_M} on {POP_WARM} clients grew the process "
+          f"{rss0 - rss_w:.1f} MB")
+    t0 = time.perf_counter()
+    pool = StreamedClientPool.from_generator(synth_clients(POP_K, POP_ROWS, POP_D, seed=1),
+                                             POP_ROWS, shard_clients=POP_SHARD,
+                                             root=root / "population")
+    build_s = time.perf_counter() - t0
+    cfg = FedAvgConfig(C=POP_M / POP_K, E=1, B=POP_ROWS, lr=0.1, seed=0)
+    eng = RoundEngine(model.loss, model.init(2), None, cfg, pool=pool, device="cuda")
+    require(eng._m == POP_M, f"cohort {eng._m}")
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = eng.run(POP_ROUNDS)
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    growth = rss_mb() - rss0
+    disk_mb = pool.nbytes_on_disk() / 1e6
+    est_mb = pool.estimated_device_nbytes() / 1e6
+    ok = growth < POP_RSS_MB and disk_mb > POP_RSS_MB
+    print(f"  K={POP_K:,} clients of {POP_ROWS}x{POP_D} fp32 from a generator into "
+          f"{pool.num_shards} shards of {POP_SHARD}: {disk_mb:.1f} MB on disk (the device "
+          f"pack would take {est_mb:.1f} MB), built in {build_s:.2f} s; {POP_ROUNDS} streamed "
+          f"rounds of m={POP_M} in {run_s:.3f} s ({run_s / POP_ROUNDS:.4f} s a round), losses "
+          + ", ".join(f"{r.train_loss:.4f}" for r in hist.records[:3]) + " ...; RSS growth "
+          f"{growth:.1f} MB (required < {POP_RSS_MB:.0f}) {'ok' if ok else 'FAIL'}")
+    require(counts["fedavg_aggregate"] == POP_ROUNDS and all(math.isfinite(r.train_loss)
+                                                            for r in hist.records),
+            f"population rounds: launches {counts}")
+    require(ok, f"RSS grew {growth:.1f} MB with a {disk_mb:.1f} MB pool on disk")
+    return {"K": POP_K, "disk_MB": disk_mb, "device_estimate_MB": est_mb, "build_s": build_s,
+            "seconds_a_round": run_s / POP_ROUNDS, "rss_growth_MB": growth,
+            "warm_up_growth_MB": rss0 - rss_w,
+            "launches": counts["fedavg_aggregate"]}
+
+
+def async_streamed_phase(train, test):
+    """Phase 24: (a)-(f) above. The shards go to a directory under
+    ``build/``, removed after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pool import StreamedClientPool
+
+    data = (train, test)
+    out = {}
+    phase_t0 = time.perf_counter()
+    print("  (a) the degenerate async schedule against the sync lane, 2NN")
+    out["degenerate"] = degenerate_async(data)
+    free_card()
+    print("  (b) mnist_2nn_noniid_async against the sync lane under its straggler model")
+    out["straggler"] = async_vs_straggler_sync(train, test)
+    free_card()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pool_", dir=ROOT / "build"))
+    try:
+        spec = json.loads((ROOT / "specs" / "mnist_2nn_noniid.json").read_text())
+        t0 = time.perf_counter()
+        spool = StreamedClientPool.build(noniid_clients(train, spec), spec["fedavg"]["B"],
+                                         root=root / "noniid")
+        print(f"  the non-IID population's streamed pool: {spool.num_clients} clients, "
+              f"{spool.num_shards} shard(s), {spool.nbytes_on_disk():,} B on disk, built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        print("  (c, d) the streamed pool against the device pool")
+        out["streamed"] = streamed_vs_device(data, spool)
+        free_card()
+        print("  (e) pool='auto' over the budget")
+        out["auto"] = auto_selects_streamed(data, spool, root)
+        del spool
+        free_card()
+        print("  (f) the population gate")
+        out["population"] = population_gate(root)
+    finally:
+        shutil.rmtree(root)
+    free_card()
+    out["launches"] = {
+        "fedavg_aggregate": (out["degenerate"]["launches"] + out["straggler"]["launches"]
+                             + out["streamed"]["launches"]["fedavg_aggregate"]
+                             + out["population"]["launches"]),
+        "quantized_aggregate": out["streamed"]["launches"]["quantized_aggregate"]}
+    out["main_route_launches"] = out["streamed"]["main_route_launches"]
+    out["seconds"] = time.perf_counter() - phase_t0
+    print(f"  phase 24: launches {out['launches']} in {out['seconds']:.1f} s")
+    return out
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
@@ -4326,6 +4767,11 @@ def main() -> int:
     paper_models = paper_models_phase(chars)
     del chars
 
+    phase("24. the buffered-async lane and the streamed pool, full size, through "
+          "RoundEngine(async_config=, latency=, pool=).run")
+    print(f"card: {smi}")
+    async_streamed = async_streamed_phase(train, test)
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
@@ -4339,6 +4785,8 @@ def main() -> int:
     launches["fedavg_aggregate"] += superstep_spec_lane["launches"]
     launches["fedavg_aggregate"] += sum(paper_models[m]["launches"]
                                         for m in ("cifar_cnn", "word_lstm"))
+    for k, n in async_streamed["launches"].items():
+        launches[k] += n
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
@@ -4410,11 +4858,12 @@ def main() -> int:
     kernels[0]["round_wall_s"] = {"mnist_2nn": wall_2nn, "mnist_cnn": wall_cnn}
     for k in kernels:
         k["spec_lanes"] = [lane for lane in spec_lanes if lane["kernel"] == k["name"]]
-    kernels[0]["spec_front_door"] = {"refused": SPEC_REFUSED, "resume": resumes,
+    kernels[0]["spec_front_door"] = {"resume": resumes,
                                      "lm_checkpoint": lm_ckpt,
                                      "lowrank": [lane for lane in spec_lanes
                                                  if lane["kernel"] is None]}
     kernels[0]["paper_models"] = paper_models
+    kernels[0]["async_and_streamed"] = async_streamed
     kernels[0]["superstep"] = {"lanes": [l for l in superstep_lanes
                                          if l["kernel"] == "fedavg_aggregate"],
                                "spec": superstep_spec_lane}
@@ -4430,7 +4879,8 @@ def main() -> int:
             "general": "qagg_kernel / packed_qagg_kernel (the rest)"}
         stream = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
                      if lane["kernel"] == KERNELS[i]) + sum(
-            lane["launches"] for lane in superstep_lanes if lane["kernel"] == KERNELS[i])
+            lane["launches"] for lane in superstep_lanes if lane["kernel"] == KERNELS[i]) \
+            + async_streamed["main_route_launches"].get(KERNELS[i], 0)
         kernels[i]["route_launches"] = {"stream": stream,
                                         "general": launches[KERNELS[i]] - stream}
     kernels[3]["routes"] = {

@@ -1,6 +1,6 @@
-"""FedAvg's pieces, the round engine, strategies, topologies, codecs, the
-compatibility trainer and the losses (counterpart of ``repro/core``; its
-export list, less what waits in ROADMAP Queue 1: the async scheduler, item 8)."""
+"""FedAvg's pieces, the round engine and its schedules, strategies,
+topologies, codecs, the compatibility trainer and the losses (counterpart of
+``repro/core``; its export list)."""
 from repro_torch.core.fedavg import (
     FedAvgConfig,
     client_update,
@@ -41,6 +41,7 @@ from repro_torch.core.topology import (
     topology_to_json,
 )
 from repro_torch.core.latency import LatencyModel
+from repro_torch.core.scheduler import AsyncConfig, RoundScheduler
 from repro_torch.core.compression import (
     Codec,
     build_compressed_round_step,

@@ -44,6 +44,7 @@ from repro_torch.core.fedavg import client_update, masked_weighted_loss
 from repro_torch.core.strategies import resolve_strategy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.ops import (
+    host_to_device,
     normalized_weights,
     packed_quantized_fedavg_aggregate,
     quantized_fedavg_aggregate,
@@ -404,7 +405,7 @@ def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=Non
             loss_fn, state.params, rb.data, rb.step_mask, rb.lr
         )
         w = torch.as_tensor(rb.client_weights, dtype=torch.float32)
-        loss = masked_weighted_loss(losses, rb.step_mask, w.to(losses.device))
+        loss = masked_weighted_loss(losses, rb.step_mask, host_to_device(w, losses.device))
         deltas = tree_map(lambda c, p: (c - p).float(), client_params, state.params)
         flat, spec = tree_ravel_stacked(deltas)
         payloads = codec.encode(rb.gen, flat)

@@ -1,7 +1,10 @@
-"""RoundEngine: Algorithm 1 over a device-resident client pool (counterpart
-of ``repro/core/engine.py``: its plain lane, with ``codec=`` its
+"""RoundEngine: Algorithm 1 over a client population (counterpart of
+``repro/core/engine.py``: its plain lane, with ``codec=`` its
 compressed-upload lane, and with ``topology=`` its decentralized gossip
-lane; ``strategy=`` swaps the server step on the star lanes, ``from_spec``
+lane; ``strategy=`` swaps the server step on the star lanes,
+``latency=`` simulates stragglers and ``async_config=`` runs the
+buffered-async schedule (``core.scheduler``), ``pool=`` keeps the
+population on the device or streams it from the host's disk, ``from_spec``
 builds an engine from an ``ExperimentSpec``, and ``save``/``restore``
 checkpoint it in the reference's layout, so that either package resumes the
 other's checkpoints).
@@ -34,7 +37,27 @@ further number is drawn from the host stream, so a codec leaves the cohort
 ids unchanged.
 
 Weights come from the host counts, so normalizing them costs no device
-sync; the loop's only per-round sync is the loss read in ``run``.
+sync, and every host array a round needs reaches the card from page-locked
+memory without a sync (``ops.host_to_device``); the loop's only per-round
+sync is the loss read in ``run``.
+
+The streamed pool (``pool="streamed"``, or ``"auto"`` over the device
+budget) keeps the population in ``data.pool.StreamedClientPool``'s shards
+on the host's disk. Each round the host draws the cohort as above, reads
+its rows from the shards into a page-locked buffer and copies them to the
+device on a side stream (``core.staging``); the round then runs the same
+permutation and round step on those rows as the device pool runs on its
+gathered ones, so the two pools give the same rounds bit for bit. Round
+R+1's cohort is drawn and staged right after round R is dispatched
+(``prefetch=1``): ``save``, ``restore`` and a round out of turn discard it
+and rewind the numpy stream to before its draw.
+
+The buffered-async schedule splits a round into ``_client_phase`` (a
+cohort's batches and ClientUpdate against the current params: raveled fp32
+deltas, per-client losses, raw host weights) and ``_apply_buffer`` (the
+buffer's weights scaled for staleness and normalized on the host,
+``fedavg_aggregate``, ``strategy.apply``); ``core.scheduler`` decides when
+each runs.
 
 The gossip lane (``topology=``) has no server and no cohort draw: every
 node trains its own packed client (node k is client k) from its own
@@ -64,6 +87,7 @@ the reference's, other realizations.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import time
@@ -95,16 +119,21 @@ from repro_torch.core.fedavg import (
     server_aggregate,
 )
 from repro_torch.core.graphs import RoundGraph
+from repro_torch.core.scheduler import AsyncConfig, RoundScheduler
+from repro_torch.core.staging import CohortStager
 from repro_torch.core.strategies import FedAvg, ServerStrategy, resolve_strategy
 from repro_torch.core.topology import Topology, resolve_topology
-from repro_torch.data.batching import pack_clients
-from repro_torch.data.pool import device_pool_budget
+from repro_torch.data.batching import estimate_pool_nbytes, pack_clients
+from repro_torch.data.pool import StreamedClientPool, device_pool_budget
+from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.ops import host_to_device, normalized_weights
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import (
     tree_leaves,
     tree_map,
     tree_ravel_stacked,
+    tree_unravel,
     tree_unravel_stacked,
 )
 
@@ -157,7 +186,7 @@ def build_simulation_round_step(
             loss_fn, state.params, rb.data, rb.step_mask, rb.lr
         )
         w = torch.as_tensor(rb.client_weights, dtype=torch.float32)
-        loss = masked_weighted_loss(losses, rb.step_mask, w.to(losses.device))
+        loss = masked_weighted_loss(losses, rb.step_mask, host_to_device(w, losses.device))
         deltas = tree_map(lambda c, p: (c - p).float(), client_params, state.params)
         agg_delta = server_aggregate(deltas, w)
         outer, new_params = strategy.apply(state.outer_state, state.params, agg_delta)
@@ -199,9 +228,10 @@ class RoundRecord:
     test_acc: Optional[float] = None
     test_loss: Optional[float] = None
     wall_s: float = 0.0
-    # Simulated duration under a straggler model (the async lane, ROADMAP
-    # Queue 1 item 8); the sync lanes leave it at 0.0. Kept in the
-    # reference's field order so that a checkpoint's history loads as is.
+    # Simulated duration under the scheduler's LatencyModel (0.0 without
+    # one): a sync round is charged its slowest observed arrival, an async
+    # apply the time since the previous apply. Kept in the reference's
+    # field order so that a checkpoint's history loads as is.
     sim_s: float = 0.0
     # Gossip lane only: the post-mix consensus distance (RMS over nodes of
     # each replica's L2 distance to the node mean). None on the star lanes.
@@ -243,14 +273,26 @@ class History:
         accuracy curve, interpolated between evaluated rounds."""
         return _monotone_crossing(self.accuracy_curve(), target)
 
+    def sim_time_to_target(self, target: float) -> Optional[float]:
+        """Simulated seconds to first cross ``target``: the metric that tells
+        sync from buffered-async under stragglers, where every sync round
+        waits on its cohort's slowest client. x: the cumulative ``sim_s``."""
+        t, curve = 0.0, []
+        for r in self.records:
+            t += r.sim_s
+            if r.test_acc is not None:
+                curve.append((t, r.test_acc))
+        return _monotone_crossing(curve, target)
+
 
 class RoundEngine:
-    """Algorithm 1 over a packed client population.
+    """Algorithm 1 over a client population.
 
-    Construction packs ``client_data`` once (``data.batching.pack_clients``)
-    and uploads it to ``device``; each ``round()`` draws a cohort on the
-    host and runs gather -> permute -> ClientUpdate -> aggregate on the
-    device. ``device`` defaults to ``"cuda"`` and raises without a card.
+    With the device pool, construction packs ``client_data`` once
+    (``data.batching.pack_clients``) and uploads it to ``device``; each
+    ``round()`` draws a cohort on the host and runs gather -> permute ->
+    ClientUpdate -> aggregate on the device. ``device`` defaults to
+    ``"cuda"`` and raises without a card.
 
     ``codec`` (``core.compression``) swaps the server step for the
     compressed-upload lane: each client's delta is encoded and the server
@@ -261,7 +303,8 @@ class RoundEngine:
     to the gossip lane: one node per packed client, each with its own
     replica, mixed with its neighbours every round. It needs ``cfg.C ==
     1.0`` and an identity strategy (FedAvg or FedSGD), and takes no codec,
-    as the reference's refusals say.
+    no latency model, no async schedule and no streamed pool, as the
+    reference's refusals say.
 
     ``strategy`` (``core.strategies``: None, a registry name or an instance)
     is the server's update rule over the aggregated fp32 delta; its
@@ -273,14 +316,31 @@ class RoundEngine:
     and ``run(n, rounds_per_step=R)`` then runs R rounds a host sync;
     ``rounds_per_step`` here is ``run``'s default (the spec's
     ``execution.rounds_per_step``). It takes the plain and FedAvgM lanes
-    and the codecs whose noise is drawn on the device; low-rank and gossip
-    are refused (ROADMAP Queue 1 item 6)."""
+    and the codecs whose noise is drawn on the device; low-rank, gossip and
+    the streamed pool are refused (ROADMAP Queue 1 item 6).
+
+    ``latency`` (a ``core.latency.LatencyModel``) simulates stragglers on the
+    host-sampled sync lane: each round is charged its slowest observed
+    arrival and the clients that fail are ghosts. ``async_config`` (a
+    ``core.scheduler.AsyncConfig``) runs the buffered-async schedule
+    instead, where ``run(n)`` counts server applies; it takes no codec, no
+    device sampling and no ``rounds_per_step`` other than 1.
+
+    ``pool`` picks the population's store: ``"device"`` (packed on the
+    device), ``"streamed"`` (``data.pool.StreamedClientPool`` shards of
+    ``pool_shard_clients`` clients under ``pool_dir``, or a temporary
+    directory; each round's cohort staged to the device), a prebuilt
+    ``StreamedClientPool`` (``client_data`` may then be None), or
+    ``"auto"``: the device pool while ``estimate_pool_nbytes`` fits
+    ``device_pool_budget(device)``, else streamed. ``prefetch`` (0 or more)
+    stages the next round's cohort while the current one runs when it is
+    not 0. The streamed pool runs the host-sampled sync lane only."""
 
     def __init__(
         self,
         loss_fn: Callable,
         init_params,
-        client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+        client_data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]],
         cfg: FedAvgConfig,
         eval_fn: Optional[Callable] = None,
         *,
@@ -289,19 +349,16 @@ class RoundEngine:
         topology=None,
         device_sampling: bool = False,
         rounds_per_step: Optional[int] = None,
+        latency=None,
+        async_config: Optional[AsyncConfig] = None,
+        pool="auto",
+        pool_shard_clients: int = 1024,
+        pool_dir=None,
+        prefetch: int = 1,
         device="cuda",
     ):
-        if device_sampling and topology is not None:
-            raise ValueError(
-                "topology= is incompatible with device_sampling=True: the gossip lane runs "
-                "every node every round (no cohort draw to move to the device); its own "
-                "superstep is not ported yet (ROADMAP Queue 1 item 6), so construct the "
-                "engine without device_sampling")
-        if device_sampling and codec is not None and codec.host_noise:
-            raise ValueError(
-                f"codec {codec.name!r} draws its noise on the host and copies it to the "
-                "device every round, which a captured round cannot do: low-rank under "
-                "device_sampling=True is not ported yet (ROADMAP Queue 1 item 6)")
+        self._refuse(codec, topology, device_sampling, rounds_per_step, latency,
+                     async_config, pool, prefetch)
         self.device = resolve_device(device)
         # A private copy: the caller's tensors are never updated.
         self.params = tree_map(
@@ -316,23 +373,24 @@ class RoundEngine:
         self.outer_state = self.strategy.init_state(self.params)
         self.round_idx = 0
         self.history = History()
-        if any(y is None for _, y in client_data):
-            raise ValueError("RoundEngine trains classifiers: every client needs labels")
-        packed = pack_clients(client_data, cfg.B,
-                              max_bytes=device_pool_budget(self.device))
-        self._x = torch.from_numpy(packed.x).to(self.device)
-        self._y = torch.from_numpy(packed.y).to(self.device)
-        # Keep only the metadata on the host, where the host-sampled lane
-        # draws its cohort; a device-sampling engine also holds device copies
-        # of the counts and steps per epoch, its generator and its graph.
-        self.packed = packed._replace(x=None, y=None)
+        self.latency = latency
+        self.async_config = async_config
+        self._prefetch_depth = int(prefetch)
+        self._prefetched = None
+        self._delta_spec = None
         self.codec = codec
         self.device_sampling = bool(device_sampling)
         self.default_rounds_per_step = rounds_per_step
+        # A gossip engine trains every node every round: "auto" resolves to the
+        # device pool there (over the budget it raises), as in the reference.
+        self._init_pool(client_data, "device" if topology is not None else pool,
+                        pool_shard_clients, pool_dir)
+        self._m = cohort_size(self.num_clients, cfg.C)
         self._gen = self._graph = None
         if self.device_sampling:
-            self._counts = torch.from_numpy(packed.counts).to(self.device)
-            self._spe = torch.from_numpy(packed.steps_per_epoch.astype(np.int64)).to(self.device)
+            self._counts = torch.from_numpy(self.packed.counts).to(self.device)
+            self._spe = torch.from_numpy(
+                self.packed.steps_per_epoch.astype(np.int64)).to(self.device)
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(int(cfg.seed))
             self._graph = RoundGraph(self._gen)
@@ -344,6 +402,121 @@ class RoundEngine:
         else:
             self._round_step = build_compressed_round_step(loss_fn, codec,
                                                            strategy=self.strategy)
+
+    @staticmethod
+    def _refuse(codec, topology, device_sampling, rounds_per_step, latency, async_config,
+                pool, prefetch) -> None:
+        """The lane combinations the engine refuses, before any state is built
+        (the reference's ``engine.py:392-420``, ``:467-520`` and ``:700-719``).
+        An ``"auto"`` pool that turns out streamed is refused with the
+        latency and async lanes in ``_init_pool``."""
+        if device_sampling and topology is not None:
+            raise ValueError(
+                "topology= is incompatible with device_sampling=True: the gossip lane runs "
+                "every node every round (no cohort draw to move to the device); its own "
+                "superstep is not ported yet (ROADMAP Queue 1 item 6), so construct the "
+                "engine without device_sampling")
+        if device_sampling and codec is not None and codec.host_noise:
+            raise ValueError(
+                f"codec {codec.name!r} draws its noise on the host and copies it to the "
+                "device every round, which a captured round cannot do: low-rank under "
+                "device_sampling=True is not ported yet (ROADMAP Queue 1 item 6)")
+        if topology is not None and (latency is not None or async_config is not None):
+            raise ValueError(
+                "topology= is incompatible with latency=/async_config=: the straggler and "
+                "buffered-async schedules dispatch against the star lanes; gossip rounds "
+                "are a synchronous mixing schedule")
+        if topology is not None and not (isinstance(pool, str) and pool in ("auto", "device")):
+            raise ValueError(
+                "topology= needs the device pool: every node trains every round, so a "
+                "streamed pool would stage the whole population each round; use "
+                "pool='device'")
+        if latency is not None and device_sampling:
+            raise ValueError(
+                "latency simulation needs the per-round numpy-stream lane: construct the "
+                "engine without device_sampling")
+        if async_config is not None:
+            if codec is not None or device_sampling:
+                raise ValueError(
+                    "async_config is incompatible with codec=/device_sampling=True: the "
+                    "buffered-async lane ships dense fp32 deltas through the split client "
+                    "and apply phases on the per-round numpy-stream lane")
+            if rounds_per_step not in (None, 1):
+                raise ValueError(
+                    "async_config replaces the round loop entirely; "
+                    f"rounds_per_step={rounds_per_step} has no meaning there")
+        if int(prefetch) < 0:
+            raise ValueError(f"prefetch must be >= 0, got {prefetch}")
+        streamed = isinstance(pool, StreamedClientPool)
+        if not streamed and pool not in ("auto", "device", "streamed"):
+            raise ValueError("pool must be 'auto', 'device', 'streamed', or a "
+                             f"StreamedClientPool instance, got {pool!r}")
+        if streamed or pool == "streamed":
+            RoundEngine._refuse_streamed(latency, async_config, device_sampling)
+
+    @staticmethod
+    def _refuse_streamed(latency, async_config, device_sampling) -> None:
+        if latency is not None or async_config is not None:
+            raise ValueError(
+                "pool='streamed' supports the sync round lane only: the latency/async "
+                "schedulers dispatch against the device-resident pool directly")
+        if device_sampling:
+            raise ValueError(
+                "pool='streamed' with device_sampling=True is the staged superstep, which "
+                "is not ported to repro_torch yet (ROADMAP Queue 1 item 6): the port's "
+                "device cohort comes from the generator that also draws the batch "
+                "uniforms, so staging round R+1's ids ahead would reorder that stream; "
+                "stream on the host-sampled lane, or keep the population on the device")
+
+    def _init_pool(self, client_data, pool, shard_clients: int, pool_dir) -> None:
+        """Resolve ``pool`` and build the store: the packed device pool
+        (``self._x``, ``self._y``) or the streamed one (``self.pool``, and a
+        ``CohortStager``). ``self.packed`` is the population's metadata."""
+        if client_data is not None and any(y is None for _, y in client_data):
+            raise ValueError("RoundEngine trains classifiers: every client needs labels")
+        kind = "streamed" if isinstance(pool, StreamedClientPool) else pool
+        if client_data is None and kind != "streamed":
+            raise ValueError("client_data is None: pass the population, or a prebuilt "
+                             "StreamedClientPool as pool=")
+        if kind == "auto":
+            kind = "device"
+            if len(client_data):   # pack_clients refuses the empty population
+                x0, y0 = client_data[0]
+                est = estimate_pool_nbytes(
+                    np.asarray([len(x) for x, _ in client_data], np.int64), self.cfg.B,
+                    x0.shape[1:], x0.dtype.itemsize, y0.shape[1:], y0.dtype.itemsize)
+                if est > device_pool_budget(self.device):
+                    kind = "streamed"
+                    self._refuse_streamed(self.latency, self.async_config,
+                                          self.device_sampling)
+        self.pool_kind = kind
+        self.pool = self._stager = None
+        if kind == "device":
+            packed = pack_clients(client_data, self.cfg.B,
+                                  max_bytes=device_pool_budget(self.device))
+            self._x = torch.from_numpy(packed.x).to(self.device)
+            self._y = torch.from_numpy(packed.y).to(self.device)
+            # Keep only the metadata on the host, where the host-sampled lane
+            # draws its cohort.
+            self.packed = packed._replace(x=None, y=None)
+            return
+        if isinstance(pool, StreamedClientPool):
+            if pool.requested_batch_size != self.cfg.B:
+                raise ValueError(
+                    f"streamed pool was built with batch_size={pool.requested_batch_size} "
+                    f"but cfg.B={self.cfg.B}: its step schedule would not match this "
+                    "engine's")
+            if not pool.has_labels:
+                raise ValueError("RoundEngine trains classifiers: every client needs labels")
+        else:
+            pool = StreamedClientPool.build(client_data, self.cfg.B,
+                                            shard_clients=shard_clients, root=pool_dir)
+        self.pool = pool
+        self.packed = pool.meta
+        self._x = self._y = None
+        self._stager = CohortStager(
+            pool, cohort_size(pool.num_clients, self.cfg.C),
+            self.cfg.E * self.packed.max_real_steps_per_epoch, self.device)
 
     def _init_gossip(self, loss_fn: Callable, topology: Topology) -> None:
         """The gossip lane's set-up (the reference's ``engine.py:386-434`` and
@@ -387,7 +560,7 @@ class RoundEngine:
     def from_spec(
         cls,
         spec,
-        client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+        client_data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]],
         *,
         loss_fn: Optional[Callable] = None,
         init_params=None,
@@ -402,29 +575,27 @@ class RoundEngine:
         not a dataset. ``loss_fn`` and ``init_params`` default to the spec's
         model built on ``device`` (``model_kwargs`` override its fields) and
         initialized from ``spec.fedavg.seed`` by the port's own ``init``,
-        whose draws are not the reference's. A spec field the port has no
-        lane for yet is refused before any state is built, naming its
-        ROADMAP item."""
+        whose draws are not the reference's. ``async_spec`` becomes the
+        ``AsyncConfig`` and the ``LatencyModel`` (a codec beside it is
+        refused), and ``execution``'s pool fields reach the engine. A spec
+        field the port has no lane for yet is refused before any state is
+        built, naming its ROADMAP item."""
         ex = spec.execution
-        if spec.async_spec is not None:
+        latency, async_config = None, None
+        aspec = spec.async_spec
+        if aspec is not None:
             if spec.codec is not None:
                 raise ValueError(
                     f"spec {spec.name!r} sets both codec= and async_spec=: the "
                     "buffered-async lane has no codec path, so the run would ship dense "
                     f"fp32 deltas while the spec claims {spec.codec.kind!r} compression; "
                     "drop one of the two fields")
-            raise ValueError(
-                f"spec {spec.name!r} sets async_spec: the buffered-async lane is not "
-                "ported to repro_torch yet (ROADMAP Queue 1 item 8)")
+            async_config = AsyncConfig(buffer_k=aspec.buffer_k, concurrency=aspec.concurrency)
+            latency = aspec.latency
         if ex.mesh_axes is not None:
             raise ValueError(
                 f"spec {spec.name!r} sets execution.mesh_axes: cohort sharding is not "
                 "ported to repro_torch yet (ROADMAP Queue 1 item 7)")
-        if ex.pool == "streamed":
-            raise ValueError(
-                f"spec {spec.name!r} sets execution.pool='streamed': the streamed pool is "
-                "not ported to repro_torch yet (ROADMAP Queue 1 item 9); 'auto' and "
-                "'device' keep the population on the device")
         if ex.accum_dtype != "float32":
             raise ValueError(
                 f"spec {spec.name!r} sets execution.accum_dtype={ex.accum_dtype!r}: the "
@@ -446,6 +617,11 @@ class RoundEngine:
             topology=spec.topology.build() if spec.topology is not None else None,
             device_sampling=ex.device_sampling,
             rounds_per_step=ex.rounds_per_step,
+            latency=latency,
+            async_config=async_config,
+            pool=ex.pool,
+            pool_shard_clients=ex.pool_shard_clients,
+            prefetch=ex.prefetch,
             device=device,
         )
 
@@ -484,9 +660,12 @@ class RoundEngine:
         """(cohort ids, generator seed, lr), drawn from the numpy stream in
         the reference's order: ``rng.choice``, then ``rng.integers``."""
         lr = self.lr_at(self.round_idx)
+        return (*self._draw_cohort(), lr)
+
+    def _draw_cohort(self):
+        """One cohort's (ids, generator seed) from the numpy stream."""
         ids = sample_clients(self.rng, self.num_clients, self.cfg.C)
-        seed = int(self.rng.integers(2**31))
-        return ids, seed, lr
+        return ids, int(self.rng.integers(2**31))
 
     def save(self, ckpt_dir) -> str:
         """Checkpoint params, the strategy's state, the round counter, the
@@ -498,7 +677,11 @@ class RoundEngine:
         ``[0, seed]`` for a seed below 2**32. A device-sampling engine also
         writes its generator's ``get_state()`` bytes as hex
         (``torch_generator_state``) and the generator's device type
-        (``torch_generator_device``): the device stream it resumes from."""
+        (``torch_generator_device``): the device stream it resumes from. A
+        streamed engine's prefetched cohort is discarded first, its draw
+        rewound, so the checkpoint holds the stream an unprefetched run
+        (and a device-pool run) would hold."""
+        self._discard_prefetch()
         metadata = {
             "round_idx": self.round_idx,
             "rng_state": json.dumps(self.rng.bit_generator.state),
@@ -527,7 +710,9 @@ class RoundEngine:
         threefry key, which Philox cannot continue; a generator state of
         another device type), the topology, the strategy, and a checkpoint
         that predates strategies loaded into a stateful one. Leaves land on
-        the engine's device in the dtypes it holds."""
+        the engine's device in the dtypes it holds. A pending prefetch, drawn
+        for the stream before the restore, is discarded first."""
+        self._discard_prefetch()
         if step is None:
             step = latest_step(ckpt_dir)
             if step is None:
@@ -591,49 +776,65 @@ class RoundEngine:
             self.history = History([RoundRecord(**dict(d)) for d in meta["history"]])
         return self.round_idx
 
-    def _permuted_batches(self, idx: torch.Tensor, n_real: torch.Tensor, u: torch.Tensor):
-        """(bx, by) of the cohort ``idx`` (m,) on the device: one draw order
-        per (client, epoch) from the (m, E, n_pad) uniforms ``u``. Sorting by
-        ``u + 2*(row >= n_k)`` puts a uniform permutation of the client's n_k
-        real rows first and the tiled padding rows after, so the active
-        steps (ceil(n_k / B) per epoch) see every real example exactly once
-        per epoch."""
+    def _permuted_batches(self, xs: torch.Tensor, ys: torch.Tensor, n_real: torch.Tensor,
+                          u: torch.Tensor):
+        """(bx, by) of a cohort's gathered (m, n_pad, ...) rows ``xs``, ``ys``
+        on the device: one draw order per (client, epoch) from the (m, E,
+        n_pad) uniforms ``u``. Sorting by ``u + 2*(row >= n_k)`` puts a
+        uniform permutation of the client's n_k real rows first and the tiled
+        padding rows after, so the active steps (ceil(n_k / B) per epoch) see
+        every real example exactly once per epoch. The device pool gathers
+        the rows from its resident pack, the streamed pool stages them: the
+        same bytes, the same batches."""
         E = self.cfg.E
         spe = self.packed.max_real_steps_per_epoch
         B = self.packed.batch_size
-        dev = self.device
-        xs = self._x.index_select(0, idx)                       # (m, n_pad, ...)
         m, n_pad = xs.shape[:2]
-        is_pad = torch.arange(n_pad, device=dev) >= n_real[:, None, None]
+        is_pad = torch.arange(n_pad, device=xs.device) >= n_real[:, None, None]
         perm = torch.argsort(u + 2.0 * is_pad, dim=-1)[:, :, : spe * B]
         perm = perm.reshape(m, E * spe * B)
-        rows = torch.arange(m, device=dev)[:, None]
+        rows = torch.arange(m, device=xs.device)[:, None]
         bx = xs[rows, perm].reshape((m, E * spe, B) + tuple(xs.shape[2:]))
-        ys = self._y.index_select(0, idx)
         by = ys[rows, perm].reshape((m, E * spe, B) + tuple(ys.shape[2:]))
         return bx, by
 
     def _batch_uniforms(self, m: int, gen: torch.Generator) -> torch.Tensor:
-        return torch.rand((m, self.cfg.E, self._x.shape[1]), generator=gen, device=self.device)
+        n_pad = self.packed.max_steps_per_epoch * self.packed.batch_size
+        return torch.rand((m, self.cfg.E, n_pad), generator=gen, device=self.device)
+
+    def _host_mask(self, ids) -> np.ndarray:
+        """(m, E * spe) 0/1 step mask of host cohort ``ids``, from the host
+        steps per epoch."""
+        E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
+        spe_k = self.packed.steps_per_epoch[ids]
+        return (np.arange(E * spe)[None, :] % spe < spe_k[:, None]).astype(np.float32)
 
     def materialize_round_batch(self, ids, generator_seed: int):
         """(batch, step_mask, weights) for host cohort ``ids``, the
         permutations drawn from a device generator seeded with
-        ``generator_seed``: the host-sampled lane's batches. The step mask
-        comes from the host steps per epoch; the weights are the host
-        float32 counts."""
+        ``generator_seed``: the host-sampled lane's batches. The ids, the
+        real-row counts and the step mask reach the device from page-locked
+        memory without a sync; the weights are the host float32 counts. A
+        streamed engine reads the rows from its shards (the round loop
+        stages them ahead instead, :meth:`_prepare_round`)."""
         ids = np.asarray(ids)
         dev = self.device
-        idx = torch.from_numpy(ids.astype(np.int64)).to(dev)
         counts = self.packed.counts[ids]
-        n_real = torch.from_numpy(counts.astype(np.int64)).to(dev)
+        with sanctioned_staging():
+            n_real = host_to_device(torch.from_numpy(counts.astype(np.int64)), dev)
+            mask = host_to_device(torch.from_numpy(self._host_mask(ids)), dev)
+            if self.pool is None:
+                idx = host_to_device(torch.from_numpy(ids.astype(np.int64)), dev)
+            else:
+                x, y = self.pool.gather(ids)
+                xs = host_to_device(torch.from_numpy(x), dev)
+                ys = host_to_device(torch.from_numpy(y), dev)
+        if self.pool is None:
+            xs, ys = self._x.index_select(0, idx), self._y.index_select(0, idx)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(generator_seed))
-        batch = self._permuted_batches(idx, n_real, self._batch_uniforms(len(ids), gen))
-        E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
-        spe_k = self.packed.steps_per_epoch[ids]
-        mask = (np.arange(E * spe)[None, :] % spe < spe_k[:, None]).astype(np.float32)
-        return batch, torch.from_numpy(mask).to(dev), torch.from_numpy(counts.copy())
+        batch = self._permuted_batches(xs, ys, n_real, self._batch_uniforms(len(ids), gen))
+        return batch, mask, torch.from_numpy(counts.copy())
 
     def assemble_round_batch(self, ids: torch.Tensor, u: torch.Tensor):
         """(batch, step_mask, weights) for the device cohort ``ids`` (int64)
@@ -644,7 +845,8 @@ class RoundEngine:
         uniforms they equal :meth:`materialize_round_batch`'s."""
         E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
         w = self._counts.index_select(0, ids)
-        batch = self._permuted_batches(ids, w.long(), u)
+        batch = self._permuted_batches(self._x.index_select(0, ids),
+                                       self._y.index_select(0, ids), w.long(), u)
         spe_k = self._spe.index_select(0, ids)
         steps = torch.arange(E * spe, device=self.device) % spe
         mask = (steps[None, :] < spe_k[:, None]).to(torch.float32)
@@ -655,9 +857,8 @@ class RoundEngine:
         uniforms and codec noise from the engine's generator, in that order,
         then the lane's round step. Returns (params, outer_state, loss)."""
         gen = self._gen
-        m = cohort_size(self.num_clients, self.cfg.C)
-        ids = sample_clients_device(gen, self.num_clients, m)
-        batch, mask, w = self.assemble_round_batch(ids, self._batch_uniforms(m, gen))
+        ids = sample_clients_device(gen, self.num_clients, self._m)
+        batch, mask, w = self.assemble_round_batch(ids, self._batch_uniforms(self._m, gen))
         state, metrics = self._round_step(
             RoundState(params, outer_state=outer_state),
             RoundBatch(batch, mask, w, lr=lr, gen=gen),
@@ -672,8 +873,22 @@ class RoundEngine:
             return self._round_gossip()
         if self.device_sampling:
             return {"loss": self._advance(1)[0]}
-        ids, seed, lr = self._next_round_inputs()
+        if self.pool is not None:
+            return self._round_streamed()
+        return self._host_round(*self._next_round_inputs())
+
+    def _host_round(self, ids, seed: int, lr, arrival: Optional[np.ndarray] = None):
+        """The device pool's host-sampled round on cohort ``ids``. ``arrival``
+        (m,) 0/1 masks the host weights: the straggler model's ghosts, which
+        then vanish from the aggregate and the loss."""
         batch, mask, w = self.materialize_round_batch(ids, seed)
+        if arrival is not None:
+            w = w * torch.from_numpy(arrival)
+        return self._step(batch, mask, w, lr, seed)
+
+    def _step(self, batch, mask, w, lr, seed: int) -> Dict[str, torch.Tensor]:
+        """The lane's round step on one cohort's batches; the codec's
+        generator is seeded with ``seed ^ 0x5EED``."""
         codec_gen = None if self.codec is None else codec_generator(
             self.codec, seed ^ 0x5EED, self.device)
         state, metrics = self._round_step(
@@ -683,6 +898,95 @@ class RoundEngine:
         self.params, self.outer_state = state.params, state.outer_state
         self.round_idx += 1
         return metrics
+
+    # -- the streamed pool's staging pipeline -------------------------------
+
+    def _rng_snapshot(self):
+        return copy.deepcopy(self.rng.bit_generator.state)
+
+    def _discard_prefetch(self) -> None:
+        """Drop a staged cohort that was not played and rewind the numpy
+        stream to before its draw: exact, because nothing else drew from the
+        stream since (prepares are sequential)."""
+        if self._prefetched is None:
+            return
+        self.rng.bit_generator.state = self._prefetched["rng"]
+        self._prefetched = None
+
+    def _take_prefetch(self, for_round: int):
+        """The prefetched cohort if it was staged for ``for_round``; else
+        none, any other one discarded and its draw rewound."""
+        p = self._prefetched
+        if p is not None and p["for_round"] == for_round:
+            self._prefetched = None
+            return p
+        self._discard_prefetch()
+        return None
+
+    def _prepare_round(self, for_round: int):
+        """Draw round ``for_round``'s cohort, read its rows from the shards
+        and stage them with its real-row counts and step mask
+        (``CohortStager``); the stream's state before the draw rides along."""
+        snap = self._rng_snapshot()
+        ids, seed = self._draw_cohort()
+        counts = self.packed.counts[ids]
+        dev, event = self._stager.stage(ids, counts, self._host_mask(ids))
+        return {"for_round": for_round, "ids": ids, "seed": seed,
+                "lr": self.lr_at(for_round), "w": torch.from_numpy(counts.copy()),
+                "dev": dev, "event": event, "rng": snap}
+
+    def _round_streamed(self) -> Dict[str, torch.Tensor]:
+        """One streamed round: the staged cohort (prefetched, or staged now)
+        through the device pool's permutation and round step; then, with
+        ``prefetch``, the next round's cohort staged while this one runs."""
+        b = self._take_prefetch(self.round_idx) or self._prepare_round(self.round_idx)
+        xs, ys, n_real, mask = self._stager.ready(b["dev"], b["event"])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(b["seed"])
+        batch = self._permuted_batches(xs, ys, n_real, self._batch_uniforms(len(b["ids"]), gen))
+        metrics = self._step(batch, mask, b["w"], b["lr"], b["seed"])
+        if self._prefetch_depth > 0:
+            # The round above is queued, not finished: this draw, shard read
+            # and copy overlap its tail on the card.
+            self._prefetched = self._prepare_round(self.round_idx)
+        return metrics
+
+    @property
+    def staged_bytes(self) -> int:
+        """Bytes a streamed round stages host to device (rows, real-row
+        counts, step mask); 0 on the device pool."""
+        return 0 if self._stager is None else self._stager.nbytes
+
+    # -- the buffered-async phases (core.scheduler) --------------------------
+
+    def _client_phase(self, ids, seed: int, lr):
+        """The dispatch half of a round: ClientUpdate of cohort ``ids``
+        against the current params (never changed here). Returns the (width,
+        N) raveled fp32 deltas, the (width,) per-client mean losses over the
+        real steps (``masked_weighted_loss``'s phrasing) and the (width,) raw
+        host weights."""
+        batch, mask, w = self.materialize_round_batch(ids, seed)
+        client_params, losses = client_update(self.loss_fn, self.params, batch, mask, lr)
+        deltas = tree_map(lambda c, p: (c - p).float(), client_params, self.params)
+        flat, self._delta_spec = tree_ravel_stacked(deltas)
+        per_client = torch.sum(losses * mask, dim=1) / torch.clamp(
+            torch.sum(mask, dim=1), min=1.0)
+        return flat, per_client, w
+
+    def _apply_buffer(self, flat, per_loss, w, stale) -> torch.Tensor:
+        """The server half: the buffer's raw host weights ``w`` scaled by the
+        strategy's ``staleness_scale`` of the host server-version gaps
+        ``stale``, normalized once on the host (``normalized_weights``, as
+        the sync round does, so the degenerate schedule's weights are its
+        bits), ``fedavg_aggregate`` (the CUDA kernel on the card),
+        ``strategy.apply``. Ghost rows carry w == 0 and vanish from the
+        aggregate and the loss. Returns the buffer's weighted loss, on the
+        device."""
+        w = w * self.strategy.staleness_scale(stale)
+        wn = normalized_weights(w, flat.device)
+        agg = tree_unravel(self._delta_spec, fedavg_aggregate(flat, wn))
+        self.outer_state, self.params = self.strategy.apply(self.outer_state, self.params, agg)
+        return torch.sum(wn * per_loss)
 
     def _advance(self, r: int) -> torch.Tensor:
         """r device-sampling rounds through the round graph; the (r,) losses
@@ -736,6 +1040,10 @@ class RoundEngine:
             raise ValueError(
                 "rounds_per_step > 1 on the gossip lane: the gossip superstep is not "
                 "ported yet (ROADMAP Queue 1 item 6)")
+        if R > 1 and self.async_config is not None:
+            raise ValueError(
+                "async_config replaces the round loop entirely; "
+                f"rounds_per_step={rounds_per_step} has no meaning there")
         if R > 1 and not self.device_sampling:
             raise ValueError(
                 "rounds_per_step > 1 needs RoundEngine(device_sampling=True): the "
@@ -757,6 +1065,12 @@ class RoundEngine:
         lane each record also carries the consensus distance, read in the
         same sync as the loss, and evaluation sees ``consensus_params()``.
 
+        The host-sampled star lanes run in ``core.scheduler``: without a
+        latency model the plain sync schedule, with ``latency=`` the
+        straggler-simulated one (records gain ``sim_s``), with
+        ``async_config=`` the buffered-async one, where ``n_rounds`` counts
+        server applies.
+
         A device-sampling engine runs chunks of ``rounds_per_step=R`` rounds
         (``None`` auto-selects, :meth:`_resolve_rounds_per_step`), one host
         sync a chunk: evaluation and ``target_acc`` then act at chunk
@@ -773,25 +1087,28 @@ class RoundEngine:
                 "run(target_acc=...) needs an eval_fn to measure accuracy"
             )
         R = self._resolve_rounds_per_step(rounds_per_step, n_rounds, eval_every)
+        if self.topology is not None:
+            return self._run_gossip(n_rounds, eval_every, target_acc, verbose)
+        if self.async_config is not None:
+            return RoundScheduler(self).run_async(n_rounds, eval_every, target_acc, verbose)
         if self.device_sampling:
             return self._run_supersteps(n_rounds, R, eval_every, target_acc, verbose)
+        return RoundScheduler(self).run_sync(n_rounds, eval_every, target_acc, verbose)
+
+    def _run_gossip(self, n_rounds, eval_every, target_acc, verbose) -> History:
+        """The gossip lane's round loop: the loss and the consensus distance
+        read back in one sync a round."""
         for i in range(n_rounds):
             t0 = time.perf_counter()
             metrics = self.round()
-            if self.topology is None:
-                loss, consensus = float(metrics["loss"]), None
-            else:
+            with sanctioned_staging():
                 loss, consensus = torch.stack(
                     [metrics["loss"], metrics["consensus"]]).tolist()
             rec = RoundRecord(round=self.round_idx, train_loss=loss,
                               wall_s=time.perf_counter() - t0, consensus=consensus)
-            self.history.records.append(rec)
-            if self.eval_fn is not None and (
-                self.round_idx % eval_every == 0 or i == n_rounds - 1
-            ):
-                acc = self._evaluate(rec, verbose)
-                if target_acc is not None and acc >= target_acc:
-                    break
+            if self._log(rec, self.round_idx % eval_every == 0 or i == n_rounds - 1,
+                         target_acc, verbose):
+                break
         return self.history
 
     def _run_supersteps(self, n_rounds, R, eval_every, target_acc, verbose) -> History:
@@ -814,6 +1131,22 @@ class RoundEngine:
                     break
         return self.history
 
+    @staticmethod
+    def _read_loss(loss: torch.Tensor) -> float:
+        """A round's or an apply's loss read back to the host: the loop's one
+        sanctioned sync."""
+        with sanctioned_staging():
+            return float(loss)
+
+    def _log(self, rec: RoundRecord, evaluate: bool, target_acc, verbose) -> bool:
+        """Append ``rec`` to the history and, when ``evaluate`` and there is
+        an ``eval_fn``, evaluate into it; True once ``target_acc`` is met."""
+        self.history.records.append(rec)
+        if not evaluate or self.eval_fn is None:
+            return False
+        acc = self._evaluate(rec, verbose)
+        return target_acc is not None and acc >= target_acc
+
     def _evaluate(self, rec: RoundRecord, verbose: bool) -> float:
         """``eval_fn`` on ``consensus_params()`` into ``rec``; returns the
         accuracy. Evaluation reads its result back: a sanctioned sync."""
@@ -823,6 +1156,7 @@ class RoundEngine:
             rec.test_loss = float(ev.get("loss", np.nan))
         if verbose:
             cons = "" if rec.consensus is None else f"consensus {rec.consensus:.2e} "
-            print(f"round {self.round_idx:5d} loss {rec.train_loss:.4f} "
+            sim = f"sim_s {rec.sim_s:.3f} " if rec.sim_s else ""
+            print(f"round {self.round_idx:5d} {sim}loss {rec.train_loss:.4f} "
                   f"{cons}test_acc {rec.test_acc:.4f}")
         return rec.test_acc

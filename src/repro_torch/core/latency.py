@@ -1,6 +1,6 @@
 """Client latency / dropout simulation model for the round scheduler (a
-numpy-only copy of ``repro/core/latency.py``; the port's scheduler comes
-with ROADMAP Queue 1 item 8).
+numpy-only copy of ``repro/core/latency.py``; ``core.scheduler`` draws
+from it).
 
 The paper's deployment setting is millions of unreliable phones, but a
 synchronous simulation hides the cost structure that motivates FedAvg in

@@ -60,16 +60,12 @@ def build_round_batch_host(client_data, selected, cfg: FedAvgConfig, rng):
     return bxs, bys, mask, weights
 
 
-def _refuse_unported(*, mesh=None, interpret=None, accum_dtype=torch.float32, latency=None,
-                     async_config=None) -> None:
+def _refuse_unported(*, mesh=None, interpret=None, accum_dtype=torch.float32) -> None:
     """The engine options the port has no lane for yet, each refused naming
     its ROADMAP item, as ``RoundEngine.from_spec`` refuses the spec fields."""
     if mesh is not None:
         raise ValueError("mesh=: cohort sharding is not ported to repro_torch yet "
                          "(ROADMAP Queue 1 item 7)")
-    if latency is not None or async_config is not None:
-        raise ValueError("latency= / async_config=: the buffered-async lane is not ported "
-                         "to repro_torch yet (ROADMAP Queue 1 item 8)")
     if interpret is not None:
         raise ValueError(f"interpret={interpret!r}: the port has no kernel interpreter; the "
                          "CPU path is chosen by device='cpu'")
@@ -82,7 +78,10 @@ class FederatedTrainer:
     """The old trainer API over a ``RoundEngine``: the reference's
     constructor and ``from_spec`` signatures plus ``device=``. Construction
     packs the population onto ``device`` once; ``run``, ``history`` and
-    ``params`` are the engine's. An option the port has no lane for yet is
+    ``params`` are the engine's. ``latency=`` and ``async_config=`` reach the
+    engine (straggler-simulated sync rounds, the buffered-async schedule);
+    ``from_spec`` takes a spec's ``async_spec`` and execution fields through
+    ``RoundEngine.from_spec``. An option the port has no lane for yet is
     refused before any state is built."""
 
     def __init__(
@@ -103,11 +102,11 @@ class FederatedTrainer:
         async_config=None,
         device="cuda",
     ):
-        _refuse_unported(mesh=mesh, interpret=interpret, accum_dtype=accum_dtype,
-                         latency=latency, async_config=async_config)
+        _refuse_unported(mesh=mesh, interpret=interpret, accum_dtype=accum_dtype)
         engine = RoundEngine(
             loss_fn, init_params, client_data, cfg, eval_fn, codec=codec,
-            strategy=strategy, device_sampling=device_sampling, device=device,
+            strategy=strategy, device_sampling=device_sampling, latency=latency,
+            async_config=async_config, device=device,
         )
         self._wrap(engine, client_data)
 

@@ -5,7 +5,7 @@ FedAvg is the identity over the aggregated client delta
 ``Δ_t = Σ_k (n_k / n) (w_k - w_t)``: ``w_{t+1} = w_t + Δ_t``. FedSGD is the
 same step with the paper's E=1, B=None client config enforced; FedAvgM adds
 server momentum (an fp32 velocity tree); FedAsync discounts stale updates
-for the buffered-async lane (ROADMAP Queue 1 item 8) and on a synchronous
+for the buffered-async lane (``core.scheduler``) and on a synchronous
 round is ``w <- w + server_lr * Δ``.
 
 Strategies are frozen dataclasses: hyper-parameters are fields, ``kind`` is

@@ -1,5 +1,5 @@
-"""Synthetic datasets, partitions and client batching (counterpart of
-``repro/data``; the streamed pool waits in ROADMAP Queue 1 item 9)."""
+"""Synthetic datasets, partitions, client batching and the population
+stores (counterpart of ``repro/data``)."""
 from repro_torch.data.synthetic import (
     make_char_corpus,
     make_image_classification,
@@ -20,4 +20,9 @@ from repro_torch.data.batching import (
     pool_metadata,
     windows_from_sequence,
 )
-from repro_torch.data.pool import device_pool_budget
+from repro_torch.data.pool import (
+    ClientPool,
+    DeviceClientPool,
+    StreamedClientPool,
+    device_pool_budget,
+)

@@ -170,8 +170,9 @@ def pack_clients(
                 f"population exceeds device budget: packing {len(counts)} "
                 f"clients at n_pad={n_pad} rows would allocate ~"
                 f"{est / 1e6:.0f} MB (> budget {max_bytes / 1e6:.0f} MB). "
-                "The port has no streamed pool yet; raise "
-                "REPRO_DEVICE_POOL_BUDGET or shrink the population."
+                "Use pool='streamed' (RoundEngine(pool='streamed') / "
+                "ExecutionSpec(pool='streamed')) to keep the population on "
+                "host disk, or raise REPRO_DEVICE_POOL_BUDGET."
             )
     K = len(client_data)
     xs = np.zeros((K, n_pad) + x0.shape[1:], x0.dtype)

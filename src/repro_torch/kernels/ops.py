@@ -3,7 +3,8 @@ of ``repro/kernels/ops.py``).
 
 Each aggregate adapter takes RAW example counts n_k and is the one place
 that normalizes them for its kernel. Host counts are normalized on the host
-and then copied to the payload's device, so a round adds no device sync.
+and then copied to the payload's device from page-locked memory
+(``host_to_device``), so a round adds no device sync.
 ``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already.
 ``mha_flash`` and ``mamba_ssm_scan`` adapt the LM's layouts to the
 attention and scan kernels.
@@ -43,11 +44,23 @@ from repro_torch.utils.tree import (
 )
 
 
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device`` without making the host wait: a host tensor bound
+    for a card is copied from page-locked memory with ``non_blocking=True``
+    (the pinned block is not reused before the copy has run), which a
+    pageable copy, a copy and a stream sync, would not be."""
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def normalized_weights(weights, device) -> torch.Tensor:
     """(K,) fp32 weights summing to 1 on ``device``, from raw counts on any
-    device; host counts are divided on the host."""
+    device; host counts are divided on the host, then copied without a
+    host sync (``host_to_device``)."""
     w = torch.as_tensor(weights, dtype=torch.float32)
-    return (w / w.sum()).to(device)
+    return host_to_device(w / w.sum(), device)
 
 
 def tree_fedavg_aggregate(stacked_params, weights):

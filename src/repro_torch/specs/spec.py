@@ -145,8 +145,9 @@ class TopologySpec:
 @dataclasses.dataclass(frozen=True)
 class AsyncSpec:
     """The buffered-async axis: apply whenever ``buffer_k`` of
-    ``concurrency`` in-flight updates arrive, under ``latency``. Its lane
-    waits in ROADMAP Queue 1 item 8."""
+    ``concurrency`` in-flight updates arrive, under ``latency``
+    (``RoundEngine.from_spec`` builds the ``AsyncConfig`` and the
+    ``LatencyModel`` of ``core.scheduler`` from it)."""
 
     buffer_k: int = 4
     concurrency: Optional[int] = None
@@ -155,9 +156,11 @@ class AsyncSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionSpec:
-    """How the experiment runs: the reference's execution lane fields. The
-    port runs the per-round lane with the device pool; ``from_spec``
-    refuses each field it has no lane for yet, naming its ROADMAP item."""
+    """How the experiment runs: the reference's execution lane fields
+    (``pool``: ``"auto"``, ``"device"`` or ``"streamed"``, with
+    ``pool_shard_clients`` and ``prefetch``); ``from_spec`` refuses each
+    field the port has no lane for yet, naming its ROADMAP item (cohort
+    sharding, item 7)."""
 
     mesh_axes: Optional[str] = None
     device_sampling: bool = False

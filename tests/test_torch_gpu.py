@@ -1711,3 +1711,118 @@ def test_make_eval_fn_on_the_card_scores_lm_labels(cuda):
     assert got["loss"].device.type == "cuda"
     assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * float(want["loss"])
     assert abs(float(got["acc"]) - float(want["acc"])) <= 1.0 / (37 * 9)
+
+
+# ---------------------------------------------------------------------------
+# the buffered-async lane and the streamed pool on the card
+# ---------------------------------------------------------------------------
+
+def _host_engine(cuda, model_name="mnist_2nn", n_clients=20, n_each=60, **kw):
+    """A host-sampled engine on the card (C = 0.5, E = 1, B = 10) over
+    ``n_clients`` synthetic MNIST clients."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.synthetic import make_image_classification
+    from repro_torch.models import paper
+
+    train, _, _ = make_image_classification(n_clients * n_each, 1, seed=0)
+    clients = [(train.x[i * n_each:(i + 1) * n_each], train.y[i * n_each:(i + 1) * n_each])
+               for i in range(n_clients)]
+    model = getattr(paper, model_name)(device=cuda)
+    cfg = FedAvgConfig(C=0.5, E=1, B=10, lr=0.1, lr_decay=0.99, seed=3)
+    return RoundEngine(model.loss, model.init(0), clients, cfg, device=cuda, **kw)
+
+
+def test_degenerate_async_equals_the_sync_lane_on_the_card(cuda):
+    """buffer_k == concurrency == m with zero latency: each apply launches
+    ``fedavg_aggregate`` once, and the params equal the sync lane's bit for
+    bit after every round; the numpy streams stay in step."""
+    from repro_torch.core import AsyncConfig, LatencyModel
+
+    sync = _host_engine(cuda)
+    m = sync._m
+    asy = _host_engine(cuda, async_config=AsyncConfig(buffer_k=m, concurrency=m),
+                       latency=LatencyModel())
+    for _ in range(3):
+        sync.run(1)
+        before = fedavg_aggregate.launches
+        asy.run(1)
+        assert fedavg_aggregate.launches == before + 1
+        assert sync.rng.bit_generator.state == asy.rng.bit_generator.state
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(sync.params), _leaves(asy.params)))
+    np.testing.assert_allclose([r.train_loss for r in asy.history.records],
+                               [r.train_loss for r in sync.history.records], rtol=3e-7)
+
+
+@pytest.mark.parametrize("model_name,lane", [("mnist_2nn", "plain"), ("mnist_2nn", "q8"),
+                                             ("mnist_cnn", "plain")])
+def test_streamed_pool_equals_the_device_pool_on_the_card(cuda, model_name, lane, tmp_path):
+    """The staged rows are the device gather's bytes and the rest is the same
+    round: params and losses bitwise (the CNN under ``cudnn.deterministic``,
+    whose default backward is not); prefetch 0 the same again."""
+    from repro_torch.core import compression as comp
+
+    kw = {} if lane == "plain" else {"codec": comp.quantize_codec(8)}
+    n = (20, 60) if model_name == "mnist_2nn" else (6, 20)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dev = _host_engine(cuda, model_name, *n, pool="device", **kw)
+        st = _host_engine(cuda, model_name, *n, pool="streamed", pool_dir=tmp_path / "a",
+                          pool_shard_clients=7, **kw)
+        off = _host_engine(cuda, model_name, *n, pool="streamed", pool_dir=tmp_path / "b",
+                           prefetch=0, **kw)
+        for e in (dev, st, off):
+            e.run(3)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert st.pool_kind == "streamed" and st._stager.slots is not None
+    for other in (st, off):
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(dev.params), _leaves(other.params)))
+        assert [r.train_loss for r in other.history.records] == \
+            [r.train_loss for r in dev.history.records]
+
+
+def test_streamed_and_async_loops_make_no_sync_under_the_transfer_guard(cuda, tmp_path):
+    """Warm streamed rounds and async applies under ``transfer_guard()``:
+    the staging steps and the loss reads are the sanctioned exchanges, and
+    nothing else makes the host wait."""
+    from repro_torch.analysis import transfer_guard
+    from repro_torch.core import AsyncConfig, LatencyModel
+
+    st = _host_engine(cuda, pool="streamed", pool_dir=tmp_path)
+    asy = _host_engine(cuda, async_config=AsyncConfig(buffer_k=3),
+                       latency=LatencyModel(kind="lognormal", sigma=1.5, dropout=0.1, seed=2))
+    st.run(1)
+    asy.run(1)
+    with transfer_guard():
+        hs = st.run(3)
+        ha = asy.run(4)
+    assert len(hs.records) == 4 and len(ha.records) == 5
+    assert all(np.isfinite(r.train_loss) for r in hs.records + ha.records)
+
+
+def test_a_staged_cohort_is_not_overwritten_before_its_copy(cuda):
+    """Three stages back to back through the two page-locked slots: the third
+    refills the first slot only after its copy's event, so every staged
+    cohort on the card equals its gather, read after all three."""
+    from repro_torch.core.staging import CohortStager
+    from repro_torch.data.pool import StreamedClientPool
+    from repro_torch.data.synthetic import make_image_classification
+
+    train, _, _ = make_image_classification(40 * 50, 1, seed=1)
+    clients = [(train.x[i * 50:(i + 1) * 50], train.y[i * 50:(i + 1) * 50]) for i in range(40)]
+    pool = StreamedClientPool.build(clients, 10, shard_clients=16)
+    st = CohortStager(pool, 8, 5, cuda)
+    cohorts = [np.arange(8) + 8 * k for k in range(3)]
+    staged = []
+    for ids in cohorts:
+        mask = np.full((8, 5), float(ids[0]), np.float32)
+        staged.append(st.ready(*st.stage(ids, pool.counts[ids], mask)))
+    torch.cuda.synchronize()
+    for ids, (x, y, n_real, mask) in zip(cohorts, staged):
+        gx, gy = pool.gather(ids)
+        assert x.device.type == "cuda" and x.cpu().numpy().tobytes() == gx.tobytes()
+        assert y.cpu().numpy().tobytes() == gy.tobytes()
+        assert n_real.cpu().tolist() == [50] * 8 and float(mask[0, 0]) == float(ids[0])
+    assert st.slots[0].host[0].is_pinned() and st.slots[0].event.query()

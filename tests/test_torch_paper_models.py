@@ -35,8 +35,10 @@ from repro.models import nn as ref_nn  # noqa: E402
 from repro.models import paper as ref_paper  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    AsyncConfig,
     FedAvgConfig,
     FederatedTrainer,
+    LatencyModel,
     RoundBatch,
     RoundEngine,
     RoundState,
@@ -433,8 +435,6 @@ def test_trainer_is_the_engine_it_wraps():
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "ROADMAP Queue 1 item 7"),
-    ({"latency": object()}, "ROADMAP Queue 1 item 8"),
-    ({"async_config": object()}, "ROADMAP Queue 1 item 8"),
     ({"interpret": True}, "no kernel interpreter"),
     ({"accum_dtype": torch.bfloat16}, "ROADMAP Queue 2"),
 ])
@@ -447,6 +447,40 @@ def test_trainer_refuses_what_the_port_has_no_lane_for(kw, item):
     if "mesh" in kw:
         with pytest.raises(ValueError, match=item):
             FederatedTrainer.from_spec(get_spec("shakespeare_lstm"), [], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option", ["latency", "async_config"])
+def test_trainer_passes_the_schedules_to_its_engine(option):
+    """``latency=`` and ``async_config=`` reach the engine the trainer wraps:
+    the trainer's run is the bare engine's, records' ``sim_s`` and all, and
+    ``from_spec`` takes an async spec's fields the same way."""
+    clients = _lm_clients("char_lstm", [6, 9, 4, 8])
+    model = paper.char_lstm(V_CHAR, hidden=8, device="cpu")
+    cfg = FedAvgConfig(C=0.5, E=1, B=3, lr=0.3, seed=1)
+    lat = LatencyModel(kind="exponential", mean_s=1.0, dropout=0.2, seed=4)
+    kw = {"latency": lat}
+    if option == "async_config":
+        kw["async_config"] = AsyncConfig(buffer_k=1, concurrency=2)
+    tr = FederatedTrainer(model.loss, model.init(0), clients, cfg, device="cpu", **kw)
+    eng = RoundEngine(model.loss, model.init(0), clients, cfg, device="cpu", **kw)
+    assert tr.engine.latency == lat and tr.engine.async_config == kw.get("async_config")
+    tr.run(3), eng.run(3)
+    assert [(r.round, r.sim_s, r.train_loss) for r in tr.history.records] == [
+        (r.round, r.sim_s, r.train_loss) for r in eng.history.records]
+    assert all(r.sim_s > 0 for r in tr.history.records)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.params), tree_leaves(eng.params)))
+    if option == "async_config":
+        spec = get_spec("mnist_2nn_noniid_async")
+        small = dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, kwargs={"n_classes": 5, "d_in": 6}),
+            fedavg=dataclasses.replace(spec.fedavg, C=0.5, E=1))
+        r = np.random.default_rng(0)
+        mnist = [(r.normal(size=(n, 6)).astype(np.float32), r.integers(0, 5, n).astype(np.int32))
+                 for n in (12, 7, 20, 9, 15, 11)]
+        by_spec = FederatedTrainer.from_spec(small, mnist, device="cpu")
+        assert by_spec.engine.async_config == AsyncConfig(buffer_k=3)
+        assert by_spec.engine.latency == spec.async_spec.latency
+        assert len(by_spec.run(2).records) == 2
 
 
 def test_fedsgd_config_is_the_reference_s():

@@ -44,8 +44,7 @@ torch.set_num_threads(1)
 
 SPEC_DIR = Path(__file__).resolve().parents[1] / "specs"
 SPEC_FILES = sorted(p.stem for p in SPEC_DIR.glob("*.json"))
-REFUSED = {"mnist_2nn_noniid_async": "item 8", "mnist_2nn_noniid_fedasync": "item 8"}
-RUNNABLE = [n for n in SPEC_FILES if n not in REFUSED]
+RUNNABLE = SPEC_FILES
 SMALL_2NN = ModelSpec("mnist_2nn", {"n_classes": 5, "d_in": 20})
 
 
@@ -84,7 +83,7 @@ def _equal(a, b):
 # ---------------------------------------------------------------------------
 
 def test_the_spec_files_are_the_fifteen_presets():
-    assert len(SPEC_FILES) == 15 and len(RUNNABLE) == 13
+    assert len(SPEC_FILES) == 15 and len(RUNNABLE) == 15
     assert set(SPEC_FILES) == set(PAPER_SPECS) == set(REF_SPECS) == set(list_specs())
 
 
@@ -157,7 +156,7 @@ def test_model_spec_builds_the_ports_models():
 
 def _refusals():
     base = get_spec("mnist_2nn_noniid")
-    cases = {name: (get_spec(name), item) for name, item in REFUSED.items()}
+    cases = {}
     async_q8 = dataclasses.replace(get_spec("mnist_2nn_noniid_async"),
                                    codec=CodecSpec("quantize"))
     ex = ExecutionSpec
@@ -169,7 +168,8 @@ def _refusals():
             get_spec("mnist_2nn_noniid_lowrank"), execution=superstep), "item 6"),
         "codec_and_async": (async_q8, "sets both codec= and async_spec="),
         "mesh": (dataclasses.replace(base, execution=ex(mesh_axes="clients")), "item 7"),
-        "streamed_pool": (dataclasses.replace(base, execution=ex(pool="streamed")), "item 9"),
+        "streamed_superstep": (dataclasses.replace(base, execution=ex(
+            pool="streamed", device_sampling=True)), "item 6"),
         "accum_dtype": (dataclasses.replace(base, execution=ex(accum_dtype="bfloat16")),
                         "Queue 2"),
         "interpret": (dataclasses.replace(base, execution=ex(interpret=True)),
@@ -196,12 +196,19 @@ def test_natural_partition_refuses_with_the_reference_message():
 
 @pytest.mark.parametrize("pool", ["auto", "device"])
 def test_device_pools_go_through_the_pool_budget(pool, monkeypatch):
+    """Under the budget both keep the population on the device; over it
+    ``"auto"`` streams it from the host and ``"device"`` refuses, naming the
+    streamed pool."""
     spec = dataclasses.replace(_small(get_spec("mnist_2nn_noniid")),
                                execution=ExecutionSpec(pool=pool))
     eng = RoundEngine.from_spec(spec, _clients(spec), device="cpu")
-    assert eng.num_clients == 5
+    assert eng.num_clients == 5 and eng.pool_kind == "device"
     monkeypatch.setenv("REPRO_DEVICE_POOL_BUDGET", "1000")
-    with pytest.raises(ValueError, match="exceeds device budget"):
+    if pool == "auto":
+        eng = RoundEngine.from_spec(spec, _clients(spec), device="cpu")
+        assert eng.pool_kind == "streamed" and eng.num_clients == 5
+        return
+    with pytest.raises(ValueError, match="exceeds device budget.*pool='streamed'"):
         RoundEngine.from_spec(spec, _clients(spec), device="cpu")
 
 
