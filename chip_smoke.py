@@ -146,7 +146,25 @@ Phases, in order, each printing its own lines:
     ``REPRO_DEVICE_POOL_BUDGET`` below the 2NN pool's estimate selects the
     streamed pool; (f) the population gate of ``benchmarks/round_engine.py``
     on the host-sampled lane: 10^5 generated clients (416 MB on disk), 10
-    rounds of m = 20, RSS growth under 256 MB.
+    rounds of m = 20, RSS growth under 256 MB;
+25. cohort sharding (``RoundEngine(mesh=make_client_mesh())``): (a) the four
+    aggregation kernels in partial-sum mode (``normalized=False``) on every
+    route at the 2NN and CNN shapes, with raw counts, ghost rows and an
+    all-zero vector (exactly 0), against their plain versions; (b) an NCCL
+    world of one at full size, 3 rounds a lane in turns (unsharded, sharded,
+    sharded, unsharded, ...): the 2NN and CNN plain lanes (the CNN under
+    ``cudnn.deterministic``), the 2NN q8, q4, top-k and FedAvgM lanes, each
+    against the unsharded engine from the same seed within the reference's
+    tolerances, its kernel once a round (the sharded rounds' in partial-sum
+    mode); a warm sharded round under ``transfer_guard``; (c) the 2NN
+    superstep at R = 20 under the NCCL mesh against the unsharded one,
+    chunks in turns, a guarded chunk, and a profiled chunk whose records hold
+    ``fedavg_agg_kernel`` once a replay beside NCCL's; (e)
+    ``mnist_2nn_noniid`` with ``execution.mesh_axes`` through ``from_spec``,
+    one round; (d) three ranks spawned from here, each on ``cuda:0``, under
+    gloo (m = 10: 12 slots, 2 ghosts), the 2NN plain and q8 lanes for 3
+    rounds, every rank's params the same and equal to (b)'s unsharded runs;
+    a rank that fails or outlives its deadline fails the phase.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -268,6 +286,7 @@ KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregat
            "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan",
            "fused_cross_entropy", "ce_probs")
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
+PARTIAL_KERNELS = KERNELS[:4]           # the four with a partial-sum mode (phase 25)
 CHUNK = 512                             # the specs' quantize chunk
 TOPK = 0.05                             # specs/mnist_2nn_noniid_topk.json
 # One round a lane: the script is kept near 500 s, and phase 22 runs 40 rounds
@@ -496,6 +515,33 @@ POP_K, POP_ROWS, POP_D, POP_SHARD = 100_000, 16, 64, 4096
 POP_M, POP_ROUNDS = 20, 10
 POP_RSS_MB = 256.0
 POP_WARM = 256                          # the warm-up population (population_gate)
+# Phase 25, cohort sharding (RoundEngine(mesh=) over a torch.distributed
+# client group) at full paper size: (b) each lane sharded over an NCCL world
+# of one against the unsharded engine from the same seed, SHARD_ROUNDS rounds
+# each; (c) the 2NN superstep, a chunk of SUPERSTEP_R; (d) SHARD_GLOO_WORLD
+# ranks sharing the card under gloo, m = 10 over 3 ranks (12 slots, 2
+# ghosts), the SHARD_GLOO_LANES; (e) from_spec with execution.mesh_axes.
+# Lanes: (lane, model, spec whose codec or strategy it takes, codec override
+# or None for a strategy's spec, kernel).
+SHARD_ROUNDS = 3
+SHARD_LANES = (
+    ("mnist_2nn plain", "mnist_2nn", None, None, "fedavg_aggregate"),
+    ("mnist_cnn plain", "mnist_cnn", None, None, "fedavg_aggregate"),
+    ("mnist_2nn q8", "mnist_2nn", "mnist_2nn_noniid_q8", {}, "quantized_aggregate"),
+    ("mnist_2nn q4", "mnist_2nn", "mnist_2nn_noniid_q8", {"bits": 4},
+     "packed_quantized_aggregate"),
+    ("mnist_2nn top-k", "mnist_2nn", "mnist_2nn_noniid_topk", {}, "sparse_aggregate"),
+    ("mnist_2nn fedavgm", "mnist_2nn", "mnist_2nn_noniid_fedavgm", None, "fedavg_aggregate"),
+)
+# The reference's tolerances (tests/test_engine_sharded.py:163-240), (params,
+# losses): fp32 reassociation of the server sum on the plain and FedAvgM
+# lanes; a stochastic-rounding draw or a near-tied top-k member flipped by an
+# ulp on the codec lanes.
+SHARD_TOL = {"plain": (1e-5, 1e-5), "fedavgm": (1e-5, 1e-5), "q8": (1e-3, 1e-4),
+             "q4": (2e-3, 1e-3), "top-k": (1e-3, 1e-4)}
+SHARD_GLOO_WORLD = 3
+SHARD_GLOO_LANES = ("mnist_2nn plain", "mnist_2nn q8")
+SHARD_GLOO_DEADLINE_S = 300.0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -695,6 +741,8 @@ def reset_counts():
     for name in ("quantized_aggregate", "packed_quantized_aggregate"):
         counters()[name].stream_launches = 0
     counters()["sparse_aggregate"].fused_launches = 0
+    for name in PARTIAL_KERNELS:
+        counters()[name].partial_launches = 0
     lanes = counters()["ssm_scan"].lane_launches
     for k in lanes:
         lanes[k] = 0
@@ -4534,6 +4582,443 @@ def async_streamed_phase(train, test):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: cohort sharding
+# ---------------------------------------------------------------------------
+
+def partial_counts():
+    """Partial-sum launches (``normalized=False``) of the four aggregation
+    kernels since the counts were reset."""
+    return {k: counters()[k].partial_launches for k in PARTIAL_KERNELS}
+
+
+def partial_weights(kind, K, seed):
+    """(K,) raw weights on the card: ``"raw"`` counts (sum >> 1), ``"ghosts"``
+    the same with the last two rows 0, ``"zero"`` all 0 (an all-ghost rank)."""
+    w = np.random.default_rng(seed).integers(300, 900, K).astype(np.float32)
+    if kind == "ghosts":
+        w[-2:] = 0.0
+    elif kind == "zero":
+        w[:] = 0.0
+    return torch.from_numpy(w).cuda()
+
+
+def partial_check(name, tag, out, ref, term_max, kind):
+    """``sum_check`` on the largest weighted term; an all-zero vector's sum
+    must be exactly 0."""
+    if kind == "zero":
+        require(torch.equal(out, torch.zeros_like(out)),
+                f"{name} {tag}: an all-zero weight vector did not give exactly 0")
+    return sum_check(name, tag, out, ref, max(term_max, 1e-30))
+
+
+def check_partial_sum_mode():
+    """25(a): each of the four aggregation kernels in partial-sum mode
+    (``normalized=False``) on every route, at the 2NN and CNN shapes (K =
+    MAIN_K), with raw counts, ghost rows (weight 0, data 1e4) and an
+    all-zero vector, against its plain version on the same raw weights.
+    Returns each kernel's worst error."""
+    from repro_torch.kernels import sparse_agg
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate, fedavg_aggregate_ref
+    from repro_torch.kernels.quantized_agg import (
+        _launch,
+        _out,
+        dequantize_ref,
+        packed_quantized_aggregate_ref,
+        quantized_aggregate_ref,
+        unpack_ref,
+    )
+    from repro_torch.utils.bitpack import words_per_chunk
+
+    errs = dict.fromkeys(PARTIAL_KERNELS, 0.0)
+    K = MAIN_K
+    reset_counts()
+    for model_name, N in MAIN_N.items():
+        C = -(-N // CHUNK)
+        k = int(N * TOPK)
+        g = torch.Generator(device="cuda").manual_seed(N)
+        x = torch.randn((K, N), generator=g, device="cuda")
+        codes = random_codes(K, C * CHUNK, torch.uint8, seed=N)
+        words = torch.randint(-2**31, 2**31, (K, C * words_per_chunk(CHUNK, 4)), generator=g,
+                              dtype=torch.int32, device="cuda")
+        lo, scale = ranges(K, C, seed=N)
+        idx = torch.stack([torch.randperm(N, generator=g, device="cuda")[:k]
+                           for _ in range(K)]).to(torch.int32)
+        vals = torch.randn((K, k), generator=g, device="cuda")
+        for kind in ("raw", "ghosts", "zero"):
+            w = partial_weights(kind, K, seed=N)
+            real = K - 2 if kind == "ghosts" else K
+            if kind == "ghosts":
+                x[real:], lo[real:], vals[real:] = 1e4, 1e4, 1e4
+            wmax = float(w.max())
+            tag = f"{model_name} N={N} {kind}"
+            out = fedavg_aggregate(x, w, normalized=False)
+            errs["fedavg_aggregate"] = max(errs["fedavg_aggregate"], partial_check(
+                "fedavg_aggregate", tag, out, fedavg_aggregate_ref(x, w),
+                wmax * float(x[:real].abs().max()), kind))
+            dense = {8: dequantize_ref(codes[:real], lo[:real], scale[:real], chunk=CHUNK,
+                                       levels=255),
+                     4: dequantize_ref(unpack_ref(words[:real], bits=4, chunk=CHUNK),
+                                       lo[:real], scale[:real], chunk=CHUNK, levels=15)}
+            for bits, payload, kernel, ref in (
+                    (8, codes, "quantized_aggregate", quantized_aggregate_ref(
+                        codes, lo, scale, w, chunk=CHUNK, levels=255)),
+                    (4, words, "packed_quantized_aggregate", packed_quantized_aggregate_ref(
+                        words, lo, scale, w, bits=4, chunk=CHUNK, levels=15))):
+                for route in ("stream", "general"):
+                    got = _launch(payload, lo, scale, w, _out(payload, lo, CHUNK), bits=bits,
+                                  chunk=CHUNK, levels=2**bits - 1, route=route,
+                                  normalized=False)
+                    errs[kernel] = max(errs[kernel], partial_check(
+                        kernel, f"{tag} q{bits} {route}", got, ref,
+                        wmax * float(dense[bits].abs().max()), kind))
+            ref = sparse_agg.sparse_aggregate_ref(idx, vals, w, N)
+            for route in sparse_agg.ROUTES:
+                got = sparse_agg._launch(idx, vals, w, torch.empty(N, device="cuda"), route,
+                                         normalized=False)
+                errs["sparse_aggregate"] = max(errs["sparse_aggregate"], partial_check(
+                    "sparse_aggregate", f"{tag} top-k {route}", got, ref,
+                    wmax * float(vals[:real].abs().max()), kind))
+    cases = 2 * 3   # shapes x weight vectors
+    want = {"fedavg_aggregate": cases, "quantized_aggregate": 2 * cases,
+            "packed_quantized_aggregate": 2 * cases, "sparse_aggregate": 2 * cases}
+    require(partial_counts() == want and launch_counts() == {
+        k: want.get(k, 0) for k in KERNELS},
+        f"partial-sum launches {partial_counts()}, want {want}")
+    print("kernels in partial-sum mode: " + ", ".join(
+        f"{k} {want[k]} launches, max_abs_err {errs[k]:.3e}" for k in PARTIAL_KERNELS)
+          + " (within 1e-6*max|term|; every all-zero vector exactly 0)")
+    return errs
+
+
+def shard_lane_engine(lane, data, mesh=None, **kw):
+    """The engine of a phase-25 lane at full size (``make_engine``), sharded
+    over ``mesh`` when one is given."""
+    from repro_torch.specs import get_spec
+
+    _, model_name, spec_name, override, _ = lane
+    codec = None
+    if override is not None:
+        codec = dataclasses.replace(get_spec(spec_name).codec, **override).build()
+    elif spec_name is not None:
+        kw.update(spec_name=spec_name, strategy=get_spec(spec_name).build_strategy())
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return make_engine(model_name, data, codec=codec, **kw)[0]
+
+
+def param_gap(a, b) -> float:
+    return float((host_vector(a) - host_vector(b)).abs().max())
+
+
+def sharded_lanes(data, mesh):
+    """25(b): each lane sharded over ``mesh`` (an NCCL world of one) against
+    the unsharded engine from the same seed, SHARD_ROUNDS rounds each through
+    ``run(1)`` in turns (unsharded, sharded, sharded, unsharded, ...): each
+    round launches the lane's kernel once, the sharded ones in partial-sum
+    mode; losses and params within the reference's tolerances. The 2NN plain
+    lane also runs one warm sharded round under ``transfer_guard``. Returns
+    the lanes, and the unsharded runs' losses and params for (d)."""
+    from repro_torch.analysis import transfer_guard
+
+    lanes, unsharded = [], {}
+    for lane in SHARD_LANES:
+        name, model_name, _, _, kernel = lane
+        torch.backends.cudnn.deterministic = model_name == "mnist_cnn"   # as phase 22
+        base = shard_lane_engine(lane, data)
+        shrd = shard_lane_engine(lane, data, mesh=mesh)
+        reset_counts()
+        turns = []
+        for tag in ("unsharded", "sharded", "sharded", "unsharded", "unsharded", "sharded"):
+            eng = shrd if tag == "sharded" else base
+            rec = eng.run(1).records[-1]
+            turns.append((tag, rec.wall_s))
+            print(f"  {name} {tag:9s} round {eng.round_idx}: loss {rec.train_loss:.6f} "
+                  f"test_acc {rec.test_acc:.4f} wall_s {rec.wall_s:.4f}")
+        torch.cuda.synchronize()
+        counts, partial = launch_counts(), partial_counts()
+        want = {k: (2 * SHARD_ROUNDS if k == kernel else 0) for k in KERNELS}
+        require(counts == want, f"{name}: launches {counts}, want {want}")
+        require(partial[kernel] == SHARD_ROUNDS and sum(partial.values()) == SHARD_ROUNDS,
+                f"{name}: partial-sum launches {partial}, want {SHARD_ROUNDS} of {kernel}")
+        require_main_route(name, kernel)
+        lb = [r.train_loss for r in base.history.records]
+        ls = [r.train_loss for r in shrd.history.records]
+        dl = max(abs(a - b) for a, b in zip(lb, ls))
+        dp = param_gap(base.params, shrd.params)
+        bitwise = dp == 0.0 and lb == ls
+        p_tol, l_tol = SHARD_TOL[name.split(" ", 1)[1]]
+        ok = dp <= p_tol and dl <= l_tol and all(math.isfinite(v) for v in ls)
+        print(f"  {name}: sharded vs unsharded after {SHARD_ROUNDS} rounds: params max|diff| "
+              f"{dp:.3e} (tol {p_tol:g}), losses max|diff| {dl:.3e} (tol {l_tol:g})"
+              f"{', bitwise' if bitwise else ''} {'ok' if ok else 'FAIL'}; {kernel} "
+              f"{partial[kernel]} partial-sum launches of {counts[kernel]}")
+        require(ok, f"{name}: the sharded run disagrees with the unsharded one")
+        if name in SHARD_GLOO_LANES:
+            unsharded[name] = {"losses": lb, "params": host_vector(base.params)}
+        res = {"lane": name, "kernel": kernel, "rounds": SHARD_ROUNDS, "turns": turns,
+               "partial_launches": partial[kernel], "launches": counts[kernel],
+               "param_gap": dp, "loss_gap": dl, "bitwise": bitwise,
+               "test_acc": shrd.history.records[-1].test_acc}
+        if name == "mnist_2nn plain":
+            with transfer_guard():
+                shrd.run(1)
+            print(f"  {name}: a warm sharded round under transfer_guard() made no sync")
+            res["guarded_round"] = True
+        lanes.append(res)
+        del base, shrd, eng
+        free_card()
+    torch.backends.cudnn.deterministic = False
+    for res in lanes:
+        s = sorted(t for tag, t in res["turns"][1:] if tag == "sharded")
+        u = sorted(t for tag, t in res["turns"][1:] if tag == "unsharded")
+        print(f"  {res['lane']:18s} seconds a round (the first, unsharded, left out): unsharded "
+              + " / ".join(f"{t:.4f}" for t in u) + ", sharded "
+              + " / ".join(f"{t:.4f}" for t in s))
+    return lanes, unsharded
+
+
+def nccl_records(ops) -> int:
+    """Device ops of NCCL's kernels among a profile's."""
+    return sum(1 for e in ops if "nccl" in e.name.lower())
+
+
+def sharded_superstep(data, mesh):
+    """25(c): the 2NN superstep, a chunk of SUPERSTEP_R rounds under the NCCL
+    mesh, against the unsharded superstep; chunks in turns; a warm chunk
+    under ``transfer_guard`` and ``retrace_guard``; one profiled chunk whose
+    kernel records must hold ``fedavg_agg_kernel`` once a replay, beside
+    NCCL's records."""
+    from repro_torch.analysis import retrace_guard, transfer_guard
+
+    R = SUPERSTEP_R
+    base, _, _ = make_engine("mnist_2nn", data, device_sampling=True)
+    shrd, _, _ = make_engine("mnist_2nn", data, device_sampling=True, mesh=mesh)
+    reset_counts()
+    hb, hs = base.run(R, rounds_per_step=R), shrd.run(R, rounds_per_step=R)
+    torch.cuda.synchronize()
+    partial = partial_counts()
+    require(launch_counts()["fedavg_aggregate"] == 2 and partial["fedavg_aggregate"] == 1,
+            f"2NN superstep: warm-up launches {launch_counts()}, partial {partial}")
+    dl = max(abs(a.train_loss - b.train_loss) for a, b in zip(hb.records, hs.records))
+    dp = param_gap(base.params, shrd.params)
+    ok = dp <= SHARD_TOL["plain"][0] and dl <= SHARD_TOL["plain"][1]
+    print(f"  mnist_2nn superstep R={R}: sharded (NCCL, {shrd.num_compilations} graph) vs "
+          f"unsharded: params max|diff| {dp:.3e}, losses max|diff| {dl:.3e}"
+          f"{', bitwise' if dp == 0.0 and dl == 0.0 else ''} {'ok' if ok else 'FAIL'}; "
+          f"capture {shrd._graph.capture_s:.3f} s")
+    require(ok and shrd.num_compilations == 1, "the sharded superstep disagrees")
+    turns = []
+    for tag in ("unsharded", "sharded", "sharded", "unsharded"):
+        eng = shrd if tag == "sharded" else base
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._superstep(R)
+        turns.append((tag, (time.perf_counter() - t0) / R))
+    print("  chunks in turns, seconds a round: "
+          + ", ".join(f"{tag} {t:.5f}" for tag, t in turns))
+    with transfer_guard():
+        with retrace_guard(lambda: shrd.num_compilations, what="sharded superstep"):
+            shrd.run(R, rounds_per_step=R)
+    print("  a warm sharded chunk under transfer_guard() and retrace_guard(): no sync, no "
+          "new graph")
+    r = SUPERSTEP_PROFILE_R["mnist_2nn"]
+    for attempt in range(PROFILE_ATTEMPTS):
+        wall, ops, rows = device_profile(lambda: shrd._superstep(r))
+        records, nccl = kernel_records(ops), nccl_records(ops)
+        busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+        print(f"  a profiled sharded chunk of {r}: wall {wall:.4f} s, device busy {busy:.4f} s "
+              f"(idle {1 - busy / wall:.1%}), {len(ops)} device ops; hand kernels {records}, "
+              f"NCCL kernels {nccl}")
+        require(set(records) <= {"fedavg_agg_kernel"}, f"sharded chunk records {records}")
+        if records.get("fedavg_agg_kernel", 0) == r:
+            break
+    else:
+        raise AssertionError(f"{PROFILE_ATTEMPTS} profiled sharded chunks, none with {r} "
+                             "fedavg_agg_kernel records")
+    require(nccl in (0, r), f"{nccl} NCCL kernel records in {r} replays")
+    print(f"  fedavg_agg_kernel once a replay; NCCL {'once a replay' if nccl else 'no kernel (a world of one reduces in place)'}")
+    res = {"rounds": R, "param_gap": dp, "loss_gap": dl, "turns": turns,
+           "capture_s": shrd._graph.capture_s, "profile": {
+               "rounds": r, "wall_s": wall, "device_busy_s": busy,
+               "idle_share": 1 - busy / wall, "device_ops": len(ops),
+               "kernel_records": records, "nccl_records": nccl},
+           "launches": 1 + records["fedavg_agg_kernel"]}
+    del base, shrd
+    free_card()
+    return res
+
+
+def sharded_from_spec(train, test):
+    """25(e): ``mnist_2nn_noniid`` with ``execution.mesh_axes="clients"``
+    through ``RoundEngine.from_spec``: the mesh over the world that is up
+    (phase 25's NCCL world of one), one round, one partial-sum launch."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import ExecutionSpec, get_spec
+
+    spec = dataclasses.replace(get_spec("mnist_2nn_noniid"),
+                               execution=ExecutionSpec(mesh_axes="clients"))
+    eng = RoundEngine.from_spec(spec, spec_clients(spec, train), eval_fn=spec_eval_fn(spec, test))
+    backend = dist.get_backend(eng.mesh.get_group("clients"))
+    reset_counts()
+    rec = eng.run(1).records[-1]
+    torch.cuda.synchronize()
+    partial = partial_counts()
+    require(backend == "nccl" and eng._shards == 1, f"from_spec built a {backend} mesh")
+    require(partial["fedavg_aggregate"] == 1 == launch_counts()["fedavg_aggregate"],
+            f"from_spec's sharded round: partial-sum launches {partial}")
+    require(math.isfinite(rec.train_loss), "from_spec's sharded round lost its loss")
+    print(f"  {spec.name} with execution.mesh_axes='clients' through from_spec: a {backend} "
+          f"mesh of {eng._shards}, round 1 loss {rec.train_loss:.6f} test_acc "
+          f"{rec.test_acc:.4f} wall_s {rec.wall_s:.4f}, fedavg_aggregate 1 partial-sum launch")
+    out = {"spec": spec.name, "backend": backend, "loss": rec.train_loss,
+           "test_acc": rec.test_acc, "wall_s": rec.wall_s, "launches": 1}
+    del eng
+    free_card()
+    return out
+
+
+def gloo_rank(rank, world, root):
+    """One rank of 25(d), in a process of its own on ``cuda:0``: a gloo world
+    over a FileStore under ``root``, the SHARD_GLOO_LANES sharded at full
+    size, SHARD_ROUNDS rounds each; its losses, params, round seconds and
+    launches to ``root/rank<r>-<i>.npz``."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_client_mesh(device="cuda")
+        from repro_torch.data.synthetic import ArrayDataset
+
+        data = tuple(ArrayDataset(np.load(root / f"{s}_x.npy", mmap_mode="r"),
+                                  np.load(root / f"{s}_y.npy")) for s in ("train", "test"))
+        lanes = {lane[0]: lane for lane in SHARD_LANES}
+        for i, name in enumerate(SHARD_GLOO_LANES):
+            eng = shard_lane_engine(lanes[name], data, mesh=mesh)
+            reset_counts()
+            hist = eng.run(SHARD_ROUNDS)
+            torch.cuda.synchronize()
+            np.savez(root / f"rank{rank}-{i}.npz",
+                     losses=np.asarray([r.train_loss for r in hist.records]),
+                     walls=np.asarray([r.wall_s for r in hist.records]),
+                     params=host_vector(eng.params).numpy(),
+                     slots=np.asarray(eng._slots[:3]),
+                     launches=np.asarray([launch_counts()[lanes[name][4]],
+                                          partial_counts()[lanes[name][4]]]))
+            del eng
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_world(train, test, unsharded):
+    """25(d): SHARD_GLOO_WORLD ranks sharing the card under gloo, spawned from
+    here: m = 10 over 3 ranks (12 slots, 2 ghosts on the last). Every rank
+    must finish before the deadline with the same params, each lane's
+    kernel once a round in partial-sum mode, and the run must equal (b)'s
+    unsharded run within the reference's tolerances."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_", dir=ROOT / "build"))
+    W = SHARD_GLOO_WORLD
+    try:
+        for s, d in (("train", train), ("test", test)):
+            np.save(root / f"{s}_x.npy", d.x)
+            np.save(root / f"{s}_y.npy", d.y)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(gloo_rank, args=(W, str(root)), nprocs=W, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SHARD_GLOO_DEADLINE_S:
+                    raise AssertionError(f"the gloo world of {W} did not finish in "
+                                         f"{SHARD_GLOO_DEADLINE_S:.0f} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        wall = time.perf_counter() - t0
+        print(f"  {W} ranks spawned on cuda:0 under gloo finished in {wall:.1f} s")
+        lanes = []
+        for i, name in enumerate(SHARD_GLOO_LANES):
+            ranks = [dict(np.load(root / f"rank{r}-{i}.npz")) for r in range(W)]
+            kernel = {lane[0]: lane[4] for lane in SHARD_LANES}[name]
+            slots = [r["slots"].tolist() for r in ranks]
+            require(slots == [[MAIN_K, 4 * r, 4 * r + 4] for r in range(W)],
+                    f"{name}: slots {slots}")
+            require(all(r["launches"].tolist() == [SHARD_ROUNDS, SHARD_ROUNDS] for r in ranks),
+                    f"{name}: (launches, partial) {[r['launches'].tolist() for r in ranks]}")
+            require(all(np.array_equal(r["params"], ranks[0]["params"]) and
+                        np.array_equal(r["losses"], ranks[0]["losses"]) for r in ranks),
+                    f"{name}: the ranks' params or losses differ")
+            want = unsharded[name]
+            dl = float(np.abs(ranks[0]["losses"] - np.asarray(want["losses"])).max())
+            dp = float(np.abs(ranks[0]["params"] - want["params"].numpy()).max())
+            p_tol, l_tol = SHARD_TOL[name.split(" ", 1)[1]]
+            ok = dp <= p_tol and dl <= l_tol
+            walls = ranks[0]["walls"].tolist()
+            print(f"  {name} over {W} gloo ranks (slots {slots}): params max|diff| {dp:.3e} "
+                  f"(tol {p_tol:g}), losses max|diff| {dl:.3e} (tol {l_tol:g}) against (b)'s "
+                  f"unsharded run {'ok' if ok else 'FAIL'}; {kernel} once a round a rank in "
+                  "partial-sum mode; rank 0's rounds " + ", ".join(f"{t:.4f}" for t in walls)
+                  + " s")
+            require(ok, f"{name}: the gloo world disagrees with the unsharded run")
+            lanes.append({"lane": name, "kernel": kernel, "world": W, "slots": slots,
+                          "param_gap": dp, "loss_gap": dl, "round_wall_s": walls,
+                          "launches": W * SHARD_ROUNDS})
+        return {"wall_s": wall, "lanes": lanes}
+    finally:
+        shutil.rmtree(root)
+
+
+def cohort_shard_phase(train, test):
+    """Phase 25 (module docstring). A driver can call it alone after
+    ``build_all``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    print("  (a) the four kernels in partial-sum mode against their plain versions")
+    errs = check_partial_sum_mode()
+    require(not dist.is_initialized(), "a process group is up before phase 25")
+    mesh = make_client_mesh(device="cuda")
+    print(f"  an NCCL world of {dist.get_world_size()}: {mesh}")
+    try:
+        print(f"  (b) sharded against unsharded at full size, {SHARD_ROUNDS} rounds a lane")
+        lanes, unsharded = sharded_lanes((train, test), mesh)
+        print(f"  (c) the 2NN superstep under the NCCL mesh, R = {SUPERSTEP_R}")
+        superstep = sharded_superstep((train, test), mesh)
+        print("  (e) from_spec with execution.mesh_axes")
+        spec = sharded_from_spec(train, test)
+    finally:
+        dist.destroy_process_group()
+    print(f"  (d) {SHARD_GLOO_WORLD} ranks sharing the card under gloo")
+    gloo = gloo_world(train, test, unsharded)
+    launches = dict.fromkeys(PARTIAL_KERNELS, 0)
+    for lane in lanes:
+        launches[lane["kernel"]] += lane["partial_launches"]
+    launches["fedavg_aggregate"] += superstep["launches"] + spec["launches"]
+    for lane in gloo["lanes"]:
+        launches[lane["kernel"]] += lane["launches"]
+    return {"errs": errs, "lanes": lanes, "superstep": superstep, "from_spec": spec,
+            "gloo": gloo, "partial_launches": launches}
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
@@ -4772,6 +5257,12 @@ def main() -> int:
     print(f"card: {smi}")
     async_streamed = async_streamed_phase(train, test)
 
+    phase("25. cohort sharding, full size, through RoundEngine(mesh=make_client_mesh()).run: "
+          "the partial-sum kernels, an NCCL world of one, the captured superstep, three "
+          "gloo ranks on the card, from_spec")
+    print(f"card: {smi}")
+    sharding = cohort_shard_phase(train, test)
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
@@ -4786,6 +5277,8 @@ def main() -> int:
     launches["fedavg_aggregate"] += sum(paper_models[m]["launches"]
                                         for m in ("cifar_cnn", "word_lstm"))
     for k, n in async_streamed["launches"].items():
+        launches[k] += n
+    for k, n in sharding["partial_launches"].items():
         launches[k] += n
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
@@ -4862,6 +5355,15 @@ def main() -> int:
                                      "lm_checkpoint": lm_ckpt,
                                      "lowrank": [lane for lane in spec_lanes
                                                  if lane["kernel"] is None]}
+    for i, k in enumerate(PARTIAL_KERNELS):
+        kernels[i]["partial_sum"] = {
+            "launches": sharding["partial_launches"][k],
+            "max_abs_err": sharding["errs"][k],
+            "lanes": [lane for lane in sharding["lanes"] + sharding["gloo"]["lanes"]
+                      if lane["kernel"] == k]}
+    kernels[0]["partial_sum"].update(superstep=sharding["superstep"],
+                                     from_spec=sharding["from_spec"],
+                                     gloo_wall_s=sharding["gloo"]["wall_s"])
     kernels[0]["paper_models"] = paper_models
     kernels[0]["async_and_streamed"] = async_streamed
     kernels[0]["superstep"] = {"lanes": [l for l in superstep_lanes

@@ -15,8 +15,9 @@ bit-packed twin), the top-k codec into the CUDA ``sparse_aggregate``; the
 identity and mask codecs decode and go through ``fedavg_aggregate``; the
 low-rank codec is one ``einsum``.
 
-Noise: ``encode(gen, flat)`` draws every random number the codec needs
-from the ``torch.Generator`` ``gen``, then calls a noise-free core that
+Noise: ``encode(gen, flat, cohort=None)`` draws every random number the
+codec needs from the ``torch.Generator`` ``gen``, then calls a noise-free
+core that
 takes the noise as an argument (the uniform draw for quantize, the
 Bernoulli mask for mask, the Gaussian sketch for low-rank). The cores are
 what the tests hold against the reference with the same numpy noise.
@@ -25,7 +26,12 @@ for bit. The host-sampled round builds ``gen`` from a host integer
 (:func:`codec_generator`); the superstep lane passes the engine's own
 device generator, so nothing in its round creates a generator. Low-rank
 draws on a CPU generator (``host_noise``) and copies its sketches up, which
-a captured round cannot do.
+a captured round cannot do. Under cohort sharding (``cohort``, a
+``core.fedavg.CohortSlice``) every rank draws the whole cohort's noise, the
+unsharded shape, and keeps its own rows (``shard_rows``), so a sharded
+round encodes what the unsharded one does; ``aggregate`` and
+:func:`decode_aggregate` then take ``group=`` (and the ``total=`` and
+``carry=`` of ``ops.finish_partial_sum``) for the partial-sum finish.
 
 The payloads are the wire: sub-byte and odd widths ship bit-packed 32-bit
 words (``utils.bitpack``), byte-wide codes ship truncated to the true n,
@@ -40,14 +46,25 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.fedavg import client_update, masked_weighted_loss
+from repro_torch.core.fedavg import (
+    client_update,
+    loss_of_terms,
+    loss_terms,
+    masked_weighted_loss,
+    shard_rows,
+)
 from repro_torch.core.strategies import resolve_strategy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.ops import (
+    finish_partial_sum,
     host_to_device,
     normalized_weights,
     packed_quantized_fedavg_aggregate,
     quantized_fedavg_aggregate,
+    shard_weights,
+    sharded_packed_quantized_fedavg_aggregate,
+    sharded_quantized_fedavg_aggregate,
+    sharded_sparse_fedavg_aggregate,
     sparse_fedavg_aggregate,
 )
 from repro_torch.kernels.quantized_agg import dequantize_ref, unpack_ref
@@ -63,14 +80,17 @@ SEED_BYTES = 8
 class Codec(NamedTuple):
     """A statically shaped update codec over stacked (m, n) delta rows.
 
-    ``encode(gen, flat)`` returns a payload dict of (m, ...) tensors, its
-    noise drawn from the ``torch.Generator`` ``gen``;
+    ``encode(gen, flat, cohort=None)`` returns a payload dict of (m, ...)
+    tensors, its noise drawn from the ``torch.Generator`` ``gen`` (for a
+    ``CohortSlice`` ``cohort``, the whole cohort's draw, this rank's rows);
     ``decode(payloads, n)`` rebuilds the (m, n) fp32 delta estimates.
     ``wire_bytes(n)`` is one client's upload size from shapes alone;
     ``payload_bytes(payload)`` the realized size of one client's payload
-    (leaves without the client axis). ``aggregate(payloads, weights, n)``,
-    where present, fuses decode into the weighted server mean (RAW count
-    weights); :func:`decode_aggregate` is the entry point. ``host_noise``
+    (leaves without the client axis). ``aggregate(payloads, weights, n,
+    group=None, total=None, carry=None)``, where present, fuses decode into
+    the weighted server mean (RAW count weights), finished over a client
+    ``group`` when one is given; :func:`decode_aggregate` is the entry
+    point. ``host_noise``
     marks a codec whose ``gen`` must be a CPU generator whatever the
     payload's device (low-rank's sketch seeds).
     """
@@ -96,6 +116,13 @@ def codec_generator(codec: Codec, seed: int, device) -> torch.Generator:
     with the host integer ``seed``, on ``device``, or on the CPU for a
     ``host_noise`` codec."""
     return _generator(seed, "cpu" if codec.host_noise else device)
+
+
+def _draw(draw, rows: int, cohort):
+    """``draw(m)``'s (m, ...) noise for this call's ``rows`` clients: the
+    whole cohort's draw cut to this rank's rows under sharding
+    (``shard_rows``), else ``draw(rows)``."""
+    return shard_rows(draw(rows if cohort is None else cohort.m), cohort)
 
 
 def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -171,8 +198,9 @@ def _lowrank_core(flat, a):
 
 
 def _lowrank_aggregate_core(a, b, w, n):
-    """Σ_k w_k A_k B_k / rank, one contraction over (client, rank), for
-    normalized weights ``w``."""
+    """Σ_k w_k A_k B_k / rank, one contraction over (client, rank): the mean
+    for normalized weights ``w``, a rank's partial sum for its
+    ``ops.shard_weights``."""
     m = torch.einsum("kdr,kre->de", a * w[:, None, None], b)
     return m.reshape(-1)[:n] / a.shape[2]
 
@@ -180,7 +208,7 @@ def _lowrank_aggregate_core(a, b, w, n):
 def identity_codec() -> Codec:
     """fp32 passthrough: the compressed lane equals the plain lane."""
 
-    def encode(gen, flat):
+    def encode(gen, flat, cohort=None):
         return {"values": flat.to(torch.float32)}
 
     def decode(payloads, n):
@@ -213,9 +241,10 @@ def quantize_codec(bits: int = 8, chunk: int = 512) -> Codec:
     packed = bits % 8 != 0
     wpc = words_per_chunk(chunk, bits) if packed else None
 
-    def encode(gen, flat):
+    def encode(gen, flat, cohort=None):
         m, n = flat.shape
-        u = torch.rand((m, -(-n // chunk), chunk), generator=gen, device=flat.device)
+        u = _draw(lambda rows: torch.rand((rows, -(-n // chunk), chunk), generator=gen,
+                                          device=flat.device), m, cohort)
         return _quantize_core(flat, u, bits=bits, chunk=chunk)
 
     def codes_of(payloads, n):
@@ -232,16 +261,23 @@ def quantize_codec(bits: int = 8, chunk: int = 512) -> Codec:
                            chunk=chunk, levels=levels)
         return x[:, :n]
 
-    def aggregate(payloads, weights, n):
+    def aggregate(payloads, weights, n, group=None, **finish):
         codes = codes_of(payloads, n)
+        lo, scale = payloads["lo"], payloads["scale"]
         if packed:
-            out = packed_quantized_fedavg_aggregate(
-                codes, payloads["lo"], payloads["scale"], weights, bits=bits,
-                chunk=chunk, levels=levels)
+            if group is None:
+                out = packed_quantized_fedavg_aggregate(
+                    codes, lo, scale, weights, bits=bits, chunk=chunk, levels=levels)
+            else:
+                out = sharded_packed_quantized_fedavg_aggregate(
+                    codes, lo, scale, weights, bits=bits, chunk=chunk, levels=levels,
+                    group=group, **finish)
+        elif group is None:
+            out = quantized_fedavg_aggregate(codes, lo, scale, weights, chunk=chunk,
+                                             levels=levels)
         else:
-            out = quantized_fedavg_aggregate(
-                codes, payloads["lo"], payloads["scale"], weights, chunk=chunk,
-                levels=levels)
+            out = sharded_quantized_fedavg_aggregate(codes, lo, scale, weights, chunk=chunk,
+                                                     levels=levels, group=group, **finish)
         return out[:n]
 
     def wire_bytes(n: int) -> int:
@@ -272,9 +308,11 @@ def mask_codec(keep_frac: float = 0.1) -> Codec:
     if not 0.0 < keep_frac <= 1.0:
         raise ValueError(f"keep_frac must be in (0, 1], got {keep_frac}")
 
-    def encode(gen, flat):
-        mask = torch.rand(flat.shape, generator=gen, device=flat.device) < keep_frac
-        return _mask_core(flat, mask, keep_frac)
+    def encode(gen, flat, cohort=None):
+        m, n = flat.shape
+        u = _draw(lambda rows: torch.rand((rows, n), generator=gen, device=flat.device),
+                  m, cohort)
+        return _mask_core(flat, u < keep_frac, keep_frac)
 
     return Codec(
         name=f"mask{keep_frac:g}",
@@ -299,7 +337,7 @@ def topk_codec(keep_frac: float = 0.05) -> Codec:
     def k_of(n: int) -> int:
         return max(n * frac_ppb // 10**9, 1)
 
-    def encode(gen, flat):
+    def encode(gen, flat, cohort=None):
         flat = flat.to(torch.float32)
         _, idx = torch.topk(flat.abs(), k_of(flat.shape[1]), dim=1)
         return {"idx": idx.to(torch.int32), "values": torch.gather(flat, 1, idx)}
@@ -309,8 +347,11 @@ def topk_codec(keep_frac: float = 0.05) -> Codec:
         out = torch.zeros((idx.shape[0], n), dtype=torch.float32, device=idx.device)
         return out.scatter_(1, idx, payloads["values"].to(torch.float32))
 
-    def aggregate(payloads, weights, n):
-        return sparse_fedavg_aggregate(payloads["idx"], payloads["values"], weights, n)
+    def aggregate(payloads, weights, n, group=None, **finish):
+        if group is None:
+            return sparse_fedavg_aggregate(payloads["idx"], payloads["values"], weights, n)
+        return sharded_sparse_fedavg_aggregate(payloads["idx"], payloads["values"], weights,
+                                               n, group=group, **finish)
 
     return Codec(
         name=f"top{keep_frac:g}",
@@ -337,9 +378,9 @@ def lowrank_codec(rank: int = 8) -> Codec:
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
 
-    def encode(gen, flat):
+    def encode(gen, flat, cohort=None):
         m, n = flat.shape
-        seeds = torch.randint(0, 2**62, (m,), generator=gen)
+        seeds = _draw(lambda rows: torch.randint(0, 2**62, (rows,), generator=gen), m, cohort)
         a = _lowrank_sketch(seeds, _lowrank_dims(n)[0], rank, flat.device)
         return {"b": _lowrank_core(flat, a), "key": seeds}
 
@@ -349,10 +390,13 @@ def lowrank_codec(rank: int = 8) -> Codec:
         m = torch.einsum("kdr,kre->kde", a, b)
         return m.reshape(m.shape[0], -1)[:, :n] / rank
 
-    def aggregate(payloads, weights, n):
+    def aggregate(payloads, weights, n, group=None, **finish):
         b = payloads["b"]
         a = _lowrank_sketch(payloads["key"], _lowrank_dims(n)[0], rank, b.device)
-        return _lowrank_aggregate_core(a, b, normalized_weights(weights, b.device), n)
+        if group is None:
+            return _lowrank_aggregate_core(a, b, normalized_weights(weights, b.device), n)
+        w = shard_weights(weights, b.device, finish.get("total"))
+        return finish_partial_sum(_lowrank_aggregate_core(a, b, w, n), w, group, **finish)
 
     def wire_bytes(n: int) -> int:
         return 4 * rank * _lowrank_dims(n)[1] + SEED_BYTES
@@ -373,27 +417,43 @@ def lowrank_codec(rank: int = 8) -> Codec:
 # server side
 # ---------------------------------------------------------------------------
 
-def decode_aggregate(codec: Codec, payloads, weights, n: int) -> torch.Tensor:
+def decode_aggregate(codec: Codec, payloads, weights, n: int, *, group=None,
+                     **finish) -> torch.Tensor:
     """Weighted average of m stacked payloads -> one (n,) fp32 delta.
 
     ``weights`` are RAW example counts n_k; this is the one entry point
     that normalizes them (host counts on the host). Codecs with a fused
     ``aggregate`` take it; the rest decode to (m, n) and go through
-    ``fedavg_aggregate``."""
+    ``fedavg_aggregate``. Over a client ``group`` (the reference's
+    ``axis_name``) the payloads are this rank's, the kernel runs in
+    partial-sum mode and ``ops.finish_partial_sum`` (with ``finish``'s
+    ``total`` and ``carry``) makes the mean."""
     if codec.aggregate is not None:
-        return codec.aggregate(payloads, weights, n)
+        if group is None:
+            return codec.aggregate(payloads, weights, n)
+        return codec.aggregate(payloads, weights, n, group=group, **finish)
     flat = codec.decode(payloads, n).contiguous()
-    return fedavg_aggregate(flat, normalized_weights(weights, flat.device))
+    if group is None:
+        return fedavg_aggregate(flat, normalized_weights(weights, flat.device))
+    w = shard_weights(weights, flat.device, finish.get("total"))
+    return finish_partial_sum(fedavg_aggregate(flat, w, normalized=False), w, group, **finish)
 
 
-def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=None):
+def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=None,
+                                group=None):
     """``round_step(state, batch) -> (state, {"loss": ...})`` for the
     compressed lane: ClientUpdate for the cohort, the fp32 deltas raveled
     to (m, n) and encoded with the generator ``batch.gen``, decode + weighted average
     through :func:`decode_aggregate`, then ``strategy.apply``. The loss is
     the plain lane's, so the identity codec reproduces the plain step
     exactly. The reference's ``build_compressed_round_step``
-    (``compression.py:491``)."""
+    (``compression.py:491``).
+
+    Over a client ``group`` (the reference's ``axis_name``) the batch is
+    this rank's slice of the cohort, ``batch.cohort`` its slots: the codec
+    draws the whole cohort's noise and keeps this rank's rows, the
+    aggregate finishes with one all-reduce that also carries the loss's
+    terms, and ``strategy.apply`` runs after it on every rank alike."""
     strategy = resolve_strategy(strategy)
 
     def round_step(state, rb):
@@ -405,11 +465,22 @@ def build_compressed_round_step(loss_fn: Callable, codec: Codec, *, strategy=Non
             loss_fn, state.params, rb.data, rb.step_mask, rb.lr
         )
         w = torch.as_tensor(rb.client_weights, dtype=torch.float32)
-        loss = masked_weighted_loss(losses, rb.step_mask, host_to_device(w, losses.device))
+        w_dev = host_to_device(w, losses.device)
         deltas = tree_map(lambda c, p: (c - p).float(), client_params, state.params)
         flat, spec = tree_ravel_stacked(deltas)
-        payloads = codec.encode(rb.gen, flat)
-        agg_delta = tree_unravel(spec, decode_aggregate(codec, payloads, w, spec.total_size))
+        # unsharded: the two-argument encode(gen, flat) a wrapped codec may have
+        payloads = (codec.encode(rb.gen, flat) if rb.cohort is None
+                    else codec.encode(rb.gen, flat, rb.cohort))
+        if group is None:
+            loss = masked_weighted_loss(losses, rb.step_mask, w_dev)
+            avg = decode_aggregate(codec, payloads, w, spec.total_size)
+        else:
+            total = None if rb.cohort is None else rb.cohort.total
+            terms = loss_terms(losses, rb.step_mask, w_dev, total)
+            avg = decode_aggregate(codec, payloads, w, spec.total_size, group=group,
+                                   total=total, carry=terms)
+            loss = loss_of_terms(terms)
+        agg_delta = tree_unravel(spec, avg)
         outer, new_params = strategy.apply(state.outer_state, state.params, agg_delta)
         return state._replace(params=new_params, outer_state=outer), {"loss": loss}
 

@@ -1,7 +1,8 @@
 """RoundEngine: Algorithm 1 over a client population (counterpart of
 ``repro/core/engine.py``: its plain lane, with ``codec=`` its
 compressed-upload lane, and with ``topology=`` its decentralized gossip
-lane; ``strategy=`` swaps the server step on the star lanes,
+lane; ``strategy=`` swaps the server step on the star lanes, ``mesh=``
+shards each cohort across a ``torch.distributed`` client group,
 ``latency=`` simulates stragglers and ``async_config=`` runs the
 buffered-async schedule (``core.scheduler``), ``pool=`` keeps the
 population on the device or streams it from the host's disk, ``from_spec``
@@ -84,6 +85,26 @@ and replayed once a round; the host uploads a chunk's R learning rates
 once and reads its R losses back once. On the CPU the same body runs
 eagerly. The cohorts are Philox's, not threefry's: the same distribution as
 the reference's, other realizations.
+
+Cohort sharding (the reference's ``mesh=``, ``engine.py:333-345``): ``mesh``
+is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` over a client group of
+D ranks (``launch.mesh.make_client_mesh``), each holding the whole population
+and the replicated params. Every rank draws the whole cohort from the same
+stream (the numpy draws on the host-sampled lane, the device generator's on
+the superstep lane), pads it with ghost clients (id 0, weight 0) to a
+multiple of D and takes its m/D slots ``[r*m/D, (r+1)*m/D)``
+(``core.fedavg.CohortSlice``). Per-client randomness (the batch uniforms,
+the codec's noise) is drawn at the whole cohort's shape and sliced
+(``core.fedavg.shard_rows``), so each slot gets the numbers the unsharded
+round gives it. Each rank launches the lane's aggregation kernel once on its
+slice in partial-sum mode, its weights divided by the whole cohort's total
+(from the counts of the whole cohort, which every rank drew), and one
+``all_reduce(SUM)`` of the fp32 partial sum and the loss's terms finishes
+the round. The strategy applies after it, so every rank steps the same
+params. On a card, under NCCL, the superstep's captured round holds the
+all-reduce; a gloo group cannot be captured. Sharded runs equal unsharded
+ones up to fp32 reassociation of the server sum, and a world of one is the
+unsharded run bit for bit.
 """
 from __future__ import annotations
 
@@ -91,10 +112,12 @@ import copy
 import dataclasses
 import json
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.guards import sanctioned_staging
 from repro_torch.checkpoint.io import (
@@ -109,21 +132,25 @@ from repro_torch.core.compression import (
     codec_generator,
 )
 from repro_torch.core.fedavg import (
+    CohortSlice,
     FedAvgConfig,
     client_update,
     client_update_stacked,
     cohort_size,
+    loss_of_terms,
+    loss_terms,
     masked_weighted_loss,
     sample_clients,
     sample_clients_device,
     server_aggregate,
+    shard_rows,
 )
 from repro_torch.core.graphs import RoundGraph
 from repro_torch.core.scheduler import AsyncConfig, RoundScheduler
 from repro_torch.core.staging import CohortStager
 from repro_torch.core.strategies import FedAvg, ServerStrategy, resolve_strategy
 from repro_torch.core.topology import Topology, resolve_topology
-from repro_torch.data.batching import estimate_pool_nbytes, pack_clients
+from repro_torch.data.batching import estimate_pool_nbytes, pack_clients, pad_cohort
 from repro_torch.data.pool import StreamedClientPool, device_pool_budget
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.gossip_mix import gossip_mix
@@ -161,6 +188,10 @@ class RoundBatch(NamedTuple):
     gen:            the ``torch.Generator`` the codec draws its noise from
                     (the reference's ``RoundBatch.key``); the compressed
                     round step needs it, the plain one ignores it.
+    cohort:         under cohort sharding, the ``CohortSlice`` these rows
+                    are (the codec draws the whole cohort's noise and keeps
+                    these rows, and ``total`` spares the all-reduce the
+                    weight total); None: the rows are the whole cohort.
     """
 
     data: Any
@@ -168,17 +199,26 @@ class RoundBatch(NamedTuple):
     client_weights: torch.Tensor
     lr: Any = None
     gen: Optional[torch.Generator] = None
+    cohort: Optional[CohortSlice] = None
 
 
 def build_simulation_round_step(
     loss_fn: Callable,
     *,
     strategy: Optional[ServerStrategy] = None,
+    group=None,
 ):
     """``round_step(state, batch) -> (state, {"loss": ...})``: the vmapped
     ClientUpdate, then the fp32 client deltas through ``server_aggregate``
     (the CUDA ``fedavg_aggregate`` on the card), then ``strategy.apply``.
-    The reference's strategy path (``engine.py:153-217``)."""
+    The reference's strategy path (``engine.py:153-217``).
+
+    ``group`` (the reference's ``axis_name``): a ``torch.distributed``
+    client group whose ranks each hold a slice of the cohort. The kernel then
+    runs in partial-sum mode on this rank's slice and one all-reduce of the
+    partial sum and the loss's terms finishes both (``total`` from
+    ``batch.cohort`` when it has one); ``strategy.apply`` runs after it, so
+    every rank returns the same params."""
     strategy = resolve_strategy(strategy)
 
     def round_step(state: RoundState, rb: RoundBatch):
@@ -186,9 +226,16 @@ def build_simulation_round_step(
             loss_fn, state.params, rb.data, rb.step_mask, rb.lr
         )
         w = torch.as_tensor(rb.client_weights, dtype=torch.float32)
-        loss = masked_weighted_loss(losses, rb.step_mask, host_to_device(w, losses.device))
+        w_dev = host_to_device(w, losses.device)
         deltas = tree_map(lambda c, p: (c - p).float(), client_params, state.params)
-        agg_delta = server_aggregate(deltas, w)
+        if group is None:
+            loss = masked_weighted_loss(losses, rb.step_mask, w_dev)
+            agg_delta = server_aggregate(deltas, w)
+        else:
+            total = None if rb.cohort is None else rb.cohort.total
+            terms = loss_terms(losses, rb.step_mask, w_dev, total)
+            agg_delta = server_aggregate(deltas, w, group=group, total=total, carry=terms)
+            loss = loss_of_terms(terms)
         outer, new_params = strategy.apply(state.outer_state, state.params, agg_delta)
         return state._replace(params=new_params, outer_state=outer), {"loss": loss}
 
@@ -334,7 +381,16 @@ class RoundEngine:
     ``"auto"``: the device pool while ``estimate_pool_nbytes`` fits
     ``device_pool_budget(device)``, else streamed. ``prefetch`` (0 or more)
     stages the next round's cohort while the current one runs when it is
-    not 0. The streamed pool runs the host-sampled sync lane only."""
+    not 0. The streamed pool runs the host-sampled sync lane only.
+
+    ``mesh`` (a 1-D ``DeviceMesh`` with the dim ``client_axis``, e.g.
+    ``launch.mesh.make_client_mesh()``) shards each cohort across the mesh's
+    client group (module docstring); every rank of the group builds the
+    engine alike and runs it in step. It takes the plain, FedAvgM and codec
+    lanes, host-sampled or device-sampled, and refuses ``topology=``, the
+    streamed pool, ``latency=`` and ``async_config=``, as the reference
+    does; on a card a gloo group takes the host-sampled lane only (its
+    all-reduce cannot be captured)."""
 
     def __init__(
         self,
@@ -355,11 +411,14 @@ class RoundEngine:
         pool_shard_clients: int = 1024,
         pool_dir=None,
         prefetch: int = 1,
+        mesh=None,
+        client_axis: str = "clients",
         device="cuda",
     ):
         self._refuse(codec, topology, device_sampling, rounds_per_step, latency,
-                     async_config, pool, prefetch)
+                     async_config, pool, prefetch, mesh)
         self.device = resolve_device(device)
+        self._init_mesh(mesh, client_axis, device_sampling)
         # A private copy: the caller's tensors are never updated.
         self.params = tree_map(
             lambda p: torch.as_tensor(p).to(self.device, copy=True), init_params
@@ -386,6 +445,7 @@ class RoundEngine:
         self._init_pool(client_data, "device" if topology is not None else pool,
                         pool_shard_clients, pool_dir)
         self._m = cohort_size(self.num_clients, cfg.C)
+        self._init_cohort_slice()
         self._gen = self._graph = None
         if self.device_sampling:
             self._counts = torch.from_numpy(self.packed.counts).to(self.device)
@@ -398,18 +458,31 @@ class RoundEngine:
         if topology is not None:
             self._init_gossip(loss_fn, resolve_topology(topology))
         elif codec is None:
-            self._round_step = build_simulation_round_step(loss_fn, strategy=self.strategy)
+            self._round_step = build_simulation_round_step(loss_fn, strategy=self.strategy,
+                                                           group=self._group)
         else:
             self._round_step = build_compressed_round_step(loss_fn, codec,
-                                                           strategy=self.strategy)
+                                                           strategy=self.strategy,
+                                                           group=self._group)
 
     @staticmethod
     def _refuse(codec, topology, device_sampling, rounds_per_step, latency, async_config,
-                pool, prefetch) -> None:
+                pool, prefetch, mesh=None) -> None:
         """The lane combinations the engine refuses, before any state is built
-        (the reference's ``engine.py:392-420``, ``:467-520`` and ``:700-719``).
-        An ``"auto"`` pool that turns out streamed is refused with the
-        latency and async lanes in ``_init_pool``."""
+        (the reference's ``engine.py:392-420``, ``:452-456``, ``:467-520``
+        and ``:700-719``). An ``"auto"`` pool that turns out streamed is
+        refused with the latency, async and mesh lanes in ``_init_pool``."""
+        if mesh is not None:
+            if topology is not None:
+                raise ValueError(
+                    "topology= is incompatible with mesh=: the gossip lane runs every node "
+                    "every round (no cohort draw to shard); construct the engine without "
+                    "mesh")
+            if latency is not None or async_config is not None:
+                raise ValueError(
+                    "latency=/async_config= are incompatible with mesh=: the straggler and "
+                    "buffered-async schedules dispatch unsharded cohorts on the host; "
+                    "construct the engine without mesh")
         if device_sampling and topology is not None:
             raise ValueError(
                 "topology= is incompatible with device_sampling=True: the gossip lane runs "
@@ -452,10 +525,16 @@ class RoundEngine:
             raise ValueError("pool must be 'auto', 'device', 'streamed', or a "
                              f"StreamedClientPool instance, got {pool!r}")
         if streamed or pool == "streamed":
-            RoundEngine._refuse_streamed(latency, async_config, device_sampling)
+            RoundEngine._refuse_streamed(latency, async_config, device_sampling, mesh)
 
     @staticmethod
-    def _refuse_streamed(latency, async_config, device_sampling) -> None:
+    def _refuse_streamed(latency, async_config, device_sampling, mesh=None) -> None:
+        if mesh is not None:
+            raise ValueError(
+                "pool='streamed' is incompatible with mesh= cohort sharding: streamed "
+                "cohorts are staged host->device per round, while a sharded round needs "
+                "the device-resident pool on every rank of the client group; shard with "
+                "pool='device', or stream unsharded")
         if latency is not None or async_config is not None:
             raise ValueError(
                 "pool='streamed' supports the sync round lane only: the latency/async "
@@ -488,7 +567,7 @@ class RoundEngine:
                 if est > device_pool_budget(self.device):
                     kind = "streamed"
                     self._refuse_streamed(self.latency, self.async_config,
-                                          self.device_sampling)
+                                          self.device_sampling, self.mesh)
         self.pool_kind = kind
         self.pool = self._stager = None
         if kind == "device":
@@ -517,6 +596,49 @@ class RoundEngine:
         self._stager = CohortStager(
             pool, cohort_size(pool.num_clients, self.cfg.C),
             self.cfg.E * self.packed.max_real_steps_per_epoch, self.device)
+
+    def _init_mesh(self, mesh, client_axis: str, device_sampling: bool) -> None:
+        """The client group of ``mesh`` (None: unsharded): its size D and
+        this rank's index along ``client_axis`` (the reference's
+        ``engine.py:450-456``)."""
+        self.mesh, self.client_axis = mesh, client_axis
+        self._group, self._shards, self._shard_rank = None, 1, 0
+        if mesh is None:
+            return
+        names = tuple(mesh.mesh_dim_names or ())
+        if client_axis not in names:
+            raise ValueError(f"client_axis {client_axis!r} not in mesh axes {names}")
+        if mesh.ndim != 1:
+            raise ValueError(f"mesh= takes a 1-D client mesh, got the {mesh.ndim}-D mesh "
+                             f"{names}")
+        self._group = mesh.get_group(client_axis)
+        self._shards = mesh.size()
+        self._shard_rank = mesh.get_local_rank(client_axis)
+        backend = dist.get_backend(self._group)
+        if backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL client group reduces CUDA tensors, but this engine "
+                             f"runs on {self.device}: build the mesh with "
+                             "make_client_mesh(device='cpu') (gloo)")
+        if backend == "gloo" and self.device.type == "cuda" and device_sampling:
+            raise ValueError(
+                "device_sampling=True on a card captures each round as a CUDA graph, and a "
+                "gloo group's all-reduce (through host memory) cannot be captured: build "
+                "the mesh with make_client_mesh(device='cuda') (NCCL), or run the "
+                "host-sampled lane")
+
+    def _init_cohort_slice(self) -> None:
+        """This rank's slots of every cohort (m is fixed by K and C): a
+        ``CohortSlice`` without its total, and the slots' 0/1 validity on
+        the host and on the device (None unsharded)."""
+        self._slots = self._valid = self._valid_dev = None
+        if self._group is None:
+            return
+        _, valid = pad_cohort(np.zeros(self._m, np.int64), self._shards)
+        m_local = len(valid) // self._shards
+        lo = self._shard_rank * m_local
+        self._slots = CohortSlice(self._m, lo, lo + m_local)
+        self._valid = torch.from_numpy(valid[lo:lo + m_local])
+        self._valid_dev = self._valid.to(self.device)
 
     def _init_gossip(self, loss_fn: Callable, topology: Topology) -> None:
         """The gossip lane's set-up (the reference's ``engine.py:386-434`` and
@@ -566,6 +688,7 @@ class RoundEngine:
         init_params=None,
         eval_fn: Optional[Callable] = None,
         model_kwargs: Optional[Dict[str, Any]] = None,
+        mesh=None,
         device="cuda",
     ) -> "RoundEngine":
         """An engine from a ``repro_torch.specs.ExperimentSpec`` (the
@@ -577,9 +700,13 @@ class RoundEngine:
         initialized from ``spec.fedavg.seed`` by the port's own ``init``,
         whose draws are not the reference's. ``async_spec`` becomes the
         ``AsyncConfig`` and the ``LatencyModel`` (a codec beside it is
-        refused), and ``execution``'s pool fields reach the engine. A spec
-        field the port has no lane for yet is refused before any state is
-        built, naming its ROADMAP item."""
+        refused), and ``execution``'s pool fields reach the engine.
+        ``execution.mesh_axes`` names the client axis: ``mesh`` defaults to
+        ``launch.mesh.make_client_mesh(axis=...)`` over the process group's
+        world on ``device`` (a world of one when none is up), as the
+        reference's ``engine.py:781-786``. A spec field the port has no lane
+        for yet is refused before any state is built, naming its ROADMAP
+        item."""
         ex = spec.execution
         latency, async_config = None, None
         aspec = spec.async_spec
@@ -592,10 +719,6 @@ class RoundEngine:
                     "drop one of the two fields")
             async_config = AsyncConfig(buffer_k=aspec.buffer_k, concurrency=aspec.concurrency)
             latency = aspec.latency
-        if ex.mesh_axes is not None:
-            raise ValueError(
-                f"spec {spec.name!r} sets execution.mesh_axes: cohort sharding is not "
-                "ported to repro_torch yet (ROADMAP Queue 1 item 7)")
         if ex.accum_dtype != "float32":
             raise ValueError(
                 f"spec {spec.name!r} sets execution.accum_dtype={ex.accum_dtype!r}: the "
@@ -605,13 +728,7 @@ class RoundEngine:
             raise ValueError(
                 f"spec {spec.name!r} sets execution.interpret={ex.interpret!r}: the port "
                 "has no kernel interpreter; the CPU path is chosen by device='cpu'")
-        if loss_fn is None or init_params is None:
-            model = spec.build_model(**{**(model_kwargs or {}), "device": device})
-            loss_fn = loss_fn if loss_fn is not None else model.loss
-            if init_params is None:
-                init_params = model.init(spec.fedavg.seed)
-        return cls(
-            loss_fn, init_params, client_data, spec.fedavg, eval_fn,
+        lane = dict(
             strategy=spec.build_strategy(),
             codec=spec.build_codec(),
             topology=spec.topology.build() if spec.topology is not None else None,
@@ -622,8 +739,27 @@ class RoundEngine:
             pool=ex.pool,
             pool_shard_clients=ex.pool_shard_clients,
             prefetch=ex.prefetch,
-            device=device,
         )
+        client_axis = "clients"
+        if ex.mesh_axes is not None:
+            client_axis = ex.mesh_axes
+            if mesh is None:
+                from repro_torch.launch.mesh import make_client_mesh
+
+                # what the spec's other fields refuse beside a mesh, refused
+                # before a process group starts
+                cls._refuse(*(lane[k] for k in ("codec", "topology", "device_sampling",
+                                                "rounds_per_step", "latency",
+                                                "async_config", "pool", "prefetch")),
+                            mesh=ex.mesh_axes)
+                mesh = make_client_mesh(axis=ex.mesh_axes, device=resolve_device(device).type)
+        if loss_fn is None or init_params is None:
+            model = spec.build_model(**{**(model_kwargs or {}), "device": device})
+            loss_fn = loss_fn if loss_fn is not None else model.loss
+            if init_params is None:
+                init_params = model.init(spec.fedavg.seed)
+        return cls(loss_fn, init_params, client_data, spec.fedavg, eval_fn, mesh=mesh,
+                   client_axis=client_axis, device=device, **lane)
 
     @property
     def num_clients(self) -> int:
@@ -680,7 +816,10 @@ class RoundEngine:
         (``torch_generator_device``): the device stream it resumes from. A
         streamed engine's prefetched cohort is discarded first, its draw
         rewound, so the checkpoint holds the stream an unprefetched run
-        (and a device-pool run) would hold."""
+        (and a device-pool run) would hold. A sharded engine's ranks hold the
+        same state: rank 0 writes (recording ``mesh_shards``, D), then every
+        rank waits at a barrier of the client group, so a restore that
+        follows on any rank finds the files."""
         self._discard_prefetch()
         metadata = {
             "round_idx": self.round_idx,
@@ -694,12 +833,18 @@ class RoundEngine:
         if self.device_sampling:
             metadata["torch_generator_state"] = self._gen.get_state().numpy().tobytes().hex()
             metadata["torch_generator_device"] = self.device.type
-        return save_checkpoint(
-            ckpt_dir,
-            {"params": self.params, "strategy_state": self.outer_state},
-            step=self.round_idx,
-            metadata=metadata,
-        )
+        if self._group is None:
+            return save_checkpoint(
+                ckpt_dir, {"params": self.params, "strategy_state": self.outer_state},
+                step=self.round_idx, metadata=metadata)
+        metadata["mesh_shards"] = self._shards
+        path = str(Path(ckpt_dir) / f"step_{self.round_idx:08d}")
+        if self._shard_rank == 0:
+            path = save_checkpoint(
+                ckpt_dir, {"params": self.params, "strategy_state": self.outer_state},
+                step=self.round_idx, metadata=metadata)
+        dist.barrier(group=self._group)
+        return path
 
     def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
         """Restore what :meth:`save` wrote (either package's) into this
@@ -809,14 +954,17 @@ class RoundEngine:
         spe_k = self.packed.steps_per_epoch[ids]
         return (np.arange(E * spe)[None, :] % spe < spe_k[:, None]).astype(np.float32)
 
-    def materialize_round_batch(self, ids, generator_seed: int):
+    def materialize_round_batch(self, ids, generator_seed: int,
+                                cohort: Optional[CohortSlice] = None):
         """(batch, step_mask, weights) for host cohort ``ids``, the
         permutations drawn from a device generator seeded with
         ``generator_seed``: the host-sampled lane's batches. The ids, the
         real-row counts and the step mask reach the device from page-locked
         memory without a sync; the weights are the host float32 counts. A
         streamed engine reads the rows from its shards (the round loop
-        stages them ahead instead, :meth:`_prepare_round`)."""
+        stages them ahead instead, :meth:`_prepare_round`). With a
+        ``cohort`` slice, ``ids`` are this rank's slots (ghosts id 0) and the
+        uniforms are the whole cohort's draw cut to them (``shard_rows``)."""
         ids = np.asarray(ids)
         dev = self.device
         counts = self.packed.counts[ids]
@@ -833,7 +981,9 @@ class RoundEngine:
             xs, ys = self._x.index_select(0, idx), self._y.index_select(0, idx)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(generator_seed))
-        batch = self._permuted_batches(xs, ys, n_real, self._batch_uniforms(len(ids), gen))
+        u = shard_rows(self._batch_uniforms(len(ids) if cohort is None else cohort.m, gen),
+                       cohort)
+        batch = self._permuted_batches(xs, ys, n_real, u)
         return batch, mask, torch.from_numpy(counts.copy())
 
     def assemble_round_batch(self, ids: torch.Tensor, u: torch.Tensor):
@@ -855,13 +1005,23 @@ class RoundEngine:
     def _device_round(self, params, outer_state, lr):
         """The device-sampling round body (``core.graphs``): cohort, batch
         uniforms and codec noise from the engine's generator, in that order,
-        then the lane's round step. Returns (params, outer_state, loss)."""
+        then the lane's round step. Returns (params, outer_state, loss).
+        Sharded, every rank draws the whole cohort's ids and uniforms, pads
+        and keeps its slots, and the whole cohort's weight total comes from
+        the device counts (the reference's ``engine.py:1688-1700``)."""
         gen = self._gen
         ids = sample_clients_device(gen, self.num_clients, self._m)
-        batch, mask, w = self.assemble_round_batch(ids, self._batch_uniforms(self._m, gen))
+        u = self._batch_uniforms(self._m, gen)
+        cohort = None
+        if self._group is not None:
+            cohort = self._slots._replace(total=self._counts.index_select(0, ids).sum())
+            ids, u = shard_rows(ids, cohort), shard_rows(u, cohort)
+        batch, mask, w = self.assemble_round_batch(ids, u)
+        if cohort is not None:
+            w = w * self._valid_dev
         state, metrics = self._round_step(
             RoundState(params, outer_state=outer_state),
-            RoundBatch(batch, mask, w, lr=lr, gen=gen),
+            RoundBatch(batch, mask, w, lr=lr, gen=gen, cohort=cohort),
         )
         return state.params, state.outer_state, metrics["loss"]
 
@@ -880,20 +1040,31 @@ class RoundEngine:
     def _host_round(self, ids, seed: int, lr, arrival: Optional[np.ndarray] = None):
         """The device pool's host-sampled round on cohort ``ids``. ``arrival``
         (m,) 0/1 masks the host weights: the straggler model's ghosts, which
-        then vanish from the aggregate and the loss."""
-        batch, mask, w = self.materialize_round_batch(ids, seed)
-        if arrival is not None:
-            w = w * torch.from_numpy(arrival)
-        return self._step(batch, mask, w, lr, seed)
+        then vanish from the aggregate and the loss. Sharded, the cohort is
+        padded with ghosts and this rank runs its slots, their weights
+        masked by validity, with the whole cohort's weight total from the
+        host counts (the reference's ``engine.py:902-912`` and
+        ``:1570-1590``)."""
+        if self._group is None:
+            batch, mask, w = self.materialize_round_batch(ids, seed)
+            if arrival is not None:
+                w = w * torch.from_numpy(arrival)
+            return self._step(batch, mask, w, lr, seed)
+        padded, _ = pad_cohort(np.asarray(ids), self._shards)
+        cohort = self._slots._replace(total=float(self.packed.counts[ids].sum()))
+        batch, mask, w = self.materialize_round_batch(padded[cohort.lo:cohort.hi], seed,
+                                                      cohort)
+        return self._step(batch, mask, w * self._valid, lr, seed, cohort)
 
-    def _step(self, batch, mask, w, lr, seed: int) -> Dict[str, torch.Tensor]:
+    def _step(self, batch, mask, w, lr, seed: int,
+              cohort: Optional[CohortSlice] = None) -> Dict[str, torch.Tensor]:
         """The lane's round step on one cohort's batches; the codec's
         generator is seeded with ``seed ^ 0x5EED``."""
         codec_gen = None if self.codec is None else codec_generator(
             self.codec, seed ^ 0x5EED, self.device)
         state, metrics = self._round_step(
             RoundState(self.params, outer_state=self.outer_state),
-            RoundBatch(batch, mask, w, lr=lr, gen=codec_gen),
+            RoundBatch(batch, mask, w, lr=lr, gen=codec_gen, cohort=cohort),
         )
         self.params, self.outer_state = state.params, state.outer_state
         self.round_idx += 1

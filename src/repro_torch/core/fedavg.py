@@ -11,17 +11,27 @@
                          picks the same cohort ids.
 - ``sample_clients_device``  the same draw on the device from a
                          ``torch.Generator`` (the superstep lane).
+
+Cohort sharding (``RoundEngine(mesh=)``): ``CohortSlice`` names a rank's
+slots of a cohort padded with ghost clients, ``shard_rows`` cuts a rank's
+rows out of a draw of the whole cohort's shape, and ``server_aggregate`` and
+``masked_weighted_loss`` take ``group=`` for the partial-sum finish.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad_and_value, vmap
 
-from repro_torch.kernels.ops import tree_fedavg_aggregate
+from repro_torch.kernels.ops import (
+    sharded_fedavg_aggregate,
+    total_tensor,
+    tree_fedavg_aggregate,
+)
 from repro_torch.utils.tree import tree_map
 
 
@@ -70,6 +80,41 @@ def sample_clients_device(gen: torch.Generator, n_clients: int, m: int) -> torch
     return torch.argsort(u)[:m]
 
 
+class CohortSlice(NamedTuple):
+    """A rank's share of a cohort-sharded round. The ``m`` real clients are
+    padded with ghosts (weight 0) to a multiple of the group's size, and this
+    rank holds global slots ``[lo, hi)``; slots ``>= m`` are ghosts.
+    ``total`` is the whole cohort's weight total (a host float or a 0-d
+    device tensor), which every rank knows because every rank drew the whole
+    cohort; None leaves it to the all-reduce."""
+
+    m: int
+    lo: int
+    hi: int
+    total: Any = None
+
+
+def shard_rows(full: torch.Tensor, cs: Optional[CohortSlice]) -> torch.Tensor:
+    """This rank's rows of ``full``, a draw of the whole cohort's shape (m,
+    ...): rows ``[lo, hi)``, a ghost slot's row zeros. ``None`` is the
+    unsharded round: ``full`` as it is.
+
+    Per-client randomness is drawn for the whole cohort on every rank and
+    sliced here, never drawn at the padded or the local shape: on a card,
+    Philox's value at an index depends on the launch's grid, which the
+    tensor's size sets, so a larger draw is not the smaller one plus a tail
+    (the reference keys each client's stream by its global slot instead)."""
+    if cs is None:
+        return full
+    rows = full[cs.lo:min(cs.hi, cs.m)]
+    ghosts = cs.hi - max(cs.lo, cs.m)
+    if ghosts > 0:
+        pad = torch.zeros((ghosts,) + tuple(full.shape[1:]), dtype=full.dtype,
+                          device=full.device)
+        rows = torch.cat([rows, pad])
+    return rows
+
+
 def client_update_stacked(loss_fn: Callable, stacked, batches, step_mask, lr):
     """ClientUpdate for the cohort, client k starting from row k of the
     (m, ...) ``stacked`` params (the gossip lane's per-node replicas).
@@ -107,20 +152,54 @@ def client_update(loss_fn: Callable, params, batches, step_mask, lr):
     return client_update_stacked(loss_fn, stacked, batches, step_mask, lr)
 
 
-def masked_weighted_loss(losses, step_mask, client_weights):
-    """Round train-loss metric: mean loss over each client's REAL steps,
-    weighted by client example count (the reference's unsharded branch)."""
-    per_client = torch.sum(losses * step_mask, dim=1) / torch.clamp(
+def _per_client_loss(losses, step_mask):
+    return torch.sum(losses * step_mask, dim=1) / torch.clamp(
         torch.sum(step_mask, dim=1), min=1.0
     )
-    w = client_weights / torch.sum(client_weights)
-    return torch.sum(w * per_client)
 
 
-def server_aggregate(stacked_params, client_weights):
+def loss_terms(losses, step_mask, client_weights, total=None) -> torch.Tensor:
+    """This rank's share of the sharded loss before the all-reduce, with
+    ``loss_k`` the mean over client k's real steps (ghosts carry w 0):
+    ``[sum_k w_k * loss_k, sum_k w_k]``, or, given the whole cohort's
+    weight ``total``, ``[sum_k (w_k / total) * loss_k]``, in the unsharded
+    metric's order of operations. :func:`loss_of_terms` finishes either."""
+    per_client = _per_client_loss(losses, step_mask)
+    if total is not None:
+        w = client_weights / total_tensor(total, client_weights.device)
+        return torch.sum(w * per_client).reshape(1)
+    return torch.stack([torch.sum(client_weights * per_client), torch.sum(client_weights)])
+
+
+def loss_of_terms(terms: torch.Tensor) -> torch.Tensor:
+    """The loss from all-reduced :func:`loss_terms`."""
+    return terms[0] if terms.numel() == 1 else terms[0] / terms[1]
+
+
+def masked_weighted_loss(losses, step_mask, client_weights, *, group=None, total=None):
+    """Round train-loss metric: mean loss over each client's REAL steps,
+    weighted by client example count. Unsharded (``group=None``) it keeps
+    the reference's normalize-then-sum order; over a client ``group`` it is
+    :func:`loss_terms` all-reduced, then one division (the reference's
+    ``axis_name`` branch), or none given the whole cohort's ``total``."""
+    if group is None:
+        w = client_weights / torch.sum(client_weights)
+        return torch.sum(w * _per_client_loss(losses, step_mask))
+    terms = loss_terms(losses, step_mask, client_weights, total)
+    dist.all_reduce(terms, op=dist.ReduceOp.SUM, group=group)
+    return loss_of_terms(terms)
+
+
+def server_aggregate(stacked_params, client_weights, *, group=None, total=None, carry=None):
     """w_{t+1} <- sum_k (n_k/n) w^k_{t+1} — Algorithm 1's server line.
 
     ``client_weights`` are RAW example counts n_k; they are normalized once,
     inside ``tree_fedavg_aggregate`` (on the host when they live there),
-    whose kernel takes the normalized contract."""
-    return tree_fedavg_aggregate(stacked_params, client_weights)
+    whose kernel takes the normalized contract. Over a client ``group`` the
+    stack is this rank's slice and the kernel runs in partial-sum mode,
+    finished by one all-reduce (``ops.sharded_fedavg_aggregate``, which
+    takes ``total`` and ``carry``)."""
+    if group is None:
+        return tree_fedavg_aggregate(stacked_params, client_weights)
+    return sharded_fedavg_aggregate(stacked_params, client_weights, group=group,
+                                    total=total, carry=carry)

@@ -60,12 +60,9 @@ def build_round_batch_host(client_data, selected, cfg: FedAvgConfig, rng):
     return bxs, bys, mask, weights
 
 
-def _refuse_unported(*, mesh=None, interpret=None, accum_dtype=torch.float32) -> None:
-    """The engine options the port has no lane for yet, each refused naming
-    its ROADMAP item, as ``RoundEngine.from_spec`` refuses the spec fields."""
-    if mesh is not None:
-        raise ValueError("mesh=: cohort sharding is not ported to repro_torch yet "
-                         "(ROADMAP Queue 1 item 7)")
+def _refuse_unported(*, interpret=None, accum_dtype=torch.float32) -> None:
+    """The engine options the port has no lane for, each refused, as
+    ``RoundEngine.from_spec`` refuses the spec fields."""
     if interpret is not None:
         raise ValueError(f"interpret={interpret!r}: the port has no kernel interpreter; the "
                          "CPU path is chosen by device='cpu'")
@@ -81,8 +78,10 @@ class FederatedTrainer:
     ``params`` are the engine's. ``latency=`` and ``async_config=`` reach the
     engine (straggler-simulated sync rounds, the buffered-async schedule);
     ``from_spec`` takes a spec's ``async_spec`` and execution fields through
-    ``RoundEngine.from_spec``. An option the port has no lane for yet is
-    refused before any state is built."""
+    ``RoundEngine.from_spec``. ``mesh=`` and ``client_axis=`` shard each
+    cohort across a client group (``launch.mesh.make_client_mesh``), as the
+    engine's do. An option the port has no lane for is refused before any
+    state is built."""
 
     def __init__(
         self,
@@ -102,11 +101,11 @@ class FederatedTrainer:
         async_config=None,
         device="cuda",
     ):
-        _refuse_unported(mesh=mesh, interpret=interpret, accum_dtype=accum_dtype)
+        _refuse_unported(interpret=interpret, accum_dtype=accum_dtype)
         engine = RoundEngine(
             loss_fn, init_params, client_data, cfg, eval_fn, codec=codec,
             strategy=strategy, device_sampling=device_sampling, latency=latency,
-            async_config=async_config, device=device,
+            async_config=async_config, mesh=mesh, client_axis=client_axis, device=device,
         )
         self._wrap(engine, client_data)
 
@@ -132,12 +131,11 @@ class FederatedTrainer:
         device="cuda",
     ) -> "FederatedTrainer":
         """``RoundEngine.from_spec`` wrapped in the trainer API."""
-        _refuse_unported(mesh=mesh)
         self = cls.__new__(cls)
         self._wrap(
             RoundEngine.from_spec(
                 spec, client_data, loss_fn=loss_fn, init_params=init_params,
-                eval_fn=eval_fn, model_kwargs=model_kwargs, device=device,
+                eval_fn=eval_fn, model_kwargs=model_kwargs, mesh=mesh, device=device,
             ),
             client_data,
         )

@@ -13,6 +13,14 @@ normalized in one place, ``ops.tree_fedavg_aggregate`` (reached through
 ``core.fedavg.server_aggregate``). The sum is checked here only for CPU
 weights, as the reference checks only concrete ones: reading CUDA weights
 back would cost a device sync on every round.
+
+Partial-sum mode (``normalized=False``, the reference's sanctioned exception
+at ``repro/kernels/fedavg_agg.py:111-119``): a rank of a cohort-sharded round
+holds only its slice of the cohort, whose raw weights cannot sum to 1, so
+the sum is not checked. The kernel is the same plain weighted sum either
+way (no term folds the weights' total in, and nothing is chosen by their
+values); ``ops.sharded_fedavg_aggregate`` finishes the mean with one
+all-reduce and one division.
 """
 from __future__ import annotations
 
@@ -76,17 +84,19 @@ def _check(stacked: torch.Tensor, weights: torch.Tensor) -> None:
 
 
 def fedavg_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
-                     accum_dtype=torch.float32) -> torch.Tensor:
+                     accum_dtype=torch.float32, normalized: bool = True) -> torch.Tensor:
     """Weighted sum over the client axis: (K, N), (K,) -> (N,) in the
-    storage dtype, accumulated in fp32.
+    storage dtype, accumulated in fp32. ``normalized=False`` is the
+    partial-sum mode: raw weights, any sum (module docstring).
 
     ``fedavg_aggregate.launches`` counts kernel launches (CPU calls and
     empty outputs launch nothing and count nothing, and neither does a
-    call under a CUDA stream capture, which only records the launch)."""
+    call under a CUDA stream capture, which only records the launch);
+    ``fedavg_aggregate.partial_launches`` those in partial-sum mode."""
     _check(stacked, weights)
     if stacked.device.type == "cpu":
         s = float(weights.sum())
-        if abs(s - 1.0) > 1e-3:
+        if normalized and abs(s - 1.0) > 1e-3:
             raise ValueError(
                 "fedavg_aggregate requires pre-normalized weights (sum==1); "
                 f"got sum={s:.6f}. Pass raw counts to server_aggregate / "
@@ -119,10 +129,12 @@ def fedavg_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
         raise RuntimeError(f"fedavg_aggregate kernel launch failed: {msg} ({rc})")
     if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
         fedavg_aggregate.launches += 1
+        fedavg_aggregate.partial_launches += not normalized
     return out
 
 
 fedavg_aggregate.launches = 0
+fedavg_aggregate.partial_launches = 0
 
 
 def access_width(stacked: torch.Tensor, out: torch.Tensor) -> int:

@@ -6,6 +6,20 @@ that normalizes them for its kernel. Host counts are normalized on the host
 and then copied to the payload's device from page-locked memory
 (``host_to_device``), so a round adds no device sync.
 ``tree_gossip_mix`` takes a mixing plan, whose rows are stochastic already.
+
+The ``sharded_*`` adapters are the cohort-sharded server line (the
+reference's partial-sum adapters, ``repro/kernels/ops.py:89-238``): each
+rank of a ``torch.distributed`` client group runs its aggregation kernel on
+its slice of the cohort in the kernels' partial-sum mode (weights that do
+not sum to 1), then :func:`finish_partial_sum` makes one
+``all_reduce(SUM)``. Without ``total`` the weights are RAW and the
+all-reduce also sums the weight total, divided by once, as the reference
+does. With the whole cohort's ``total`` (every rank of a round drew the
+whole cohort), each rank's raw weights are divided by it first
+(:func:`shard_weights`) and the all-reduced sum is the mean: the same
+weights, in the same fp32 bits, as the unsharded adapter's, so a world of
+one gives the unsharded round bit for bit. Each takes ``group=`` where the
+reference takes ``axis_name=``.
 ``mha_flash`` and ``mamba_ssm_scan`` adapt the LM's layouts to the
 attention and scan kernels.
 
@@ -22,7 +36,10 @@ range of its own (``flash_attention_bwd``, ``fused_cross_entropy_bwd``), so
 a trace shows what it costs."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
@@ -113,6 +130,102 @@ def sparse_fedavg_aggregate(idx, values, weights, n):
     """Weighted average of K sparse top-k payloads into a dense (n,) fp32
     delta through ``sparse_aggregate``."""
     return sparse_aggregate(idx, values, normalized_weights(weights, idx.device), n)
+
+
+def shard_weights(weights, device, total=None) -> torch.Tensor:
+    """(K,) fp32 weights on ``device`` for a rank's partial sum: the raw
+    weights, or, given the whole cohort's ``total`` (a host float or a 0-d
+    tensor on the weights' device), the raw weights divided by it, on the
+    host when they live there, as :func:`normalized_weights` divides by the
+    local sum. Raw example counts are whole numbers, whose fp32 sums are
+    exact in any order, so that total is the local sum of an unsharded
+    round and the weights are its bits."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    if total is not None:
+        w = w / total_tensor(total, w.device)
+    return host_to_device(w, device)
+
+
+def total_tensor(total, device) -> torch.Tensor:
+    """A weight total as a 0-d fp32 tensor on ``device``: a tensor as it is,
+    a host float filled in place (no copy, so no sync). Dividing by it is
+    the same operation as dividing by a local ``sum()``; a Python float
+    divisor would take another kernel path on a card."""
+    if isinstance(total, torch.Tensor):
+        return total
+    return torch.full((), float(total), dtype=torch.float32, device=device)
+
+
+def finish_partial_sum(partial: torch.Tensor, weights: torch.Tensor, group, *,
+                       total=None, carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The weighted mean from this rank's (N,) fp32 ``partial`` weighted sum
+    over its (K,) ``weights`` (:func:`shard_weights` with the same
+    ``total``): one ``all_reduce(SUM)`` over ``group``.
+
+    Without ``total`` the weights are raw: the all-reduce also sums their
+    local totals, and the mean is one division, as the reference's ``psum``
+    pair. With it (the whole cohort's total, known to every rank because
+    every rank drew the whole cohort) they were divided by it already, and
+    the all-reduced sum is the mean. ``carry`` (a 1-D fp32 tensor on the
+    partial's device, e.g. a round's loss terms) rides in the same
+    all-reduce and is overwritten with its sum over the group, so a round
+    makes one collective."""
+    parts = [partial]
+    if total is None:
+        parts.append(weights.sum().reshape(1))
+    if carry is not None:
+        parts.append(carry.reshape(-1))
+    buf = torch.cat(parts) if len(parts) > 1 else partial
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    n = partial.shape[0]
+    if carry is not None:
+        carry.copy_(buf[buf.shape[0] - carry.numel():].reshape(carry.shape))
+    return buf[:n] if total is not None else buf[:n] / buf[n]
+
+
+def sharded_fedavg_aggregate(stacked_params, weights, *, group, total=None, carry=None):
+    """Cohort-sharded :func:`tree_fedavg_aggregate`: ``fedavg_aggregate`` in
+    partial-sum mode over this rank's (K_local, ...) slice (ghost clients
+    carry weight 0 and vanish), then :func:`finish_partial_sum` over
+    ``group``. The stack is cast to fp32 first and the partial sum stays
+    fp32 until after the all-reduce, as the reference casts to
+    ``accum_dtype`` (``ops.py:109-112``); each leaf returns to its storage
+    dtype only in the unravel."""
+    flat, spec = tree_ravel_stacked(stacked_params)
+    w = shard_weights(weights, flat.device, total)
+    partial = fedavg_aggregate(flat.float().contiguous(), w, normalized=False)
+    return tree_unravel(spec, finish_partial_sum(partial, w, group, total=total, carry=carry))
+
+
+def sharded_quantized_fedavg_aggregate(codes, lo, scale, weights, *, chunk, levels, group,
+                                       total=None, carry=None):
+    """Cohort-sharded :func:`quantized_fedavg_aggregate`: the fused decode
+    and weighted sum over this rank's codes in partial-sum mode, then
+    :func:`finish_partial_sum`; (N_pad,) fp32."""
+    w = shard_weights(weights, codes.device, total)
+    partial = quantized_aggregate(codes, lo, scale, w, chunk=chunk, levels=levels,
+                                  normalized=False)
+    return finish_partial_sum(partial, w, group, total=total, carry=carry)
+
+
+def sharded_packed_quantized_fedavg_aggregate(words, lo, scale, weights, *, bits, chunk,
+                                              levels, group, total=None, carry=None):
+    """Cohort-sharded :func:`packed_quantized_fedavg_aggregate`, as
+    :func:`sharded_quantized_fedavg_aggregate`; (C * chunk,) fp32."""
+    w = shard_weights(weights, words.device, total)
+    partial = packed_quantized_aggregate(words, lo, scale, w, bits=bits, chunk=chunk,
+                                         levels=levels, normalized=False)
+    return finish_partial_sum(partial, w, group, total=total, carry=carry)
+
+
+def sharded_sparse_fedavg_aggregate(idx, values, weights, n, *, group, total=None,
+                                    carry=None):
+    """Cohort-sharded :func:`sparse_fedavg_aggregate`: this rank's (K_local,
+    k) pairs scattered in partial-sum mode, then :func:`finish_partial_sum`;
+    (n,) fp32."""
+    w = shard_weights(weights, idx.device, total)
+    partial = sparse_aggregate(idx, values, w, n, normalized=False)
+    return finish_partial_sum(partial, w, group, total=total, carry=carry)
 
 
 def tree_gossip_mix(stacked_params, idx, weight):

@@ -37,7 +37,10 @@ Layout, as the reference's (produced by ``core.compression.quantize_codec``):
   weights: (K,) fp32, normalized to sum to 1. Raw counts are normalized in
            ``ops.quantized_fedavg_aggregate`` and its packed twin; the sum is
            checked here only for CPU weights (reading CUDA weights back would
-           cost a device sync every round).
+           cost a device sync every round). ``normalized=False`` is the
+           partial-sum mode of a cohort-sharded round (``ops.sharded_*``):
+           raw weights, any sum, the sum not checked; the kernels compute the
+           same weighted sum either way.
 """
 from __future__ import annotations
 
@@ -179,14 +182,16 @@ def _raise_on(rc: int, name: str) -> None:
 
 def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
                         weights: torch.Tensor, *, chunk: int, levels: int,
-                        accum_dtype=torch.float32) -> torch.Tensor:
+                        accum_dtype=torch.float32, normalized: bool = True) -> torch.Tensor:
     """Fused dequantize + weighted sum over the client axis:
     codes (K, N_pad) uint8/uint16 -> (N_pad,) fp32.
 
     ``quantized_aggregate.launches`` counts kernel launches, of either route;
-    ``quantized_aggregate.stream_launches`` those of the stream route (CPU
-    calls and empty outputs launch nothing and count nothing, and neither does a
-    call under a CUDA stream capture, which only records the launch)."""
+    ``quantized_aggregate.stream_launches`` those of the stream route and
+    ``quantized_aggregate.partial_launches`` those in partial-sum mode
+    (``normalized=False``) (CPU calls and empty outputs launch nothing and
+    count nothing, and neither does a call under a CUDA stream capture,
+    which only records the launch)."""
     name = "quantized_aggregate"
     if codes.ndim != 2 or chunk < 1 or codes.shape[1] % chunk:
         raise ValueError(f"codes must be (K, C*chunk); got {tuple(codes.shape)} "
@@ -195,7 +200,8 @@ def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tens
         raise TypeError(f"codes must be uint8 or uint16, got {codes.dtype}")
     _check_common(name, codes, codes.shape[1] // chunk, lo, scale, weights, chunk, levels)
     if codes.device.type == "cpu":
-        _check_cpu_weights(name, weights)
+        if normalized:
+            _check_cpu_weights(name, weights)
         return quantized_aggregate_ref(codes, lo, scale, weights, chunk=chunk,
                                        levels=levels, accum_dtype=accum_dtype)
     K = codes.shape[0]
@@ -203,23 +209,27 @@ def quantized_aggregate(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tens
     bits = 8 * codes.element_size()
     out = _out(codes, lo, chunk)
     return _launch(codes, lo, scale, weights, out, bits=bits, chunk=chunk, levels=levels,
-                   route=_route(codes, out, chunk=chunk, bits=bits, K=K))
+                   route=_route(codes, out, chunk=chunk, bits=bits, K=K),
+                   normalized=normalized)
 
 
 quantized_aggregate.launches = 0
 quantized_aggregate.stream_launches = 0
+quantized_aggregate.partial_launches = 0
 
 
 def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
                                weights: torch.Tensor, *, bits: int, chunk: int,
-                               levels: int, accum_dtype=torch.float32) -> torch.Tensor:
+                               levels: int, accum_dtype=torch.float32,
+                               normalized: bool = True) -> torch.Tensor:
     """Fused unpack + dequantize + weighted sum: words (K, C * wpc) int32
     (uint32 bit patterns) -> (C * chunk,) fp32, for bits 1..15.
 
     ``packed_quantized_aggregate.launches`` counts kernel launches, of
     either route; ``packed_quantized_aggregate.stream_launches`` those of
-    the stream route (a call under a CUDA stream capture, which only
-    records the launch, counts nothing)."""
+    the stream route and ``packed_quantized_aggregate.partial_launches``
+    those in partial-sum mode (``normalized=False``) (a call under a CUDA
+    stream capture, which only records the launch, counts nothing)."""
     name = "packed_quantized_aggregate"
     if not 1 <= bits <= 15:
         raise ValueError(f"packed aggregation is for bits in 1..15, got {bits}")
@@ -234,7 +244,8 @@ def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: tor
     C = words.shape[1] // wpc
     _check_common(name, words, C, lo, scale, weights, chunk, levels)
     if words.device.type == "cpu":
-        _check_cpu_weights(name, weights)
+        if normalized:
+            _check_cpu_weights(name, weights)
         return packed_quantized_aggregate_ref(words, lo, scale, weights, bits=bits,
                                               chunk=chunk, levels=levels,
                                               accum_dtype=accum_dtype)
@@ -242,11 +253,13 @@ def packed_quantized_aggregate(words: torch.Tensor, lo: torch.Tensor, scale: tor
     _check_cuda(name, (words, lo, scale, weights), accum_dtype, K)
     out = _out(words, lo, chunk)
     return _launch(words, lo, scale, weights, out, bits=bits, chunk=chunk, levels=levels,
-                   route=_route(words, out, chunk=chunk, bits=bits, K=K))
+                   route=_route(words, out, chunk=chunk, bits=bits, K=K),
+                   normalized=normalized)
 
 
 packed_quantized_aggregate.launches = 0
 packed_quantized_aggregate.stream_launches = 0
+packed_quantized_aggregate.partial_launches = 0
 
 
 def access_width(codes: torch.Tensor, out: torch.Tensor, chunk: int) -> int:
@@ -283,11 +296,12 @@ def _route(payload: torch.Tensor, out: torch.Tensor, *, chunk: int, bits: int, K
     return "general"
 
 
-def _launch(payload, lo, scale, weights, out, *, bits, chunk, levels, route):
+def _launch(payload, lo, scale, weights, out, *, bits, chunk, levels, route, normalized=True):
     """One launch of ``route``'s kernel into ``out`` (:func:`_out`) on CUDA
     tensors that the wrappers have checked: codes (uint8/uint16, ``bits`` 8
     or 16) for :func:`quantized_aggregate`, int32 words for
-    :func:`packed_quantized_aggregate`, whose counters it advances.
+    :func:`packed_quantized_aggregate`, whose counters it advances
+    (``partial_launches`` too when ``normalized`` is False).
     Module-private: ``chip_smoke.py`` and the card's tests force each route
     through it. It refuses an unknown route, or ``"stream"`` where
     :func:`_route` says no, before any build."""
@@ -317,6 +331,7 @@ def _launch(payload, lo, scale, weights, out, *, bits, chunk, levels, route):
     _raise_on(rc, f"{wrapper.__name__} {route}")
     if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
         wrapper.launches += 1
+        wrapper.partial_launches += not normalized
         if route == "stream":
             wrapper.stream_launches += 1
     return out

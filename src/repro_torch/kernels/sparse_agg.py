@@ -29,7 +29,9 @@ dropped on every path; top-k emits none.
 
 Weights are normalized to sum to 1; raw counts are normalized in
 ``ops.sparse_fedavg_aggregate``. The sum is checked here only for CPU
-weights.
+weights. ``normalized=False`` is the partial-sum mode of a cohort-sharded
+round (``ops.sharded_sparse_fedavg_aggregate``): raw weights, any sum, the
+sum not checked; both routes scatter the same weighted pairs either way.
 """
 from __future__ import annotations
 
@@ -79,13 +81,16 @@ def sparse_aggregate_ref(idx, vals, weights, n, *, accum_dtype=torch.float32):
 
 
 def sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor, weights: torch.Tensor,
-                     n: int, *, accum_dtype=torch.float32) -> torch.Tensor:
+                     n: int, *, accum_dtype=torch.float32,
+                     normalized: bool = True) -> torch.Tensor:
     """Weighted sum of K sparse client payloads -> dense (n,) fp32.
 
     ``sparse_aggregate.launches`` counts kernel launches, of either route;
-    ``sparse_aggregate.fused_launches`` those of the fused route (CPU calls
-    and k = 0 launch nothing and count nothing, and neither does a
-    call under a CUDA stream capture, which only records the launch)."""
+    ``sparse_aggregate.fused_launches`` those of the fused route and
+    ``sparse_aggregate.partial_launches`` those in partial-sum mode
+    (``normalized=False``) (CPU calls and k = 0 launch nothing and count
+    nothing, and neither does a call under a CUDA stream capture, which only
+    records the launch)."""
     if idx.ndim != 2 or tuple(idx.shape) != tuple(vals.shape):
         raise ValueError(f"idx and vals must share a (K, k) shape; got idx "
                          f"{tuple(idx.shape)}, vals {tuple(vals.shape)}")
@@ -107,7 +112,7 @@ def sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor, weights: torch.Tenso
                          f"weights on {weights.device}")
     if idx.device.type == "cpu":
         s = float(weights.sum())
-        if abs(s - 1.0) > 1e-3:
+        if normalized and abs(s - 1.0) > 1e-3:
             raise ValueError(
                 f"sparse_aggregate requires pre-normalized weights (sum==1); got "
                 f"sum={s:.6f}. Pass raw counts to ops.sparse_fedavg_aggregate "
@@ -125,11 +130,12 @@ def sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor, weights: torch.Tenso
     if k == 0:
         return torch.zeros(n, dtype=torch.float32, device=idx.device)
     out = torch.empty(n, dtype=torch.float32, device=idx.device)
-    return _launch(idx, vals, weights, out, _route(idx, vals, out, K=K, k=k))
+    return _launch(idx, vals, weights, out, _route(idx, vals, out, K=K, k=k), normalized)
 
 
 sparse_aggregate.launches = 0
 sparse_aggregate.fused_launches = 0
+sparse_aggregate.partial_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +156,11 @@ def _route(idx: torch.Tensor, vals: torch.Tensor, out: torch.Tensor, *, K: int,
     return "scatter"
 
 
-def _launch(idx, vals, weights, out, route):
+def _launch(idx, vals, weights, out, route, normalized=True):
     """One launch of ``route``'s kernel into the (n,) fp32 ``out`` (the
     scatter route zeroes it first) on CUDA tensors that
-    :func:`sparse_aggregate` has checked, k >= 1; advances its counters.
+    :func:`sparse_aggregate` has checked, k >= 1; advances its counters
+    (``partial_launches`` too when ``normalized`` is False).
     Module-private: ``chip_smoke.py`` and the card's tests force each route
     through it. It refuses an unknown route, or ``"fused"`` where
     :func:`_route` says no, before any build."""
@@ -180,6 +187,7 @@ def _launch(idx, vals, weights, out, route):
         raise RuntimeError(f"sparse_aggregate {route} kernel launch failed: {msg} ({rc})")
     if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
         sparse_aggregate.launches += 1
+        sparse_aggregate.partial_launches += not normalized
         if route == "fused":
             sparse_aggregate.fused_launches += 1
     return out

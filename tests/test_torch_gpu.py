@@ -1433,8 +1433,8 @@ def _superstep_engine(cuda, lane, model_name="mnist_2nn", **kw):
                for i in range(n_clients)]
     model = getattr(paper, model_name)(device=cuda)
     cfg = FedAvgConfig(C=0.5, E=1, B=10, lr=0.1, lr_decay=0.99, seed=3)
-    return RoundEngine(model.loss, model.init(0), clients, cfg, device_sampling=True,
-                       device=cuda, **lane_kw, **kw)
+    kw = {"device_sampling": True, **kw}
+    return RoundEngine(model.loss, model.init(0), clients, cfg, device=cuda, **lane_kw, **kw)
 
 
 def _leaves(tree):
@@ -1826,3 +1826,209 @@ def test_a_staged_cohort_is_not_overwritten_before_its_copy(cuda):
         assert y.cpu().numpy().tobytes() == gy.tobytes()
         assert n_real.cpu().tolist() == [50] * 8 and float(mask[0, 0]) == float(ids[0])
     assert st.slots[0].host[0].is_pinned() and st.slots[0].event.query()
+
+
+# ---------------------------------------------------------------------------
+# cohort sharding: the four kernels' partial-sum mode on every route, and
+# sharded rounds over an NCCL world of one
+# ---------------------------------------------------------------------------
+
+# Raw example counts (the non-IID clients' 300-900 examples: sum >> 1), the
+# same with two zero-weight ghost rows whose data is 1e4, and an all-zero
+# vector (an all-ghost rank of m < D), whose sum must be exactly 0.
+PARTIAL_WEIGHTS = ("raw", "ghosts", "zero")
+
+
+def _partial_weights(cuda, kind, K, seed):
+    w = np.random.default_rng(seed).integers(300, 900, K).astype(np.float32)
+    if kind == "ghosts":
+        w[-2:] = 0.0
+    elif kind == "zero":
+        w[:] = 0.0
+    return torch.from_numpy(w).to(cuda)
+
+
+def _partial_check(out, ref, w, scale, kind):
+    """fp32 sums in another order: 1e-6 of the largest term; all zero exact."""
+    if kind == "zero":
+        assert torch.equal(out, torch.zeros_like(out))
+    tol = 1e-6 * float(w.max()) * scale + 1e-30
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("kind", PARTIAL_WEIGHTS)
+@pytest.mark.parametrize("N", [199_210, 1_663_370])
+def test_fedavg_partial_sum_mode_matches_plain_version(cuda, kind, N):
+    x = torch.randn((10, N), generator=torch.Generator(cuda).manual_seed(N), device=cuda)
+    w = _partial_weights(cuda, kind, 10, N)
+    if kind == "ghosts":
+        x[-2:] = 1e4
+    before = (fedavg_aggregate.launches, fedavg_aggregate.partial_launches)
+    out = fedavg_aggregate(x, w, normalized=False)
+    assert (fedavg_aggregate.launches, fedavg_aggregate.partial_launches) == \
+        (before[0] + 1, before[1] + 1)
+    _partial_check(out, fedavg_aggregate_ref(x, w), w, float(x[:8].abs().max()), kind)
+
+
+@pytest.mark.parametrize("kind", PARTIAL_WEIGHTS)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("route", ["stream", "general"])
+def test_quantized_partial_sum_mode_matches_plain_version(cuda, kind, bits, route):
+    K, chunk, C = 10, 512, 390                       # the 2NN's 199,210 at chunk 512
+    g = torch.Generator(cuda).manual_seed(bits)
+    if bits == 8:
+        payload = torch.randint(0, 256, (K, C * chunk), generator=g, device=cuda).to(torch.uint8)
+    else:
+        payload = torch.randint(-2**31, 2**31, (K, C * words_per_chunk(chunk, bits)),
+                                generator=g, dtype=torch.int32, device=cuda)
+    lo = torch.randn((K, C), generator=g, device=cuda)
+    scale = torch.rand((K, C), generator=g, device=cuda) * 2
+    if kind == "ghosts":
+        lo[-2:] = 1e4
+    w = _partial_weights(cuda, kind, K, bits)
+    levels = 2**bits - 1
+    wrapper = quantized_aggregate if bits == 8 else packed_quantized_aggregate
+    before = wrapper.partial_launches
+    out = _launch(payload, lo, scale, w, _out(payload, lo, chunk), bits=bits, chunk=chunk,
+                  levels=levels, route=route, normalized=False)
+    assert wrapper.partial_launches == before + 1
+    ref = (quantized_aggregate_ref(payload, lo, scale, w, chunk=chunk, levels=levels)
+           if bits == 8 else
+           packed_quantized_aggregate_ref(payload, lo, scale, w, bits=bits, chunk=chunk,
+                                          levels=levels))
+    _partial_check(out, ref, w, float(lo[:8].abs().max() + scale[:8].max()), kind)
+
+
+@pytest.mark.parametrize("kind", PARTIAL_WEIGHTS)
+@pytest.mark.parametrize("route", ["fused", "scatter"])
+def test_sparse_partial_sum_mode_matches_plain_version(cuda, kind, route):
+    K, n = 10, 199_210
+    k = n // 20
+    g = torch.Generator(cuda).manual_seed(7)
+    idx = torch.stack([torch.randperm(n, generator=g, device=cuda)[:k]
+                       for _ in range(K)]).to(torch.int32)
+    vals = torch.randn((K, k), generator=g, device=cuda)
+    if kind == "ghosts":
+        vals[-2:] = 1e4
+    w = _partial_weights(cuda, kind, K, 7)
+    before = sparse_aggregate.partial_launches
+    out = sparse_agg._launch(idx, vals, w, torch.empty(n, device=cuda), route, normalized=False)
+    assert sparse_aggregate.partial_launches == before + 1
+    _partial_check(out, sparse_aggregate_ref(idx, vals, w, n), w,
+                   float(vals[:8].abs().max()), kind)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A client mesh over an NCCL world of one, started from a FileStore."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    started = not dist.is_initialized()
+    mesh = make_client_mesh(device="cuda")
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+def _shard_engine(cuda, lane, *, device_sampling=False, mesh=None):
+    """``_superstep_engine``'s 2NN population, config and lanes, host- or
+    device-sampled, sharded over ``mesh`` or not."""
+    return _superstep_engine(cuda, lane, device_sampling=device_sampling, mesh=mesh)
+
+
+# sharded against unsharded on the card: the reference's tolerances
+# (tests/test_engine_sharded.py:163-232) on the params and the losses
+SHARD_TOL = {"plain": (1e-5, 1e-5), "fedavgm": (1e-5, 1e-5), "q8": (1e-3, 1e-4),
+             "topk": (1e-3, 1e-4)}
+
+
+def _max_param_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+@pytest.mark.parametrize("lane", sorted(SHARD_TOL))
+@pytest.mark.parametrize("device_sampling", [False, True])
+def test_nccl_world_of_one_equals_unsharded(cuda, nccl_mesh, lane, device_sampling):
+    """A sharded engine over an NCCL world of one against the unsharded one:
+    each round launches the lane's kernel once in partial-sum mode (eagerly
+    on the host-sampled lane; the superstep's warm-up before its capture),
+    and the runs agree within the reference's tolerances, bit for bit on the
+    lanes without atomics."""
+    from repro_torch.kernels.fedavg_agg import fedavg_aggregate as fa
+
+    kernel = {"q8": quantized_aggregate, "topk": sparse_aggregate}.get(lane, fa)
+    base = _shard_engine(cuda, lane, device_sampling=device_sampling)
+    shrd = _shard_engine(cuda, lane, device_sampling=device_sampling, mesh=nccl_mesh)
+    rps = 4 if device_sampling else None
+    hb = base.run(4, rounds_per_step=rps)
+    before = kernel.partial_launches
+    hs = shrd.run(4, rounds_per_step=rps)
+    torch.cuda.synchronize()
+    assert kernel.partial_launches - before == (1 if device_sampling else 4)
+    param_tol, loss_tol = SHARD_TOL[lane]
+    assert max(abs(a.train_loss - b.train_loss)
+               for a, b in zip(hb.records, hs.records)) <= loss_tol
+    assert _max_param_diff(base.params, shrd.params) <= param_tol
+    if lane != "topk":   # a world of one is the unsharded round bit for bit (REDs aside)
+        assert [r.train_loss for r in hb.records] == [r.train_loss for r in hs.records]
+        assert _max_param_diff(base.params, shrd.params) == 0.0
+    if device_sampling:
+        assert shrd.num_compilations == 1
+
+
+def test_sharded_superstep_replays_one_aggregation_and_one_all_reduce(cuda, nccl_mesh):
+    """A captured sharded round holds the lane's kernel once a replay in the
+    profiler's records; NCCL's all-reduce is recorded beside it at most
+    once a replay (a world of one may reduce in place without a kernel)."""
+    eng = _shard_engine(cuda, "plain", device_sampling=True, mesh=nccl_mesh)
+    eng.run(2, rounds_per_step=2)
+    _, records = _kernel_records(lambda: eng._superstep(4))
+    assert records == {"fedavg_agg_kernel": 4}
+
+
+@pytest.mark.parametrize("device_sampling", [False, True])
+def test_sharded_loops_make_no_sync_under_the_transfer_guard(cuda, nccl_mesh, device_sampling):
+    """The reference's "sharded" and "sharded-superstep" guard cases under
+    NCCL: a warm sharded host round and a warm sharded chunk make no sync
+    outside the sanctioned staging."""
+    from repro_torch.analysis import retrace_guard, transfer_guard
+
+    eng = _shard_engine(cuda, "q8", device_sampling=device_sampling, mesh=nccl_mesh)
+    rps = 3 if device_sampling else None
+    eng.run(3, rounds_per_step=rps)
+    with transfer_guard():
+        with retrace_guard(lambda: eng.num_compilations):
+            hist = eng.run(3, rounds_per_step=rps)
+    assert len(hist.records) == 6 and all(np.isfinite(r.train_loss) for r in hist.records)
+
+
+def test_a_gloo_group_on_the_card_refuses_the_captured_round(cuda, nccl_mesh):
+    """A gloo group's all-reduce copies through the host and cannot be
+    captured: device sampling on the card refuses it; the host-sampled lane
+    takes it."""
+    import torch.distributed as dist
+
+    gloo = dist.new_group(backend="gloo")
+
+    class GlooMesh:
+        mesh_dim_names, ndim = ("clients",), 1
+
+        def get_group(self, axis):
+            return gloo
+
+        def size(self):
+            return 1
+
+        def get_local_rank(self, axis):
+            return 0
+
+    with pytest.raises(ValueError, match="gloo"):
+        _shard_engine(cuda, "plain", device_sampling=True, mesh=GlooMesh())
+    base = _shard_engine(cuda, "plain")
+    shrd = _shard_engine(cuda, "plain", mesh=GlooMesh())
+    base.run(2), shrd.run(2)
+    assert _max_param_diff(base.params, shrd.params) <= 1e-5

@@ -40,12 +40,33 @@ LANES = {
     "q8": (dict(device_sampling=True, codec=quantize_codec(8)), dict(rounds_per_step=1)),
     "topk": (dict(device_sampling=True, codec=topk_codec(0.1)), dict(rounds_per_step=3)),
     "superstep": (dict(device_sampling=True), dict(rounds_per_step=3)),
+    # the reference's "sharded" and "sharded-superstep" cases: a client mesh
+    # over a gloo world of one (MESH); NCCL on the card is test_torch_gpu.py's
+    "sharded": (dict(device_sampling=True, mesh="MESH"), dict(rounds_per_step=1)),
+    "sharded-superstep": (dict(device_sampling=True, mesh="MESH"), dict(rounds_per_step=3)),
 }
 
 
+@pytest.fixture
+def client_mesh():
+    """A client mesh over a gloo world of one, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    yield make_client_mesh(device="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("lane", sorted(LANES))
-def test_warmed_round_loop_builds_nothing_new_under_the_guards(lane):
+def test_warmed_round_loop_builds_nothing_new_under_the_guards(lane, request):
     eng_kw, run_kw = LANES[lane]
+    if eng_kw.get("mesh") == "MESH":
+        eng_kw = {**eng_kw, "mesh": request.getfixturevalue("client_mesh")}
     eng = _engine(**eng_kw)
     eng.run(3, **run_kw)                     # warm: the one round program
     with transfer_guard("disallow"):

@@ -434,7 +434,9 @@ def test_trainer_is_the_engine_it_wraps():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "ROADMAP Queue 1 item 7"),
+    # mesh= runs (test_trainer_runs_sharded_over_a_client_mesh); beside the
+    # async schedule it is refused as the reference refuses it
+    ({"mesh": object(), "async_config": AsyncConfig(buffer_k=2)}, "incompatible with mesh="),
     ({"interpret": True}, "no kernel interpreter"),
     ({"accum_dtype": torch.bfloat16}, "ROADMAP Queue 2"),
 ])
@@ -446,7 +448,45 @@ def test_trainer_refuses_what_the_port_has_no_lane_for(kw, item):
         FederatedTrainer(model.loss, model.init(0), [], FedAvgConfig(), device="cpu", **kw)
     if "mesh" in kw:
         with pytest.raises(ValueError, match=item):
-            FederatedTrainer.from_spec(get_spec("shakespeare_lstm"), [], device="cpu", **kw)
+            FederatedTrainer.from_spec(get_spec("mnist_2nn_noniid_async"), [], device="cpu",
+                                       mesh=kw["mesh"])
+
+
+def test_trainer_runs_sharded_over_a_client_mesh():
+    """``FederatedTrainer(mesh=)`` (once refused, naming ROADMAP Queue 1 item
+    7) reaches the engine: over a gloo world of one its rounds are the
+    unsharded trainer's, and ``from_spec`` takes the mesh too."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    clients = _lm_clients("char_lstm", [6, 9, 4, 8])
+    model = paper.char_lstm(V_CHAR, hidden=8, device="cpu")
+    cfg = FedAvgConfig(C=0.5, E=1, B=3, lr=0.3, seed=1)
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_client_mesh(device="cpu")
+        tr = FederatedTrainer(model.loss, model.init(0), clients, cfg, mesh=mesh, device="cpu")
+        base = FederatedTrainer(model.loss, model.init(0), clients, cfg, device="cpu")
+        spec = dataclasses.replace(
+            get_spec("shakespeare_lstm"), fedavg=cfg,
+            model=dataclasses.replace(get_spec("shakespeare_lstm").model,
+                                      kwargs={"vocab_size": V_CHAR, "hidden": 8}))
+        by_spec = FederatedTrainer.from_spec(spec, clients, init_params=model.init(0),
+                                             mesh=mesh, device="cpu")
+        assert tr.engine.mesh is mesh and by_spec.engine.mesh is mesh
+        tr.run(2), base.run(2), by_spec.run(2)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for other in (tr, by_spec):
+        np.testing.assert_allclose([r.train_loss for r in other.history.records],
+                                   [r.train_loss for r in base.history.records],
+                                   rtol=0, atol=1e-5)
+        for a, b in zip(tree_leaves(other.params), tree_leaves(base.params)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("option", ["latency", "async_config"])

@@ -2,7 +2,8 @@
 
 Every ``specs/*.json`` loads in both packages to the same JSON string; the
 port's registry is the files; each spec field the port has no lane for is
-refused before any state is built, naming its ROADMAP item; ``from_spec``
+refused before any state is built, naming its ROADMAP item (a
+``mesh_axes`` spec runs sharded); ``from_spec``
 builds the engine that keyword construction builds, bit for bit; and the
 partitions a spec names are byte-identical to the reference's."""
 import dataclasses
@@ -167,7 +168,11 @@ def _refusals():
         "superstep_lowrank": (dataclasses.replace(
             get_spec("mnist_2nn_noniid_lowrank"), execution=superstep), "item 6"),
         "codec_and_async": (async_q8, "sets both codec= and async_spec="),
-        "mesh": (dataclasses.replace(base, execution=ex(mesh_axes="clients")), "item 7"),
+        # a mesh_axes spec runs (test_mesh_axes_spec_runs_sharded_through_from_spec);
+        # beside a topology it is refused as the reference refuses it
+        "mesh": (dataclasses.replace(get_spec("mnist_2nn_noniid_ring"),
+                                     execution=ex(mesh_axes="clients")),
+                 "topology= is incompatible with mesh="),
         "streamed_superstep": (dataclasses.replace(base, execution=ex(
             pool="streamed", device_sampling=True)), "item 6"),
         "accum_dtype": (dataclasses.replace(base, execution=ex(accum_dtype="bfloat16")),
@@ -184,6 +189,33 @@ def test_from_spec_refuses_before_building_state(case):
     # an empty population makes pack_clients raise: the refusal must come first
     with pytest.raises(ValueError, match=item):
         RoundEngine.from_spec(spec, [], device="cpu")
+
+
+def test_mesh_axes_spec_runs_sharded_through_from_spec():
+    """``execution.mesh_axes`` (once refused, naming ROADMAP Queue 1 item 7)
+    builds a client mesh over a world of one (gloo on the CPU, started from a
+    ``FileStore``) and runs the same rounds as the spec without it."""
+    import torch.distributed as dist
+
+    spec = _small(get_spec("mnist_2nn_noniid"))
+    clients = _clients(spec)
+    params = paper.mnist_2nn(n_classes=5, d_in=20, device="cpu").init(7)
+    started = not dist.is_initialized()
+    try:
+        sharded = RoundEngine.from_spec(
+            dataclasses.replace(spec, execution=ExecutionSpec(mesh_axes="clients")), clients,
+            init_params=params, device="cpu")
+        assert sharded.mesh is not None and sharded.mesh.mesh_dim_names == ("clients",)
+        assert dist.get_backend(sharded.mesh.get_group("clients")) == "gloo"
+        base = RoundEngine.from_spec(spec, clients, init_params=params, device="cpu")
+        h_s, h_b = sharded.run(2), base.run(2)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    np.testing.assert_allclose([r.train_loss for r in h_s.records],
+                               [r.train_loss for r in h_b.records], rtol=0, atol=1e-5)
+    for a, b in zip(tree_leaves(sharded.params), tree_leaves(base.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
 
 def test_natural_partition_refuses_with_the_reference_message():
