@@ -78,7 +78,7 @@ Phases, in order, each printing its own lines:
     flash kernel and the two backwards.
 21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
     through ``repro_torch.specs`` and run at full size, 1 round each (2 for
-    FedAvgM, the ring and the small world; 10 applies for the two
+    FedAvgM, the ring and the small world; 5 applies for the two
     buffered-async specs, ``fedavg_aggregate`` once an apply, whose ``sim_s``
     sequence must equal, float for float, the same spec's schedule run by
     the port on the CPU after the card's lanes, its client and apply phases
@@ -91,14 +91,14 @@ Phases, in order, each printing its own lines:
     kernel once a round on its main
     route (``mnist_2nn_iid_superstep`` as one replay of its captured round,
     the wrappers counting the warm-up's launch before the capture, then a
-    profiled chunk of 4 replays whose kernel records count their launches;
+    profiled chunk of 2 replays whose kernel records count their launches;
     ``fedavg_aggregate`` on the plain, FedSGD and FedAvgM lanes, the
     stream route of ``quantized_aggregate`` for q8, the fused route of
     ``sparse_aggregate`` for top-k, the gather route of ``gossip_mix`` for
-    the ring and the small world, no kernel for low-rank); then 4 rounds
-    against 2 + ``save`` + ``restore`` into a fresh engine + 2, bitwise for
+    the ring and the small world, no kernel for low-rank); then 2 rounds
+    against 1 + ``save`` + ``restore`` into a fresh engine + 1, bitwise for
     FedAvgM (params and velocity) and q8, within ``TOPK_RESUME_RTOL`` for
-    top-k, the cohorts of rounds 3-4 identical; and
+    top-k, the cohort of round 2 identical; and
     ``launch.train --checkpoint-dir`` on a reduced Gemma-2B in bf16, read
     back bitwise through ``repro_torch.checkpoint``;
 22. the superstep lane at full paper size (``RoundEngine(...,
@@ -133,11 +133,11 @@ Phases, in order, each printing its own lines:
     same round on the CPU;
 24. the buffered-async lane and the streamed pool at full size: (a) the
     degenerate schedule (``buffer_k == concurrency == m``, zero latency)
-    against the sync lane on the 2NN, 3 rounds, params bitwise after every
-    one; (b) ``mnist_2nn_noniid_async`` against the 2NN's sync lane under the
-    same straggler model, 3 applies and rounds (seconds, ``sim_s``), and one
-    profiled ``run(1)`` of the async engine (idle share); (c) the 2NN (3
-    rounds; prefetch 1 and 0) and the CNN (2 rounds, ``cudnn.deterministic``)
+    against the sync lane on the 2NN, 1 round, params bitwise; (b)
+    ``mnist_2nn_noniid_async`` against the 2NN's sync lane under the same
+    straggler model, 1 apply and round (seconds, ``sim_s``), and one
+    profiled ``run(1)`` of the async engine (idle share); (c) the 2NN (1
+    round; prefetch 1 and 0) and the CNN (1 round, ``cudnn.deterministic``)
     with ``pool`` a ``StreamedClientPool`` against the device pool, and one
     q8 2NN round, params and losses bitwise; (d) 2NN rounds in turns
     (device, streamed, streamed, device), the bytes staged a round, and one
@@ -151,8 +151,8 @@ Phases, in order, each printing its own lines:
     aggregation kernels in partial-sum mode (``normalized=False``) on every
     route at the 2NN and CNN shapes, with raw counts, ghost rows and an
     all-zero vector (exactly 0), against their plain versions; (b) an NCCL
-    world of one at full size, 3 rounds a lane in turns (unsharded, sharded,
-    sharded, unsharded, ...): the 2NN and CNN plain lanes (the CNN under
+    world of one at full size, a round a lane in turns (unsharded,
+    sharded): the 2NN and CNN plain lanes (the CNN under
     ``cudnn.deterministic``), the 2NN q8, q4, top-k and FedAvgM lanes, each
     against the unsharded engine from the same seed within the reference's
     tolerances, its kernel once a round (the sharded rounds' in partial-sum
@@ -162,9 +162,32 @@ Phases, in order, each printing its own lines:
     ``fedavg_agg_kernel`` once a replay beside NCCL's; (e)
     ``mnist_2nn_noniid`` with ``execution.mesh_axes`` through ``from_spec``,
     one round; (d) three ranks spawned from here, each on ``cuda:0``, under
-    gloo (m = 10: 12 slots, 2 ghosts), the 2NN plain and q8 lanes for 3
-    rounds, every rank's params the same and equal to (b)'s unsharded runs;
-    a rank that fails or outlives its deadline fails the phase.
+    gloo (m = 10: 12 slots, 2 ghosts), the 2NN plain and q8 lanes for 1
+    round, every rank's params the same and equal to (b)'s unsharded runs;
+    a rank that fails or outlives its deadline fails the phase;
+26. supersteps off the star lanes: (a) the gossip superstep
+    (``RoundEngine(topology=...).run(n, rounds_per_step=R)``, one gossip round
+    captured as a CUDA graph through ``gossip_mix``) on the 2NN ring and small
+    world, the 2NN on the full graph and the CNN ring, 100 nodes each: two
+    engines run R rounds each in turns (eager against captured, then captured
+    against eager), bitwise equal after each pair (the CNN under
+    ``cudnn.deterministic``), with seconds a round both ways, the consensus,
+    the capture's seconds and the peak memory; on the 2NN ring a guarded
+    chunk (no sync, no new graph) and 2 + ``save``/``restore`` + 2 == 4
+    bitwise; on each 2NN lane a profiled chunk whose records hold the route's
+    kernel once a replay (gather on the ring and small world, dense on the
+    full graph); (b) the 2NN with ``_lowrank``'s codec and
+    ``device_sampling=True``: the sketch regrown on the card from the CPU's
+    seeds, superstep(20) against 20 ``round()`` calls, host-sampled rounds
+    against chunks in turns, one payload's realized bytes; (c) the streamed
+    pool's staged superstep against the device pool's, the 2NN and CNN plain
+    and the 2NN q8 lanes, chunks in turns, bitwise, the streamed / device
+    ratio, the bytes staged a chunk, a profiled streamed chunk (do the next
+    chunk's staging copies run beside the replays?), and the 10^5-client
+    population in one chunk (RSS growth under 256 MB); (d) ``from_spec`` on
+    the ring and small-world specs with ``rounds_per_step``, the low-rank spec
+    with ``device_sampling=True`` and a streamed superstep spec, one chunk
+    each.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
@@ -206,7 +229,8 @@ compressed round on the fused route. ``ce_probs``
 counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
 after; a wrapper counts the launches it makes, and a CUDA graph's replays
-(phases 21-22) are counted from the profiler's kernel records instead. Each
+(phases 21, 22, 25 and 26) are counted from the profiler's kernel records
+instead. Each
 phase prints its seconds.
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -320,6 +344,12 @@ GOSSIP_LANES = (
     ("mnist_2nn", "mnist_2nn_noniid_smallworld"),
     ("mnist_cnn", "mnist_2nn_noniid_ring"),
 )
+# The CNN ring takes the ring spec's sections at this learning rate, not the
+# spec's 0.1 (the 2NN's): at 0.1 some of the 100 CNN nodes train to NaN in
+# the first round on the engine's device stream, under cudnn.deterministic
+# or not, and the mix spreads it; at 0.05 the rounds stay finite
+# (scripts/probe_cnn_ring.py; its numbers are in PERF.md).
+GOSSIP_CNN_LR = 0.05
 # The anchor. The node mean and FedAvg's params differ only in the order of
 # an fp32 sum of 100 terms: the reference's own tolerance
 # (tests/test_engine_gossip.py). The full graph's replicas differ only by
@@ -386,15 +416,16 @@ CE_GRAD_RTOL = 1e-3
 SPEC_ROUNDS = 1                         # one round a spec, as COMPRESSED_ROUNDS
 # Two rounds where the second starts from state the first left: FedAvgM's
 # velocity, the gossip replicas after a mix. (The codec stream's second draw
-# is run by the q8 and top-k resumes' 4 rounds.)
+# is run by the q8 and top-k resumes.)
 SPEC_ROUNDS_OF = {"mnist_2nn_noniid_fedavgm": 2, "mnist_2nn_noniid_ring": 2,
                   "mnist_2nn_noniid_smallworld": 2}
 # The buffered-async specs run this many applies (each one fedavg_aggregate
 # launch over K = buffer_k = 3 buffered updates), and their sim_s sequence
 # must equal, float for float, the same spec's on the CPU: the event
-# schedule is host numpy only.
+# schedule is host numpy only. Five applies keep the script inside its time
+# limit.
 ASYNC_SPECS = ("mnist_2nn_noniid_async", "mnist_2nn_noniid_fedasync")
-ASYNC_APPLIES = 10
+ASYNC_APPLIES = 5
 SPEC_ROUNDS_OF.update({name: ASYNC_APPLIES for name in ASYNC_SPECS})
 SPEC_KERNELS = {
     "mnist_2nn_iid": "fedavg_aggregate", "mnist_2nn_noniid": "fedavg_aggregate",
@@ -410,15 +441,16 @@ SPEC_KERNELS = {
 # defaults (the spec's 1146 roles, 3,110 mean characters), cut into windows
 # at the paper's unroll of 80; its test windows are every role's test text.
 CHAR_UNROLL = 80
-# Resume on the card: 4 rounds against 2 + save + restore + 2. FedAvgM's and
+# Resume on the card: 2 rounds against 1 + save + restore + 1. FedAvgM's and
 # q8's rounds run no atomics (fedavg_agg.cu and quantized_agg.cu hold none),
 # cuBLAS and cuDNN pick the same algorithms for the same shapes in one
 # process, and every random draw is seeded from the restored host stream, so
 # those must be bitwise equal. sparse_agg.cu scatters with fp32 REDs, whose
 # order changes a colliding index's sum by an ulp or so (half the top-5%
-# indices of a round collide); two rounds of SGD from such a start stay far
-# inside 1e-3 of the 4 rounds' update in L2.
+# indices of a round collide); a round of SGD from such a start stays far
+# inside 1e-3 of the 2 rounds' update in L2.
 TOPK_RESUME_RTOL = 1e-3
+RESUME_ROUNDS = 2
 RESUME_SPECS = (("mnist_2nn_noniid_fedavgm", None), ("mnist_2nn_noniid_q8", None),
                 ("mnist_2nn_noniid_topk", TOPK_RESUME_RTOL))
 # Phase 22, the superstep lane: each lane at full paper size as one captured
@@ -432,13 +464,13 @@ SUPERSTEP_LANES = (
     ("mnist_2nn", "mnist_2nn_noniid_topk", "sparse_aggregate"),
 )
 # Host-sampled rounds a turn, beside each superstep chunk of SUPERSTEP_R.
-SUPERSTEP_HOST_ROUNDS = {"mnist_2nn": 2, "mnist_cnn": 1}
+SUPERSTEP_HOST_ROUNDS = {"mnist_2nn": 1, "mnist_cnn": 1}
 # The profiled chunk of each lane (CUPTI records every replayed kernel: a 2NN
 # round runs ~17,000 device ops, a CNN round ~53,000). A replay runs on the
 # card without the kernel wrappers, so their counters count only eager
 # launches (the warm-up's); the replays' launches are the profiler's records
 # of the lane's main-route kernel, by name, r in a chunk of r.
-SUPERSTEP_PROFILE_R = {"mnist_2nn": 4, "mnist_cnn": 2}
+SUPERSTEP_PROFILE_R = {"mnist_2nn": 2, "mnist_cnn": 1}
 # A profiled chunk short of the kernel's records (CUPTI lost a block of them)
 # is profiled again, up to this many chunks in all (profile_chunk).
 PROFILE_ATTEMPTS = 3
@@ -509,8 +541,8 @@ PAPER_RTOL_1 = {"char_lstm": UPDATE_RTOL_1, "cifar_cnn": GOSSIP_CNN_RTOL_1,
 # (_population_scaling) on the host-sampled lane: K = 10^5 clients of 16 x 64
 # fp32 rows from a generator into shards of 4096 (~416 MB on disk), m = 20,
 # 10 rounds, the process's RSS growth under 256 MB.
-ASYNC_ROUNDS = 3
-STREAMED_ROUNDS = {"mnist_2nn": 3, "mnist_cnn": 2}
+ASYNC_ROUNDS = 1
+STREAMED_ROUNDS = {"mnist_2nn": 1, "mnist_cnn": 1}
 POP_K, POP_ROWS, POP_D, POP_SHARD = 100_000, 16, 64, 4096
 POP_M, POP_ROUNDS = 20, 10
 POP_RSS_MB = 256.0
@@ -523,7 +555,7 @@ POP_WARM = 256                          # the warm-up population (population_gat
 # ghosts), the SHARD_GLOO_LANES; (e) from_spec with execution.mesh_axes.
 # Lanes: (lane, model, spec whose codec or strategy it takes, codec override
 # or None for a strategy's spec, kernel).
-SHARD_ROUNDS = 3
+SHARD_ROUNDS = 1
 SHARD_LANES = (
     ("mnist_2nn plain", "mnist_2nn", None, None, "fedavg_aggregate"),
     ("mnist_cnn plain", "mnist_cnn", None, None, "fedavg_aggregate"),
@@ -542,6 +574,48 @@ SHARD_TOL = {"plain": (1e-5, 1e-5), "fedavgm": (1e-5, 1e-5), "q8": (1e-3, 1e-4),
 SHARD_GLOO_WORLD = 3
 SHARD_GLOO_LANES = ("mnist_2nn plain", "mnist_2nn q8")
 SHARD_GLOO_DEADLINE_S = 300.0
+# Phase 26, supersteps off the star lanes at full paper size, cut in rounds.
+# (a) The gossip superstep: (model, spec whose sections it takes, topology:
+# the spec's or "full"), each run in turns of R rounds, eager and captured.
+# R is 10 on the 2NN ring; the small world, the full graph and the CNN ring
+# take 2, the least that captures (rounds_per_step=1 is the eager loop): the
+# 2NN lanes' eager rounds are host-bound, 1.1-1.3 s each, and a CNN ring
+# round holds the card ~3.2 s, eager or replayed, and its capture ~13 s (at
+# GOSSIP_CNN_LR). The 2NN ring also runs a guarded chunk and a
+# resume, each 2NN lane a profiled chunk of GOSSIP_PROFILE_R; the CNN
+# ring no profile (one CNN ring round under the profiler took 79-109 s in
+# phase 13).
+GOSSIP_STEP_LANES = (
+    ("mnist_2nn", "mnist_2nn_noniid_ring", None),
+    ("mnist_2nn", "mnist_2nn_noniid_smallworld", None),
+    ("mnist_2nn", "mnist_2nn_noniid_ring", "full"),
+    ("mnist_cnn", "mnist_2nn_noniid_ring", None),
+)
+GOSSIP_STEP_R = {("mnist_2nn", "ring"): 10, ("mnist_2nn", "smallworld"): 2,
+                 ("mnist_2nn", "full"): 2, ("mnist_cnn", "ring"): 2}
+GOSSIP_PROFILE_R = 2
+# Pairs of turns a lane: (eager, captured) then (captured, eager); the CNN
+# ring runs the first pair only (its 8 rounds in two pairs took ~40 s).
+GOSSIP_TURN_PAIRS = {"mnist_2nn": 2, "mnist_cnn": 1}
+# (b) Low-rank under device sampling on the 2NN: the card's sketch against
+# the CPU's from the same seeds (the 32-bit words bitwise; the Gaussians, Box-
+# Muller in fp64 rounded to fp32, within an fp32 ulp or two at |z| < 6);
+# superstep(20) against 20 x round(), held to LOWRANK_REPLAY_RTOL of the loss
+# and of the update (the einsum and the kernels hold no atomics: bitwise is
+# expected, and printed).
+SKETCH_ATOL = 1e-6
+LOWRANK_R = 20
+LOWRANK_HOST_ROUNDS = 2
+LOWRANK_REPLAY_RTOL = 1e-5
+# (c) The staged superstep: (model, spec whose codec the lane takes), chunks of
+# STAGED_R in turns against the device pool's superstep (the CNN's chunk cut to
+# 5: a CNN superstep round is ~0.42 s, and the lane runs six chunks), a profiled streamed 2NN chunk of
+# STAGED_PROFILE_R, and phase 24 (f)'s population in one chunk of POP_ROUNDS.
+STAGED_LANES = (("mnist_2nn", None), ("mnist_cnn", None), ("mnist_2nn", "mnist_2nn_noniid_q8"))
+STAGED_R = {"mnist_2nn": 20, "mnist_cnn": 5}
+STAGED_PROFILE_R = 2
+# (d) from_spec: one chunk of this many rounds a spec.
+FROM_SPEC_R = 10
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2940,10 +3014,11 @@ def noniid_clients(train, spec):
 
 
 def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
-                device_sampling=False, **engine_kw):
+                device_sampling=False, lr=None, **engine_kw):
     """``RoundEngine`` on the card for ``model_name`` at full size, with the
     fedavg and partition sections of ``specs/<spec_name>.json`` (read as
-    JSON; by default the model's own non-IID cell ``<model>_noniid``);
+    JSON; by default the model's own non-IID cell ``<model>_noniid``; ``lr``
+    overrides the section's learning rate);
     ``engine_kw`` go to the engine as they are (``latency``,
     ``async_config``, ``pool``, ...). Returns the engine, the model and its
     config."""
@@ -2957,7 +3032,7 @@ def make_engine(model_name, data, codec=None, spec_name=None, topology=None,
     fed = spec["fedavg"]
     train, test = data
     clients = noniid_clients(train, spec)
-    cfg = FedAvgConfig(C=fed["C"], E=fed["E"], B=fed["B"], lr=fed["lr"],
+    cfg = FedAvgConfig(C=fed["C"], E=fed["E"], B=fed["B"], lr=fed["lr"] if lr is None else lr,
                        lr_decay=fed["lr_decay"], seed=fed["seed"])
     model = getattr(paper, model_name)(device="cuda")
     params = model.init(fed["seed"])
@@ -3250,14 +3325,12 @@ def device_profile(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+    by_name = {}
+    for e in ops:             # a device op's self time is its duration
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    rows = sorted(((us, count, name) for name, (us, count) in by_name.items() if us > 0),
+                  reverse=True)
     return wall, ops, rows
 
 
@@ -3360,7 +3433,8 @@ def gossip_lane(model_name, spec_name, data):
     from repro_torch.specs import get_spec
 
     topo = get_spec(spec_name).topology.build()
-    eng, model, cfg = make_engine(model_name, data, spec_name=spec_name, topology=topo)
+    eng, model, cfg = make_engine(model_name, data, spec_name=spec_name, topology=topo,
+                                  lr=GOSSIP_CNN_LR if model_name == "mnist_cnn" else None)
     require(eng.num_clients == N_NODES and eng.plan.n_nodes == N_NODES,
             f"{spec_name}: {eng.num_clients} nodes")
     print(f"  plan: {eng.plan.n_nodes} nodes x {eng.plan.max_slots} slots, "
@@ -3370,10 +3444,7 @@ def gossip_lane(model_name, spec_name, data):
         ((1, UPDATE_RTOL_1), (CHECK_STEPS, UPDATE_RTOL_N))
     gossip_card_vs_cpu(f"{model_name} {topo.kind}", eng, model, cfg, steps)
     launches, walls, _ = run_lane(f"{model_name} {topo.kind}", eng, GOSSIP_ROUNDS, "gossip_mix")
-    from repro_torch.kernels.gossip_mix import _route
-
-    route = _route(torch.empty((eng.plan.n_nodes, 1), device="meta"), eng._mix_idx,
-                   eng._mix_w)
+    route, _ = gossip_route_kernel(eng)
     dense = counters()["gossip_mix"].dense_launches
     require(dense == (launches if route == "dense" else 0),
             f"{spec_name}: {dense} of {launches} gossip_mix launches on the dense route, "
@@ -3626,10 +3697,11 @@ def host_leaves(tree):
 
 
 def spec_resume(name, train, test, rtol, ckpt_root):
-    """4 uninterrupted rounds against 2 rounds, ``save``, ``restore`` into a
-    freshly built engine and 2 more: params and strategy state bitwise
-    equal (``rtol`` None) or within ``rtol`` of the 4 rounds' update in L2,
-    and the cohort ids of rounds 3-4 identical."""
+    """``RESUME_ROUNDS`` uninterrupted rounds against half of them, ``save``,
+    ``restore`` into a freshly built engine and the other half: params and
+    strategy state bitwise equal (``rtol`` None) or within ``rtol`` of the
+    uninterrupted rounds' update in L2, and the cohort ids of the second
+    half identical."""
     from repro_torch.core.engine import RoundEngine
     from repro_torch.specs import get_spec
 
@@ -3640,25 +3712,26 @@ def spec_resume(name, train, test, rtol, ckpt_root):
     def fresh():
         return RoundEngine.from_spec(spec, clients, eval_fn=ev)
 
+    half = RESUME_ROUNDS // 2
     whole = fresh()
     start = host_leaves(whole.params)
     ids_whole = record_cohorts(whole)
-    whole.run(4)
+    whole.run(RESUME_ROUNDS)
     first = fresh()
-    first.run(2)
+    first.run(half)
     t0 = time.perf_counter()
     path = first.save(ckpt_root / name)
     t_save = time.perf_counter() - t0
     del first
     resumed = fresh()
     t0 = time.perf_counter()
-    require(resumed.restore(ckpt_root / name) == 2, f"{name}: restored a wrong round")
+    require(resumed.restore(ckpt_root / name) == half, f"{name}: restored a wrong round")
     t_restore = time.perf_counter() - t0
     ids_resumed = record_cohorts(resumed)
-    resumed.run(2)
+    resumed.run(RESUME_ROUNDS - half)
     torch.cuda.synchronize()
-    require(ids_resumed == ids_whole[2:], f"{name}: cohorts {ids_resumed} after the resume, "
-                                          f"{ids_whole[2:]} uninterrupted")
+    require(ids_resumed == ids_whole[half:], f"{name}: cohorts {ids_resumed} after the resume, "
+                                             f"{ids_whole[half:]} uninterrupted")
     a = host_leaves(whole.params) + host_leaves(whole.outer_state)
     b = host_leaves(resumed.params) + host_leaves(resumed.outer_state)
     require(len(a) == len(b), f"{name}: {len(a)} leaves against {len(b)}")
@@ -3670,11 +3743,12 @@ def spec_resume(name, train, test, rtol, ckpt_root):
     rel = diff / update
     n_state = len(host_leaves(whole.outer_state))
     ok = differ == 0 if rtol is None else rel <= rtol
-    print(f"  {name}: 4 rounds vs 2 + save ({t_save:.3f} s, {path}) + restore "
-          f"({t_restore:.3f} s) + 2: {len(a)} leaves ({n_state} of strategy state), {differ} "
-          f"not bitwise equal, max abs diff {max_abs:.3e}, |diff|/|4-round update| {rel:.3e} ("
+    print(f"  {name}: {RESUME_ROUNDS} rounds vs {half} + save ({t_save:.3f} s, {path}) + "
+          f"restore ({t_restore:.3f} s) + {RESUME_ROUNDS - half}: {len(a)} leaves ({n_state} of "
+          f"strategy state), {differ} not bitwise equal, max abs diff {max_abs:.3e}, "
+          f"|diff|/|{RESUME_ROUNDS}-round update| {rel:.3e} ("
           + ("bitwise required" if rtol is None else f"rtol {rtol:g}")
-          + f"); cohorts of rounds 3-4 identical: {ids_resumed == ids_whole[2:]} "
+          + f"); cohorts after the resume identical: {ids_resumed == ids_whole[half:]} "
           f"{'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: the resumed run is not the uninterrupted run")
     return {"spec": name, "leaves": len(a), "state_leaves": n_state, "not_bitwise": differ,
@@ -3774,33 +3848,53 @@ def spec_front_door(train, test, chars):
 # phase 22: the superstep lane
 # ---------------------------------------------------------------------------
 
+def stream_states(eng):
+    """The engine's generator states (the device one, the ids one), to put
+    back with ``set_stream_states``."""
+    return [None if g is None else g.get_state() for g in (eng._gen, eng._ids_gen)]
+
+
+def set_stream_states(eng, states):
+    for g, st in zip((eng._gen, eng._ids_gen), states):
+        if g is not None:
+            g.set_state(st)
+
+
+def eager_round(eng):
+    """One eager round of ``eng``'s lane from its state, on clones of its
+    params: its next round's inputs drawn (cohort ids, learning rate), the
+    round body run outside any graph. Advances the engine's streams, never
+    its params: (params, outer_state, metrics)."""
+    from repro_torch.core.graphs import run_eager
+    from repro_torch.utils.tree import tree_map
+
+    return run_eager(eng._round_body, tree_map(torch.clone, eng.params),
+                     tree_map(torch.clone, eng.outer_state), eng._chunk_inputs(1))
+
+
 def captured_vs_eager(name, eng, kernel, check):
     """One eager device-sampling round on clones of the params, then the
-    generator put back and ``round()``: the first call warms up, captures
+    generators put back and ``round()``: the first call warms up, captures
     and replays. ``check`` is "bitwise" or "rtol" (within ``CAPTURE_RTOL``
     of the update), or "report": the CNN under cuDNN's default,
     nondeterministic backward, whose 300 SGD steps carry an ulp's
     difference far (two eager rounds differ as much), so the gap is printed
     beside a second eager round's and not held. Prints the capture's
     seconds, the graph count and the peak memory."""
-    from repro_torch.utils.tree import tree_map
-
-    state = eng._gen.get_state()
+    state = stream_states(eng)
     start = host_vector(eng.params)
-    lr = torch.tensor(eng.lr_at(eng.round_idx), dtype=torch.float32, device=eng.device)
 
     def eager():
-        eng._gen.set_state(state)
-        p, _, loss = eng._device_round(tree_map(torch.clone, eng.params),
-                                       tree_map(torch.clone, eng.outer_state), lr)
-        return host_vector(p) - start, float(loss)
+        set_stream_states(eng, state)
+        p, _, (loss,) = eager_round(eng)
+        return host_vector(p) - start, float(loss[0])
 
     d_eager, loss_eager = eager()
     spread = None
     if check == "report":
         d_again, _ = eager()
         spread = float((d_again - d_eager).norm() / d_eager.norm())
-    eng._gen.set_state(state)
+    set_stream_states(eng, state)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3974,7 +4068,7 @@ def superstep_guards_and_resume(name, eng, model_name, data, ckpt_root):
     return {"guarded_chunk": True, "sync_raised": True, "resume_bitwise": True}
 
 
-def profile_chunk(name, eng, kernel, r):
+def profile_chunk(name, eng, kernel, r, main=None):
     """One superstep chunk of r rounds under torch.profiler: its host wall,
     device busy (the union of the ops' intervals), idle share and device
     ops. The profile must hold device ops, and among the hand kernels only
@@ -3984,8 +4078,10 @@ def profile_chunk(name, eng, kernel, r):
     profiled again (up to ``PROFILE_ATTEMPTS`` chunks in all), and a short
     chunk passes only if it also lacks other device ops of the complete
     one, so a replay that skipped the kernel fails. Every chunk is printed;
-    the launches returned are the records of all of them."""
-    main = MAIN_ROUTE_KERNEL[kernel]
+    the launches returned are the records of all of them. ``main``: the
+    kernel's name in the records, by default ``MAIN_ROUTE_KERNEL``'s (the
+    gossip lanes name their route's)."""
+    main = main or MAIN_ROUTE_KERNEL[kernel]
     tries = []
     for _ in range(PROFILE_ATTEMPTS):
         reset_counts()
@@ -4729,7 +4825,8 @@ def sharded_lanes(data, mesh):
         shrd = shard_lane_engine(lane, data, mesh=mesh)
         reset_counts()
         turns = []
-        for tag in ("unsharded", "sharded", "sharded", "unsharded", "unsharded", "sharded"):
+        for tag in ("unsharded", "sharded", "sharded", "unsharded",
+                    "unsharded", "sharded")[:2 * SHARD_ROUNDS]:
             eng = shrd if tag == "sharded" else base
             rec = eng.run(1).records[-1]
             turns.append((tag, rec.wall_s))
@@ -5019,6 +5116,501 @@ def cohort_shard_phase(train, test):
             "gloo": gloo, "partial_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: supersteps off the star lanes
+# ---------------------------------------------------------------------------
+
+def gossip_route_kernel(eng):
+    """(route, the route's kernel name in the records) of ``eng``'s plan."""
+    from repro_torch.kernels.gossip_mix import _route
+
+    route = _route(torch.empty((eng.plan.n_nodes, 1), device="meta"), eng._mix_idx,
+                   eng._mix_w)
+    return route, "gossip_mix_dense_kernel" if route == "dense" else "gossip_mix_kernel"
+
+
+def gossip_turn(eng, which, r):
+    """``r`` rounds of the gossip engine ``eng``: eager (``run(r)``, R = 1,
+    a sync a round) or one captured chunk (``run(r, rounds_per_step=r)``),
+    evaluated once at the end; the turn's records."""
+    hist = eng.run(r, eval_every=10**9, rounds_per_step=1 if which == "eager" else r)
+    recs = hist.records[-r:]
+    require(all(math.isfinite(x.train_loss) and math.isfinite(x.consensus) for x in recs),
+            f"non-finite losses or consensus in a {which} gossip turn")
+    return recs
+
+
+def same_gossip_run(a, b, r):
+    """Replicas, the last ``r`` records' losses and consensus distances and
+    the device generators of two gossip engines, all bit for bit."""
+    ra, rb = a.history.records[-r:], b.history.records[-r:]
+    return (leaves_equal(a.params, b.params)
+            and [x.train_loss for x in ra] == [x.train_loss for x in rb]
+            and [x.consensus for x in ra] == [x.consensus for x in rb]
+            and torch.equal(a._gen.get_state(), b._gen.get_state()))
+
+
+def gossip_superstep_lane(model_name, spec_name, topo_kind, data, ckpt_root):
+    """26(a), one lane: two engines built alike, ``a`` eager and ``b``
+    captured, run R rounds each in turns (eager, captured, captured, eager;
+    the CNN ring the first pair) and must agree bit for bit after each pair (the CNN under
+    ``cudnn.deterministic``); the wrappers count the eager rounds and the
+    capture's warm-up. The 2NN ring
+    then runs a chunk under ``transfer_guard`` and ``retrace_guard`` and
+    resumes (2 + ``save``/``restore`` into a fresh engine + 2 == 4); each 2NN
+    lane profiles a chunk of ``GOSSIP_PROFILE_R``, whose records must hold
+    the route's kernel once a replay."""
+    from repro_torch.analysis import retrace_guard, transfer_guard
+    from repro_torch.core.topology import FullTopology
+    from repro_torch.specs import get_spec
+
+    topo = FullTopology() if topo_kind == "full" else get_spec(spec_name).topology.build()
+    name = f"{model_name} {topo.kind}"
+    R = GOSSIP_STEP_R[(model_name, topo.kind)]
+    require(R >= 2, f"{name}: a chunk of {R} would run the eager loop, not the graph")
+    lr = GOSSIP_CNN_LR if model_name == "mnist_cnn" else None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = model_name == "mnist_cnn" or deterministic
+    try:
+        a, _, _ = make_engine(model_name, data, spec_name=spec_name, topology=topo, lr=lr)
+        b, _, _ = make_engine(model_name, data, spec_name=spec_name, topology=topo, lr=lr)
+        route, main = gossip_route_kernel(a)
+        replica_mb = a.num_clients * MAIN_N[model_name] * 4 / 1e6
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        turns = []
+        pairs = (("eager", "captured"), ("captured", "eager"))[:GOSSIP_TURN_PAIRS[model_name]]
+        for first, second in pairs:
+            for which in (first, second):
+                eng = a if which == "eager" else b
+                capturing = which == "captured" and eng.num_compilations == 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs = gossip_turn(eng, which, R)
+                graph = eng._graph
+                capture = graph.warmup_s + graph.capture_s if capturing else 0.0
+                turn = {"which": which, "s_a_round": sum(x.wall_s for x in recs) / R,
+                        "s_a_round_without_capture":
+                            (time.perf_counter() - t0 - capture) / R,
+                        "consensus": recs[-1].consensus, "test_acc": recs[-1].test_acc}
+                turns.append(turn)
+                print(f"  {name} {which:8s}: {R} rounds, {turn['s_a_round']:.4f} s a round"
+                      + (f" ({turn['s_a_round_without_capture']:.4f} without the warm-up and "
+                         "capture)" if capture else "")
+                      + f", consensus {recs[-1].consensus:.6f}, test_acc "
+                      f"{recs[-1].test_acc:.4f}")
+            same = same_gossip_run(a, b, R)
+            print(f"  {name}: {first} vs {second} over {R} rounds: replicas, losses, consensus "
+                  f"and generator states bitwise {same} ({'ok' if same else 'FAIL'})")
+            require(same, f"{name}: the captured gossip rounds are not the eager ones")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        counts = {k: v for k, v in launch_counts().items() if v}
+        dense = counters()["gossip_mix"].dense_launches
+        want = len(pairs) * R + 1
+        require(counts == {"gossip_mix": want} and dense == (want if route == "dense" else 0)
+                and (a.num_compilations, b.num_compilations) == (0, 1),
+                f"{name}: the wrappers counted {counts} ({dense} dense), want {want} "
+                f"gossip_mix on the {route} route: {len(pairs) * R} eager rounds and 1 "
+                "warm-up")
+        g = b._graph
+        print(f"  {name}: {b.num_compilations} graph; warm-up {g.warmup_s:.3f} s, capture and "
+              f"instantiation {g.capture_s:.3f} s; peak device memory {peak:.0f} MiB for two "
+              f"engines, each with {replica_mb:.1f} MB of replicas (b's graph: its static "
+              f"buffers, the warm-up's clones and its pool); the wrappers counted {want} "
+              f"gossip_mix launches on the {route} route")
+        lane = {"lane": name, "spec": spec_name, "topology": topo.name, "route": route,
+                "rounds": R, "turns": turns, "bitwise": True, "warmup_s": g.warmup_s,
+                "capture_s": g.capture_s, "peak_MiB": peak, "replicas_MB": replica_mb,
+                "eager_launches": want}
+        if (model_name, topo.kind) == ("mnist_2nn", "ring"):
+            with transfer_guard():
+                with retrace_guard(lambda: b.num_compilations, what=name):
+                    b.run(R, eval_every=10**9, rounds_per_step=R)
+            print(f"  {name}: a warm chunk of {R} under transfer_guard() and "
+                  "retrace_guard(): no sync, no new graph ok")
+            b.run(2, eval_every=10**9, rounds_per_step=2)
+            b.save(ckpt_root / name.replace(" ", "_"))
+            b.run(2, eval_every=10**9, rounds_per_step=2)
+            c, _, _ = make_engine(model_name, data, spec_name=spec_name, topology=topo)
+            c.restore(ckpt_root / name.replace(" ", "_"))
+            c.run(2, eval_every=10**9, rounds_per_step=2)
+            resumed = same_gossip_run(b, c, 2)
+            print(f"  {name}: 2 + save/restore into a fresh engine + 2 against 4 (chunks of "
+                  f"2): bitwise {resumed} ({'ok' if resumed else 'FAIL'})")
+            require(resumed, f"{name}: the resumed gossip run left the straight one")
+            lane["eager_launches"] += 1            # c's capture warm-up
+            del c
+        counts = {k: v for k, v in launch_counts().items() if v}
+        dense = counters()["gossip_mix"].dense_launches
+        require(counts == {"gossip_mix": lane["eager_launches"]},
+                f"{name}: the wrappers counted {counts}, want {lane['eager_launches']} "
+                "gossip_mix")
+        if model_name == "mnist_2nn":     # profile_chunk sets the counts to 0
+            lane["profile"] = profile_chunk(name, b, "gossip_mix", GOSSIP_PROFILE_R, main=main)
+        replays = lane.get("profile", {}).get("launches", 0)
+        lane["launches"] = lane["eager_launches"] + replays
+        lane["dense_launches"] = dense + (replays if route == "dense" else 0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del a, b
+    free_card()
+    return lane
+
+
+def lowrank_superstep(data):
+    """26(b): ``_lowrank``'s codec under ``device_sampling=True`` on the 2NN:
+    the sketch regrown on the card from the CPU's seeds (the integer words
+    bitwise, the Gaussians within ``SKETCH_ATOL``); superstep(R) against R
+    ``round()`` calls of a second engine; host-sampled rounds against
+    chunks in turns; one payload's realized bytes against ``wire_bytes``."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.compression import realized_device_bytes
+    from repro_torch.specs import get_spec
+
+    codec = get_spec("mnist_2nn_noniid_lowrank").build_codec()
+    n = MAIN_N["mnist_2nn"]
+    d1, rank = comp._lowrank_dims(n)[0], int(codec.name[len("lowrank"):])
+    seeds = torch.randint(0, 2**62, (MAIN_K,), generator=torch.Generator().manual_seed(26))
+    words = (comp.sketch_bits(seeds.cuda(), 2 * d1 * rank).cpu(),
+             comp.sketch_bits(seeds, 2 * d1 * rank))
+    sketch = (comp.lowrank_sketch(seeds.cuda(), d1, rank).cpu(),
+              comp.lowrank_sketch(seeds, d1, rank))
+    err = float((sketch[0] - sketch[1]).abs().max())
+    ok = torch.equal(*words) and err <= SKETCH_ATOL
+    print(f"  the sketch of {MAIN_K} seeds, ({d1}, {rank}) each, card vs CPU: the 32-bit words "
+          f"bitwise {torch.equal(*words)}, the Gaussians max_abs_err={err:.3e} (atol "
+          f"{SKETCH_ATOL:g}), bitwise {torch.equal(*sketch)} {'ok' if ok else 'FAIL'}")
+    require(ok, "the card's low-rank sketch is not the CPU's")
+    box = {}
+    a, _, _ = make_engine("mnist_2nn", data, codec=recording(codec, box), device_sampling=True)
+    b, _, _ = make_engine("mnist_2nn", data, codec=codec, device_sampling=True)
+    host, _, _ = make_engine("mnist_2nn", data, codec=codec)
+    reset_counts()
+    start = host_vector(a.params)
+    la = [r.train_loss for r in a.run(LOWRANK_R, eval_every=10**9,
+                                      rounds_per_step=LOWRANK_R).records]
+    lb = torch.stack([b.round()["loss"] for _ in range(LOWRANK_R)]).cpu().tolist()
+    pa, pb = host_vector(a.params), host_vector(b.params)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+    rel = float((pa - pb).norm() / (pb - start).norm())
+    gens = torch.equal(a._gen.get_state(), b._gen.get_state()) and torch.equal(
+        a._ids_gen.get_state(), b._ids_gen.get_state())
+    ok = loss_rel <= LOWRANK_REPLAY_RTOL and rel <= LOWRANK_REPLAY_RTOL and gens
+    print(f"  superstep({LOWRANK_R}) vs {LOWRANK_R} x round(): losses within {loss_rel:.3e}, "
+          f"final params |a - b| / |update| = {rel:.3e} (rtol {LOWRANK_REPLAY_RTOL:g}), "
+          f"bitwise {la == lb and bool(torch.equal(pa, pb))}, generator states equal {gens} "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, "the low-rank superstep disagrees with its rounds")
+    turns = []
+    for which in ("host", "superstep", "superstep", "host"):
+        if which == "host":
+            recs = host.run(LOWRANK_HOST_ROUNDS, eval_every=10**9).records[-LOWRANK_HOST_ROUNDS:]
+        else:
+            recs = a.run(LOWRANK_R, eval_every=10**9,
+                         rounds_per_step=LOWRANK_R).records[-LOWRANK_R:]
+        turns.append((which, sum(r.wall_s for r in recs) / len(recs)))
+        require(all(math.isfinite(r.train_loss) for r in recs), "non-finite low-rank losses")
+        print(f"  mnist_2nn lowrank {which:9s}: {len(recs):2d} rounds, {turns[-1][1]:.4f} s a "
+              f"round, last loss {recs[-1].train_loss:.6f}")
+    one = {k: v[0] for k, v in box["payloads"].items()}
+    realized = realized_device_bytes(one)
+    print(f"  one client's payload on the superstep lane: {realized} bytes realized, "
+          f"wire_bytes({n}) = {codec.wire_bytes(n)}, table {WIRE_BYTES[n][codec.name]}")
+    require(realized == codec.wire_bytes(n) == WIRE_BYTES[n][codec.name],
+            "low-rank's realized bytes left its wire bytes")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    require(not counts, f"the low-rank lanes launched hand kernels {counts}")
+    res = {"sketch_max_abs_err": err, "words_bitwise": True, "loss_max_rel_diff": loss_rel,
+           "params_rel_diff": rel, "turns": turns, "payload_bytes": realized,
+           "capture_s": a._graph.capture_s}
+    del a, b, host
+    free_card()
+    return res
+
+
+def staged_superstep(data, spool):
+    """26(c): the streamed pool's staged superstep against the device pool's
+    superstep, the 2NN and CNN plain lanes and the 2NN q8 lane: an untimed
+    first chunk each (the captures, the first staging, the slots' pinning),
+    then chunks in turns (device, streamed, streamed, device), all bitwise
+    equal after each pair (the CNN under ``cudnn.deterministic``); the
+    staged bytes a chunk and the pinned bytes; then one profiled streamed chunk: whether
+    the next chunk's staging copies ran beside the replays' kernels."""
+    from repro_torch.specs import get_spec
+
+    out = {"lanes": []}
+    launches = {"fedavg_aggregate": 0, "quantized_aggregate": 0}
+    keep = None
+    for model_name, spec_name in STAGED_LANES:
+        codec = get_spec(spec_name).build_codec() if spec_name else None
+        kernel = "fedavg_aggregate" if codec is None else "quantized_aggregate"
+        tag = model_name + (f" {codec.name}" if codec else " plain")
+        R = STAGED_R[model_name]
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = model_name == "mnist_cnn" or deterministic
+        try:
+            dev, _, _ = make_engine(model_name, data, codec=codec, device_sampling=True,
+                                    pool="device")
+            st, _, _ = make_engine(model_name, data, codec=codec, device_sampling=True,
+                                   pool=spool)
+            reset_counts()
+            turns = []
+            for eng in (dev, st):     # the captures, the first staging, the slots' pinning
+                t0 = time.perf_counter()
+                eng.run(R, eval_every=10**9, rounds_per_step=R)
+                print(f"  {tag} {'device' if eng is dev else 'streamed'}: a first chunk of {R} "
+                      f"(capture {eng._graph.warmup_s + eng._graph.capture_s:.3f} s) in "
+                      f"{time.perf_counter() - t0:.3f} s, not timed")
+            for which, eng in (("device", dev), ("streamed", st), ("streamed", st),
+                               ("device", dev)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs = eng.run(R, eval_every=10**9, rounds_per_step=R).records[-R:]
+                wall = time.perf_counter() - t0
+                turns.append((which, wall / R))
+                require(all(math.isfinite(r.train_loss) for r in recs), f"{tag}: non-finite")
+                print(f"  {tag} {which:8s}: a chunk of {R}, {wall / R:.4f} s a round, last "
+                      f"loss {recs[-1].train_loss:.6f}")
+                if len(turns) in (2, 4):
+                    # a pending chunk has drawn ahead: its snapshot is the
+                    # ids stream a device run holds
+                    ids = (st._prefetched["ids_gen"] if st._prefetched is not None
+                           else st._ids_gen.get_state())
+                    same = leaves_equal(dev.params, st.params) and leaves_equal(
+                        dev.outer_state, st.outer_state) and [
+                        r.train_loss for r in dev.history.records] == [
+                        r.train_loss for r in st.history.records] and torch.equal(
+                        dev._ids_gen.get_state(), ids) and torch.equal(
+                        dev._gen.get_state(), st._gen.get_state())
+                    print(f"  {tag}: streamed == device after {len(st.history.records)} "
+                          f"rounds, params, losses and generators bitwise: {same} "
+                          f"({'ok' if same else 'FAIL'})")
+                    require(same, f"{tag}: the staged superstep left the device pool's")
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            require(counts == {kernel: 2}, f"{tag}: the wrappers counted {counts}, want the "
+                                           f"two warm-ups' {kernel}")
+            require_main_route(tag, kernel)
+            launches[kernel] += 2
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        mean = {k: float(np.mean([t for w, t in turns if w == k])) for k in ("device", "streamed")}
+        ratio = mean["streamed"] / mean["device"]
+        staged = R * st.staged_bytes
+        pinned = st._stager.pinned_nbytes
+        print(f"  {tag}: streamed / device = {ratio:.4f} (seconds a round, in turns; the "
+              f"reference's gate is 1.3x, not held here); {staged:,} B staged a chunk of {R} "
+              f"({st.staged_bytes:,} B a round), {pinned:,} B page-locked (two chunk slots)")
+        out["lanes"].append({"lane": tag, "rounds_per_chunk": R, "turns": turns,
+                             "streamed_over_device": ratio, "staged_bytes_a_chunk": staged,
+                             "pinned_bytes": pinned, "bitwise": True})
+        if (model_name, codec) == ("mnist_2nn", None):
+            keep = st
+        else:
+            del st
+        del dev
+        free_card()
+    r = STAGED_PROFILE_R
+    keep._superstep(r)            # a chunk of r staged ahead for the profiled one
+    stage_chunk, at = keep._stager.stage_chunk, {}
+
+    def timed_stage(ids):         # when the host reaches the next chunk's staging
+        at["stage"] = time.perf_counter()
+        return stage_chunk(ids)
+
+    keep._stager.stage_chunk = timed_stage
+    tries = []
+    for _ in range(PROFILE_ATTEMPTS):
+        reset_counts()
+
+        def chunk():
+            at["call"] = time.perf_counter()
+            keep._superstep(r)
+
+        wall, ops, _ = device_profile(chunk)
+        records = kernel_records(ops)
+        side, copy_us, over_us, n_copies = copies_beside_kernels(ops)
+        busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+        tries.append({"rounds": r, "wall_s": wall, "device_busy_s": busy,
+                      "idle_share": 1 - busy / wall, "device_ops": len(ops),
+                      "kernel_records": records, "htod_copies": n_copies,
+                      "side_copies": len(side), "side_copy_us": copy_us,
+                      "overlapped_us": over_us})
+        verdict = (("overlap" if over_us > 0 else "do not overlap") + " the replays' kernels"
+                   if side else "not measured: no side-stream copy in the records")
+        lead = at["stage"] - at["call"]
+        tries[-1]["host_reaches_staging_s"] = lead
+        print(f"  a profiled streamed 2NN chunk of {r}: the host reached the next chunk's "
+              f"staging {lead:.4f} s after the call (its {r} replays queued), against "
+              f"{busy:.4f} s of device busy")
+        print(f"  a profiled streamed 2NN chunk of {r}: wall {wall:.4f} s, device busy "
+              f"{busy:.4f} s (idle share {1 - busy / wall:.1%}), {len(ops)} device ops, hand "
+              f"kernels {records}; {len(side)} copies on the side stream (the next chunk, "
+              f"staged after this one's replays were queued), {copy_us:.1f} us, {over_us:.1f} "
+              f"us of it beside a kernel: the copies {verdict}")
+        require(set(records) <= {"fedavg_agg_kernel"}, f"streamed chunk records {records}")
+        if records.get("fedavg_agg_kernel", 0) == r:
+            break
+    else:
+        raise AssertionError(f"{PROFILE_ATTEMPTS} profiled streamed chunks, none with {r} "
+                             "fedavg_agg_kernel records")
+    replays = sum(t["kernel_records"].get("fedavg_agg_kernel", 0) for t in tries)
+    out.update(profiled_chunk={**tries[-1], "attempts": len(tries)}, launches=launches,
+               replay_records=replays)
+    del keep
+    free_card()
+    return out
+
+
+def staged_population_gate(root):
+    """26(c): phase 24 (f)'s 10^5-client population on the superstep lane:
+    the same generated pool, m = 20, ``POP_ROUNDS`` rounds in one chunk
+    (staged at once); the process's RSS growth from before the pool's build
+    to after the chunk must stay under ``POP_RSS_MB``. The start is read
+    after a warm-up chunk on a population of ``POP_WARM`` clients."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.pool import StreamedClientPool
+    from repro_torch.models import paper
+
+    model = paper.mnist_2nn(n_classes=5, d_in=POP_D, device="cuda")
+    warm = StreamedClientPool.from_generator(synth_clients(POP_WARM, POP_ROWS, POP_D, seed=2),
+                                             POP_ROWS, shard_clients=POP_SHARD,
+                                             root=root / "warm-up-superstep")
+    RoundEngine(model.loss, model.init(2), None,
+                FedAvgConfig(C=POP_M / POP_WARM, E=1, B=POP_ROWS, lr=0.1, seed=0), pool=warm,
+                device_sampling=True, device="cuda").run(POP_ROUNDS, rounds_per_step=POP_ROUNDS)
+    del warm
+    gc.collect()
+    rss0 = rss_mb()
+    t0 = time.perf_counter()
+    pool = StreamedClientPool.from_generator(synth_clients(POP_K, POP_ROWS, POP_D, seed=1),
+                                             POP_ROWS, shard_clients=POP_SHARD,
+                                             root=root / "population-superstep")
+    build_s = time.perf_counter() - t0
+    eng = RoundEngine(model.loss, model.init(2), None,
+                      FedAvgConfig(C=POP_M / POP_K, E=1, B=POP_ROWS, lr=0.1, seed=0), pool=pool,
+                      device_sampling=True, device="cuda")
+    require(eng._m == POP_M, f"cohort {eng._m}")
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = eng.run(POP_ROUNDS, rounds_per_step=POP_ROUNDS)
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    growth = rss_mb() - rss0
+    disk_mb = pool.nbytes_on_disk() / 1e6
+    ok = growth < POP_RSS_MB and disk_mb > POP_RSS_MB
+    print(f"  K={POP_K:,} clients ({disk_mb:.1f} MB on disk, built in {build_s:.2f} s), one "
+          f"chunk of {POP_ROUNDS} rounds of m={POP_M} on the superstep lane in {run_s:.3f} s "
+          f"(capture included), {eng.staged_bytes * POP_ROUNDS:,} B staged, "
+          f"{eng._stager.pinned_nbytes:,} B page-locked; RSS growth {growth:.1f} MB "
+          f"(required < {POP_RSS_MB:.0f}) {'ok' if ok else 'FAIL'}")
+    require(counts["fedavg_aggregate"] == 1 and all(math.isfinite(r.train_loss)
+                                                   for r in hist.records),
+            f"population chunk: launches {counts}")
+    require(ok, f"RSS grew {growth:.1f} MB with a {disk_mb:.1f} MB pool on disk")
+    return {"K": POP_K, "disk_MB": disk_mb, "build_s": build_s, "chunk_s": run_s,
+            "rss_growth_MB": growth, "launches": 1}
+
+
+def superstep_from_spec(train, test):
+    """26(d): ``RoundEngine.from_spec`` on the ring and small-world specs
+    with ``execution.rounds_per_step``, the low-rank spec with
+    ``device_sampling=True`` and ``mnist_2nn_noniid`` streamed with
+    ``device_sampling=True``: one chunk of ``FROM_SPEC_R`` each."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.specs import ExecutionSpec, get_spec
+
+    rows = []
+    cases = (("mnist_2nn_noniid_ring", {}), ("mnist_2nn_noniid_smallworld", {}),
+             ("mnist_2nn_noniid_lowrank", {"device_sampling": True}),
+             ("mnist_2nn_noniid", {"device_sampling": True, "pool": "streamed"}))
+    for name, ex in cases:
+        spec = dataclasses.replace(get_spec(name), execution=ExecutionSpec(
+            rounds_per_step=FROM_SPEC_R, **ex))
+        eng = RoundEngine.from_spec(spec, spec_clients(spec, train),
+                                    eval_fn=spec_eval_fn(spec, test))
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = eng.run(FROM_SPEC_R, eval_every=FROM_SPEC_R)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        kernel = SPEC_KERNELS[name]
+        require(eng.num_compilations == 1 and len(hist.records) == FROM_SPEC_R
+                and all(math.isfinite(r.train_loss) for r in hist.records)
+                and counts == ({kernel: 1} if kernel else {}),
+                f"{name} {ex}: {eng.num_compilations} graphs, launches {counts}")
+        tag = name + "".join(f" {k}={v!r}" for k, v in ex.items())
+        print(f"  {tag}: rounds_per_step={FROM_SPEC_R}, one chunk in {wall:.3f} s (capture "
+              f"included), {eng.num_compilations} graph, pool {eng.pool_kind}, test_acc "
+              f"{hist.records[-1].test_acc:.4f}"
+              + (f", consensus {hist.records[-1].consensus:.6f}" if eng.topology else ""))
+        rows.append({"spec": tag, "kernel": kernel, "launches": 1 if kernel else 0,
+                     "chunk_s": wall, "test_acc": hist.records[-1].test_acc})
+        del eng
+        free_card()
+    return rows
+
+
+def offstar_superstep_phase(train, test):
+    """Phase 26: (a)-(d) above. Checkpoints and the streamed pools go to
+    directories under ``build/``, removed after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pool import StreamedClientPool
+
+    data = (train, test)
+    out = {}
+    phase_t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_offstar_", dir=ROOT / "build"))
+    try:
+        print("  (a) the gossip superstep")
+        out["gossip"] = [gossip_superstep_lane(*lane, data, root) for lane in GOSSIP_STEP_LANES]
+        print("  (b) low-rank under device sampling")
+        out["lowrank"] = lowrank_superstep(data)
+        print("  (c) the streamed pool's staged superstep")
+        spec = json.loads((ROOT / "specs" / "mnist_2nn_noniid.json").read_text())
+        spool = StreamedClientPool.build(noniid_clients(train, spec), spec["fedavg"]["B"],
+                                         root=root / "noniid")
+        out["streamed"] = staged_superstep(data, spool)
+        del spool
+        free_card()
+        out["population"] = staged_population_gate(root)
+        free_card()
+        print("  (d) from_spec")
+        out["from_spec"] = superstep_from_spec(train, test)
+    finally:
+        shutil.rmtree(root)
+    # each kernel's launches by source: the wrappers' counts (eager rounds,
+    # the captures' warm-ups) and the profiled chunks' kernel records (replays)
+    sources = {
+        "gossip_mix": {
+            "wrappers": sum(lane["eager_launches"] for lane in out["gossip"]),
+            "records": sum(lane.get("profile", {}).get("launches", 0) for lane in out["gossip"])},
+        "fedavg_aggregate": {
+            "wrappers": out["streamed"]["launches"]["fedavg_aggregate"]
+            + out["population"]["launches"],
+            "records": out["streamed"]["replay_records"]},
+        "quantized_aggregate": {
+            "wrappers": out["streamed"]["launches"]["quantized_aggregate"], "records": 0}}
+    for row in out["from_spec"]:
+        if row["kernel"]:
+            sources[row["kernel"]]["wrappers"] += row["launches"]
+    out["launch_sources"] = sources
+    launches = {k: v["wrappers"] + v["records"] for k, v in sources.items()}
+    out["launches"] = launches
+    out["gossip_dense_launches"] = sum(lane["dense_launches"] for lane in out["gossip"])
+    out["seconds"] = time.perf_counter() - phase_t0
+    print(f"  phase 26: launches {launches} ({out['gossip_dense_launches']} gossip_mix on the "
+          f"dense route) in {out['seconds']:.1f} s")
+    return out
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
@@ -5263,6 +5855,12 @@ def main() -> int:
     print(f"card: {smi}")
     sharding = cohort_shard_phase(train, test)
 
+    phase("26. supersteps off the star lanes, full size: the gossip superstep through "
+          "gossip_mix, low-rank under device sampling, the streamed pool's staged superstep, "
+          "from_spec")
+    print(f"card: {smi}")
+    offstar = offstar_superstep_phase(train, test)
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
@@ -5279,6 +5877,8 @@ def main() -> int:
     for k, n in async_streamed["launches"].items():
         launches[k] += n
     for k, n in sharding["partial_launches"].items():
+        launches[k] += n
+    for k, n in offstar["launches"].items():
         launches[k] += n
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
@@ -5368,7 +5968,13 @@ def main() -> int:
     kernels[0]["async_and_streamed"] = async_streamed
     kernels[0]["superstep"] = {"lanes": [l for l in superstep_lanes
                                          if l["kernel"] == "fedavg_aggregate"],
-                               "spec": superstep_spec_lane}
+                               "spec": superstep_spec_lane,
+                               "staged": offstar["streamed"],
+                               "staged_population": offstar["population"],
+                               "lowrank": offstar["lowrank"],
+                               "from_spec": offstar["from_spec"],
+                               "phase_26_launches": offstar["launch_sources"][
+                                   "fedavg_aggregate"]}
     for i in (1, 3):
         kernels[i]["superstep"] = [l for l in superstep_lanes if l["kernel"] == KERNELS[i]]
     kernels[1]["cnn_rounds_in_turns_s"] = turns
@@ -5382,7 +5988,8 @@ def main() -> int:
         stream = sum(lane["main_route_launches"] for lane in lanes + spec_lanes
                      if lane["kernel"] == KERNELS[i]) + sum(
             lane["launches"] for lane in superstep_lanes if lane["kernel"] == KERNELS[i]) \
-            + async_streamed["main_route_launches"].get(KERNELS[i], 0)
+            + async_streamed["main_route_launches"].get(KERNELS[i], 0) \
+            + offstar["launches"].get(KERNELS[i], 0)
         kernels[i]["route_launches"] = {"stream": stream,
                                         "general": launches[KERNELS[i]] - stream}
     kernels[3]["routes"] = {
@@ -5397,9 +6004,11 @@ def main() -> int:
     kernels[4]["routes"] = {
         "gather": "gossip_mix_kernel (D * DENSE_NODES_PER_SLOT < n: the ring, the small world)",
         "dense": "gossip_mix_dense_kernel (the rest: the full graph)"}
-    dense = sum(lane["dense_launches"] for lane in gossip)
+    dense = sum(lane["dense_launches"] for lane in gossip) + offstar["gossip_dense_launches"]
     kernels[4]["route_launches"] = {"gather": launches["gossip_mix"] - dense, "dense": dense,
                                     "dense in the anchor (phase 12)": 1}
+    kernels[4]["superstep"] = {"lanes": offstar["gossip"],
+                               "phase_26_launches": offstar["launch_sources"]["gossip_mix"]}
     from repro_torch.kernels.ssm_scan import launch_plan
 
     kernels[6]["routes"] = {

@@ -22,11 +22,12 @@ takes the noise as an argument (the uniform draw for quantize, the
 Bernoulli mask for mask, the Gaussian sketch for low-rank). The cores are
 what the tests hold against the reference with the same numpy noise.
 torch's generators are not JAX's, so payloads are never the reference's bit
-for bit. The host-sampled round builds ``gen`` from a host integer
-(:func:`codec_generator`); the superstep lane passes the engine's own
-device generator, so nothing in its round creates a generator. Low-rank
-draws on a CPU generator (``host_noise``) and copies its sketches up, which
-a captured round cannot do. Under cohort sharding (``cohort``, a
+for bit. The host-sampled round builds ``gen`` on the payload's device from
+a host integer (:func:`codec_generator`); the superstep lane passes the
+engine's own device generator, so nothing in its round creates a generator
+or reads a host value. Low-rank's sketch is a pure function of its int64
+seed on any device (:func:`lowrank_sketch`), so the server regrows it from
+the seed alone. Under cohort sharding (``cohort``, a
 ``core.fedavg.CohortSlice``) every rank draws the whole cohort's noise, the
 unsharded shape, and keeps its own rows (``shard_rows``), so a sharded
 round encodes what the unsharded one does; ``aggregate`` and
@@ -90,9 +91,7 @@ class Codec(NamedTuple):
     group=None, total=None, carry=None)``, where present, fuses decode into
     the weighted server mean (RAW count weights), finished over a client
     ``group`` when one is given; :func:`decode_aggregate` is the entry
-    point. ``host_noise``
-    marks a codec whose ``gen`` must be a CPU generator whatever the
-    payload's device (low-rank's sketch seeds).
+    point.
     """
 
     name: str
@@ -102,20 +101,14 @@ class Codec(NamedTuple):
     payload_bytes: Callable
     unbiased: bool
     aggregate: Optional[Callable] = None
-    host_noise: bool = False
 
 
-def _generator(seed: int, device) -> torch.Generator:
+def codec_generator(seed: int, device) -> torch.Generator:
+    """The generator ``codec.encode`` takes on the host-sampled lane: on
+    ``device``, seeded with the host integer ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
-
-
-def codec_generator(codec: Codec, seed: int, device) -> torch.Generator:
-    """The generator ``codec.encode`` takes on the host-sampled lane: seeded
-    with the host integer ``seed``, on ``device``, or on the CPU for a
-    ``host_noise`` codec."""
-    return _generator(seed, "cpu" if codec.host_noise else device)
 
 
 def _draw(draw, rows: int, cohort):
@@ -180,13 +173,52 @@ def _lowrank_dims(n: int):
     return d1, -(-n // d1)
 
 
-def _lowrank_sketch(seeds, d1, rank, device):
-    """(m, d1, rank) Gaussian sketches, one per host int64 seed, drawn by the
-    CPU generator so that every device regrows the same A."""
-    return torch.stack([
-        torch.randn((d1, rank), generator=_generator(int(s), "cpu"))
-        for s in seeds.tolist()
-    ]).to(device)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2**32`` for int64 tensors (or ints) in [0, 2**32), in
+    16-bit halves so that no product passes 2**49: exact, and the same bits
+    on every device."""
+    return ((a & 0xFFFF) * b + (((a >> 16) * (b & 0xFFFF)) << 16)) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer mixer (the "lowbias32" xorshift-multiply chain) on
+    int64 tensors holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sketch_bits(seeds: torch.Tensor, count: int) -> torch.Tensor:
+    """(m, count) 32-bit words, as int64, of the counter-based stream of
+    each int64 seed in ``seeds`` (m,): word c of seed s is
+    ``h(h(c ^ k1) ^ k2)`` with ``h`` :func:`_hash32`, ``k1 = h(lo)`` and
+    ``k2 = h(hi ^ k1)`` of the seed's 32-bit halves. Integer arithmetic
+    only, so every device gives the same words."""
+    lo, hi = seeds & _M32, (seeds >> 32) & _M32
+    k1 = _hash32(lo)
+    k2 = _hash32(hi ^ k1)
+    c = torch.arange(count, dtype=torch.int64, device=seeds.device)
+    return _hash32(_hash32(c[None, :] ^ k1[:, None]) ^ k2[:, None])
+
+
+def lowrank_sketch(seeds: torch.Tensor, d1: int, rank: int) -> torch.Tensor:
+    """(m, d1, rank) fp32 Gaussian sketches A, a pure function of the int64
+    seeds (m,) on their device, with no host read (so a captured round
+    regrows them): two 24-bit uniforms a coordinate from :func:`sketch_bits`
+    (u1 in (0, 1], u2 in [0, 1), both exact in fp32), then Box-Muller's
+    ``sqrt(-2 ln u1) cos(2 pi u2)`` in fp64, rounded to fp32. The entries
+    are independent N(0, 1), so E[A A^T] = rank I."""
+    bits = sketch_bits(seeds, 2 * d1 * rank) >> 8
+    scale = 2.0 ** -24
+    u1 = (bits[:, 0::2].to(torch.float64) + 1.0) * scale
+    u2 = bits[:, 1::2].to(torch.float64) * scale
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.to(torch.float32).reshape(seeds.shape[0], d1, rank)
 
 
 def _lowrank_core(flat, a):
@@ -369,10 +401,11 @@ def lowrank_codec(rank: int = 8) -> Codec:
     as a (d1, d2) matrix M (d1 = ceil(sqrt(n)), zero-padded) ships as
     B = A^T M for a Gaussian A of shape (d1, rank), plus the int64 seed that
     regrows A (the ``key`` leaf, charged at ``SEED_BYTES``). Decode is
-    A B / rank, unbiased since E[A A^T] = rank I. The seeds are host
-    integers drawn from ``gen``, a CPU generator (``host_noise``), and A is
-    drawn by the CPU generator, then moved to the payload's device, so the
-    server regrows the same A on any device. The
+    A B / rank, unbiased since E[A A^T] = rank I. The seeds are drawn from
+    ``gen`` on the payload's device, and A is :func:`lowrank_sketch` of its
+    seed: a pure function on the device (the reference's regrow is
+    ``jax.random.normal`` of the key), so the server regrows A from the seed
+    alone and a captured round draws and regrows without a host value. The
     aggregate Σ_k w_k A_k B_k / rank is one ``einsum`` over (client, rank);
     the reference's is an XLA ``dot_general``, not a Pallas kernel."""
     if rank < 1:
@@ -380,19 +413,20 @@ def lowrank_codec(rank: int = 8) -> Codec:
 
     def encode(gen, flat, cohort=None):
         m, n = flat.shape
-        seeds = _draw(lambda rows: torch.randint(0, 2**62, (rows,), generator=gen), m, cohort)
-        a = _lowrank_sketch(seeds, _lowrank_dims(n)[0], rank, flat.device)
+        seeds = _draw(lambda rows: torch.randint(0, 2**62, (rows,), generator=gen,
+                                                 device=flat.device), m, cohort)
+        a = lowrank_sketch(seeds, _lowrank_dims(n)[0], rank)
         return {"b": _lowrank_core(flat, a), "key": seeds}
 
     def decode(payloads, n):
         b = payloads["b"]
-        a = _lowrank_sketch(payloads["key"], _lowrank_dims(n)[0], rank, b.device)
+        a = lowrank_sketch(payloads["key"], _lowrank_dims(n)[0], rank)
         m = torch.einsum("kdr,kre->kde", a, b)
         return m.reshape(m.shape[0], -1)[:, :n] / rank
 
     def aggregate(payloads, weights, n, group=None, **finish):
         b = payloads["b"]
-        a = _lowrank_sketch(payloads["key"], _lowrank_dims(n)[0], rank, b.device)
+        a = lowrank_sketch(payloads["key"], _lowrank_dims(n)[0], rank)
         if group is None:
             return _lowrank_aggregate_core(a, b, normalized_weights(weights, b.device), n)
         w = shard_weights(weights, b.device, finish.get("total"))
@@ -409,7 +443,6 @@ def lowrank_codec(rank: int = 8) -> Codec:
         payload_bytes=lambda p: 4 * p["b"].numel() + SEED_BYTES,
         unbiased=True,
         aggregate=aggregate,
-        host_noise=True,
     )
 
 

@@ -51,7 +51,14 @@ permutation and round step on those rows as the device pool runs on its
 gathered ones, so the two pools give the same rounds bit for bit. Round
 R+1's cohort is drawn and staged right after round R is dispatched
 (``prefetch=1``): ``save``, ``restore`` and a round out of turn discard it
-and rewind the numpy stream to before its draw.
+and rewind the numpy stream to before its draw. On the superstep lane the
+streamed pool stages a whole chunk at once (the reference's
+``_prepare_chunk``): the chunk's R cohorts are drawn from the ids
+generator (below), their rows read and copied up as one (R, m, n_pad, ...)
+block, and the captured round reads round j's rows from it; with
+``prefetch`` the next chunk is staged while this one replays, and a ragged
+last chunk, ``save`` and ``restore`` discard it and rewind the ids
+generator.
 
 The buffered-async schedule splits a round into ``_client_phase`` (a
 cohort's batches and ClientUpdate against the current params: raveled fp32
@@ -65,32 +72,42 @@ node trains its own packed client (node k is client k) from its own
 replica, then one Metropolis-Hastings mixing step through ``gossip_mix``
 (CUDA kernel) replaces the aggregate. ``self.params`` is then the
 (n_nodes, ...) replica stack; ``consensus_params()`` is their mean. The
-reference splits a device PRNG key for each gossip round; threefry's bits
-cannot be reproduced here, so each gossip round instead draws one
-``rng.integers(2**31)`` from the engine's numpy stream and seeds
-``materialize_round_batch`` with it. Whole gossip runs are therefore
-compared with the reference in a band, and exact checks inject the
-reference's batches through ``build_gossip_round_step``. ``run`` reads the
-loss and the consensus distance back in one sync a round.
+reference takes each gossip round's data key off a device PRNG key chain;
+here each gossip round draws its (n_nodes, E, n_pad) batch uniforms from
+the engine's device generator (seeded with ``cfg.seed``, as on the
+superstep lane) and assembles the batches on the device
+(``assemble_round_batch``), so a round reads no host value. ``round()`` is
+one eager round; ``run(n, rounds_per_step=R)`` with R > 1 runs chunks of R
+through the captured round (``core.graphs``), whose replays draw what R
+eager rounds draw, so superstep(R) == R x ``round()``. Threefry's bits
+cannot be reproduced here, so whole gossip runs are compared with the
+reference in a band, and exact checks inject the reference's batches
+through ``build_gossip_round_step``. ``run`` reads the loss and the
+consensus distance back in one sync a round, or a chunk.
 
 Supersteps (the reference's ``device_sampling=True`` and ``run(...,
 rounds_per_step=R)``): the engine holds one ``torch.Generator`` on its
-device, seeded with ``cfg.seed``, and every round draws from it in a fixed
-order: the cohort uniforms (K,) (``sample_clients_device``), the batch
-uniforms (m, E, n_pad), then the codec's noise. The counts and steps per
-epoch moved to the device at construction, so the weights, the step mask
-and the real-row counts come from the device ids, and the round reads no
-host value. That round is captured once as a CUDA graph (``core.graphs``)
-and replayed once a round; the host uploads a chunk's R learning rates
-once and reads its R losses back once. On the CPU the same body runs
-eagerly. The cohorts are Philox's, not threefry's: the same distribution as
-the reference's, other realizations.
+device, seeded with ``cfg.seed``, and a CPU ``torch.Generator`` of the
+cohort ids' own, seeded with ``cfg.seed ^ IDS_SEED_SALT``. The host draws a
+chunk's R cohorts from the ids generator (``sample_clients_device``) and
+uploads them once, beside the R learning rates, without a sync; each round
+then draws from the device generator in a fixed order: the batch uniforms
+(m, E, n_pad), then the codec's noise (low-rank's sketch seeds included:
+the sketch is a pure function of its seed on the device). The counts and
+steps per epoch moved to the device at construction, so the weights, the
+step mask and the real-row counts come from the device ids, and the round
+reads no host value. That round is captured once as a CUDA graph
+(``core.graphs``) and replayed once a round, its ids and learning rate
+copied into the graph's buffers device to device; the host reads the
+chunk's R losses back once. On the CPU the same body runs eagerly. The
+cohorts and batches are torch's streams, not threefry's: the same
+distributions as the reference's, other realizations.
 
 Cohort sharding (the reference's ``mesh=``, ``engine.py:333-345``): ``mesh``
 is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` over a client group of
 D ranks (``launch.mesh.make_client_mesh``), each holding the whole population
 and the replicated params. Every rank draws the whole cohort from the same
-stream (the numpy draws on the host-sampled lane, the device generator's on
+stream (the numpy draws on the host-sampled lane, the ids generator's on
 the superstep lane), pads it with ghost clients (id 0, weight 0) to a
 multiple of D and takes its m/D slots ``[r*m/D, (r+1)*m/D)``
 (``core.fedavg.CohortSlice``). Per-client randomness (the batch uniforms,
@@ -145,7 +162,7 @@ from repro_torch.core.fedavg import (
     server_aggregate,
     shard_rows,
 )
-from repro_torch.core.graphs import RoundGraph
+from repro_torch.core.graphs import RoundGraph, run_eager
 from repro_torch.core.scheduler import AsyncConfig, RoundScheduler
 from repro_torch.core.staging import CohortStager
 from repro_torch.core.strategies import FedAvg, ServerStrategy, resolve_strategy
@@ -163,6 +180,12 @@ from repro_torch.utils.tree import (
     tree_unravel,
     tree_unravel_stacked,
 )
+
+
+# The cohort ids' generator is seeded with ``cfg.seed ^ IDS_SEED_SALT``: on the
+# CPU the device generator is an mt19937 seeded with ``cfg.seed`` too, and
+# the same seed would make round 1's cohort uniforms its batch uniforms.
+IDS_SEED_SALT = 0x1D5C0
 
 
 class RoundState(NamedTuple):
@@ -200,6 +223,14 @@ class RoundBatch(NamedTuple):
     lr: Any = None
     gen: Optional[torch.Generator] = None
     cohort: Optional[CohortSlice] = None
+
+
+def _state_hex(gen: torch.Generator) -> str:
+    return gen.get_state().numpy().tobytes().hex()
+
+
+def _state_of_hex(text: str) -> torch.Tensor:
+    return torch.frombuffer(bytearray(bytes.fromhex(text)), dtype=torch.uint8)
 
 
 def build_simulation_round_step(
@@ -348,23 +379,24 @@ class RoundEngine:
 
     ``topology`` (a ``core.topology`` registry name or ``Topology``) switches
     to the gossip lane: one node per packed client, each with its own
-    replica, mixed with its neighbours every round. It needs ``cfg.C ==
-    1.0`` and an identity strategy (FedAvg or FedSGD), and takes no codec,
-    no latency model, no async schedule and no streamed pool, as the
-    reference's refusals say.
+    replica, mixed with its neighbours every round; ``run(n,
+    rounds_per_step=R)`` runs its captured superstep (module docstring). It
+    needs ``cfg.C == 1.0`` and an identity strategy (FedAvg or FedSGD), and
+    takes no codec, no ``device_sampling``, no latency model, no async
+    schedule and no streamed pool, as the reference's refusals say.
 
     ``strategy`` (``core.strategies``: None, a registry name or an instance)
     is the server's update rule over the aggregated fp32 delta; its
     ``validate_cfg`` runs before its state is built, and its state (FedAvgM's
     fp32 velocity) rides in ``outer_state``.
 
-    ``device_sampling=True`` draws every round's cohort, batches and codec
-    noise on the device from the engine's generator (module docstring),
-    and ``run(n, rounds_per_step=R)`` then runs R rounds a host sync;
-    ``rounds_per_step`` here is ``run``'s default (the spec's
-    ``execution.rounds_per_step``). It takes the plain and FedAvgM lanes
-    and the codecs whose noise is drawn on the device; low-rank, gossip and
-    the streamed pool are refused (ROADMAP Queue 1 item 6).
+    ``device_sampling=True`` draws every round's cohort from the ids
+    generator and its batches and codec noise on the device from the
+    engine's generator (module docstring), and ``run(n,
+    rounds_per_step=R)`` then runs R rounds a host sync; ``rounds_per_step``
+    here is ``run``'s default (the spec's ``execution.rounds_per_step``). It
+    takes the plain, FedAvgM and codec lanes (low-rank included) on either
+    pool.
 
     ``latency`` (a ``core.latency.LatencyModel``) simulates stragglers on the
     host-sampled sync lane: each round is charged its slowest observed
@@ -380,8 +412,9 @@ class RoundEngine:
     ``StreamedClientPool`` (``client_data`` may then be None), or
     ``"auto"``: the device pool while ``estimate_pool_nbytes`` fits
     ``device_pool_budget(device)``, else streamed. ``prefetch`` (0 or more)
-    stages the next round's cohort while the current one runs when it is
-    not 0. The streamed pool runs the host-sampled sync lane only.
+    stages the next round's cohort (on the superstep lane the next chunk)
+    while the current one runs when it is not 0. The streamed pool runs the
+    sync lanes, host-sampled or device-sampled.
 
     ``mesh`` (a 1-D ``DeviceMesh`` with the dim ``client_axis``, e.g.
     ``launch.mesh.make_client_mesh()``) shards each cohort across the mesh's
@@ -446,14 +479,17 @@ class RoundEngine:
                         pool_shard_clients, pool_dir)
         self._m = cohort_size(self.num_clients, cfg.C)
         self._init_cohort_slice()
-        self._gen = self._graph = None
-        if self.device_sampling:
+        self._gen = self._graph = self._ids_gen = None
+        if self.device_sampling or topology is not None:
             self._counts = torch.from_numpy(self.packed.counts).to(self.device)
             self._spe = torch.from_numpy(
                 self.packed.steps_per_epoch.astype(np.int64)).to(self.device)
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(int(cfg.seed))
             self._graph = RoundGraph(self._gen)
+        if self.device_sampling:
+            self._ids_gen = torch.Generator()
+            self._ids_gen.manual_seed(int(cfg.seed) ^ IDS_SEED_SALT)
         self.topology: Optional[Topology] = None
         if topology is not None:
             self._init_gossip(loss_fn, resolve_topology(topology))
@@ -486,14 +522,8 @@ class RoundEngine:
         if device_sampling and topology is not None:
             raise ValueError(
                 "topology= is incompatible with device_sampling=True: the gossip lane runs "
-                "every node every round (no cohort draw to move to the device); its own "
-                "superstep is not ported yet (ROADMAP Queue 1 item 6), so construct the "
-                "engine without device_sampling")
-        if device_sampling and codec is not None and codec.host_noise:
-            raise ValueError(
-                f"codec {codec.name!r} draws its noise on the host and copies it to the "
-                "device every round, which a captured round cannot do: low-rank under "
-                "device_sampling=True is not ported yet (ROADMAP Queue 1 item 6)")
+                "every node every round (no cohort draw to fuse); construct the engine "
+                "without it, and run its superstep with run(n, rounds_per_step=R)")
         if topology is not None and (latency is not None or async_config is not None):
             raise ValueError(
                 "topology= is incompatible with latency=/async_config=: the straggler and "
@@ -525,10 +555,10 @@ class RoundEngine:
             raise ValueError("pool must be 'auto', 'device', 'streamed', or a "
                              f"StreamedClientPool instance, got {pool!r}")
         if streamed or pool == "streamed":
-            RoundEngine._refuse_streamed(latency, async_config, device_sampling, mesh)
+            RoundEngine._refuse_streamed(latency, async_config, mesh)
 
     @staticmethod
-    def _refuse_streamed(latency, async_config, device_sampling, mesh=None) -> None:
+    def _refuse_streamed(latency, async_config, mesh=None) -> None:
         if mesh is not None:
             raise ValueError(
                 "pool='streamed' is incompatible with mesh= cohort sharding: streamed "
@@ -539,13 +569,6 @@ class RoundEngine:
             raise ValueError(
                 "pool='streamed' supports the sync round lane only: the latency/async "
                 "schedulers dispatch against the device-resident pool directly")
-        if device_sampling:
-            raise ValueError(
-                "pool='streamed' with device_sampling=True is the staged superstep, which "
-                "is not ported to repro_torch yet (ROADMAP Queue 1 item 6): the port's "
-                "device cohort comes from the generator that also draws the batch "
-                "uniforms, so staging round R+1's ids ahead would reorder that stream; "
-                "stream on the host-sampled lane, or keep the population on the device")
 
     def _init_pool(self, client_data, pool, shard_clients: int, pool_dir) -> None:
         """Resolve ``pool`` and build the store: the packed device pool
@@ -566,8 +589,7 @@ class RoundEngine:
                     x0.shape[1:], x0.dtype.itemsize, y0.shape[1:], y0.dtype.itemsize)
                 if est > device_pool_budget(self.device):
                     kind = "streamed"
-                    self._refuse_streamed(self.latency, self.async_config,
-                                          self.device_sampling, self.mesh)
+                    self._refuse_streamed(self.latency, self.async_config, self.mesh)
         self.pool_kind = kind
         self.pool = self._stager = None
         if kind == "device":
@@ -673,6 +695,7 @@ class RoundEngine:
             )
         self._mix_idx = torch.from_numpy(self.plan.idx).to(self.device)
         self._mix_w = torch.from_numpy(self.plan.weight).to(self.device)
+        self._nodes = torch.arange(n_nodes, device=self.device)
         self.params = tree_map(
             lambda p: p.unsqueeze(0).repeat((n_nodes,) + (1,) * p.ndim), self.params
         )
@@ -767,11 +790,12 @@ class RoundEngine:
 
     @property
     def num_compilations(self) -> int:
-        """Round programs behind the device-sampling loop (the reference's
-        jit cache sizes, ``engine.py:840``): the one captured CUDA graph on
-        a card, whatever R is, a ragged last chunk and ``round()`` included;
-        on the CPU the eager round body, once it has run. 0 on the
-        host-sampled lanes, which run eagerly and hold no graph."""
+        """Round programs behind the superstep loops (the reference's jit
+        cache sizes, ``engine.py:840``): the one captured CUDA graph on a
+        card, whatever R is, a ragged last chunk and (on the star lanes)
+        ``round()`` included; on the CPU the eager round body, once a chunk
+        has run it. 0 on the host-sampled lanes, which run eagerly and hold
+        no graph, and on a gossip engine that has run only eager rounds."""
         return 0 if self._graph is None else self._graph.programs
 
     def consensus_params(self):
@@ -810,13 +834,15 @@ class RoundEngine:
         checkpoint. The numpy bit-generator state rides as JSON (its 128-bit
         integers overflow msgpack's ints). ``sample_key`` is what a
         host-sampling reference engine holds, ``jax.random.PRNGKey(seed)``:
-        ``[0, seed]`` for a seed below 2**32. A device-sampling engine also
-        writes its generator's ``get_state()`` bytes as hex
-        (``torch_generator_state``) and the generator's device type
-        (``torch_generator_device``): the device stream it resumes from. A
-        streamed engine's prefetched cohort is discarded first, its draw
-        rewound, so the checkpoint holds the stream an unprefetched run
-        (and a device-pool run) would hold. A sharded engine's ranks hold the
+        ``[0, seed]`` for a seed below 2**32. A device-sampling or gossip
+        engine also writes its device generator's ``get_state()`` bytes as
+        hex (``torch_generator_state``) and the generator's device type
+        (``torch_generator_device``): the device stream it resumes from; a
+        device-sampling engine also its ids generator's
+        (``torch_generator_ids_state``). A streamed engine's prefetched
+        cohort or chunk is discarded first, its draw rewound, so the
+        checkpoint holds the streams an unprefetched run (and a device-pool
+        run) would hold. A sharded engine's ranks hold the
         same state: rank 0 writes (recording ``mesh_shards``, D), then every
         rank waits at a barrier of the client group, so a restore that
         follows on any rank finds the files."""
@@ -830,9 +856,11 @@ class RoundEngine:
             "topology": self.topology.name if self.topology is not None else None,
             "history": [dataclasses.asdict(r) for r in self.history.records],
         }
-        if self.device_sampling:
-            metadata["torch_generator_state"] = self._gen.get_state().numpy().tobytes().hex()
+        if self._gen is not None:
+            metadata["torch_generator_state"] = _state_hex(self._gen)
             metadata["torch_generator_device"] = self.device.type
+        if self._ids_gen is not None:
+            metadata["torch_generator_ids_state"] = _state_hex(self._ids_gen)
         if self._group is None:
             return save_checkpoint(
                 ckpt_dir, {"params": self.params, "strategy_state": self.outer_state},
@@ -851,10 +879,11 @@ class RoundEngine:
         engine, built with the same population and config; returns the
         restored round index. The step is pinned once, and every guard runs
         on the metadata alone before any state changes: the sampling mode,
-        the device stream (a reference device-sampling checkpoint holds a
-        threefry key, which Philox cannot continue; a generator state of
-        another device type), the topology, the strategy, and a checkpoint
-        that predates strategies loaded into a stateful one. Leaves land on
+        the topology, the device streams (a reference device-sampling or
+        gossip checkpoint holds a threefry key, which Philox cannot continue;
+        a generator state of another device type; a device-sampling
+        checkpoint without the ids generator's state), the strategy, and a
+        checkpoint that predates strategies loaded into a stateful one. Leaves land on
         the engine's device in the dtypes it holds. A pending prefetch, drawn
         for the stream before the restore, is discarded first."""
         self._discard_prefetch()
@@ -869,22 +898,6 @@ class RoundEngine:
                 f"checkpoint was written by a device_sampling={recorded_ds} engine but this "
                 f"engine has device_sampling={self.device_sampling}: resuming across sampling "
                 "modes would silently continue with a different cohort stream")
-        gen_state = None
-        if self.device_sampling:
-            if "torch_generator_state" not in meta:
-                raise ValueError(
-                    "checkpoint was written by the reference's device_sampling=True engine: "
-                    "it carries a threefry sample_key and no torch generator state, and "
-                    "Philox cannot continue threefry's stream; resume it in the reference, "
-                    "or start this engine's device stream afresh")
-            gen_device = meta.get("torch_generator_device")
-            if gen_device != self.device.type:
-                raise ValueError(
-                    f"checkpoint's torch generator state is a {gen_device} generator's but "
-                    f"this engine draws on {self.device.type}: the two devices' generators "
-                    "are different streams, so the run could not continue bit for bit")
-            gen_state = torch.frombuffer(
-                bytearray(bytes.fromhex(meta["torch_generator_state"])), dtype=torch.uint8)
         rec_topo = meta.get("topology")
         eng_topo = self.topology.name if self.topology is not None else None
         if rec_topo != eng_topo:
@@ -892,6 +905,29 @@ class RoundEngine:
                 f"checkpoint was written by a topology={rec_topo} engine but this engine "
                 f"has topology={eng_topo}: restoring across communication graphs would "
                 "silently continue a different mixing process")
+        gen_state = ids_state = None
+        if self._gen is not None:
+            if "torch_generator_state" not in meta:
+                lane = "gossip" if self.topology is not None else "device_sampling=True"
+                raise ValueError(
+                    f"checkpoint was written by the reference's {lane} engine: it carries a "
+                    "threefry sample_key and no torch generator state, and Philox cannot "
+                    "continue threefry's stream; resume it in the reference, or start this "
+                    "engine's device stream afresh")
+            gen_device = meta.get("torch_generator_device")
+            if gen_device != self.device.type:
+                raise ValueError(
+                    f"checkpoint's torch generator state is a {gen_device} generator's but "
+                    f"this engine draws on {self.device.type}: the two devices' generators "
+                    "are different streams, so the run could not continue bit for bit")
+            gen_state = _state_of_hex(meta["torch_generator_state"])
+        if self._ids_gen is not None:
+            if "torch_generator_ids_state" not in meta:
+                raise ValueError(
+                    "checkpoint predates the cohort ids' own generator (its device-sampling "
+                    "engine drew the ids from the device generator): the cohort stream "
+                    "could not continue; start this engine afresh")
+            ids_state = _state_of_hex(meta["torch_generator_ids_state"])
         recorded = meta.get("strategy")
         if recorded is not None and recorded != self.strategy.name:
             raise ValueError(
@@ -917,6 +953,8 @@ class RoundEngine:
         self.rng.bit_generator.state = json.loads(meta["rng_state"])
         if gen_state is not None:
             self._gen.set_state(gen_state)
+        if ids_state is not None:
+            self._ids_gen.set_state(ids_state)
         if "history" in meta:
             self.history = History([RoundRecord(**dict(d)) for d in meta["history"]])
         return self.round_idx
@@ -986,53 +1024,78 @@ class RoundEngine:
         batch = self._permuted_batches(xs, ys, n_real, u)
         return batch, mask, torch.from_numpy(counts.copy())
 
-    def assemble_round_batch(self, ids: torch.Tensor, u: torch.Tensor):
+    def assemble_round_batch(self, ids: torch.Tensor, u: torch.Tensor, rows=None):
         """(batch, step_mask, weights) for the device cohort ``ids`` (int64)
         and the (m, E, n_pad) uniforms ``u``, all computed on the device from
         the device counts and steps per epoch (the reference's
-        ``_assemble_batches``, ``engine.py:1498``): the device-sampling
-        round's batches, which read no host value. For the same ids and
-        uniforms they equal :meth:`materialize_round_batch`'s."""
+        ``_assemble_batches``, ``engine.py:1498``): the device-sampling and
+        gossip rounds' batches, which read no host value. ``rows``: the
+        cohort's (xs, ys) as staged by the streamed pool, else gathered from
+        the device pool. For the same ids and uniforms they equal
+        :meth:`materialize_round_batch`'s."""
         E, spe = self.cfg.E, self.packed.max_real_steps_per_epoch
         w = self._counts.index_select(0, ids)
-        batch = self._permuted_batches(self._x.index_select(0, ids),
-                                       self._y.index_select(0, ids), w.long(), u)
+        if rows is None:
+            rows = (self._x.index_select(0, ids), self._y.index_select(0, ids))
+        batch = self._permuted_batches(*rows, w.long(), u)
         spe_k = self._spe.index_select(0, ids)
         steps = torch.arange(E * spe, device=self.device) % spe
         mask = (steps[None, :] < spe_k[:, None]).to(torch.float32)
         return batch, mask, w
 
-    def _device_round(self, params, outer_state, lr):
-        """The device-sampling round body (``core.graphs``): cohort, batch
-        uniforms and codec noise from the engine's generator, in that order,
-        then the lane's round step. Returns (params, outer_state, loss).
-        Sharded, every rank draws the whole cohort's ids and uniforms, pads
-        and keeps its slots, and the whole cohort's weight total comes from
-        the device counts (the reference's ``engine.py:1688-1700``)."""
+    def _device_round(self, params, outer_state, lr, ids, *rows):
+        """The device-sampling round body (``core.graphs``): round ``lr`` (0-d
+        fp32) on the cohort ``ids`` (m,), the batch uniforms and codec noise
+        from the engine's generator, in that order, then the lane's round
+        step; the streamed pool passes the cohort's staged ``rows`` (xs,
+        ys). Returns (params, outer_state, (loss,)). Sharded, every rank
+        takes the whole cohort's ids, draws its uniforms, pads and keeps its
+        slots, and the whole cohort's weight total comes from the device
+        counts (the reference's ``engine.py:1688-1700``)."""
         gen = self._gen
-        ids = sample_clients_device(gen, self.num_clients, self._m)
         u = self._batch_uniforms(self._m, gen)
         cohort = None
         if self._group is not None:
             cohort = self._slots._replace(total=self._counts.index_select(0, ids).sum())
             ids, u = shard_rows(ids, cohort), shard_rows(u, cohort)
-        batch, mask, w = self.assemble_round_batch(ids, u)
+        batch, mask, w = self.assemble_round_batch(ids, u, rows or None)
         if cohort is not None:
             w = w * self._valid_dev
         state, metrics = self._round_step(
             RoundState(params, outer_state=outer_state),
             RoundBatch(batch, mask, w, lr=lr, gen=gen, cohort=cohort),
         )
-        return state.params, state.outer_state, metrics["loss"]
+        return state.params, state.outer_state, (metrics["loss"],)
+
+    def _gossip_round(self, stacked, outer_state, lr):
+        """The gossip round body (``core.graphs``): every node's batch
+        uniforms from the engine's generator, the batches assembled on the
+        device for ids ``arange(n_nodes)``, then ClientUpdate from each
+        replica and one ``gossip_mix`` (the reference's ``_round_gossip``
+        with its data key off the key chain). Returns (replicas,
+        outer_state, (loss, consensus))."""
+        u = self._batch_uniforms(self.num_clients, self._gen)
+        batch, mask, w = self.assemble_round_batch(self._nodes, u)
+        stacked, metrics = self._gossip_step(stacked, batch, mask, w, self._mix_idx,
+                                             self._mix_w, lr)
+        return stacked, outer_state, (metrics["loss"], metrics["consensus"])
+
+    def _round_body(self, params, outer_state, *inputs):
+        """The lane's round body for ``core.graphs``."""
+        if self.topology is not None:
+            return self._gossip_round(params, outer_state, *inputs)
+        return self._device_round(params, outer_state, *inputs)
 
     def round(self) -> Dict[str, torch.Tensor]:
         """One synchronous round; returns {'loss': device scalar}, plus
-        'consensus' on the gossip lane. On a device-sampling engine it is
-        one replay of the captured round (one eager body on the CPU)."""
+        'consensus' on the gossip lane, where it is one eager round body. On
+        a device-sampling engine it is one replay of the captured round (one
+        eager body on the CPU)."""
         if self.topology is not None:
-            return self._round_gossip()
+            loss, consensus = self._advance(1, captured=False)
+            return {"loss": loss[0], "consensus": consensus[0]}
         if self.device_sampling:
-            return {"loss": self._advance(1)[0]}
+            return {"loss": self._advance(1)[0][0]}
         if self.pool is not None:
             return self._round_streamed()
         return self._host_round(*self._next_round_inputs())
@@ -1060,8 +1123,7 @@ class RoundEngine:
               cohort: Optional[CohortSlice] = None) -> Dict[str, torch.Tensor]:
         """The lane's round step on one cohort's batches; the codec's
         generator is seeded with ``seed ^ 0x5EED``."""
-        codec_gen = None if self.codec is None else codec_generator(
-            self.codec, seed ^ 0x5EED, self.device)
+        codec_gen = None if self.codec is None else codec_generator(seed ^ 0x5EED, self.device)
         state, metrics = self._round_step(
             RoundState(self.params, outer_state=self.outer_state),
             RoundBatch(batch, mask, w, lr=lr, gen=codec_gen, cohort=cohort),
@@ -1076,19 +1138,25 @@ class RoundEngine:
         return copy.deepcopy(self.rng.bit_generator.state)
 
     def _discard_prefetch(self) -> None:
-        """Drop a staged cohort that was not played and rewind the numpy
-        stream to before its draw: exact, because nothing else drew from the
-        stream since (prepares are sequential)."""
-        if self._prefetched is None:
+        """Drop a staged cohort (or chunk) that was not played and rewind the
+        stream it was drawn from to before its draw (the numpy stream, or
+        the ids generator on the superstep lane): exact, because nothing
+        else drew from that stream since (prepares are sequential)."""
+        p = self._prefetched
+        if p is None:
             return
-        self.rng.bit_generator.state = self._prefetched["rng"]
+        if "ids_gen" in p:
+            self._ids_gen.set_state(p["ids_gen"])
+        else:
+            self.rng.bit_generator.state = p["rng"]
         self._prefetched = None
 
-    def _take_prefetch(self, for_round: int):
-        """The prefetched cohort if it was staged for ``for_round``; else
-        none, any other one discarded and its draw rewound."""
+    def _take_prefetch(self, for_round: int, r: Optional[int] = None):
+        """The prefetched cohort if it was staged for ``for_round`` (a chunk:
+        and its ``r`` rounds); else none, any other one discarded and its
+        draw rewound."""
         p = self._prefetched
-        if p is not None and p["for_round"] == for_round:
+        if p is not None and p["for_round"] == for_round and p.get("r") == r:
             self._prefetched = None
             return p
         self._discard_prefetch()
@@ -1122,11 +1190,55 @@ class RoundEngine:
             self._prefetched = self._prepare_round(self.round_idx)
         return metrics
 
+    def _draw_ids(self, r: int) -> torch.Tensor:
+        """The next r rounds' cohorts, (r, m) int64 on the host, from the ids
+        generator."""
+        return torch.stack([sample_clients_device(self._ids_gen, self.num_clients, self._m)
+                            for _ in range(r)])
+
+    def _prepare_chunk(self, for_round: int, r: int):
+        """Draw a chunk's r cohorts from the ids generator, read their rows
+        from the shards and stage them as one (r, m, n_pad, ...) block
+        (``CohortStager.stage_chunk``); the chunk's learning rates and ids
+        go up beside them. The ids generator's state before the draw rides
+        along (the reference's ``_prepare_chunk``)."""
+        snap = self._ids_gen.get_state()
+        ids = self._draw_ids(r)
+        dev, event = self._stager.stage_chunk(ids.numpy())
+        return {"for_round": for_round, "r": r, "inputs": self._upload(for_round, r, ids),
+                "dev": dev, "event": event, "ids_gen": snap}
+
+    def _upload(self, for_round: int, r: int, ids: Optional[torch.Tensor] = None):
+        """A chunk's (r,) fp32 learning rates from round ``for_round`` on,
+        and its (r, m) host ids when it has them, on the device without a
+        host wait: the chunk's own host to device copies."""
+        with sanctioned_staging():
+            lrs = host_to_device(torch.tensor(
+                [self.lr_at(for_round + j) for j in range(r)], dtype=torch.float32),
+                self.device)
+            return (lrs,) if ids is None else (lrs, host_to_device(ids, self.device))
+
+    def _chunk_inputs(self, r: int) -> Tuple[torch.Tensor, ...]:
+        """The next r rounds' per-round inputs, each with a leading (r,)
+        axis: the learning rates; on the superstep lane the cohort ids; on
+        the streamed pool the staged rows (prefetched, or staged now)."""
+        if self.topology is not None:
+            return self._upload(self.round_idx, r)
+        if self.pool is None:
+            return self._upload(self.round_idx, r, self._draw_ids(r))
+        b = self._take_prefetch(self.round_idx, r) or self._prepare_chunk(self.round_idx, r)
+        return b["inputs"] + tuple(self._stager.ready(b["dev"], b["event"]))
+
     @property
     def staged_bytes(self) -> int:
         """Bytes a streamed round stages host to device (rows, real-row
-        counts, step mask); 0 on the device pool."""
-        return 0 if self._stager is None else self._stager.nbytes
+        counts, step mask; on the superstep lane the rows and the ids); 0 on
+        the device pool."""
+        if self._stager is None:
+            return 0
+        if self.device_sampling:
+            return self._stager.rows_nbytes + 8 * self._m
+        return self._stager.nbytes
 
     # -- the buffered-async phases (core.scheduler) --------------------------
 
@@ -1159,44 +1271,37 @@ class RoundEngine:
         self.outer_state, self.params = self.strategy.apply(self.outer_state, self.params, agg)
         return torch.sum(wn * per_loss)
 
-    def _advance(self, r: int) -> torch.Tensor:
-        """r device-sampling rounds through the round graph; the (r,) losses
-        stay on the device. The r learning rates are uploaded once, the one
-        host to device copy of the chunk."""
-        with sanctioned_staging():
-            lrs = torch.tensor([self.lr_at(self.round_idx + j) for j in range(r)],
-                               dtype=torch.float32).to(self.device)
-        self.params, self.outer_state, losses = self._graph.run(
-            self._device_round, self.params, self.outer_state, lrs)
+    def _advance(self, r: int, captured: bool = True) -> Tuple[torch.Tensor, ...]:
+        """r rounds of the lane's round body (the superstep lane's, the
+        gossip lane's), through the round graph, or eagerly when not
+        ``captured``; the (r,) metrics stay on the device. A streamed
+        engine with ``prefetch`` stages the next chunk of r while these
+        rounds run."""
+        inputs = self._chunk_inputs(r)
+        run = self._graph.run if captured else run_eager
+        self.params, self.outer_state, metrics = run(
+            self._round_body, self.params, self.outer_state, inputs)
         self.round_idx += r
-        return losses
-
-    def _superstep(self, r: int) -> np.ndarray:
-        """Advance r rounds with one host sync (the reference's
-        ``engine.py:1120``); returns the (r,) losses, read back once."""
-        losses = self._advance(r)
-        with sanctioned_staging():
-            return losses.cpu().numpy()
-
-    def _round_gossip(self) -> Dict[str, torch.Tensor]:
-        """Every node trains its own client from its replica, then one
-        mixing step. No cohort draw: ids are all nodes, and the one host
-        integer drawn seeds the batch permutations."""
-        lr = self.lr_at(self.round_idx)
-        seed = int(self.rng.integers(2**31))
-        batch, mask, w = self.materialize_round_batch(np.arange(self.num_clients), seed)
-        self.params, metrics = self._gossip_step(
-            self.params, batch, mask, w, self._mix_idx, self._mix_w, lr
-        )
-        self.round_idx += 1
+        if self._stager is not None and self._prefetch_depth > 0:
+            # The chunk above is queued, not finished: this draw, shard read
+            # and copy overlap its replays on the card.
+            self._prefetched = self._prepare_chunk(self.round_idx, r)
         return metrics
+
+    def _superstep(self, r: int) -> Tuple[np.ndarray, ...]:
+        """Advance r captured rounds with one host sync (the reference's
+        ``engine.py:1120``); returns the (r,) losses, and on the gossip lane
+        the (r,) consensus distances, read back once."""
+        metrics = self._advance(r)
+        with sanctioned_staging():
+            return tuple(torch.stack(metrics).cpu().numpy())
 
     def _resolve_rounds_per_step(self, rounds_per_step, n_rounds: int,
                                  eval_every: int) -> int:
-        """The reference's ``engine.py:1092``: ``None`` takes the engine's
-        default, then auto-selects: a host-sampled engine runs a round a
-        step; a device-sampling one a chunk per evaluation (``eval_every``)
-        with an ``eval_fn``, else the whole run."""
+        """The reference's ``engine.py:1092`` and ``:1255``: ``None`` takes the
+        engine's default, then auto-selects: a host-sampled or gossip engine
+        runs a round a step; a device-sampling one a chunk per evaluation
+        (``eval_every``) with an ``eval_fn``, else the whole run."""
         if rounds_per_step is None:
             rounds_per_step = self.default_rounds_per_step
         if rounds_per_step is None:
@@ -1207,15 +1312,11 @@ class RoundEngine:
         R = int(rounds_per_step)
         if R < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
-        if R > 1 and self.topology is not None:
-            raise ValueError(
-                "rounds_per_step > 1 on the gossip lane: the gossip superstep is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
         if R > 1 and self.async_config is not None:
             raise ValueError(
                 "async_config replaces the round loop entirely; "
                 f"rounds_per_step={rounds_per_step} has no meaning there")
-        if R > 1 and not self.device_sampling:
+        if R > 1 and not self.device_sampling and self.topology is None:
             raise ValueError(
                 "rounds_per_step > 1 needs RoundEngine(device_sampling=True): the "
                 "superstep draws its cohorts on the device from the engine's generator, "
@@ -1234,7 +1335,9 @@ class RoundEngine:
         rounds and after the last; stop early once ``target_acc`` is met.
         Each record's ``wall_s`` ends at the synced loss read. On the gossip
         lane each record also carries the consensus distance, read in the
-        same sync as the loss, and evaluation sees ``consensus_params()``.
+        same sync as the loss, and evaluation sees ``consensus_params()``;
+        ``rounds_per_step=R`` > 1 runs it in captured chunks of R, as the
+        superstep lane below (the reference's ``_run_gossip``).
 
         The host-sampled star lanes run in ``core.scheduler``: without a
         latency model the plain sync schedule, with ``latency=`` the
@@ -1258,17 +1361,17 @@ class RoundEngine:
                 "run(target_acc=...) needs an eval_fn to measure accuracy"
             )
         R = self._resolve_rounds_per_step(rounds_per_step, n_rounds, eval_every)
-        if self.topology is not None:
+        if self.topology is not None and R == 1:
             return self._run_gossip(n_rounds, eval_every, target_acc, verbose)
         if self.async_config is not None:
             return RoundScheduler(self).run_async(n_rounds, eval_every, target_acc, verbose)
-        if self.device_sampling:
+        if self.device_sampling or self.topology is not None:
             return self._run_supersteps(n_rounds, R, eval_every, target_acc, verbose)
         return RoundScheduler(self).run_sync(n_rounds, eval_every, target_acc, verbose)
 
     def _run_gossip(self, n_rounds, eval_every, target_acc, verbose) -> History:
-        """The gossip lane's round loop: the loss and the consensus distance
-        read back in one sync a round."""
+        """The gossip lane's eager round loop (R = 1): the loss and the
+        consensus distance read back in one sync a round."""
         for i in range(n_rounds):
             t0 = time.perf_counter()
             metrics = self.round()
@@ -1283,18 +1386,21 @@ class RoundEngine:
         return self.history
 
     def _run_supersteps(self, n_rounds, R, eval_every, target_acc, verbose) -> History:
-        """The reference's ``_run_supersteps`` (``engine.py:1203``)."""
+        """The reference's ``_run_supersteps`` (``engine.py:1203``) and, on
+        the gossip lane, its chunked ``_run_gossip`` (``:1246``): each
+        gossip record carries its round's consensus distance."""
         done = 0
         while done < n_rounds:
             r = min(R, n_rounds - done)
             t0 = time.perf_counter()
-            losses = self._superstep(r)
+            losses, *consensus = self._superstep(r)
             chunk_s = time.perf_counter() - t0
             done += r
             for j in range(r):
                 self.history.records.append(RoundRecord(
                     round=self.round_idx - r + j + 1, train_loss=float(losses[j]),
-                    wall_s=chunk_s / r))
+                    wall_s=chunk_s / r,
+                    consensus=float(consensus[0][j]) if consensus else None))
             crossed = self.round_idx // eval_every > (self.round_idx - r) // eval_every
             if self.eval_fn is not None and (crossed or done >= n_rounds):
                 acc = self._evaluate(self.history.records[-1], verbose)

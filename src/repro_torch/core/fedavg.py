@@ -9,8 +9,8 @@
 - ``sample_clients``     S_t = random set of m = max(C*K, 1) clients, the
                          same numpy draw as the reference, so the same seed
                          picks the same cohort ids.
-- ``sample_clients_device``  the same draw on the device from a
-                         ``torch.Generator`` (the superstep lane).
+- ``sample_clients_device``  the same draw from a ``torch.Generator``
+                         (the superstep lane's, from its ids generator).
 
 Cohort sharding (``RoundEngine(mesh=)``): ``CohortSlice`` names a rank's
 slots of a cohort padded with ghost clients, ``shard_rows`` cuts a rank's
@@ -70,14 +70,14 @@ def cohort_size(n_clients: int, C: float) -> int:
 
 
 def sample_clients_device(gen: torch.Generator, n_clients: int, m: int) -> torch.Tensor:
-    """On-device S_t draw (the reference's ``fedavg.py:57``): m distinct
-    client ids, uniform without replacement, as the argsort of
-    ``n_clients`` uniforms from ``gen``, the first m kept; int64 on
-    ``gen``'s device. No host value is read, so the draw can sit inside a
-    captured CUDA graph. A different stream from :func:`sample_clients`:
-    the same distribution, other realizations for the same seed."""
-    u = torch.rand(n_clients, generator=gen, device=gen.device)
-    return torch.argsort(u)[:m]
+    """The superstep lane's S_t draw (the reference's ``fedavg.py:57``): m
+    distinct client ids, uniform without replacement, the first m of a
+    ``torch.randperm`` of ``n_clients`` from ``gen``; int64 on ``gen``'s
+    device. The engine draws from its ids generator on the host, which then
+    knows a chunk's cohorts without a sync. A different stream from
+    :func:`sample_clients`: the same distribution, other realizations for
+    the same seed."""
+    return torch.randperm(n_clients, generator=gen, device=gen.device)[:m]
 
 
 class CohortSlice(NamedTuple):

@@ -1,35 +1,40 @@
 """One round body, captured once as a CUDA graph and replayed once a round:
-the port's counterpart of the reference's superstep scan
-(``repro/core/engine.py:1668`` ``_engine_superstep``).
+the port's counterpart of the reference's superstep scans
+(``repro/core/engine.py:1668`` ``_engine_superstep`` and ``:1759``
+``_engine_gossip_superstep``).
 
-The body is ``body(params, outer_state, lr) -> (params, outer_state,
-loss)``: the engine's device-sampling round (cohort draw, batch assembly,
-ClientUpdate, encode, aggregate, ``strategy.apply``), every random number
-drawn from the one ``torch.Generator`` the engine holds, ``lr`` a 0-d fp32
-tensor. :class:`RoundGraph` runs r such rounds (the body is an argument of
-each call, so a graph holds no reference back to its engine, and an engine
-and its graph are freed as soon as the engine is dropped, never by the
-cyclic collector in the middle of another capture, which would invalidate
-it):
+The body is ``body(params, outer_state, *inputs) -> (params, outer_state,
+metrics)``: one round of an engine's lane (the star lanes' cohort round,
+the staged round of the streamed pool, the gossip round), every random
+number drawn from the one ``torch.Generator`` the engine holds. ``inputs``
+are the round's per-replay tensors (its 0-d fp32 ``lr``, its (m,) cohort
+ids, its staged rows) and ``metrics`` a tuple of 0-d tensors (the loss, and
+on the gossip lane the consensus distance). :class:`RoundGraph` runs r such
+rounds from a chunk's inputs, each with a leading (r,) axis. The body is an
+argument of each call, so a graph holds no reference back to its engine,
+and an engine and its graph are freed as soon as the engine is dropped,
+never by the cyclic collector in the middle of another capture, which would
+invalidate it:
 
-- on the CPU, eagerly, r calls of the body;
+- on the CPU, eagerly, r calls of the body (:func:`run_eager`);
 - on a card, the first call warms the body up and captures it, and every
   round is one ``CUDAGraph.replay()``. The graph owns static buffers (the
-  params, the strategy state, the 0-d ``lr`` and the 0-d ``loss``); the
-  captured body ends by copying each output leaf into its input buffer, so
-  each replay starts from the last one's result. The host copies ``lr[j]``
-  in (device to device), replays, and copies ``loss`` out: it reads no
-  value, so r rounds make no sync.
+  params, the strategy state, one per input, one per metric); the captured
+  body ends by copying each output leaf into its input buffer, so each
+  replay starts from the last one's result. The host copies round j's
+  inputs in (device to device), replays, and copies the metrics out: it
+  reads no value, so r rounds make no sync.
 
 Warm-up: cuBLAS and cuDNN set up their handles and pick their algorithms,
 and the kernel libraries load, on clones of the buffers and on a side
 stream; the generator's state is saved before and restored after, so the
-first captured round draws what an eager first round would. The generator
-is registered with the graph, and each replay advances it by the round's
-draws, as an eager round does. The cyclic collector is off during the
-capture (``torch.cuda.graph`` runs it just before), so no other dead graph
-is destroyed inside it. A capture or replay that fails raises: there is no
-eager fallback on a card.
+first captured round draws what an eager first round would. The static
+inputs start as the first call's round 0, so the warm-up and the capture
+index with real cohort ids. The generator is registered with the graph, and
+each replay advances it by the round's draws, as an eager round does. The
+cyclic collector is off during the capture (``torch.cuda.graph`` runs it
+just before), so no other dead graph is destroyed inside it. A capture or
+replay that fails raises: there is no eager fallback on a card.
 
 The kernel wrappers' launch counters count the warm-up's launches, which
 run; the capture only records launches and the replays run on the card
@@ -40,7 +45,7 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -55,6 +60,16 @@ def _copy_into(dst_tree, src_tree) -> None:
     for dst, src in zip(tree_leaves(dst_tree), tree_leaves(src_tree)):
         if dst is not src:
             dst.copy_(src)
+
+
+def run_eager(body: Callable, params, outer_state, inputs: Sequence[torch.Tensor]):
+    """r = len(inputs[0]) eager calls of ``body``, round j on row j of each
+    input: (params, outer_state, metrics), each metric stacked to (r,)."""
+    rounds = []
+    for j in range(inputs[0].shape[0]):
+        params, outer_state, metrics = body(params, outer_state, *(x[j] for x in inputs))
+        rounds.append(metrics)
+    return params, outer_state, tuple(torch.stack(m) for m in zip(*rounds))
 
 
 class RoundGraph:
@@ -76,41 +91,42 @@ class RoundGraph:
         self.warmup_s = None
         self.capture_s = None
 
-    def run(self, body: Callable, params, outer_state, lrs: torch.Tensor):
-        """(params, outer_state, (r,) fp32 losses) after r = len(lrs) rounds
-        of ``body``, all on the generator's device; the losses are not read
-        back. On a card ``body`` is called only by the first call, which
-        captures it."""
+    def run(self, body: Callable, params, outer_state,
+            inputs: Sequence[torch.Tensor]) -> Tuple:
+        """(params, outer_state, metrics) after r = len(inputs[0]) rounds of
+        ``body``, all on the generator's device, each metric an (r,) tensor
+        that is not read back. On a card ``body`` is called only by the
+        first call, which captures it; every later call brings inputs of
+        the captured shapes (the engine's are fixed by its cohort size)."""
         if self.gen.device.type != "cuda":
             self.programs = max(self.programs, 1)
-            losses = []
-            for j in range(lrs.shape[0]):
-                params, outer_state, loss = body(params, outer_state, lrs[j])
-                losses.append(loss)
-            return params, outer_state, torch.stack(losses)
+            return run_eager(body, params, outer_state, inputs)
         if self.graph is None:
-            self._capture(body, params, outer_state)
+            self._capture(body, params, outer_state, inputs)
         _copy_into(self._params, params)
         _copy_into(self._outer, outer_state)
-        losses = torch.empty(lrs.shape[0], dtype=torch.float32, device=lrs.device)
-        for j in range(lrs.shape[0]):
-            self._lr.copy_(lrs[j])
+        r = inputs[0].shape[0]
+        out = tuple(torch.empty(r, dtype=m.dtype, device=m.device) for m in self._metrics)
+        for j in range(r):
+            for static, x in zip(self._inputs, inputs):
+                static.copy_(x[j])
             self.graph.replay()
-            losses[j].copy_(self._loss)
-        return _clone(self._params), _clone(self._outer), losses
+            for o, m in zip(out, self._metrics):
+                o[j].copy_(m)
+        return _clone(self._params), _clone(self._outer), out
 
-    def _capture(self, body: Callable, params, outer_state) -> None:
+    def _capture(self, body: Callable, params, outer_state, inputs) -> None:
         device = self.gen.device
         self._params = _clone(params)
         self._outer = _clone(outer_state)
-        self._lr = torch.zeros((), dtype=torch.float32, device=device)
+        self._inputs = tuple(x[0].clone() for x in inputs)
         t0 = time.perf_counter()
         state = self.gen.get_state()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         try:
             with torch.cuda.stream(side):
-                body(_clone(self._params), _clone(self._outer), self._lr)
+                body(_clone(self._params), _clone(self._outer), *self._inputs)
             torch.cuda.current_stream(device).wait_stream(side)
             torch.cuda.synchronize(device)
         finally:
@@ -122,7 +138,8 @@ class RoundGraph:
         gc.disable()
         try:
             with torch.cuda.graph(graph):
-                params_out, outer_out, self._loss = body(self._params, self._outer, self._lr)
+                params_out, outer_out, self._metrics = body(self._params, self._outer,
+                                                            *self._inputs)
                 _copy_into(self._params, params_out)
                 _copy_into(self._outer, outer_out)
         finally:

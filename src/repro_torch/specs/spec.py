@@ -157,10 +157,12 @@ class AsyncSpec:
 @dataclasses.dataclass(frozen=True)
 class ExecutionSpec:
     """How the experiment runs: the reference's execution lane fields
-    (``pool``: ``"auto"``, ``"device"`` or ``"streamed"``, with
-    ``pool_shard_clients`` and ``prefetch``); ``from_spec`` refuses each
-    field the port has no lane for yet, naming its ROADMAP item (cohort
-    sharding, item 7)."""
+    (``mesh_axes`` for cohort sharding, ``device_sampling`` and
+    ``rounds_per_step`` for the superstep lanes, gossip's included,
+    ``pool``: ``"auto"``, ``"device"`` or ``"streamed"``, with
+    ``pool_shard_clients`` and ``prefetch``). ``from_spec`` runs every
+    lane; it refuses ``interpret`` (the port has no kernel interpreter) and
+    an ``accum_dtype`` other than float32."""
 
     mesh_axes: Optional[str] = None
     device_sampling: bool = False

@@ -277,14 +277,16 @@ def test_port_checkpoint_resumes_in_the_reference(strategy, tmp_path):
 
 
 @pytest.mark.parametrize("lane", ["fedavg", "fedavgm", "q8", "ring", "superstep",
-                                  "superstep_fedavgm"])
+                                  "superstep_fedavgm", "superstep_streamed"])
 def test_resume_in_the_port_is_bit_for_bit(lane, tmp_path):
     """4 rounds equal 2 rounds, save, restore into a fresh engine, 2 more;
-    on the superstep lanes the device generator's stream continues too."""
+    on the superstep and gossip lanes the device generator's stream
+    continues too, and on the superstep lanes the ids generator's."""
     kw = {"fedavgm": dict(strategy=FedAvgM(0.9)), "q8": dict(codec=quantize_codec(8, 256)),
           "ring": dict(topology="ring"), "fedavg": {},
           "superstep": dict(device_sampling=True),
-          "superstep_fedavgm": dict(device_sampling=True, strategy=FedAvgM(0.9))}[lane]
+          "superstep_fedavgm": dict(device_sampling=True, strategy=FedAvgM(0.9)),
+          "superstep_streamed": dict(device_sampling=True, pool="streamed")}[lane]
     cfg = FedAvgConfig(**{**CFG, "C": 1.0 if lane == "ring" else CFG["C"]})
     _, model = _models()
 
@@ -303,10 +305,47 @@ def test_resume_in_the_port_is_bit_for_bit(lane, tmp_path):
     assert [dataclasses.asdict(r) | {"wall_s": 0} for r in a.history.records] == \
         [dataclasses.asdict(r) | {"wall_s": 0} for r in c.history.records]
     assert a.rng.bit_generator.state == c.rng.bit_generator.state
-    if a.device_sampling:
+    if a.device_sampling or a.topology is not None:
         assert torch.equal(a._gen.get_state(), c._gen.get_state())
     else:
         assert a._gen is c._gen is None
+    if a.device_sampling:
+        assert torch.equal(a._ids_gen.get_state(), c._ids_gen.get_state())
+    else:
+        assert a._ids_gen is c._ids_gen is None
+
+
+def test_a_device_sampling_checkpoint_carries_both_generators(tmp_path):
+    """The device generator (batches, codec noise) and the host ids
+    generator (cohorts) are both written and both restored; a checkpoint
+    with the device stream alone (written before the ids had a generator of
+    their own) is refused before any state changes."""
+    _, model = _models()
+
+    def fresh():
+        return RoundEngine(model.loss, model.init(0), _clients(), FedAvgConfig(**CFG),
+                           device_sampling=True, device="cpu")
+
+    a = fresh()
+    a.run(3, rounds_per_step=3)
+    a.save(tmp_path / "both")
+    meta = peek_metadata(tmp_path / "both")
+    assert {"torch_generator_state", "torch_generator_ids_state"} <= set(meta)
+    b = fresh()
+    b.restore(tmp_path / "both")
+    assert torch.equal(a._gen.get_state(), b._gen.get_state())
+    assert torch.equal(a._ids_gen.get_state(), b._ids_gen.get_state())
+    a.run(2, rounds_per_step=2)
+    b.run(2, rounds_per_step=2)
+    assert _equal(a.params, b.params)
+    save_checkpoint(tmp_path / "old", {"params": a.params, "strategy_state": a.outer_state},
+                    step=5, metadata={k: v for k, v in meta.items()
+                                      if k != "torch_generator_ids_state"})
+    c = fresh()
+    before = _state(c)
+    with pytest.raises(ValueError, match="predates the cohort ids' own generator"):
+        c.restore(tmp_path / "old")
+    _unchanged(c, before)
 
 
 def _state(eng):

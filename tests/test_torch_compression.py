@@ -81,8 +81,8 @@ def _t(a):
 
 
 def _gen(seed):
-    """The CPU generator ``encode`` draws from, seeded as the host-sampled
-    round seeds it."""
+    """The generator ``encode`` draws from (``codec_generator`` on the
+    CPU), seeded as the host-sampled round seeds it."""
     return torch.Generator().manual_seed(seed)
 
 
@@ -468,6 +468,91 @@ def test_lowrank_unbiased(rng):
     d1 = comp._lowrank_dims(300)[0]
     sigma = float(np.linalg.norm(flat) / np.sqrt(d1)) * np.sqrt((d1 + 1) / 8 / reps)
     assert float(np.abs(mean - flat).mean()) <= 5 * sigma + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# low-rank's sketch: a pure function of its seed on any device
+# ---------------------------------------------------------------------------
+
+def _np_hash32(x):
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x7FEB352D)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def test_lowrank_sketch_bits_match_a_uint32_reference(rng):
+    """The integer stage word for word against numpy's wrapping uint32
+    arithmetic (the torch version multiplies in 16-bit halves inside int64,
+    so that every device gives these bits)."""
+    seeds = np.concatenate([rng.integers(0, 2**62, 5, dtype=np.int64),
+                            np.asarray([0, 1, 2**32 - 1, 2**32, 2**62 - 1], np.int64)])
+    count = 1000
+    got = comp.sketch_bits(torch.from_numpy(seeds), count).numpy()
+    with np.errstate(over="ignore"):
+        lo = (seeds & 0xFFFFFFFF).astype(np.uint32)
+        hi = ((seeds >> 32) & 0xFFFFFFFF).astype(np.uint32)
+        k1 = _np_hash32(lo)
+        k2 = _np_hash32(hi ^ k1)
+        c = np.arange(count, dtype=np.uint32)
+        want = _np_hash32(_np_hash32(c[None, :] ^ k1[:, None]) ^ k2[:, None])
+    assert got.dtype == np.int64 and ((got >= 0) & (got < 2**32)).all()
+    np.testing.assert_array_equal(got.astype(np.uint32), want)
+    ones = np.unpackbits(want.view(np.uint8)).mean()
+    assert abs(ones - 0.5) < 0.01                    # no stuck bits
+
+
+def test_lowrank_sketch_is_a_pure_function_of_the_seed(rng):
+    """The same seed regrows the same A (and a seed's A does not depend on
+    the seeds beside it); other seeds give other A; the entries are
+    N(0, 1), so E[A A^T] = rank I."""
+    d1, rank = 40, 8
+    seeds = torch.from_numpy(rng.integers(0, 2**62, 64, dtype=np.int64))
+    a = comp.lowrank_sketch(seeds, d1, rank)
+    assert a.shape == (64, d1, rank) and a.dtype == torch.float32
+    assert torch.equal(a, comp.lowrank_sketch(seeds.clone(), d1, rank))
+    assert torch.equal(a[7:9], comp.lowrank_sketch(seeds[7:9], d1, rank))
+    assert not torch.equal(a[0], a[1])
+    z = a.double()
+    assert abs(float(z.mean())) < 0.02 and abs(float(z.var()) - 1.0) < 0.03
+    assert float(z.abs().max()) < 6.0
+    gram = (torch.einsum("kdr,ker->de", z, z) / 64).numpy()
+    # an entry sums 64 * rank products: sd sqrt(512) / 64 off the diagonal,
+    # sqrt(2 * 512) / 64 on it; every entry within 5 sd
+    off = gram[~np.eye(d1, dtype=bool)]
+    assert np.abs(off).max() < 5 * np.sqrt(64 * rank) / 64
+    assert np.abs(np.diag(gram) - rank).max() < 5 * np.sqrt(2 * 64 * rank) / 64
+    np.testing.assert_allclose(np.diag(gram).mean(), rank, rtol=0.05)
+
+
+def test_lowrank_on_the_superstep_lane_keeps_its_wire_bytes():
+    """Under ``device_sampling=True`` the seeds come from the engine's
+    generator and A is regrown from them: a payload still realizes
+    ``wire_bytes`` = 4 rank d2 + SEED_BYTES, the reference's table, and the
+    server's aggregate is the weighted mean of the clients' decodes."""
+    clients = _small_clients([12, 5, 30, 8, 19, 7])
+    model = paper.mnist_2nn(n_classes=5, d_in=20, device="cpu")
+    n = sum(p.numel() for p in model.init(0).values() for p in p.values())
+    box = {}
+    codec = comp.lowrank_codec(8)
+
+    def encode(gen, flat, cohort=None):
+        box["payloads"] = codec.encode(gen, flat)
+        return box["payloads"]
+
+    eng = RoundEngine(model.loss, model.init(0), clients,
+                      FedAvgConfig(C=0.5, E=1, B=4, lr=0.1, seed=11),
+                      codec=codec._replace(encode=encode), device_sampling=True, device="cpu")
+    eng.run(2, rounds_per_step=2)
+    one = {k: v[0] for k, v in box["payloads"].items()}
+    want = ref_comp.lowrank_codec(8).wire_bytes(n)
+    assert comp.realized_device_bytes(one) == codec.wire_bytes(n) == want
+    assert codec.payload_bytes(one) == want
+    w = np.asarray([3.0, 1.0, 2.0], np.float32)
+    agg = comp.decode_aggregate(codec, box["payloads"], w, n)
+    mean = (codec.decode(box["payloads"], n) * _t(w / w.sum())[:, None]).sum(0)
+    np.testing.assert_allclose(agg.numpy(), mean.numpy(), atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,11 @@ The mixing plans are compared byte for byte; ``gossip_mix`` on CPU tensors
 and its dense oracle; one gossip round on the reference's own batches
 against ``_engine_gossip_round`` (through ``RoundEngine.round`` of a
 reference gossip engine). Whole runs draw their batch permutations from a
-torch generator, so they are compared within a band, never bitwise. The
-CUDA kernel itself is checked on the card (``tests/test_torch_gpu.py`` and
-``chip_smoke.py``)."""
+torch generator, so they are compared within a band, never bitwise. Within
+the port the gossip superstep (``run(n, rounds_per_step=R)``, the
+reference's ``_run_gossip``) equals R eager ``round()`` calls bit for bit,
+and a checkpoint resumes bit for bit. The CUDA kernel itself is checked on
+the card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels.gossip_mix import gossip_mix as ref_mix  # noqa: E402
 from repro.kernels.gossip_mix import gossip_mix_ref as ref_mix_oracle  # noqa: E402
 from repro.models import paper as ref_paper  # noqa: E402
+from repro_torch.checkpoint import peek_metadata  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy, replicas_from_numpy  # noqa: E402
 from repro_torch.core import topology  # noqa: E402
 from repro_torch.core.compression import quantize_codec  # noqa: E402
@@ -351,9 +354,11 @@ def test_gossip_engine_builds_the_reference_plan_and_replicas():
 def test_full_topology_matches_fedavg_round_for_round():
     """Equal shards, so the full graph's uniform 1/n weights are FedAvg's
     n_k/n; node k trains client k on the batches a star round over
-    ids = arange(K) draws from the same seed. The tolerances are the
-    reference's own anchor test's (``tests/test_engine_gossip.py``): the
-    mix and the server average sum 8 fp32 terms in other orders."""
+    ids = arange(K) assembles from the same uniforms: the engine's device
+    stream, replayed here from a generator seeded alike (as the reference's
+    test replays its key chain). The tolerances are the reference's own
+    anchor test's (``tests/test_engine_gossip.py``): the mix and the server
+    average sum 8 fp32 terms in other orders."""
     r = np.random.default_rng(0)
     clients = [(r.normal(size=(16, 20)).astype(np.float32),
                 r.integers(0, 5, size=16).astype(np.int32)) for _ in range(8)]
@@ -362,18 +367,20 @@ def test_full_topology_matches_fedavg_round_for_round():
     cfg = FedAvgConfig(C=1.0, E=2, B=8, lr=0.1, seed=3)
     eng = RoundEngine(model.loss, params, clients, cfg, topology="full", device="cpu")
     star = build_simulation_round_step(model.loss, strategy=FedAvg())
-    seeds = np.random.default_rng(cfg.seed)
+    gen = torch.Generator().manual_seed(cfg.seed)
     state = RoundState(params, outer_state=())
     for rnd in range(3):
         m = eng.round()
-        batch, mask, w = eng.materialize_round_batch(np.arange(8), int(seeds.integers(2**31)))
+        batch, mask, w = eng.assemble_round_batch(torch.arange(8), eng._batch_uniforms(8, gen))
         state, star_m = star(state, RoundBatch(batch, mask, w, lr=eng.lr_at(rnd)))
         got = params_to_numpy(eng.consensus_params())
         for a, b in zip(tree_leaves(got), tree_leaves(params_to_numpy(state.params))):
             np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
         np.testing.assert_allclose(float(m["consensus"]), 0.0, atol=1e-5)
         np.testing.assert_allclose(float(m["loss"]), float(star_m["loss"]), atol=1e-5)
-    assert eng.rng.bit_generator.state == seeds.bit_generator.state
+    assert torch.equal(eng._gen.get_state(), gen.get_state())
+    # the gossip lane draws nothing from the numpy stream any more
+    assert eng.rng.bit_generator.state == np.random.default_rng(cfg.seed).bit_generator.state
 
 
 # ---------------------------------------------------------------------------
@@ -475,3 +482,118 @@ def test_noniid_2nn_ring_run_within_band_of_reference():
         assert abs(a.test_acc - b.test_acc) <= 0.05, (a, b)
         assert abs(a.consensus - b.consensus) <= 0.25 * b.consensus, (a, b)
     assert got[-1].test_acc > got[0].test_acc - 0.05
+
+
+# ---------------------------------------------------------------------------
+# the gossip superstep: chunks of R captured rounds (eager on the CPU)
+# ---------------------------------------------------------------------------
+
+def _gossip_engine(kind, eval_fn=None, seed=3, **kw):
+    _, model = _models("2nn")
+    cfg = FedAvgConfig(C=1.0, E=2, B=8, lr=0.1, lr_decay=0.97, seed=seed)
+    return RoundEngine(model.loss, model.init(0), _clients("2nn", [9, 24, 17, 8, 14, 20]), cfg,
+                       topology=kind, eval_fn=eval_fn, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kind", ["ring", "smallworld", "full"])
+def test_gossip_superstep_matches_rounds_bitwise(kind):
+    """run(6, rounds_per_step=4) (a chunk of 4 and a ragged 2) == 6 x
+    ``round()``: replicas, losses, consensus distances and the device
+    generator's state, bit for bit (the reference's
+    ``tests/test_engine_gossip.py:94``)."""
+    a, b = _gossip_engine(kind), _gossip_engine(kind)
+    per_round = [b.round() for _ in range(6)]
+    h = a.run(6, eval_every=100, rounds_per_step=4)
+    assert [r.train_loss for r in h.records] == [float(m["loss"]) for m in per_round]
+    assert [r.consensus for r in h.records] == [float(m["consensus"]) for m in per_round]
+    assert [r.round for r in h.records] == list(range(1, 7))
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+    assert torch.equal(a._gen.get_state(), b._gen.get_state())
+    assert a.round_idx == b.round_idx == 6
+    if kind == "full":
+        assert max(r.consensus for r in h.records) < 1e-5
+
+
+def test_gossip_round_programs_after_two_chunks():
+    """One round program whatever R is: two chunks and a ragged one build
+    one (the reference's ``test_gossip_compile_count``); eager rounds and
+    the default R = 1 build none."""
+    eng = _gossip_engine("ring")
+    eng.run(2)                                 # R = 1: eager rounds
+    eng.round()
+    assert eng.num_compilations == 0
+    eng.run(4, eval_every=100, rounds_per_step=2)
+    assert eng.num_compilations == 1
+    eng.run(3, eval_every=100, rounds_per_step=2)
+    eng.round()
+    assert eng.num_compilations == 1 and eng.round_idx == 11
+
+
+def test_gossip_superstep_evaluates_consensus_params_at_chunk_boundaries():
+    """Evaluation runs whenever a chunk crosses an eval point, on the
+    node-mean model (the unstacked ``consensus_params()``), and every round
+    records its consensus distance."""
+    seen = []
+
+    def eval_fn(p):
+        seen.append((p["fc1"]["w"].ndim, p["fc1"]["w"].clone()))
+        return {"acc": 0.5, "loss": 1.0}
+
+    eng = _gossip_engine("ring", eval_fn=eval_fn)
+    h = eng.run(9, eval_every=2, rounds_per_step=3)      # chunks end at 3, 6, 9
+    assert [r.round for r in h.records if r.test_acc is not None] == [3, 6, 9]
+    assert [nd for nd, _ in seen] == [2, 2, 2]
+    assert torch.equal(seen[-1][1], eng.consensus_params()["fc1"]["w"])
+    assert all(isinstance(r.consensus, float) and r.consensus > 0 for r in h.records)
+    assert len({r.wall_s for r in h.records[:3]}) == 1
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_gossip_resume_is_bitwise(R, tmp_path):
+    """2 rounds + save + restore into a fresh engine + 2 == 4 rounds, bit
+    for bit, on the eager loop and in chunks (the reference's
+    ``tests/test_engine_gossip.py:154``): the checkpoint carries the device
+    generator's state."""
+    straight = _gossip_engine("ring")
+    straight.run(4, eval_every=100, rounds_per_step=R)
+    a = _gossip_engine("ring")
+    a.run(2, eval_every=100, rounds_per_step=R)
+    a.save(tmp_path)
+    meta = peek_metadata(tmp_path)
+    assert meta["topology"] == a.topology.name and meta["torch_generator_device"] == "cpu"
+    assert "torch_generator_ids_state" not in meta      # no cohort draw
+    b = _gossip_engine("ring")
+    assert b.restore(tmp_path) == 2
+    b.run(2, eval_every=100, rounds_per_step=R)
+    for x, y in zip(tree_leaves(straight.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+    assert [r.train_loss for r in straight.history.records] == \
+        [r.train_loss for r in b.history.records]
+    assert [r.consensus for r in b.history.records][:2] == \
+        [r.consensus for r in a.history.records]
+    assert torch.equal(straight._gen.get_state(), b._gen.get_state())
+
+
+def test_gossip_engine_refuses_a_reference_gossip_checkpoint(tmp_path):
+    """A reference gossip checkpoint carries a threefry ``sample_key`` and
+    no torch generator state: the port refuses it before any state changes,
+    with the device-sampling guard's words, rather than continue another
+    stream."""
+    ref_model, model = _models("2nn")
+    clients = _clients("2nn", [9, 24, 17, 8, 14])
+    jp = ref_model.init(jax.random.PRNGKey(2))
+    cfg = dict(C=1.0, E=1, B=8, lr=0.1, seed=0)
+    ref = RefEngine(ref_model.loss, jp, clients, RefConfig(**cfg), topology="ring",
+                    interpret=True)
+    ref.run(1, eval_every=100)
+    ref.save(tmp_path)
+    eng = RoundEngine(model.loss, params_from_numpy(jax.tree.map(np.array, jp), model,
+                                                    device="cpu"),
+                      clients, FedAvgConfig(**cfg), topology="ring", device="cpu")
+    before = [t.clone() for t in tree_leaves(eng.params)]
+    gen = eng._gen.get_state().clone()
+    with pytest.raises(ValueError, match="reference's gossip engine: it carries a threefry"):
+        eng.restore(tmp_path)
+    assert all(torch.equal(x, y) for x, y in zip(before, tree_leaves(eng.params)))
+    assert torch.equal(gen, eng._gen.get_state()) and eng.round_idx == 0

@@ -1437,6 +1437,18 @@ def _superstep_engine(cuda, lane, model_name="mnist_2nn", **kw):
     return RoundEngine(model.loss, model.init(0), clients, cfg, device=cuda, **lane_kw, **kw)
 
 
+def _eager_round(eng):
+    """One eager round of ``eng``'s lane on clones of its params, its next
+    round's inputs drawn as ``round()`` draws them: (params, outer_state,
+    metrics), each metric a (1,) tensor. Advances the engine's streams."""
+    from repro_torch.core.graphs import run_eager
+    from repro_torch.utils.tree import tree_map
+
+    p, o, metrics = run_eager(eng._round_body, tree_map(torch.clone, eng.params),
+                              tree_map(torch.clone, eng.outer_state), eng._chunk_inputs(1))
+    return p, o, tuple(m[0] for m in metrics)
+
+
 def _leaves(tree):
     from repro_torch.utils.tree import tree_leaves
 
@@ -1448,13 +1460,9 @@ def _leaves(tree):
     ("mnist_2nn", "topk", False), ("mnist_cnn", "plain", False),
 ])
 def test_captured_round_equals_the_eager_round(cuda, model_name, lane, bitwise):
-    from repro_torch.utils.tree import tree_map
-
     eager = _superstep_engine(cuda, lane, model_name)
     start = _leaves(eager.params)
-    lr = torch.tensor(eager.lr_at(0), dtype=torch.float32, device=cuda)
-    p, _, loss = eager._device_round(tree_map(torch.clone, eager.params),
-                                     tree_map(torch.clone, eager.outer_state), lr)
+    p, _, (loss,) = _eager_round(eager)
     captured = _superstep_engine(cuda, lane, model_name)
     got = captured.round()["loss"]
     torch.cuda.synchronize()
@@ -1672,13 +1680,9 @@ def test_char_lstm_captured_round_equals_the_eager_round(cuda):
     one eager round from the same generator state, within
     SUPERSTEP_UPDATE_RTOL of the update (the embedding's backward adds with
     atomics); then a chunk of 4 replays, one graph."""
-    from repro_torch.utils.tree import tree_map
-
     eager, _ = _paper_engine(cuda, "char_lstm", device_sampling=True)
     start = _leaves(eager.params)
-    lr = torch.tensor(eager.lr_at(0), dtype=torch.float32, device=cuda)
-    p, _, loss = eager._device_round(tree_map(torch.clone, eager.params),
-                                     tree_map(torch.clone, eager.outer_state), lr)
+    p, _, (loss,) = _eager_round(eager)
     captured, _ = _paper_engine(cuda, "char_lstm", device_sampling=True)
     got = captured.round()["loss"]
     torch.cuda.synchronize()
@@ -1800,6 +1804,78 @@ def test_streamed_and_async_loops_make_no_sync_under_the_transfer_guard(cuda, tm
         ha = asy.run(4)
     assert len(hs.records) == 4 and len(ha.records) == 5
     assert all(np.isfinite(r.train_loss) for r in hs.records + ha.records)
+
+
+@pytest.mark.parametrize("kind", ["ring", "full"])
+def test_captured_gossip_rounds_equal_the_eager_rounds(cuda, kind):
+    """A 2NN gossip engine on 20 nodes: a chunk of 3 captured rounds against
+    3 eager ``round()`` calls of a twin, replicas, losses, consensus and the
+    generator bitwise; one graph; the wrappers counted the eager rounds and
+    the capture's warm-up, on the route of the plan (the ring's 3 slots for
+    20 nodes the gather route, the full graph the dense one)."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.fedavg import FedAvgConfig
+    from repro_torch.data.synthetic import make_image_classification
+    from repro_torch.models import paper
+
+    train, _, _ = make_image_classification(20 * 30, 1, seed=0)
+    clients = [(train.x[i * 30:(i + 1) * 30], train.y[i * 30:(i + 1) * 30]) for i in range(20)]
+    model = paper.mnist_2nn(device=cuda)
+    cfg = FedAvgConfig(C=1.0, E=1, B=10, lr=0.1, seed=3)
+    a, b = (RoundEngine(model.loss, model.init(0), clients, cfg, topology=kind, device=cuda)
+            for _ in range(2))
+    before, dense = gossip_mix.launches, gossip_mix.dense_launches
+    eager = [b.round() for _ in range(3)]
+    h = a.run(3, eval_every=100, rounds_per_step=3)
+    torch.cuda.synchronize()
+    assert a.num_compilations == 1 and b.num_compilations == 0
+    assert [r.train_loss for r in h.records] == [float(m["loss"]) for m in eager]
+    assert [r.consensus for r in h.records] == [float(m["consensus"]) for m in eager]
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a.params), _leaves(b.params)))
+    assert torch.equal(a._gen.get_state(), b._gen.get_state())
+    assert gossip_mix.launches == before + 4
+    assert gossip_mix.dense_launches == dense + (4 if kind == "full" else 0)
+
+
+def test_lowrank_sketch_on_the_card_is_the_cpus(cuda):
+    """The counter-based sketch from the same int64 seeds: the 32-bit words
+    bitwise, the Gaussians (fp64 Box-Muller rounded to fp32) within 1e-6."""
+    from repro_torch.core import compression as comp
+
+    seeds = torch.randint(0, 2**62, (10,), generator=torch.Generator().manual_seed(5))
+    assert torch.equal(comp.sketch_bits(seeds.to(cuda), 4000).cpu(),
+                       comp.sketch_bits(seeds, 4000))
+    a = comp.lowrank_sketch(seeds.to(cuda), 447, 8).cpu()
+    assert float((a - comp.lowrank_sketch(seeds, 447, 8)).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("lane", ["plain", "q8", "lowrank"])
+def test_streamed_superstep_equals_the_device_superstep_on_the_card(cuda, lane, tmp_path):
+    """The staged superstep on a small population: chunks of 3 (the last
+    ragged) against the device pool's superstep, params, losses and both
+    generators bitwise; the staging copies' slots are page-locked; a warm
+    chunk makes no sync under ``transfer_guard()``."""
+    from repro_torch.analysis import transfer_guard
+    from repro_torch.core import compression as comp
+
+    kw = {"plain": {}, "q8": {"codec": comp.quantize_codec(8)},
+          "lowrank": {"codec": comp.lowrank_codec(8)}}[lane]
+    dev = _host_engine(cuda, device_sampling=True, pool="device", **kw)
+    st = _host_engine(cuda, device_sampling=True, pool="streamed", pool_dir=tmp_path,
+                      pool_shard_clients=7, **kw)
+    dev.run(7, rounds_per_step=3)
+    st.run(7, rounds_per_step=3)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(dev.params), _leaves(st.params)))
+    assert [r.train_loss for r in st.history.records] == \
+        [r.train_loss for r in dev.history.records]
+    assert st._stager.chunk_slots[0].host[0].is_pinned()
+    with transfer_guard():
+        st.run(3, rounds_per_step=3)
+    dev.run(3, rounds_per_step=3)
+    st._discard_prefetch()
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(dev.params), _leaves(st.params)))
+    assert torch.equal(dev._ids_gen.get_state(), st._ids_gen.get_state())
+    assert torch.equal(dev._gen.get_state(), st._gen.get_state())
 
 
 def test_a_staged_cohort_is_not_overwritten_before_its_copy(cuda):

@@ -7,7 +7,12 @@ same seed, ``RoundEngine(pool="streamed")`` gives the params, strategy
 state and history of ``pool="device"`` bit for bit on the plain, FedAvgM,
 q8 and top-k lanes, because the staged rows are the device gather's bytes
 and everything after them is the same round; prefetch 0 equals prefetch 1;
-checkpoints resume across the two pools, a pending prefetch discarded."""
+checkpoints resume across the two pools, a pending prefetch discarded. On
+the superstep lane (``device_sampling=True``) the streamed pool stages a
+whole chunk's cohorts at once and equals the device pool's superstep bit
+for bit, a ragged last chunk and a checkpoint that discards a pending chunk
+included (the reference's ``tests/test_engine_pool.py:129-149``,
+``:202-230``)."""
 import dataclasses
 
 import numpy as np
@@ -252,8 +257,15 @@ def test_auto_selects_the_pool_by_budget(setup, monkeypatch):
         _engine(setup, "device")
     with pytest.raises(ValueError, match="latency/async"):
         _engine(setup, "auto", latency=LatencyModel(mean_s=1.0))
-    with pytest.raises(ValueError, match="item 6"):
-        _engine(setup, "auto", device_sampling=True)
+    # the superstep lane streams too: a chunk staged at once
+    auto = _engine(setup, "auto", device_sampling=True)
+    assert auto.pool_kind == "streamed"
+    auto.run(3, rounds_per_step=3)
+    monkeypatch.delenv("REPRO_DEVICE_POOL_BUDGET")
+    dev = _engine(setup, "device", device_sampling=True)
+    dev.run(3, rounds_per_step=3)
+    _assert_same_run(dev, auto)
+    monkeypatch.setenv("REPRO_DEVICE_POOL_BUDGET", "64")
     # a gossip engine trains every node every round: "auto" resolves to the
     # device pool there, so over the budget it raises as pool="device" does
     with pytest.raises(ValueError, match="budget"):
@@ -262,8 +274,7 @@ def test_auto_selects_the_pool_by_budget(setup, monkeypatch):
 
 def test_streamed_refusals(setup):
     model, params, clients = setup
-    with pytest.raises(ValueError, match="item 6"):
-        _engine(setup, "streamed", device_sampling=True)
+    assert _engine(setup, "streamed", device_sampling=True).device_sampling  # the staged superstep
     with pytest.raises(ValueError, match="latency/async"):
         _engine(setup, "streamed", latency=LatencyModel(mean_s=1.0))
     with pytest.raises(ValueError, match="latency/async"):
@@ -295,7 +306,102 @@ def test_from_spec_streamed_pool(setup, tmp_path):
     dev.run(3)
     _assert_same_run(dev, eng)
     superstep = dataclasses.replace(spec, execution=ExecutionSpec(
-        pool="streamed", device_sampling=True, rounds_per_step=5))
-    # an empty population would make the pool's build raise: the refusal is first
-    with pytest.raises(ValueError, match="item 6"):
-        RoundEngine.from_spec(superstep, [], device="cpu")
+        pool="streamed", device_sampling=True, rounds_per_step=5, pool_shard_clients=2))
+    st = RoundEngine.from_spec(ExperimentSpec.from_json(superstep.to_json()), clients,
+                               init_params=params, device="cpu")
+    assert st.pool_kind == "streamed" and st.device_sampling
+    assert st.default_rounds_per_step == 5
+    dev = _engine(setup, "device", device_sampling=True)
+    st.run(5)
+    dev.run(5, rounds_per_step=5)
+    _assert_same_run(dev, st)
+
+
+# ---------------------------------------------------------------------------
+# the staged superstep: streamed == device pool on the superstep lane
+# ---------------------------------------------------------------------------
+
+SUPERSTEP_LANES = {
+    "plain": {},
+    "q8": {"codec": quantize_codec(8, chunk=64)},
+    "fedavgm": {"strategy": FedAvgM(0.9)},
+}
+
+
+@pytest.mark.parametrize("lane", sorted(SUPERSTEP_LANES))
+def test_streamed_superstep_equals_the_device_superstep_bitwise(setup, lane):
+    """Chunks of R = 3: the streamed engine draws each chunk's cohorts from
+    the ids generator, stages their rows as one block and replays the round
+    on them; params, strategy state, losses and both generators equal the
+    device pool's superstep, bit for bit."""
+    kw = dict(device_sampling=True, **SUPERSTEP_LANES[lane])
+    dev, st = _engine(setup, "device", **kw), _engine(setup, "streamed", **kw)
+    dev.run(6, rounds_per_step=3)
+    st.run(6, rounds_per_step=3)
+    _assert_same_run(dev, st)
+    assert st._prefetched is not None and st._prefetched["r"] == 3   # the next chunk
+    st._discard_prefetch()
+    assert torch.equal(dev._gen.get_state(), st._gen.get_state())
+    assert torch.equal(dev._ids_gen.get_state(), st._ids_gen.get_state())
+    assert st.num_compilations == dev.num_compilations == 1
+
+
+@pytest.mark.parametrize("prefetch", [1, 0])
+def test_streamed_ragged_superstep_matches_device(setup, prefetch):
+    """7 = 3 + 3 + 1: the last, ragged chunk discards the prefetched chunk
+    of 3 and rewinds the ids generator exactly (the reference's
+    ``test_streamed_ragged_superstep_matches_device``); ``round()`` then
+    stages a chunk of 1."""
+    dev = _engine(setup, "device", device_sampling=True)
+    st = _engine(setup, "streamed", device_sampling=True, prefetch=prefetch)
+    dev.run(7, rounds_per_step=3)
+    st.run(7, rounds_per_step=3)
+    _assert_same_run(dev, st)
+    a, b = dev.round(), st.round()
+    assert torch.equal(a["loss"], b["loss"])
+    assert (st._prefetched is None) == (prefetch == 0)
+
+
+def test_streamed_superstep_checkpoint_discards_the_pending_chunk(setup, tmp_path):
+    """``save`` after a chunk drops the staged next chunk and rewinds the
+    ids generator, so the checkpoint is the device pool's: a device engine
+    restores it and runs on bitwise, and so does the saver (the reference's
+    ``test_streamed_checkpoint_discards_pending_prefetch``); a streamed
+    engine resumes a device-pool checkpoint."""
+    straight = _engine(setup, "device", device_sampling=True)
+    straight.run(6, rounds_per_step=3)
+    st = _engine(setup, "streamed", device_sampling=True)
+    st.run(3, rounds_per_step=3)
+    ahead = st._ids_gen.get_state().clone()
+    assert st._prefetched is not None
+    st.save(tmp_path / "b")
+    assert st._prefetched is None and not torch.equal(st._ids_gen.get_state(), ahead)
+    d = _engine(setup, "device", device_sampling=True)
+    assert d.restore(tmp_path / "b") == 3
+    d.run(3, rounds_per_step=3)
+    _assert_same_run(straight, d)
+    st.run(3, rounds_per_step=3)
+    _assert_same_run(straight, st)
+    back = _engine(setup, "streamed", device_sampling=True)
+    d2 = _engine(setup, "device", device_sampling=True)
+    d2.run(3, rounds_per_step=3)
+    d2.save(tmp_path / "a")
+    assert back.restore(tmp_path / "a") == 3
+    back.run(3, rounds_per_step=3)
+    _assert_same_run(straight, back)
+
+
+def test_a_chunk_is_staged_as_one_block(setup):
+    """``CohortStager.stage_chunk`` on the CPU: an (r, m, n_pad, ...) block
+    whose rounds are the cohorts' gathers; the engine's ``staged_bytes`` on
+    the superstep lane is a round's rows and ids."""
+    st = _engine(setup, "streamed", device_sampling=True)
+    ids = np.asarray([[1, 4], [0, 2], [3, 1]])
+    (xs, ys), event = st._stager.stage_chunk(ids)
+    assert event is None and xs.shape[:2] == (3, 2) and ys.shape[:2] == (3, 2)
+    for j, row in enumerate(ids):
+        x, y = st.pool.gather(row)
+        assert xs[j].numpy().tobytes() == x.tobytes() and ys[j].numpy().tobytes() == y.tobytes()
+    n_pad = st.pool.n_pad
+    assert st.staged_bytes == st._m * n_pad * (12 * 4 + 4) + 8 * st._m
+    assert st._stager.pinned_nbytes == 0                 # nothing is pinned on the CPU

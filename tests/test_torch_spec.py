@@ -163,18 +163,18 @@ def _refusals():
     ex = ExecutionSpec
     superstep = ex(device_sampling=True, rounds_per_step=5)
     cases.update({
+        # the gossip superstep is rounds_per_step alone (it runs,
+        # test_from_spec_runs_the_superstep_lanes); device_sampling beside a
+        # topology is refused in the reference's words
         "superstep_gossip": (dataclasses.replace(
-            get_spec("mnist_2nn_noniid_ring"), execution=superstep), "item 6"),
-        "superstep_lowrank": (dataclasses.replace(
-            get_spec("mnist_2nn_noniid_lowrank"), execution=superstep), "item 6"),
+            get_spec("mnist_2nn_noniid_ring"), execution=superstep),
+            "topology= is incompatible with device_sampling=True"),
         "codec_and_async": (async_q8, "sets both codec= and async_spec="),
         # a mesh_axes spec runs (test_mesh_axes_spec_runs_sharded_through_from_spec);
         # beside a topology it is refused as the reference refuses it
         "mesh": (dataclasses.replace(get_spec("mnist_2nn_noniid_ring"),
                                      execution=ex(mesh_axes="clients")),
                  "topology= is incompatible with mesh="),
-        "streamed_superstep": (dataclasses.replace(base, execution=ex(
-            pool="streamed", device_sampling=True)), "item 6"),
         "accum_dtype": (dataclasses.replace(base, execution=ex(accum_dtype="bfloat16")),
                         "Queue 2"),
         "interpret": (dataclasses.replace(base, execution=ex(interpret=True)),
@@ -189,6 +189,45 @@ def test_from_spec_refuses_before_building_state(case):
     # an empty population makes pack_clients raise: the refusal must come first
     with pytest.raises(ValueError, match=item):
         RoundEngine.from_spec(spec, [], device="cpu")
+
+
+@pytest.mark.parametrize("lane", ["gossip", "lowrank", "streamed"])
+def test_from_spec_runs_the_superstep_lanes(lane):
+    """The lanes ``from_spec`` once refused naming ROADMAP Queue 1 item 6: a
+    gossip spec with ``execution.rounds_per_step``, ``mnist_2nn_noniid_lowrank``
+    with ``device_sampling=True`` and a streamed spec with
+    ``device_sampling=True``, each one chunk, equal to the engine built
+    from keywords run in single rounds (the streamed one to the device
+    pool's chunk)."""
+    ex = ExecutionSpec
+    if lane == "gossip":
+        spec = dataclasses.replace(get_spec("mnist_2nn_noniid_ring"),
+                                   execution=ex(rounds_per_step=3))
+    elif lane == "lowrank":
+        spec = dataclasses.replace(get_spec("mnist_2nn_noniid_lowrank"),
+                                   execution=ex(device_sampling=True, rounds_per_step=3))
+    else:
+        spec = dataclasses.replace(get_spec("mnist_2nn_noniid"), execution=ex(
+            pool="streamed", device_sampling=True, rounds_per_step=3, pool_shard_clients=2))
+    spec = _small(ExperimentSpec.from_json(spec.to_json()))
+    spec = dataclasses.replace(spec, fedavg=dataclasses.replace(spec.fedavg, E=1, B=8))
+    clients = _clients(spec)
+    model = paper.mnist_2nn(n_classes=5, d_in=20, device="cpu")
+    params = model.init(7)
+    eng = RoundEngine.from_spec(spec, clients, init_params=params, device="cpu")
+    assert eng.default_rounds_per_step == 3
+    assert (eng.topology is not None) == (lane == "gossip")
+    assert eng.device_sampling == (lane != "gossip")
+    assert eng.pool_kind == ("streamed" if lane == "streamed" else "device")
+    h = eng.run(3)
+    assert eng.num_compilations == 1 and len({r.wall_s for r in h.records}) == 1
+    kw = dict(codec=spec.build_codec(), topology=spec.topology and spec.topology.build(),
+              device_sampling=eng.device_sampling)
+    twin = RoundEngine(model.loss, params, clients, spec.fedavg, device="cpu", pool="device",
+                       **kw)
+    losses = [float(twin.round()["loss"]) for _ in range(3)]
+    assert [r.train_loss for r in h.records] == losses
+    assert _equal(eng.params, twin.params)
 
 
 def test_mesh_axes_spec_runs_sharded_through_from_spec():

@@ -1,11 +1,12 @@
 """repro_torch's superstep lane on the CPU (counterpart of
 ``tests/test_engine_superstep.py``).
 
-``RoundEngine(device_sampling=True)`` draws each round's cohort, batches and
-codec noise from one torch generator on its device, and
-``run(n, rounds_per_step=R)`` runs R rounds a host sync. On the CPU the
-round body runs eagerly, so superstep(R) == R x ``round()`` holds bit for
-bit on every lane, the top-k one included (the CPU scatter has no atomics).
+``RoundEngine(device_sampling=True)`` draws each round's cohort from a host
+generator of the ids' own and its batches and codec noise from one torch
+generator on its device, and ``run(n, rounds_per_step=R)`` runs R rounds a
+host sync. On the CPU the round body runs eagerly, so superstep(R) == R x
+``round()`` holds bit for bit on every lane, the top-k and low-rank ones
+included (the CPU scatter has no atomics).
 Against the reference: the device batch assembly equals the host one on the
 same ids and uniforms, and a small non-IID run reaches the reference
 superstep run's rounds-to-target within the port's band. Cohorts are never
@@ -30,7 +31,12 @@ from repro_torch.core.compression import (  # noqa: E402
     quantize_codec,
     topk_codec,
 )
-from repro_torch.core.engine import RoundBatch, RoundEngine, RoundState  # noqa: E402
+from repro_torch.core.engine import (  # noqa: E402
+    IDS_SEED_SALT,
+    RoundBatch,
+    RoundEngine,
+    RoundState,
+)
 from repro_torch.core.fedavg import (  # noqa: E402
     FedAvgConfig,
     client_update,
@@ -52,6 +58,7 @@ LANES = {
     "fedavgm": {"strategy": FedAvgM(0.9)},
     "q8": {"codec": quantize_codec(8, chunk=256)},
     "topk": {"codec": topk_codec(0.1)},
+    "lowrank": {"codec": lowrank_codec(4)},
 }
 
 
@@ -115,15 +122,17 @@ def test_device_assembly_equals_the_host_assembly(cfg):
 
 
 def test_round_draws_cohort_then_batches_then_codec_noise():
-    """The round's draw order from the engine's generator: the cohort
-    uniforms (K,), the batch uniforms (m, E, n_pad), the codec's noise.
-    Replaying those draws by hand through the round step gives the engine's
-    round bit for bit, and both generators end in the same state."""
+    """The cohort from the ids generator (a host generator seeded with
+    ``seed ^ IDS_SEED_SALT``), then from the engine's generator the batch
+    uniforms (m, E, n_pad) and the codec's noise. Replaying those draws by
+    hand through the round step gives the engine's round bit for bit, and
+    both pairs of generators end in the same states."""
     eng = _engine(codec=quantize_codec(8, chunk=256))
     model = paper.mnist_2nn(n_classes=5, d_in=12, device="cpu")
     gen = torch.Generator().manual_seed(CFG["seed"])
+    ids_gen = torch.Generator().manual_seed(CFG["seed"] ^ IDS_SEED_SALT)
     m = round(CFG["C"] * len(SIZES))
-    ids = sample_clients_device(gen, len(SIZES), m)
+    ids = sample_clients_device(ids_gen, len(SIZES), m)
     batch, mask, w = eng.assemble_round_batch(ids, eng._batch_uniforms(m, gen))
     lr = torch.tensor(CFG["lr"], dtype=torch.float32)
     state, metrics = eng._round_step(RoundState(model.init(0), ()),
@@ -132,6 +141,31 @@ def test_round_draws_cohort_then_batches_then_codec_noise():
     assert torch.equal(got["loss"], metrics["loss"])
     assert _equal(eng.params, state.params)
     assert torch.equal(eng._gen.get_state(), gen.get_state())
+    assert torch.equal(eng._ids_gen.get_state(), ids_gen.get_state())
+
+
+def test_a_chunk_draws_its_cohorts_on_the_host_before_its_rounds():
+    """A chunk of R takes its R cohorts from the ids generator up front (the
+    host knows them without a sync); the device generator then draws only
+    the rounds' batches and noise, so drawing the ids ahead leaves the
+    rounds unchanged (superstep == R x ``round()`` is the lanes' test) and
+    the ids stream after a chunk is R draws of ``sample_clients_device``."""
+    eng = _engine()
+    m = eng._m
+    ids_gen = torch.Generator().manual_seed(CFG["seed"] ^ IDS_SEED_SALT)
+    want = torch.stack([sample_clients_device(ids_gen, len(SIZES), m) for _ in range(4)])
+    seen = []
+    body = eng._device_round
+
+    def spy(params, outer, lr, ids, *rows):
+        seen.append(ids.clone())
+        return body(params, outer, lr, ids, *rows)
+
+    eng._device_round = spy
+    eng.run(4, rounds_per_step=4)
+    assert torch.equal(torch.stack(seen), want)
+    assert torch.equal(eng._ids_gen.get_state(), ids_gen.get_state())
+    assert all(len(set(row.tolist())) == m for row in want)
 
 
 def test_client_update_takes_lr_as_a_tensor_bit_for_bit():
@@ -363,21 +397,30 @@ def test_a_dropped_engine_is_freed_without_the_cyclic_collector():
         gc.enable()
 
 
-@pytest.mark.parametrize("case", ["lowrank", "gossip", "gossip_rounds_per_step"])
-def test_superstep_refuses_the_lanes_it_lacks_naming_item_6(case):
-    if case == "lowrank":
-        with pytest.raises(ValueError, match="item 6"):
-            _engine(codec=lowrank_codec(4))
-        return
-    cfg = dict(CFG, C=1.0)
-    if case == "gossip":
-        with pytest.raises(ValueError, match="item 6"):
-            _engine(topology="ring", cfg=cfg)
-        return
-    eng = _engine(device_sampling=False, topology="ring", cfg=cfg)
-    with pytest.raises(ValueError, match="item 6"):
-        eng.run(4, rounds_per_step=2)
-    assert eng.round_idx == 0
+def test_device_sampling_with_a_topology_is_refused_in_the_reference_words():
+    """The gossip lane has no cohort draw to fuse: ``device_sampling=True``
+    beside a topology is refused before any state is built (the reference's
+    ``engine.py:400-405``); its superstep is ``run(n, rounds_per_step=R)``
+    without it (``tests/test_torch_gossip.py``)."""
+    with pytest.raises(ValueError, match="topology= is incompatible with "
+                                         "device_sampling=True: the gossip lane runs every "
+                                         "node every round"):
+        _engine(topology="ring", cfg=dict(CFG, C=1.0))
+    eng = _engine(device_sampling=False, topology="ring", cfg=dict(CFG, C=1.0))
+    eng.run(4, rounds_per_step=2)
+    assert eng.round_idx == 4 and eng.num_compilations == 1
+
+
+def test_no_message_of_the_port_names_item_6():
+    """The lanes once refused naming ROADMAP Queue 1 item 6 (the gossip
+    superstep, low-rank under device sampling, the streamed superstep) all
+    run: no module of the port names the item any more."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    named = [str(f.relative_to(root)) for f in sorted(root.rglob("*.py"))
+             if "item 6" in f.read_text()]
+    assert named == []
 
 
 def test_host_lane_stream_is_untouched_by_the_device_generator():
