@@ -69,8 +69,9 @@ Phases, in order, each printing its own lines:
     in 4 steps) and ``fedavg_aggregate`` once a parameter leaf; then 4
     FedSGD steps; seconds, tokens/s, loss and peak memory a round;
 19. correctness of training: a reduced-config FedAvg round in fp32 on the
-    card against the CPU (Gemma-2B and Qwen2; SGD's update, AdamW's
-    moments), ``train_loss``'s CE at full
+    card against the CPU (Gemma-2B, Qwen2 and Jamba's 8 layers: attention,
+    Mamba and MoE; one step's gradients, SGD's update, AdamW's moments),
+    ``train_loss``'s CE at full
     width against materialized fp32 logits, and FusedCrossEntropy's
     gradients against autograd through them;
 20. one profiled Gemma-2B training step: device busy, idle share, the top
@@ -187,12 +188,26 @@ Phases, in order, each printing its own lines:
     population in one chunk (RSS growth under 256 MB); (d) ``from_spec`` on
     the ring and small-world specs with ``rounds_per_step``, the low-rank spec
     with ``device_sampling=True`` and a streamed superstep spec, one chunk
-    each.
+    each;
+27. training Jamba: ``jamba-v0.1-52b`` at full width (d_model 4096, 16
+    experts top-2, d_state 16) cut to its first 2 layers (Mamba/MLP,
+    Mamba/MoE; 3.74 B params) through ``repro_torch.launch.train.run`` with
+    ``--full --n-layers 2 --state-dtype bfloat16``: 2 FedAvg rounds of G = 2
+    groups x H = 2 AdamW steps on 2 x 2048 tokens a group, bf16, remat, each
+    round launching ``ssm_scan`` 16 times (2 Mamba layers, forward and remat
+    recompute, 4 steps), ``ssm_scan_bwd`` 8, ``fused_cross_entropy`` 4 and
+    ``ce_probs`` 16 on the tensor-core route, ``fedavg_aggregate`` once a
+    parameter leaf (34) and ``flash_attention`` never; finite losses, the
+    peak under 75 GiB; seconds, tokens/s and peak a round; then one
+    profiled group step (idle share, top kernels, the shares of the scan's
+    two kernels, the CE and AdamW) and each Mamba mixer and the MoE FFN
+    timed alone.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
-``fused_cross_entropy`` and ``ce_probs`` too, at the serving and training
-shapes; phase 3 also holds the flash kernel's ``lse`` output and checks that
-every kernel wrapper refuses an input that requires grad.
+``fused_cross_entropy``, ``ce_probs`` and ``ssm_scan_bwd`` too, at the
+serving and training shapes; phase 3 also holds the flash kernel's ``lse``
+output and the scan's checkpoints, and checks that every kernel wrapper
+refuses an input that requires grad.
 ``flash_attention`` and ``fused_cross_entropy`` have two routes each, a
 tensor-core kernel (bf16 on aligned rows; flash at D = 64, 128, 256) and a
 scalar one (everything else): phase 3 checks which route each case took
@@ -225,8 +240,9 @@ case the fused route takes through both routes forced, phase 4 times both
 routes in turns at the main shapes and requires the fused route to be no
 slower at the CNN shape, and phase 8 requires every top-k launch of a
 compressed round on the fused route. ``ce_probs``
-(the CE gradient's kernel) ports no Pallas kernel; it is held, timed and
-counted like the eight that do. Every
+(the CE gradient's kernel) and ``ssm_scan_bwd`` (the scan's backward, from
+the checkpoints its forward writes) port no Pallas kernel; they are held,
+timed and counted like the eight that do. Every
 kernel's launch count is set to 0 just before each lane's run and read just
 after; a wrapper counts the launches it makes, and a CUDA graph's replays
 (phases 21, 22, 25 and 26) are counted from the profiler's kernel records
@@ -303,12 +319,12 @@ GOSSIP_CNN_RTOL_1 = 1e-3
 # port's cross-entropy takes in fp32 (~6e-8 relative) in fp64 rounds too.
 FP64_RTOL = 1e-6
 
-# The eight ported TPU kernels, then ce_probs: the CE gradient's kernel on the
-# training path, which ports no Pallas kernel (the reference's CE gradient is
-# XLA's autodiff).
+# The eight ported TPU kernels, then the two training kernels that port no
+# Pallas kernel (the reference's gradients there are XLA's autodiff):
+# ce_probs, the CE gradient's, and ssm_scan_bwd, the Mamba scan's backward.
 KERNELS = ("fedavg_aggregate", "quantized_aggregate", "packed_quantized_aggregate",
            "sparse_aggregate", "gossip_mix", "flash_attention", "ssm_scan",
-           "fused_cross_entropy", "ce_probs")
+           "fused_cross_entropy", "ce_probs", "ssm_scan_bwd")
 WIRE_KERNELS = KERNELS[1:4]             # the compressed lane's
 PARTIAL_KERNELS = KERNELS[:4]           # the four with a partial-sum mode (phase 25)
 CHUNK = 512                             # the specs' quantize chunk
@@ -403,6 +419,40 @@ CE_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same run
 # The card's fp32 round against the CPU's: sums in other orders through two
 # layers and back, in the SGD update and in AdamW's moments.
 TRAIN_RTOL = 1e-4
+# Phase 19's leaves held one by one within TRAIN_RTOL beside the whole tree:
+# every leaf's gradient of one step; in the SGD update, attention's and the
+# tied head; in AdamW's moments, those and Mamba's and the MoE router. Not
+# Mamba's SGD update: an update is the difference of two fp32 params, and
+# where it is a few ulps of the values (dt_bias: gradients near 1e-5
+# against values near -4, a median step of 0 ulps) it is the params'
+# rounding that is compared (on an H100, 0.79 relative on one layer's
+# dt_bias, the whole tree's update at 1.6e-5, that leaf's gradient 4.2e-6).
+# The same rounding sets the SGD lr: at 0.05 reduced Jamba's attention
+# weights step ~3,000 ulps and their updates part by 1.2e-4 on an H100
+# (their gradients 4e-6 or less); at 0.5, ~32,000 ulps and 1.6e-5.
+REDUCED_SGD_LR = 0.5
+UPDATE_LEAVES = ("wq", "wk", "wv", "wo", "table")
+MOMENT_LEAVES = UPDATE_LEAVES + ("in_proj", "conv_w", "x_proj", "dt_proj", "dt_bias", "A_log",
+                                 "D", "out_proj", "router")
+# Phase 27, Jamba trained at full width (d_model 4096, 16 experts top-2,
+# d_state 16), cut to its first 2 layers (Mamba/MLP, Mamba/MoE; 3.74 B
+# params) with bf16 AdamW moments, so that two group replicas, their
+# moments and one group's gradients fit the card; otherwise phase 18's
+# round: bf16, remat, G = 2 x H = 2 AdamW steps on 2 x 2048 tokens a group,
+# at lr 3e-4 (at launch.train's 3e-3 the loss rose from 12.1 to 16.5 in 2
+# rounds on an H100).
+JAMBA_TRAIN_LR = 3e-4
+JAMBA_TRAIN_LAYERS = 2
+JAMBA_TRAIN_ARGV = ["--arch", "jamba-v0.1-52b", "--full", "--n-layers", str(JAMBA_TRAIN_LAYERS),
+                    "--state-dtype", "bfloat16", "--groups", "2", "--local-steps", "2",
+                    "--global-batch", "4", "--seq", "2048", "--rounds", "2", "--lr",
+                    str(JAMBA_TRAIN_LR), "--device", "cuda"]
+# ssm_scan_bwd on the card against its plain version: each gradient within
+# 1e-5 of its largest magnitude (at least 1), as the forward is held: fp32
+# sums over states, channels and time in other orders, and ex2.approx for
+# exp, which the state's decay carries through the recurrence.
+SSM_BWD_RTOL = 1e-5
+SSM_TRAIN_B = 2           # phase 27's scan: B = 2 sequences of 2048 tokens a group
 # The kernel's CE against fp32 logits materialized from the same bf16 hidden:
 # two fp32 sums of 2048 products and of 256,000 exponentials in other orders.
 CE_MATERIALIZED_RTOL = 1e-5
@@ -769,12 +819,13 @@ def counters():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.sparse_agg import sparse_aggregate
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
     from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
 
     return {f.__name__: f for f in (fedavg_aggregate, quantized_aggregate,
                                     packed_quantized_aggregate, sparse_aggregate, gossip_mix,
-                                    flash_attention, ssm_scan, fused_cross_entropy, ce_probs)}
+                                    flash_attention, ssm_scan, fused_cross_entropy, ce_probs,
+                                    ssm_scan_bwd)}
 
 
 def launch_counts():
@@ -788,6 +839,7 @@ HAND_KERNELS = ("qagg_stream_kernel", "packed_qagg_kernel", "qagg_kernel",
                 "fedavg_agg_kernel", "sparse_agg_fused_kernel", "sparse_agg_kernel",
                 "gossip_mix_dense_kernel", "gossip_mix_kernel", "flash_fwd_mma_kernel",
                 "flash_fwd_kernel", "ssm_scan_ring_kernel", "ssm_scan_kernel",
+                "ssm_scan_bwd_reduce_kernel", "ssm_scan_bwd_kernel",
                 "ce_fwd_mma_kernel", "ce_probs_mma_kernel", "ce_probs_kernel",
                 "ce_partial_kernel", "ce_merge_kernel")
 MAIN_ROUTE_KERNEL = {"fedavg_aggregate": "fedavg_agg_kernel",
@@ -1984,6 +2036,171 @@ def time_ssm_scan():
     return rows
 
 
+def ssm_bwd_inputs(B, T, D, N, seed, views=False):
+    """The scan's inputs in fp32 with a nonzero h0, and the cotangents gy
+    and g_hT; with ``views`` B and C are column slices of one projection, as
+    ``mamba_apply`` passes them in fp32."""
+    dt, Bm, Cm, x, A, h0 = ssm_inputs(B, T, D, N, torch.float32, seed, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    gy = torch.randn((B, T, D), generator=g, device="cuda")
+    gh = torch.randn((B, D, N), generator=g, device="cuda")
+    if views:
+        dbc = torch.cat([torch.randn((B, T, 6), device="cuda"), Bm, Cm], dim=-1)
+        Bm, Cm = dbc[..., 6:6 + N], dbc[..., 6 + N:]
+    return (dt, Bm, Cm, x, A, h0), gy, gh
+
+
+SSM_GRADS = ("g_dt", "g_Bm", "g_Cm", "g_x", "g_A", "g_h0")
+
+
+def ssm_bwd_errors(got, want):
+    """{gradient: max |got - want| / max(1, max |want|)} over the ones given."""
+    return {n: float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for n, g, w in zip(SSM_GRADS, got, want) if w is not None}
+
+
+def check_ssm_scan_bwd():
+    """The scan's backward: the forward's checkpoints (kernel against plain,
+    and y, h_T unchanged by writing them), then ``ssm_scan_bwd`` from them
+    against ``ssm_scan_bwd_ref`` over B in {1, 2}, T in {1, 37, 2048} (37
+    off the 16-step run), D in {24, 8192}, N in {4, 16}, with a nonzero h0
+    and g_hT; on B/C views with gradients asked for in part; the composed
+    ``SSMScan`` against autograd through ``ssm_scan_ref``; the refusals."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import (
+        ssm_scan,
+        ssm_scan_bwd,
+        ssm_scan_bwd_ref,
+        ssm_scan_ref,
+    )
+
+    name = "ssm_scan_bwd"
+    cases = [dict(shape=(B, T, D, N)) for B in (1, 2) for T in (1, 37, 2048) for D in (24, 8192)
+             for N in (4, 16)]
+    cases += [dict(shape=(2, 50, 96, 16), views=True, needs=needs)
+              for needs in ((True,) * 6, (True, True, True, True, True, False),
+                            (False, False, True, False, True, False))]
+    before = ssm_scan_bwd.launches
+    worst, main_err = 0.0, 0.0
+    for i, c in enumerate(cases):
+        args, gy, gh = ssm_bwd_inputs(*c["shape"], seed=100 + i, views=c.get("views", False))
+        needs = c.get("needs", (True,) * 6)
+        g_hT = gh if needs[5] else None
+        y, h, ck = ssm_scan(*args, checkpoints=True)
+        y0, h0 = ssm_scan(*args)
+        _, _, ck32 = ssm_scan_ref(*args, checkpoints=True)
+        ck_err = float((ck - ck32).abs().max()) / max(1.0, float(ck32.abs().max()))
+        got = ssm_scan_bwd(*args, gy, g_hT, checkpoints=ck, needs=needs)
+        torch.cuda.synchronize()
+        want = ssm_scan_bwd_ref(*args, gy, g_hT, needs)
+        errs = ssm_bwd_errors(got, want)
+        asked = all((g is None) == (w is None) for g, w in zip(got, want))
+        ok = (max(errs.values()) <= SSM_BWD_RTOL and ck_err <= SSM_BWD_RTOL and asked
+              and torch.equal(y, y0) and torch.equal(h, h0))
+        tag = (f"(B, T, D, N)={c['shape']}" + (" B/C views" if c.get("views") else "")
+               + ("" if all(needs) else f" needs {''.join('1' if n else '0' for n in needs)}"))
+        print(f"  {tag}: checkpoints {ck_err:.2e}; " + " ".join(
+            f"{k}={e:.2e}" for k, e in errs.items()) + f" (rtol {SSM_BWD_RTOL:g} of max(1, "
+            f"max|ref|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {tag}")
+        worst = max(worst, *errs.values())
+        if c["shape"] == (SSM_TRAIN_B, PROMPT, SSM_D, SSM_N):
+            main_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    require(ssm_scan_bwd.launches - before == len(cases), "one backward launch a case")
+
+    # the composed SSMScan against autograd through the plain scan, B and C
+    # sliced from one projection that requires grad, as in mamba_apply
+    (dt, Bm, Cm, x, A, h0), gy, gh = ssm_bwd_inputs(2, 130, 96, 16, seed=7)
+    dbc = torch.cat([torch.randn((2, 130, 6), device="cuda"), Bm, Cm], dim=-1)
+
+    def through(scan):
+        leaves = [t.detach().clone().requires_grad_() for t in (dt, dbc, x, A, h0)]
+        d, p, xx, a, h = leaves
+        y, h_T = scan(d, p[..., 6:22], p[..., 22:], xx, a, h)
+        torch.autograd.backward([y, h_T], [gy, gh])
+        return [y.detach(), h_T.detach()] + [t.grad for t in leaves]
+
+    n = (counters()["ssm_scan"].launches, ssm_scan_bwd.launches)
+    got = through(ops.mamba_ssm_scan_train)
+    torch.cuda.synchronize()
+    require((counters()["ssm_scan"].launches, ssm_scan_bwd.launches) == (n[0] + 1, n[1] + 1),
+            "SSMScan: one forward and one backward launch")
+    want = through(ssm_scan_ref)
+    errs = {k: float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for k, g, w in zip(("y", "h_T", "g_dt", "g_dbc", "g_x", "g_A", "g_h0"), got, want)}
+    ok = max(errs.values()) <= SSM_BWD_RTOL
+    print("  SSMScan (2, 130, 96, 16), B and C sliced from a projection, against autograd "
+          "through ssm_scan_ref: " + " ".join(f"{k}={e:.2e}" for k, e in errs.items())
+          + f" {'ok' if ok else 'FAIL'}")
+    require(ok, "SSMScan's gradients disagree with autograd through the plain scan")
+
+    args, gy, gh = ssm_bwd_inputs(1, 20, 8, 4, seed=0)
+    _, _, ck = ssm_scan(*args, checkpoints=True)
+    dt, Bm, Cm, x, A, h0 = args
+    big, gyb, ghb = ssm_bwd_inputs(1, 20, 8, 17, seed=0)
+    n_ref = check_refusals(name, ssm_scan_bwd, {
+        "no checkpoints": lambda: ssm_scan_bwd(*args, gy, gh),
+        "checkpoints of another shape": lambda: ssm_scan_bwd(*args, gy, gh,
+                                                             checkpoints=ck[:, :1]),
+        "bf16 x": lambda: ssm_scan_bwd(dt, Bm, Cm, x.bfloat16(), A, h0, gy, gh, checkpoints=ck),
+        "bf16 gy": lambda: ssm_scan_bwd(*args, gy.bfloat16(), gh, checkpoints=ck),
+        "d_state 17": lambda: ssm_scan_bwd(*big, gyb, ghb,
+                                           checkpoints=torch.zeros((1, 2, 8, 17), device="cuda")),
+        "gy of another shape": lambda: ssm_scan_bwd(*args, gy[:, :4], gh, checkpoints=ck),
+        "gy on the CPU": lambda: ssm_scan_bwd(*args, gy.cpu(), gh, checkpoints=ck),
+        "a strided last axis": lambda: ssm_scan_bwd(
+            *args, gy.transpose(1, 2).contiguous().transpose(1, 2), gh, checkpoints=ck),
+    })
+    print(f"kernels: {name} cuda ok ({len(cases)} cases and the composed SSMScan; max error "
+          f"{worst:.2e} of max(1, max|ref|), rtol {SSM_BWD_RTOL:g}; {n_ref} refusals)")
+    return main_err
+
+
+def time_ssm_scan_bwd():
+    """At the training shape (B = 2, T = 2048, D = 8192, N = 16, fp32): the
+    backward from the forward's checkpoints, its plain version, and the
+    bound: dt, x, gy, B, C, A, g_hT and the checkpoints read once, the six
+    gradients written once, against the B T D N exponentials the function
+    needs (one a state and step; the kernel takes two) and ~12 fp32
+    operations beside each. No one PyTorch call computes it. Beside it the
+    forward with and without its checkpoints, in turns."""
+    from repro_torch.kernels.ssm_scan import (
+        _launch,
+        launch_plan,
+        n_checkpoints,
+        ssm_scan,
+        ssm_scan_bwd,
+        ssm_scan_bwd_ref,
+    )
+
+    flush = flush_buffer()
+    B, T, D, N = SSM_TRAIN_B, PROMPT, SSM_D, SSM_N
+    args, gy, gh = ssm_bwd_inputs(B, T, D, N, seed=9)
+    _, _, ck = ssm_scan(*args, checkpoints=True)
+    S = n_checkpoints(T)
+    nbytes = (3 * B * T * D + 2 * B * T * N + D * N + B * D * N + B * S * D * N   # read
+              + 2 * B * T * D + 2 * B * T * N + D * N + B * D * N) * 4          # written
+    row = lm_row(f"ssm_scan_bwd jamba/train: B={B} T={T} D={D} N={N} fp32, from "
+                 f"{S} checkpoints a channel",
+                 lambda: ssm_scan_bwd(*args, gy, gh, checkpoints=ck),
+                 lambda: ssm_scan_bwd_ref(*args, gy, gh), None, nbytes,
+                 12 * B * T * D * N, flush, sfu_ops=B * T * D * N, plain_iters=1)
+    lanes = launch_plan(T)
+    ck_out = torch.empty_like(ck)
+    turns = [(k, time_ms((lambda: _launch(*args, lanes, ck_out)) if k == "checkpoints" else
+                         (lambda: _launch(*args, lanes)), flush))
+             for k in ("plain", "checkpoints", "checkpoints", "plain")]
+    fwd = {k: float(np.mean([t for n, t in turns if n == k])) for k in ("plain", "checkpoints")}
+    print(f"    the forward at this shape, {lanes} lanes, in turns (without, with, with, "
+          f"without the checkpoints): " + ", ".join(f"{t:.5f}" for _, t in turns)
+          + f" ms; the backward {row['ms'] / fwd['checkpoints']:.2f}x the forward's time")
+    row.update(B=B, T=T, D=D, N=N, dtype="float32", checkpoints=S, forward_ms=fwd,
+               forward_turns_ms=turns)
+    del flush
+    return {"jamba/train": row}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4 for the training path: fused_cross_entropy, the flash kernel's
 # lse, and the grad guard of every kernel
@@ -2283,7 +2500,7 @@ def check_grad_guard():
         quantized_aggregate,
     )
     from repro_torch.kernels.sparse_agg import sparse_aggregate
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 
     rg = lambda t: t.clone().requires_grad_()   # noqa: E731
     w = normalized(2)
@@ -2297,6 +2514,8 @@ def check_grad_guard():
     mix_w = torch.full((2, 2), 0.5, device="cuda")
     q, k, v = flash_inputs(1, 8, 8, 2, 1, 16, torch.float32, 0)
     dt, Bm, Cm, xs, A, h0 = ssm_inputs(1, 4, 8, 4, torch.float32, 0, 0.0)
+    _, _, ck = ssm_scan(dt, Bm, Cm, xs, A, h0, checkpoints=True)
+    gy = torch.ones_like(xs)
     hidden, head, labels = ce_inputs(8, 16, 40, torch.float32, "tied", 0)
     hb, wb = hidden.bfloat16(), head.bfloat16()
     lse, g = torch.zeros(8, device="cuda"), torch.ones(8, device="cuda")
@@ -2312,6 +2531,7 @@ def check_grad_guard():
         "ssm_scan": lambda f: ssm_scan(dt, Bm, Cm, f(xs), A, h0),
         "fused_cross_entropy": lambda f: fused_cross_entropy(f(hidden), head, labels),
         "ce_probs": lambda f: ce_probs(f(hb), wb, labels, lse, g),
+        "ssm_scan_bwd": lambda f: ssm_scan_bwd(dt, Bm, Cm, f(xs), A, h0, gy, checkpoints=ck),
     }
     wrappers = counters()
     for name, call in calls.items():
@@ -2683,13 +2903,14 @@ def training_lane():
     n_leaves = gemma_leaf_count()
     steps = TRAIN_G * TRAIN_H
     per_round = {"fused_cross_entropy": steps, "ce_probs": steps * CE_CHUNKS,
-                 "flash_attention": steps * 18 * 2, "fedavg_aggregate": n_leaves}
+                 "flash_attention": steps * 18 * 2, "ssm_scan": 0, "ssm_scan_bwd": 0,
+                 "fedavg_aggregate": n_leaves}
     out = {}
     for algo, argv, per in (
             ("fedavg", TRAIN_ARGV, per_round),
             ("fedsgd", TRAIN_ARGV + ["--algo", "fedsgd"],
              {"fused_cross_entropy": 1, "ce_probs": CE_CHUNKS, "flash_attention": 36,
-              "fedavg_aggregate": 0})):
+              "ssm_scan": 0, "ssm_scan_bwd": 0, "fedavg_aggregate": 0})):
         free_card()
         held = torch.cuda.memory_allocated()
         reset_counts()
@@ -2730,16 +2951,20 @@ def training_lane():
 def reduced_round_card_vs_cpu(arch):
     """One FedAvg round (G = 2, H = 2) of the reduced config in fp32 on the
     card against the same round on the CPU, from the same params and
-    batches: the kernels' forwards, the CE gradient's ce_probs (all on their
-    scalar routes, required) and the plain attention backward against the
-    plain versions end to end. Twice: with SGD, whose update is linear in the
-    gradients, the loss and the update (the whole tree's, in L2, and each
-    attention weight's and the tied head's) within TRAIN_RTOL; with AdamW,
-    the local optimizer of the main path, the loss and the groups' moments
-    mu and nu (linear and quadratic in the gradients; the trees and the same
-    leaves) within TRAIN_RTOL. The AdamW update itself is not compared: its
-    first steps are lr * g / |g|, so a gradient element at rounding level
-    steps by +-lr on either side."""
+    batches: first one step's gradients, every leaf within TRAIN_RTOL; then
+    the kernels' forwards, the CE gradient's ce_probs (all on their
+    scalar routes, required), the scan's backward kernel and the plain
+    attention backward against the plain versions end to end (Jamba's 8
+    layers: one attention, 7 Mamba, 4 MoE; each Mamba layer launches
+    ``ssm_scan`` and ``ssm_scan_bwd`` once a step). Twice: with SGD at
+    REDUCED_SGD_LR, whose update is linear in the gradients, the loss and
+    the update (the whole tree's, in L2, and each of UPDATE_LEAVES') within
+    TRAIN_RTOL; with
+    AdamW, the local optimizer of the main path, the loss and the groups'
+    moments mu and nu (linear and quadratic in the gradients; the trees and
+    each of MOMENT_LEAVES) within TRAIN_RTOL. The AdamW update itself is not
+    compared: its first steps are lr * g / |g|, so a gradient element at
+    rounding level steps by +-lr on either side."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.core import local_sgd
@@ -2753,7 +2978,9 @@ def reduced_round_card_vs_cpu(arch):
     batches = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, shape).astype(np.int32))
                for k in ("tokens", "labels")}
     start = TransformerLM(cfg, device="cuda").init(0)
-    n_attn = sum(s.mixer == "attn" for s in TransformerLM(cfg, device="cuda").plan)
+    plan = TransformerLM(cfg, device="cuda").plan
+    n_attn = sum(s.mixer == "attn" for s in plan)
+    n_mamba = sum(s.mixer == "mamba" for s in plan)
     paths = ["/".join(map(str, p)) for p in tree_paths(start)]
     steps = TRAIN_G * TRAIN_H
     step_tokens = shape[2] * shape[3]
@@ -2763,8 +2990,23 @@ def reduced_round_card_vs_cpu(arch):
         num = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want)))
         return num / math.sqrt(sum(float((b ** 2).sum()) for b in want))
 
-    out = {"arch": arch}
-    for name, make in (("SGD", lambda: sgd(0.05)), ("AdamW", lambda: adamw(1e-3))):
+    # one step's gradients, card against CPU, every leaf
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), start)
+        loss, _ = TransformerLM(cfg, device=dev).train_loss(
+            p, {k: v[0, 0].to(dev) for k, v in batches.items()})
+        grads[dev] = [g.cpu().double() for g in torch.autograd.grad(loss, tree_leaves(p))]
+    grad_err = {pth: float((a - b).norm() / b.norm())
+                for pth, a, b in zip(paths, grads["cuda"], grads["cpu"])}
+    worst_grad = max(grad_err, key=grad_err.get)
+    print(f"  reduced {arch} fp32, one step's gradients, card vs CPU: {len(grad_err)} leaves, "
+          f"worst {grad_err[worst_grad]:.2e} ({worst_grad}) (tol {TRAIN_RTOL:g})")
+    require(grad_err[worst_grad] <= TRAIN_RTOL, f"reduced {arch}: a gradient leaf disagrees")
+    out = {"arch": arch, "gradient_worst_rel_err": grad_err[worst_grad],
+           "gradient_worst_leaf": worst_grad}
+    del grads
+    for name, make in (("SGD", lambda: sgd(REDUCED_SGD_LR)), ("AdamW", lambda: adamw(1e-3))):
         results = {}
         for dev in ("cuda", "cpu"):
             model = TransformerLM(cfg, device=dev)
@@ -2788,32 +3030,46 @@ def reduced_round_card_vs_cpu(arch):
         (l_gpu, n_gpu, u_gpu, m_gpu), (l_cpu, _, u_cpu, m_cpu) = results["cuda"], results["cpu"]
         want = {k: 0 for k in KERNELS}
         want.update(fused_cross_entropy=steps, ce_probs=steps * chunks,
-                    flash_attention=steps * n_attn, fedavg_aggregate=len(u_gpu))
+                    flash_attention=steps * n_attn, ssm_scan=steps * n_mamba,
+                    ssm_scan_bwd=steps * n_mamba, fedavg_aggregate=len(u_gpu))
         require(n_gpu == want, f"reduced {arch} {name} round: launches {n_gpu}, want {want}")
         require(tc == (0, 0, 0), f"reduced {arch} {name} round: fp32 took a tensor-core "
                 f"route (flash, CE, ce_probs: {tc})")
         l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
         n = len(paths)
-        # (what, rel L2 of the tree, per-leaf (got, want) of the attention weights and head)
+        # (what, rel L2 of the tree, per-leaf (got, want) of the checked leaves)
         if name == "SGD":
-            checks = [("update", u_gpu, u_cpu)]
+            checks, checked = [("update", u_gpu, u_cpu)], UPDATE_LEAVES
         else:
             checks = [("mu", m_gpu[:n], m_cpu[:n]), ("nu", m_gpu[n:], m_cpu[n:])]
+            checked = MOMENT_LEAVES
         tree_err = {k: rel_l2(g, w) for k, g, w in checks}
         leaf_err = {f"{k} {p}": float((a - b).norm() / b.norm())
                     for k, g, w in checks for p, a, b in zip(paths, g, w)
-                    if p.split("/")[-1] in ("wq", "wk", "wv", "wo", "table")}
+                    if p.split("/")[-1] in checked}
         worst_key = max(leaf_err, key=leaf_err.get)
         worst_leaf = leaf_err[worst_key]
+        if name == "SGD":   # not held: the other leaves' updates, in ulps of their values
+            unheld = []
+            for p, a, b, s0 in zip(paths, u_gpu, u_cpu, tree_leaves(start)):
+                if p.split("/")[-1] in MOMENT_LEAVES and p.split("/")[-1] not in UPDATE_LEAVES:
+                    v = s0.detach().float().cpu().abs()
+                    ulp = (torch.nextafter(v, torch.full_like(v, math.inf)) - v).double()
+                    unheld.append((float((a - b).norm() / b.norm()), p,
+                                   float((b.abs() / ulp).median())))
+            if unheld:
+                e, p, ulps = max(unheld)
+                print(f"    (not held) the SGD update of Mamba's and the router's leaves: worst "
+                      f"{e:.2e} ({p}), its median step {ulps:.1f} ulps of its values")
         print(f"  reduced {arch} fp32, one round G={TRAIN_G} H={TRAIN_H} {name}: loss "
               f"{l_gpu:.6f} vs CPU {l_cpu:.6f} (rel {l_err:.2e}); "
               + ", ".join(f"{k} rel L2 {e:.2e}" for k, e in tree_err.items())
-              + f"; attention weights and tied head, worst {worst_leaf:.2e} ({worst_key}) "
+              + f"; {len(leaf_err)} checked leaves, worst {worst_leaf:.2e} ({worst_key}) "
               f"(tol {TRAIN_RTOL:g}); launches {({k: v for k, v in n_gpu.items() if v})}")
         require(max([l_err, worst_leaf, *tree_err.values()]) <= TRAIN_RTOL,
                 f"reduced {arch} {name}: the card's round and the CPU's disagree")
         out[name] = {"loss_rel_err": l_err, **{f"{k}_rel_err": e for k, e in tree_err.items()},
-                     "attention_and_head_worst_rel_err": worst_leaf}
+                     "checked_leaves_worst_rel_err": worst_leaf, "worst_leaf": worst_key}
     return out
 
 
@@ -2868,6 +3124,44 @@ def full_width_ce_checks():
     return {"ce": ce, "materialized_ce": ref, "ce_rel_err": rel, **errs}
 
 
+# The port's torch.profiler ranges: the three backwards (kernels/ops.py) and
+# the optimizer's update (core/local_sgd.py).
+PROFILER_RANGES = ("flash_attention_bwd", "fused_cross_entropy_bwd", "ssm_scan_bwd",
+                   "optimizer_update")
+
+
+def range_device_ms(prof, names):
+    """{range: (device ms, host spans)}: the device time of each host range
+    of ``names`` (``torch.profiler.record_function``): on the one stream,
+    every kernel from the first to the last of those whose launch call
+    (matched by correlation id) falls inside one of the range's host spans.
+    The profiler's op tree alone misses kernels that no torch op launches
+    (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA
+                 and not e.is_user_annotation()]
+    launch_of = {}
+    for e in raw:
+        if e.device_type() == DeviceType.CPU and "aunch" in e.name() and e.correlation_id():
+            launch_of[e.correlation_id()] = e.start_ns()
+    out = {}
+    for name in names:
+        spans = [(e.start_ns(), e.end_ns()) for e in raw
+                 if e.device_type() == DeviceType.CPU and e.name() == name]
+        total = 0
+        for a, b in spans:
+            mine = [k for k in on_device
+                    if a <= launch_of.get(k.correlation_id(), -1) <= b]
+            if mine:
+                lo = min(k.start_ns() for k in mine)
+                hi = max(k.end_ns() for k in mine)
+                total += sum(k.duration_ns() for k in on_device if lo <= k.start_ns() < hi)
+        out[name] = (total / 1e6, len(spans))
+    return out
+
+
 def profile_training_step():
     """One training step of one group (Gemma-2B, B = 2 x 2048 tokens, AdamW,
     through ``build_fedsgd_train_step``) under torch.profiler with CPU and
@@ -2915,10 +3209,11 @@ def profile_training_step():
     require(probs_tc == CE_CHUNKS, f"profiled step: {probs_tc} of {CE_CHUNKS} ce_probs "
             "launches took the tensor-core route")
     events = prof.events()
-    ranges = ("flash_attention_bwd", "fused_cross_entropy_bwd")
-    # the device copies of the two ranges (user annotations) span their
-    # kernels and the gaps between them: they are not kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges
+    ranges = ("flash_attention_bwd", "fused_cross_entropy_bwd", "optimizer_update")
+    # the device copies of the ranges (user annotations) span their kernels
+    # and the gaps between them: they are not kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in PROFILER_RANGES
                and not getattr(e, "is_user_annotation", False)]
     busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
     by_name = {}
@@ -2926,32 +3221,6 @@ def profile_training_step():
         us, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
     rows = sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)
-
-    raw = prof.profiler.kineto_results.events()
-    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA
-                 and not e.is_user_annotation()]
-    launch_of = {}
-    for e in raw:
-        if e.device_type() == DeviceType.CPU and "aunch" in e.name() and e.correlation_id():
-            launch_of[e.correlation_id()] = e.start_ns()
-
-    def range_ms(name):
-        """Device time of a host range: on the one stream, every kernel
-        from the first to the last of those whose launch call (matched by
-        correlation id) falls inside one of the range's host spans. The
-        profiler's op tree alone misses kernels that no torch op launches
-        (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
-        spans = [(e.start_ns(), e.end_ns()) for e in raw
-                 if e.device_type() == DeviceType.CPU and e.name() == name]
-        total = 0
-        for a, b in spans:
-            mine = [k for k in on_device
-                    if a <= launch_of.get(k.correlation_id(), -1) <= b]
-            if mine:
-                lo = min(k.start_ns() for k in mine)
-                hi = max(k.end_ns() for k in mine)
-                total += sum(k.duration_ns() for k in on_device if lo <= k.start_ns() < hi)
-        return total / 1e6, len(spans)
 
     ce_fwd = ("ce_fwd_mma_kernel", "ce_partial_kernel", "ce_merge_kernel")
     shares = {
@@ -2975,7 +3244,7 @@ def profile_training_step():
         "flash_attention (tensor-core kernel)": (
             sum(us for us, _, k in rows if "flash_fwd_mma_kernel" in k) / 1e3,
             sum(c for _, c, k in rows if "flash_fwd_mma_kernel" in k)),
-        **{f"{name} (range)": range_ms(name) for name in ranges},
+        **{f"{name} (range)": v for name, v in range_device_ms(prof, ranges).items()},
     }
     print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
@@ -2989,6 +3258,235 @@ def profile_training_step():
             "device_kernels": len(kernels),
             "shares_ms": {k: v[0] for k, v in shares.items()},
             "top": [(us / 1e3, c, k[:120]) for us, c, k in rows[:10]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 27: training Jamba
+# ---------------------------------------------------------------------------
+
+def jamba_train_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_TRAIN_LAYERS)
+
+
+def jamba_training_lane():
+    """Jamba at full width cut to JAMBA_TRAIN_LAYERS layers through
+    ``repro_torch.launch.train.run`` (``JAMBA_TRAIN_ARGV``): 2 FedAvg rounds
+    of G = 2 groups x H = 2 AdamW steps (bf16 moments), bf16, remat. Every
+    count is set to 0 just before the run and read just after; each round
+    must launch ``ssm_scan`` G·H·2·2 times (2 Mamba layers, forward and
+    remat recompute), all on the launch plan's lanes, ``ssm_scan_bwd`` G·H·2
+    times, ``fused_cross_entropy`` G·H times and ``ce_probs`` G·H·chunks
+    times on the tensor-core route, ``fedavg_aggregate`` once a parameter
+    leaf, and nothing else: no ``flash_attention`` (the cut has no attention
+    layer)."""
+    from repro_torch.kernels.ssm_scan import launch_plan
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = jamba_train_config()
+    plan = TransformerLM(cfg, device="meta").plan
+    n_mamba = sum(s.mixer == "mamba" for s in plan)
+    n_leaves = len(tree_leaves(TransformerLM(cfg, device="meta").param_shapes()))
+    steps = TRAIN_G * TRAIN_H
+    chunks = -(-TRAIN_B * TRAIN_S // (TRAIN_B * cfg.ce_chunk))
+    per = {"fused_cross_entropy": steps, "ce_probs": steps * chunks, "flash_attention": 0,
+           "ssm_scan": steps * n_mamba * 2, "ssm_scan_bwd": steps * n_mamba,
+           "fedavg_aggregate": n_leaves}
+    free_card()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs, final = train.run(JAMBA_TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    counts, ce_tc, probs_tc = launch_counts(), ce_tc_launches(), probs_tc_launches()
+    lanes = dict(counters()["ssm_scan"].lane_launches)
+    n_params = sum(int(t.numel()) for t in tree_leaves(final))
+    del final
+    free_card()
+    want = {k: 0 for k in KERNELS}
+    want.update({k: v * len(recs) for k, v in per.items()})
+    require(counts == want, f"training jamba: launches {counts}, want {want}")
+    require(ce_tc == want["fused_cross_entropy"] and probs_tc == want["ce_probs"],
+            f"training jamba: {ce_tc} CE and {probs_tc} ce_probs launches on the tensor-core "
+            f"route, want {want['fused_cross_entropy']} and {want['ce_probs']}")
+    require(lanes[launch_plan(TRAIN_S)] == want["ssm_scan"],
+            f"training jamba: ssm_scan launches by lanes {lanes}")
+    for rec in recs:
+        require(rec["launches"] == per, f"training jamba: {rec['launches']} != {per}")
+        require(math.isfinite(rec["loss"]), f"training jamba: loss {rec['loss']}")
+        print(f"  fedavg round {rec['round']}: {rec['seconds']:.3f} s, {rec['tokens']} tokens, "
+              f"{rec['tokens_per_s']:.0f} tokens/s, loss {rec['loss']:.4f}, peak device memory "
+              f"{rec['peak_GiB']:.2f} GiB, launches "
+              + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()))
+    peak = max(rec["peak_GiB"] for rec in recs)
+    print(f"  jamba {JAMBA_TRAIN_LAYERS} layers ({[s.mixer + '/' + s.ffn for s in plan]}), "
+          f"{n_params:,} params, {n_leaves} leaves: {len(recs)} rounds in {wall:.1f} s with "
+          f"set-up; launches in all {want}; peak {peak:.2f} GiB ({held / 2**30:.2f} GiB held "
+          f"before)")
+    require(peak <= PEAK_LIMIT_GIB, f"training jamba: peak {peak:.2f} GiB over "
+            f"{PEAK_LIMIT_GIB} GiB")
+    return {"records": recs, "launches": counts, "ssm_lane_launches": lanes,
+            "ce_tc_launches": ce_tc, "probs_tc_launches": probs_tc, "peak_GiB": peak,
+            "n_params": n_params, "wall_s": wall, "argv": JAMBA_TRAIN_ARGV}
+
+
+def layer_ms(fn, inputs, leaves, grad_out):
+    """(forward ms, forward + backward ms) of ``fn(inputs)``, CUDA events
+    around 3 runs each after a warm-up, the backward reaching ``inputs`` and
+    ``leaves`` (the layer's params, which require grad)."""
+    def fwd():
+        with torch.no_grad():
+            fn(inputs)
+
+    def fwd_bwd():
+        torch.autograd.backward(fn(inputs), grad_out)
+        for t in [inputs] + leaves:
+            t.grad = None
+
+    res = []
+    for f in (fwd, fwd_bwd):
+        f()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            f()
+        b.record()
+        torch.cuda.synchronize()
+        res.append(a.elapsed_time(b) / 3)
+    return tuple(res)
+
+
+def profile_jamba_step():
+    """One training step of one group of phase 27's Jamba (B = 2 x 2048
+    tokens, AdamW with bf16 moments, through ``build_fedsgd_train_step``)
+    under torch.profiler, after a warm-up step: device busy against the host
+    wall, the top kernels, and the shares of the scan's forward kernel,
+    ``ssm_scan_bwd`` (its two kernels; its range), the CE, and AdamW (the
+    ``optimizer_update`` range). Then each Mamba mixer and the MoE FFN
+    alone at the step's shape, forward and forward + backward by CUDA
+    events: under remat a layer's forward runs twice a step, so its share
+    is (2 forward + backward) over the profiled step's busy time (the
+    profiler's own cost is in that busy time, not in the layers' events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.local_sgd import build_fedsgd_train_step
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import moe_apply
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = jamba_train_config()
+    model = TransformerLM(cfg, device="cuda")
+    params = model.init(0)
+    opt = adamw(JAMBA_TRAIN_LR, state_dtype=torch.bfloat16)
+    box = {"state": opt.init(params)}
+    step = build_fedsgd_train_step(model.train_loss, opt)
+    r = np.random.default_rng(8)
+    batch = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+                                 .astype(np.int32)).cuda() for k in ("tokens", "labels")}
+
+    def one():
+        _, box["state"], m = step(params, box["state"], batch)
+        return float(m["loss"])
+
+    one()
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = one()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_mamba = sum(s.mixer == "mamba" for s in model.plan)
+    chunks = -(-TRAIN_B * TRAIN_S // (TRAIN_B * cfg.ce_chunk))
+    want = {k: 0 for k in KERNELS}
+    want.update(fused_cross_entropy=1, ce_probs=chunks, ssm_scan=2 * n_mamba,
+                ssm_scan_bwd=n_mamba)
+    require(counts == want and math.isfinite(loss),
+            f"profiled jamba step: launches {counts}, want {want}; loss {loss}")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in PROFILER_RANGES
+               and not getattr(e, "is_user_annotation", False)]
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    rows = sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)
+
+    def named(*keys):
+        return (sum(us for us, _, k in rows if any(n in k for n in keys)) / 1e3,
+                sum(c for _, c, k in rows if any(n in k for n in keys)))
+
+    shares = {
+        "ssm_scan (ssm_scan_ring_kernel)": named("ssm_scan_ring_kernel"),
+        "ssm_scan_bwd (its two kernels)": named("ssm_scan_bwd_kernel",
+                                                "ssm_scan_bwd_reduce_kernel"),
+        "fused_cross_entropy and ce_probs": named("ce_fwd_mma_kernel", "ce_merge_kernel",
+                                                  "ce_probs_mma_kernel"),
+        **{f"{name} (range)": v for name, v in range_device_ms(
+            prof, ("ssm_scan_bwd", "fused_cross_entropy_bwd", "optimizer_update")).items()},
+    }
+    print(f"  jamba one group step (B={TRAIN_B} x {TRAIN_S}, AdamW, bf16 moments): wall "
+          f"{wall:.4f} s under the profiler, device busy {busy:.4f} s (idle share "
+          f"{1 - busy / wall:.1%}), {len(kernels)} device kernels, loss {loss:.4f}")
+    for k, (ms, count) in shares.items():
+        print(f"    {k}: {count}x, {ms:.3f} ms ({ms / 1e3 / busy:.1%} of busy)")
+    for us, count, k in rows[:10]:
+        print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+    del box
+    free_card()
+
+    # each Mamba mixer and the MoE FFN alone, at the step's shape
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=g, device="cuda",
+                    dtype=model.compute_dtype).requires_grad_()
+    grad_out = torch.randn(h.shape, generator=g, device="cuda", dtype=h.dtype)
+    layers = {}
+    for si, seg in enumerate(model.segments):
+        for j, spec in enumerate(seg.specs):
+            sub = params["layers"][si][f"sub{j}"]
+            if spec.mixer == "mamba":
+                p = tree_map(lambda a: a[0].detach().requires_grad_(), sub["mixer"])
+                ms = layer_ms(lambda x, p=p: ssm_mod.mamba_apply(p, cfg, x)[0], h,
+                              tree_leaves(p), grad_out)
+                layers.setdefault("mamba mixer", []).append(ms)
+            if spec.ffn == "moe":
+                p = tree_map(lambda a: a[0].detach().requires_grad_(), sub["ffn"])
+                ms = layer_ms(lambda x, p=p: moe_apply(p, cfg, x, cfg.act)[0], h,
+                              tree_leaves(p), grad_out)
+                layers.setdefault("moe ffn", []).append(ms)
+    layer_shares = {}
+    for k, mss in layers.items():
+        step_ms = sum(2 * f + (fb - f) for f, fb in mss)
+        layer_shares[k] = {"forward_ms": [f for f, _ in mss],
+                           "forward_backward_ms": [fb for _, fb in mss],
+                           "step_ms": step_ms, "share_of_busy": step_ms / 1e3 / busy}
+        print(f"    {k} x{len(mss)}: forward " + ", ".join(f"{f:.3f}" for f, _ in mss)
+              + " ms, forward + backward " + ", ".join(f"{fb:.3f}" for _, fb in mss)
+              + f" ms alone; 2 forwards + backward {step_ms:.3f} ms a step "
+              f"({step_ms / 1e3 / busy:.1%} of busy)")
+    del params, h, grad_out
+    free_card()
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_kernels": len(kernels), "loss": loss,
+            "shares_ms": {k: v[0] for k, v in shares.items()}, "layers": layer_shares,
+            "top": [(us / 1e3, c, k[:120]) for us, c, k in rows[:10]]}
+
+
+def jamba_training_phase():
+    """Phase 27: the training lane, then the profiled step."""
+    t0 = time.perf_counter()
+    out = {"lane": jamba_training_lane()}
+    out["profile"] = profile_jamba_step()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 27: launches {out['lane']['launches']} in {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5686,6 +6184,7 @@ def main() -> int:
         "ssm_scan": check_ssm_scan(),
         "fused_cross_entropy": check_fused_cross_entropy(),
         "ce_probs": check_ce_probs(),
+        "ssm_scan_bwd": check_ssm_scan_bwd(),
     }
     flash_lse_err = check_flash_lse()
     check_grad_guard()
@@ -5699,6 +6198,7 @@ def main() -> int:
               "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
               "ssm_scan": time_ssm_scan()}
     timing["fused_cross_entropy"], timing["ce_probs"] = time_fused_cross_entropy()
+    timing["ssm_scan_bwd"] = time_ssm_scan_bwd()
 
     phase("data: synthetic MNIST, 60,000 train / 10,000 test, seed 0")
     t0 = time.perf_counter()
@@ -5817,7 +6317,8 @@ def main() -> int:
 
     phase("19. correctness of the training path on the card")
     train_checks = {"reduced_card_vs_cpu": [reduced_round_card_vs_cpu("gemma-2b"),
-                                            reduced_round_card_vs_cpu("qwen2-72b")]}
+                                            reduced_round_card_vs_cpu("qwen2-72b"),
+                                            reduced_round_card_vs_cpu("jamba-v0.1-52b")]}
     free_card()
     train_checks["full_width"] = full_width_ce_checks()
     free_card()
@@ -5861,6 +6362,13 @@ def main() -> int:
     print(f"card: {smi}")
     offstar = offstar_superstep_phase(train, test)
 
+    phase(f"27. training Jamba: full width cut to {JAMBA_TRAIN_LAYERS} layers (Mamba/MLP, "
+          f"Mamba/MoE), bf16, remat, FedAvg G={TRAIN_G} x H={TRAIN_H} AdamW steps (bf16 "
+          f"moments) on {TRAIN_B} x {TRAIN_S} tokens a group, 2 rounds, through "
+          "repro_torch.launch.train.run; then one profiled group step")
+    print(f"card: {smi}")
+    jamba_training = jamba_training_phase()
+
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
     for k in WIRE_KERNELS:
@@ -5882,6 +6390,8 @@ def main() -> int:
         launches[k] += n
     for k in ("flash_attention", "ssm_scan"):
         launches[k] = sum(lane["launches"][k] for lane in serving)
+    for k in ("ssm_scan", "ssm_scan_bwd", "fused_cross_entropy", "ce_probs", "fedavg_aggregate"):
+        launches[k] = launches.get(k, 0) + jamba_training["lane"]["launches"][k]
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
         launches[k] = launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
     flash_tc = (sum(lane["flash_tc_launches"] for lane in serving)
@@ -5900,6 +6410,9 @@ def main() -> int:
         # no Pallas kernel: the reference's CE gradient is XLA's autodiff of
         # the chunk's logits
         "ce_probs": ("ce_loss.cu", "src/repro/models/transformer.py:363"),
+        # no Pallas kernel: the reference trains Mamba through a plain
+        # lax.scan (_segmented_scan), which XLA differentiates
+        "ssm_scan_bwd": ("ssm_scan.cu", "src/repro/models/ssm.py:25"),
     }
     at = {
         "fedavg_aggregate": {"K": MAIN_K, "N": MAIN_N["mnist_cnn"], "dtype": "float32"},
@@ -5921,14 +6434,17 @@ def main() -> int:
         "ce_probs": {"shape": "gemma-2b train step, one backward chunk", "T": CE_CHUNK_TOKENS,
                      "d": CE_SHAPE[1], "V": CE_SHAPE[2], "dtype": "bfloat16",
                      "head": "tied view"},
+        "ssm_scan_bwd": {"shape": "jamba train step, one Mamba layer", "B": SSM_TRAIN_B,
+                         "T": TRAIN_S, "D": SSM_D, "N": SSM_N, "dtype": "float32"},
     }
     main_shape = {k: "mnist_cnn" for k in KERNELS}
     main_shape.update(gossip_mix="ring/mnist_cnn", flash_attention="jamba",
                       ssm_scan="jamba/prefill", fused_cross_entropy="gemma-2b train",
-                      ce_probs="gemma-2b train chunk")
+                      ce_probs="gemma-2b train chunk", ssm_scan_bwd="jamba/train")
     lanes_of = {"flash_attention": serving, "ssm_scan": serving,
                 "fused_cross_entropy": [],   # their lane is kernels[7]["training"]
-                "ce_probs": []}
+                "ce_probs": [],
+                "ssm_scan_bwd": []}          # its lane is kernels[9]["training"]
     kernels = []
     for k in KERNELS:
         cnn = timing[k][main_shape[k]]
@@ -6032,6 +6548,8 @@ def main() -> int:
                               for algo, run in training.items()}
     kernels[7]["training_checks"] = train_checks
     kernels[7]["training_step_profile"] = train_profile
+    kernels[9]["training"] = jamba_training
+    kernels[6]["training_launches"] = jamba_training["lane"]["launches"]["ssm_scan"]
     print(f"\nchip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -90,12 +90,14 @@ def _update_in_place(opt: Optimizer, leaves, grads, state):
 
 def _train_step_in_place(loss_fn, opt, params, state, batch):
     """One optimizer step on ``params`` (a tree of tensors, updated in
-    place) and ``state``: (loss, aux, new step)."""
+    place) and ``state``: (loss, aux, new step). The update runs inside the
+    ``torch.profiler`` range ``optimizer_update``, so a trace shows what it
+    costs."""
     p = tree_map(lambda a: a.detach().requires_grad_(), params)
     leaves = tree_leaves(p)
     loss, aux = loss_fn(p, batch)
     grads = list(torch.autograd.grad(loss, leaves))
-    with torch.no_grad():
+    with torch.no_grad(), torch.profiler.record_function("optimizer_update"):
         step = _update_in_place(opt, leaves, grads, state)
     return loss.detach(), aux, step
 

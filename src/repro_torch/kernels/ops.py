@@ -21,19 +21,21 @@ weights, in the same fp32 bits, as the unsharded adapter's, so a world of
 one gives the unsharded round bit for bit. Each takes ``group=`` where the
 reference takes ``axis_name=``.
 ``mha_flash`` and ``mamba_ssm_scan`` adapt the LM's layouts to the
-attention and scan kernels.
+attention and scan kernels (serving).
 
-Training goes through two ``torch.autograd.Function``s, because a kernel
+Training goes through three ``torch.autograd.Function``s, because a kernel
 launched through ctypes is invisible to autograd (``grad_guard``):
-``FlashAttention`` (``mha_flash_train``) and ``FusedCrossEntropy``
-(``ce_loss_mean``). Each forward is the kernel on a CUDA tensor and its
-plain version on a CPU tensor. The reference's gradients are plain JAX
-outside its forward-only Pallas kernels: attention's backward is plain
-torch here too; the CE backward (``ce_backward``) builds the logits'
-cotangent with the ``ce_probs`` kernels and leaves its two large products
-to cuBLAS. Each backward is a ``torch.profiler``
-range of its own (``flash_attention_bwd``, ``fused_cross_entropy_bwd``), so
-a trace shows what it costs."""
+``FlashAttention`` (``mha_flash_train``), ``FusedCrossEntropy``
+(``ce_loss_mean``) and ``SSMScan`` (``mamba_ssm_scan_train``). Each forward
+is the kernel on a CUDA tensor and its plain version on a CPU tensor. The
+reference's gradients are plain JAX outside its forward-only Pallas
+kernels: attention's backward is plain torch here too; the CE backward
+(``ce_backward``) builds the logits' cotangent with the ``ce_probs``
+kernels and leaves its two large products to cuBLAS; the scan's backward is
+the hand-written ``ssm_scan_bwd`` kernel (its plain reverse-time loop on
+the CPU). Each backward is a ``torch.profiler`` range of its own
+(``flash_attention_bwd``, ``fused_cross_entropy_bwd``, ``ssm_scan_bwd``),
+so a trace shows what it costs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -50,7 +52,7 @@ from repro_torch.kernels.quantized_agg import (
     quantized_aggregate,
 )
 from repro_torch.kernels.sparse_agg import sparse_aggregate
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 from repro_torch.models.attention_core import flash_attention_bwd
 from repro_torch.utils.tree import (
     tree_leaves,
@@ -258,6 +260,42 @@ def mamba_ssm_scan(dt, Bm, Cm, x, A, h0, *, chunk=0):
         y, h = ssm_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], x[:, sl], A, h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+class SSMScan(torch.autograd.Function):
+    """The selective scan with a gradient: (y, h_T) of ``ssm_scan``.
+
+    Forward: ``ssm_scan(..., checkpoints=True)``, the kernel on a CUDA
+    tensor (one launch, which also writes the state entering every run of
+    16 steps) and ``ssm_scan_ref`` on a CPU tensor, keeping the inputs and
+    the checkpoints. Backward: ``ssm_scan_bwd``, the kernel on a CUDA
+    tensor and ``ssm_scan_bwd_ref`` on a CPU tensor, inside the profiler
+    range ``ssm_scan_bwd``. A cotangent that is None (h_T, which training
+    drops) counts as zeros, and an input gradient that autograd does not
+    ask for is not computed."""
+
+    @staticmethod
+    def forward(ctx, dt, Bm, Cm, x, A, h0):
+        y, h_T, ck = ssm_scan(dt, Bm, Cm, x, A, h0, checkpoints=True)
+        ctx.save_for_backward(dt, Bm, Cm, x, A, h0, ck)
+        ctx.set_materialize_grads(False)
+        return y, h_T
+
+    @staticmethod
+    def backward(ctx, gy, g_hT):
+        dt, Bm, Cm, x, A, h0, ck = ctx.saved_tensors
+        gy = (torch.zeros(x.shape, dtype=torch.float32, device=x.device) if gy is None
+              else gy.contiguous())
+        with torch.profiler.record_function("ssm_scan_bwd"):
+            return ssm_scan_bwd(dt, Bm, Cm, x, A, h0, gy,
+                                None if g_hT is None else g_hT.contiguous(),
+                                checkpoints=ck, needs=tuple(ctx.needs_input_grad))
+
+
+def mamba_ssm_scan_train(dt, Bm, Cm, x, A, h0):
+    """The selective scan of the training forward over T at once,
+    differentiable through ``SSMScan``: (y, h_T)."""
+    return SSMScan.apply(dt, Bm, Cm, x, A, h0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -16,7 +16,9 @@
    flush reads the same buffer, written once, and leaves clean lines. Then
    the same kernels' device durations as CUPTI records them
    (``torch.profiler``) beside their CUDA-event times under the clean
-   flush: the events also hold the launch.
+   flush: the events also hold the launch. ``fedavg_aggregate`` also at
+   the buffered-async apply (K = 3, the 2NN's N) and the char-LSTM round
+   (K = 115), where the launch is a large part of the event time.
 3. ``sparse_aggregate``'s gap (:func:`sparse`): ``probe_red``, the RED
    floor (fp32 reductions at the pairs' indices and nothing else), on
    coalesced, uniform random and real top-k indices; both routes' event
@@ -58,6 +60,9 @@ FLUSH_BYTES = 256 * 2**20        # well above the 50 MB L2
 # chunk 512 (specs/mnist_2nn_noniid_q8.json).
 WIRE_K, WIRE_CHUNK = 10, 512
 WIRE_N = {"cnn": 1_663_370, "2nn": 199_210}
+# fedavg_aggregate's other small rounds (chip_smoke.py's AGG_SHAPES): the
+# buffered-async apply and the Shakespeare spec's char-LSTM round, (K, N)
+FEDAVG_SHAPES = {"async_apply": (3, 199_210), "char_lstm": (115, 211_592)}
 # The flush is switched when the zeroing flush costs probe_stream at the q8
 # CNN bytes this much more than the clean flush.
 FLUSH_SWITCH_RATIO = 1.10
@@ -481,7 +486,8 @@ def flushes():
 
 def durations():
     """The codec routes, probe_stream, fedavg_aggregate and both routes of
-    sparse_aggregate at the CNN and 2NN shapes under the clean flush: the
+    sparse_aggregate at the CNN and 2NN shapes, and fedavg_aggregate at
+    FEDAVG_SHAPES, under the clean flush: the
     CUDA-event time (median of 50) beside each of the kernels' device
     durations as CUPTI records them (median of 40; the sparse scatter
     route's fill and scatter kernel are two records), {name: (event ms,
@@ -512,6 +518,17 @@ def durations():
                     ins["idx"], ins["vals"], ins["w"], ins["out"][:ins["N"]], route), keys)
         for name, (fn, keys) in fns.items():
             rows[name] = (_time_ms(fn, flush), _device_ms(fn, keys, flush))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for tag, (K, N) in FEDAVG_SHAPES.items():
+        x = torch.randn((K, N), generator=g, device="cuda")
+        w = torch.rand(K, generator=g, device="cuda") + 0.1
+        w = w / w.sum()
+
+        def fn(x=x, w=w):
+            return fedavg_aggregate(x, w)
+
+        rows[f"fedavg_aggregate {tag} (K={K}, N={N})"] = (_time_ms(fn, flush),
+                                                          _device_ms(fn, ["fedavg_agg"], flush))
     return rows
 
 

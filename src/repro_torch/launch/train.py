@@ -4,10 +4,12 @@ device (counterpart of ``repro/launch/train.py``).
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --device cpu \\
         --rounds 2 --local-steps 2 --global-batch 4 --seq 32
 
-trains the arch's ``reduced()`` config (``--n-layers`` layers), as the
-reference's ``launch/train.py`` does; ``--full`` trains the arch's own
-config instead (Gemma-2B whole on the card). Without ``--arch`` it trains
-the reference's small demo LM. A FedAvg round is H local AdamW steps for each of
+trains the arch's ``reduced()`` config (``--n-layers`` layers, 6 unless
+given), as the reference's ``launch/train.py`` does; ``--full`` trains the
+arch's own config instead (Gemma-2B whole on the card), and ``--full
+--n-layers L`` its own widths cut to the first L layers of its plan (Jamba
+at L = 2 on one card). Without ``--arch`` it trains the reference's small
+demo LM. A FedAvg round is H local AdamW steps for each of
 ``--groups`` client groups, then their weighted average through
 ``fedavg_aggregate`` (see ``core/local_sgd.py``); ``--algo fedsgd`` takes
 one AdamW step per batch instead. Weights come from ``--seed`` on the
@@ -18,6 +20,10 @@ another on one device. ``--device`` defaults to ``cuda``: attention, the
 cross-entropy and the group average then run the hand-written kernels.
 ``--dtype`` sets the model's parameter and compute dtype (by default the
 config's own: float32 for a reduced config, bfloat16 for Gemma-2B's).
+``--state-dtype`` sets the stored dtype of AdamW's moments (float32 by
+default; bfloat16 halves them, the math staying fp32). The reference's
+launcher has neither ``--full --n-layers`` nor ``--state-dtype``: both
+reach options the config and ``optim.adamw`` already have.
 ``--checkpoint-dir`` saves the final params (group 0's replica on the
 FedAvg path) at ``step=--rounds`` with ``{"algo", "arch"}`` metadata, in
 the reference's layout (``repro_torch.checkpoint``), as the reference does.
@@ -49,11 +55,15 @@ def _parser():
     ap.add_argument("--outer", default="none", choices=["none", "nesterov"],
                     help="server optimizer on the pseudo-gradient (DiLoCo-style)")
     ap.add_argument("--d-model", type=int, default=384)
-    ap.add_argument("--n-layers", type=int, default=6)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="layers: of the reduced config or the demo LM (6 unless given); "
+                         "with --full, the arch's own widths cut to this depth")
     ap.add_argument("--groups", type=int, default=2, help="G: client groups")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                     help="parameter and compute dtype (default: the config's own)")
+    ap.add_argument("--state-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="stored dtype of AdamW's moments")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -63,8 +73,10 @@ def _counters():
     from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
     from repro_torch.kernels.fedavg_agg import fedavg_aggregate
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 
-    return (fused_cross_entropy, ce_probs, flash_attention, fedavg_aggregate)
+    return (fused_cross_entropy, ce_probs, flash_attention, ssm_scan, ssm_scan_bwd,
+            fedavg_aggregate)
 
 
 def _launches():
@@ -95,13 +107,16 @@ def run(argv=None):
     from repro_torch.optim import adamw, momentum
     from repro_torch.utils.tree import tree_leaves
 
+    n_layers = 6 if args.n_layers is None else args.n_layers
     if args.arch and args.full:
         cfg = get_config(args.arch)
+        if args.n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     elif args.arch:
-        cfg = reduced(get_config(args.arch), n_layers=args.n_layers)
+        cfg = reduced(get_config(args.arch), n_layers=n_layers)
     else:
         cfg = ModelConfig(
-            name="demo-lm", arch_type="dense", n_layers=args.n_layers,
+            name="demo-lm", arch_type="dense", n_layers=n_layers,
             d_model=args.d_model, n_heads=4, n_kv_heads=2, head_dim=64,
             d_ff=4 * args.d_model, vocab_size=8192, scan_layers=True,
         )
@@ -151,7 +166,7 @@ def run(argv=None):
                "launches": {k: v - before[k] for k, v in _launches().items()}}
         return rec
 
-    inner = adamw(args.lr)
+    inner = adamw(args.lr, state_dtype=getattr(torch, args.state_dtype))
     outer = momentum(0.7, beta=0.9, nesterov=True) if args.outer == "nesterov" else None
     records = []
     if args.algo == "fedavg":

@@ -6,8 +6,11 @@ SiLU, input-dependent (dt, B, C) projections, diagonal A, the selective
 scan, D skip, gate, RMSNorm on the scan output (as the Jamba reference),
 out-proj. The scan goes to ``ops.mamba_ssm_scan`` over the whole prompt in
 prefill and to ``ssm_scan`` with T = 1 from the cached state in decode: the
-hand-written kernel on the card, the plain loop on the CPU. The conv stays
-plain.
+hand-written kernel on the card, the plain loop on the CPU. In training
+(``mode="train"`` with grad mode on) it goes to ``ops.mamba_ssm_scan_train``
+(``SSMScan``): the same forward kernel, and the ``ssm_scan_bwd`` kernel as
+its backward, where the reference differentiates its plain ``lax.scan``
+(checkpointed every 128 steps). The conv stays plain.
 
 State for decode: conv tail (B, d_conv - 1, d_inner) + SSM state
 (B, d_inner, N) in fp32.
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import mamba_ssm_scan
+from repro_torch.kernels.ops import mamba_ssm_scan, mamba_ssm_scan_train
 from repro_torch.models import nn
 from repro_torch.models.layers import _full, rmsnorm, rmsnorm_init
 
@@ -95,7 +98,9 @@ def mamba_apply(p, cfg: ModelConfig, u, *, cache=None, mode="train"):
         h0 = cache["ssm"]
     else:
         h0 = torch.zeros((B, di, s.d_state), device=u.device)
-    ys, h_last = mamba_ssm_scan(dt, Bmat, Cmat, xf, A, h0)
+    scan = (mamba_ssm_scan_train if mode == "train" and torch.is_grad_enabled()
+            else mamba_ssm_scan)
+    ys, h_last = scan(dt, Bmat, Cmat, xf, A, h0)
     y = ys + xf * p["D"]
     y = y.to(u.dtype) * F.silu(z)
     y = rmsnorm(p["out_norm"], y, cfg.norm_eps)

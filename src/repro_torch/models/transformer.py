@@ -20,8 +20,10 @@ the flash kernel, training's backward by the reference's flash backward)
 and Mamba mixers, MLP and MoE FFNs — every layer of Jamba and of the dense
 archs — and ``train_loss``, whose cross-entropy goes through the fused CE
 kernel (``ops.ce_loss_mean``). Gradients reach every weight of the dense
-archs; a Mamba layer's scan has no backward yet, and its kernel refuses a
-differentiable input on the card (``kernels/grad_guard.py``). MLA,
+archs and of Jamba: a Mamba layer's training scan goes through
+``ops.SSMScan``, whose backward is the ``ssm_scan_bwd`` kernel on the card;
+the MoE layer trains as it stands (its routing is sorts and gathers, its
+experts cuBLAS products). MLA,
 mLSTM/sLSTM, cross-attention and the vision and audio stubs raise
 ``NotImplementedError`` naming their ROADMAP item.
 """

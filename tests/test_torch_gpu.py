@@ -857,6 +857,122 @@ def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert ssm_scan.launches == before
 
 
+def _bwd_case(cuda, B, T, D, N, seed, views=False):
+    """The scan's inputs with a nonzero h0, cotangents gy and g_hT; with
+    ``views`` B and C are column slices of one projection, as mamba_apply
+    passes them in fp32."""
+    dt, Bm, Cm, x, A, h0 = _ssm_case(cuda, B, T, D, N, torch.float32, seed, h0_scale=1.0)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    gy = torch.randn((B, T, D), generator=g, device=cuda)
+    gh = torch.randn((B, D, N), generator=g, device=cuda)
+    if views:
+        dbc = torch.cat([torch.randn((B, T, 6), device=cuda), Bm, Cm], dim=-1)
+        Bm, Cm = dbc[..., 6:6 + N], dbc[..., 6 + N:]
+    return (dt, Bm, Cm, x, A, h0), gy, gh
+
+
+def _bwd_close(got, want):
+    """Each gradient within 1e-5 of its largest magnitude (at least 1): fp32
+    sums over states, channels and time in another order, exp2 for exp."""
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == torch.float32
+            assert float((g - w).abs().max()) <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("B,T,D,N", [(1, 1, 24, 4), (2, 37, 24, 16), (2, 37, 200, 5),
+                                     (1, 37, 8192, 16), (2, 2048, 8192, 16)])
+def test_ssm_scan_bwd_kernel_matches_plain_version(cuda, B, T, D, N):
+    """The forward's checkpoints (kernel vs plain), then the backward from
+    them against ``ssm_scan_bwd_ref``: T = 1, T off the 16-step run, ragged
+    D, padded N, the training shape."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_bwd_ref, ssm_scan_ref
+
+    args, gy, gh = _bwd_case(cuda, B, T, D, N, seed=B + T + D + N)
+    y, h, ck = ssm_scan(*args, checkpoints=True)
+    y0, h0 = ssm_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)   # checkpoints change nothing else
+    _, _, ck32 = ssm_scan_ref(*args, checkpoints=True)
+    assert float((ck - ck32).abs().max()) <= 1e-5 * max(1.0, float(ck32.abs().max()))
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(*args, gy, gh, checkpoints=ck)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 1
+    _bwd_close(got, ssm_scan_bwd_ref(*args, gy, gh))
+
+
+@pytest.mark.parametrize("needs", [(True,) * 6, (True, True, True, True, True, False),
+                                   (False, False, True, False, True, False),
+                                   (True, False, False, False, False, True)])
+def test_ssm_scan_bwd_kernel_on_views_and_what_is_asked(cuda, needs):
+    """B and C as column slices; only the gradients asked for are made,
+    and g_hT None counts as zeros."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_bwd_ref
+
+    args, gy, _ = _bwd_case(cuda, 2, 50, 96, 16, seed=3, views=True)
+    assert not args[1].is_contiguous()
+    _, _, ck = ssm_scan(*args, checkpoints=True)
+    got = ssm_scan_bwd(*args, gy, None, checkpoints=ck, needs=needs)
+    torch.cuda.synchronize()
+    _bwd_close(got, ssm_scan_bwd_ref(*args, gy, None, needs))
+
+
+def test_ssm_scan_function_on_the_card_matches_autograd_through_the_plain_scan(cuda):
+    """``ops.mamba_ssm_scan_train`` with B and C sliced from one projection
+    that requires grad, as in mamba_apply: one forward and one backward
+    launch; y, h_T and every leaf's gradient against autograd through
+    ``ssm_scan_ref``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_ref
+
+    (dt, Bm, Cm, x, A, h0), gy, gh = _bwd_case(cuda, 2, 130, 96, 16, seed=5)
+    dbc = torch.cat([torch.randn((2, 130, 6), device=cuda), Bm, Cm], dim=-1)
+
+    def through(scan):
+        leaves = [t.detach().clone().requires_grad_() for t in (dt, dbc, x, A, h0)]
+        d, p, xx, a, h = leaves
+        y, h_T = scan(d, p[..., 6:22], p[..., 22:], xx, a, h)
+        torch.autograd.backward([y, h_T], [gy, gh])
+        return [y.detach(), h_T.detach()] + [t.grad for t in leaves]
+
+    n_fwd, n_bwd = ssm_scan.launches, ssm_scan_bwd.launches
+    got = through(ops.mamba_ssm_scan_train)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    _bwd_close(got, through(ssm_scan_ref))
+
+
+def test_ssm_scan_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+
+    args, gy, gh = _bwd_case(cuda, 1, 20, 8, 4, seed=0)
+    _, _, ck = ssm_scan(*args, checkpoints=True)
+    dt, Bm, Cm, x, A, h0 = args
+    before = ssm_scan_bwd.launches
+    with pytest.raises(ValueError, match="checkpoints"):
+        ssm_scan_bwd(*args, gy, gh)
+    with pytest.raises(ValueError, match="checkpoints"):
+        ssm_scan_bwd(*args, gy, gh, checkpoints=ck[:, :1])
+    with pytest.raises(TypeError):
+        ssm_scan_bwd(dt, Bm, Cm, x.bfloat16(), A, h0, gy, gh, checkpoints=ck)
+    with pytest.raises(TypeError):
+        ssm_scan_bwd(*args, gy.bfloat16(), gh, checkpoints=ck)
+    with pytest.raises(ValueError, match="d_state up to 16"):
+        big, gyb, ghb = _bwd_case(cuda, 1, 20, 8, 17, seed=0)
+        ssm_scan_bwd(*big, gyb, ghb, checkpoints=torch.zeros((1, 2, 8, 17), device=cuda))
+    with pytest.raises(ValueError, match="want"):
+        ssm_scan_bwd(*args, gy[:, :4], gh, checkpoints=ck)
+    with pytest.raises(ValueError, match="device"):
+        ssm_scan_bwd(*args, gy.cpu(), gh, checkpoints=ck)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ssm_scan_bwd(*args, gy.transpose(1, 2).contiguous().transpose(1, 2), gh,
+                     checkpoints=ck)
+    with pytest.raises(ValueError, match="gradient would be dropped"):
+        ssm_scan_bwd(*args, gy.clone().requires_grad_(), gh, checkpoints=ck)
+    assert ssm_scan_bwd.launches == before
+
+
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b"])
 def test_lm_serving_on_card_matches_cpu(cuda, arch):
     """Reduced config in fp32: prefill + 3 decode steps on the card against

@@ -555,6 +555,8 @@ def _guard_cases():
         "gossip_mix": (x, lambda: gossip_mix(x, mix_idx, mix_w)),
         "flash_attention": (q, lambda: flash_attention(q, kv, kv)),
         "ssm_scan": (dt, lambda: ssm_scan(dt, bc, bc, dt, A, torch.zeros(1, 3, 2))[0]),
+        "SSMScan": (dt, lambda: ops.mamba_ssm_scan_train(dt, bc, bc, dt, A,
+                                                         torch.zeros(1, 3, 2))[0]),
         "fused_cross_entropy": (hid, lambda: fused_cross_entropy(
             hid, _t(r.normal(size=(4, 6))), torch.tensor([0, 5, 2], dtype=torch.int32))[0]),
     }
