@@ -56,7 +56,7 @@ Phases, in order, each printing its own lines:
 15. the same for Gemma-2B, all 18 layers: ``flash_attention`` 18 times;
 16. correctness of the LM path: prefill + decode equals forward at full
     width in bf16 (both models), and the reduced configs in fp32 on the card
-    against the CPU;
+    against the CPU (Jamba, Gemma-2B, DeepSeek-V2-Lite and V3, Qwen2-VL);
 17. one profiled Jamba prefill and one decode step: device busy, idle
     share, the top ops and the two kernels' share;
 18. training the LM substrate: Gemma-2B whole (18 layers, bf16, remat,
@@ -170,8 +170,8 @@ Phases, in order, each printing its own lines:
     (``RoundEngine(topology=...).run(n, rounds_per_step=R)``, one gossip round
     captured as a CUDA graph through ``gossip_mix``) on the 2NN ring and small
     world, the 2NN on the full graph and the CNN ring, 100 nodes each: two
-    engines run R rounds each in turns (eager against captured, then captured
-    against eager), bitwise equal after each pair (the CNN under
+    engines run R rounds each in turns (eager against captured), bitwise
+    equal after each pair (the CNN under
     ``cudnn.deterministic``), with seconds a round both ways, the consensus,
     the capture's seconds and the peak memory; on the 2NN ring a guarded
     chunk (no sync, no new graph) and 2 + ``save``/``restore`` + 2 == 4
@@ -201,7 +201,18 @@ Phases, in order, each printing its own lines:
     peak under 75 GiB; seconds, tokens/s and peak a round; then one
     profiled group step (idle share, top kernels, the shares of the scan's
     two kernels, the CE and AdamW) and each Mamba mixer and the MoE FFN
-    timed alone.
+    timed alone;
+28. serving MLA and the vision stub at phases 14-15's traffic, each model
+    drawn on the card from seed 0 and freed before the next:
+    DeepSeek-V2-Lite whole (27 layers), DeepSeek-V3 at full width cut to
+    its first 4 layers (3 dense, 1 MoE), Qwen2-VL-7B whole on stub
+    embeddings with 3-D M-RoPE positions whose components differ;
+    ``flash_attention`` once a layer a request, every launch on the
+    tensor-core route (MLA's at D = 192); prefill + decode equals forward
+    at full width (Qwen2-VL in bf16; MLA at B = 1, one layer in bf16 and
+    the whole model in fp32, its bf16 gap printed: MoE routing flips under
+    bf16 rounding); one profiled prefill and decode step of each. Phase 16
+    holds the three reduced configs card vs CPU.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy``, ``ce_probs`` and ``ssm_scan_bwd`` too, at the
@@ -209,14 +220,14 @@ serving and training shapes; phase 3 also holds the flash kernel's ``lse``
 output and the scan's checkpoints, and checks that every kernel wrapper
 refuses an input that requires grad.
 ``flash_attention`` and ``fused_cross_entropy`` have two routes each, a
-tensor-core kernel (bf16 on aligned rows; flash at D = 64, 128, 256) and a
+tensor-core kernel (bf16 on aligned rows; flash at D = 64, 128, 192, 256) and a
 scalar one (everything else): phase 3 checks which route each case took
 (``tc_launches`` beside ``launches``) and runs every bf16 CE case on both;
 phase 4 times both routes in turns at the main shapes and requires the
 tensor-core route to be at least 5x faster, and times the CE backward
 against the plain one it replaced; phases 14-15, 18 and 20 require every
 flash and CE launch of the serving and training paths to take the
-tensor-core route. ``gossip_mix`` has two routes too, the gather kernel
+tensor-core route, as phase 28 does MLA's and Qwen2-VL's. ``gossip_mix`` has two routes too, the gather kernel
 (sparse plans) and the dense kernel (the full graph; ``dense_launches``
 beside ``launches``): phase 3 runs every case on the route ``_route`` picks
 and the 100-node ring, small world and full graph through each route
@@ -382,11 +393,18 @@ ANCHOR_LOSS_RTOL = 1e-6
 # bf16), Gemma-2B whole.
 SERVE_BATCH, PROMPT, SERVE_TOKENS = 4, 2048, 32
 JAMBA_LAYERS = 8
-# flash_attention's two prefill shapes (B, S, H, K, D) and Jamba's scan
-# (d_inner 8192, d_state 16)
+# flash_attention's prefill shapes (B, S, H, K, D) and Jamba's scan
+# (d_inner 8192, d_state 16). MLA's prefill (DeepSeek) attends at D = 192
+# (qk_nope 128 + qk_rope 64, V zero-padded from 128), every head its own K:
+# H = K = 16 on V2-Lite, 128 on V3.
 FLASH_SHAPES = {"jamba": (SERVE_BATCH, PROMPT, 32, 8, 128),
                 "gemma-2b": (SERVE_BATCH, PROMPT, 8, 1, 256),
-                "gemma-2b train": (2, 2048, 8, 1, 256)}
+                "gemma-2b train": (2, 2048, 8, 1, 256),
+                "deepseek-v2-lite": (SERVE_BATCH, PROMPT, 16, 16, 192),
+                "deepseek-v3": (SERVE_BATCH, PROMPT, 128, 128, 192)}
+# The scalar route's launches a timing turn where one takes ~8 ms or more
+# (V3's 825 GFLOP at ~14 TFLOP/s: ~59 ms); the median of 200 elsewhere.
+FLASH_SCALAR_ITERS = {"deepseek-v2-lite": 50, "deepseek-v3": 10}
 FLASH_WINDOW = 100
 SSM_D, SSM_N = 8192, 16
 # The prefill+decode == forward invariant at full width in bf16, at a size
@@ -396,6 +414,31 @@ SSM_D, SSM_N = 8192, 16
 # of their largest magnitude.
 INVARIANT_SHAPE = (2, 128)
 INVARIANT_RTOL = 2.0 ** -5
+# MLA's prefill (the naive up-projection in bf16, through the flash kernel)
+# and its decode (the absorbed form in fp32) round at other places. One MLA
+# layer at full width in bf16, the last token of prefill + decode against
+# the same layer over the whole sequence, is held to MLA_LAYER_RTOL of its
+# largest output: the reference's own gap there, on the CPU at the reduced
+# width, is 0.29-0.57% (tests/test_torch_mla_invariant.py holds twice it
+# under this). The whole MoE model in bf16 is not held: at full width a
+# decoded token's top-k experts flip between the two paths under bf16
+# rounding (V2-Lite: 3 to 17 of its 26 MoE layers flipped at the last
+# token over four prompts, the gap 5.6-17.8% of the largest logit, on an
+# H100; scripts/probe_moe_invariant.py), and an expert's output at d_model
+# 2048-7168 is as large as the residual stream, so the gap is whatever the
+# flips make it; it is measured and printed. The whole model is held in
+# fp32 instead (fresh fp32 weights, where the paths part by ~1e-6 and no
+# router margin is that thin), to MLA_FP32_INVARIANT_RTOL: ten times the
+# reference's own fp32 gap at the reduced width and the served depth
+# (0.9-5.1e-6, the same test). All at B = 1.
+MLA_LAYER_RTOL = 2.0 ** -6
+MLA_FP32_INVARIANT_RTOL = 1e-4
+MLA_INVARIANT_SHAPE = (1, 128)
+# Phase 28, serving MLA and the vision stub at the same traffic as phases
+# 14-15: (arch, layers; 0 = all). V3 at full width is cut to its 3 dense
+# layers and its first MoE layer (15.1 B params, 30 GB in bf16; all 61 take
+# 1.3 TB).
+MLA_VISION_SERVING = (("deepseek-v2-lite-16b", 0), ("deepseek-v3-671b", 4), ("qwen2-vl-7b", 0))
 # The reduced configs in fp32, card vs CPU: the reference's own prefill+decode
 # consistency bound on logits, and 1e-4 on the caches (sums in other orders).
 REDUCED_LOGITS_ATOL = 3e-4
@@ -627,11 +670,11 @@ SHARD_GLOO_DEADLINE_S = 300.0
 # Phase 26, supersteps off the star lanes at full paper size, cut in rounds.
 # (a) The gossip superstep: (model, spec whose sections it takes, topology:
 # the spec's or "full"), each run in turns of R rounds, eager and captured.
-# R is 10 on the 2NN ring; the small world, the full graph and the CNN ring
-# take 2, the least that captures (rounds_per_step=1 is the eager loop): the
-# 2NN lanes' eager rounds are host-bound, 1.1-1.3 s each, and a CNN ring
-# round holds the card ~3.2 s, eager or replayed, and its capture ~13 s (at
-# GOSSIP_CNN_LR). The 2NN ring also runs a guarded chunk and a
+# Every lane takes R = 2, the least that captures (rounds_per_step=1 is the
+# eager loop), so that the script keeps inside its time limit on a slow
+# host: the 2NN lanes' eager rounds are host-bound, 1.1-1.9 s each, and a
+# CNN ring round holds the card ~3.2 s, eager or replayed, and its capture
+# ~13-21 s (at GOSSIP_CNN_LR). The 2NN ring also runs a guarded chunk and a
 # resume, each 2NN lane a profiled chunk of GOSSIP_PROFILE_R; the CNN
 # ring no profile (one CNN ring round under the profiler took 79-109 s in
 # phase 13).
@@ -641,12 +684,12 @@ GOSSIP_STEP_LANES = (
     ("mnist_2nn", "mnist_2nn_noniid_ring", "full"),
     ("mnist_cnn", "mnist_2nn_noniid_ring", None),
 )
-GOSSIP_STEP_R = {("mnist_2nn", "ring"): 10, ("mnist_2nn", "smallworld"): 2,
+GOSSIP_STEP_R = {("mnist_2nn", "ring"): 2, ("mnist_2nn", "smallworld"): 2,
                  ("mnist_2nn", "full"): 2, ("mnist_cnn", "ring"): 2}
 GOSSIP_PROFILE_R = 2
-# Pairs of turns a lane: (eager, captured) then (captured, eager); the CNN
-# ring runs the first pair only (its 8 rounds in two pairs took ~40 s).
-GOSSIP_TURN_PAIRS = {"mnist_2nn": 2, "mnist_cnn": 1}
+# Pairs of turns a lane, each pair held bitwise: (eager, captured), then
+# (captured, eager) when a lane takes 2.
+GOSSIP_TURN_PAIRS = {"mnist_2nn": 1, "mnist_cnn": 1}
 # (b) Low-rank under device sampling on the 2NN: the card's sketch against
 # the CPU's from the same seeds (the 32-bit words bitwise; the Gaussians, Box-
 # Muller in fp64 rounded to fp32, within an fp32 ulp or two at |z| < 6);
@@ -655,7 +698,7 @@ GOSSIP_TURN_PAIRS = {"mnist_2nn": 2, "mnist_cnn": 1}
 # expected, and printed).
 SKETCH_ATOL = 1e-6
 LOWRANK_R = 20
-LOWRANK_HOST_ROUNDS = 2
+LOWRANK_HOST_ROUNDS = 1   # each of the two host-sampled turns
 LOWRANK_REPLAY_RTOL = 1e-5
 # (c) The staged superstep: (model, spec whose codec the lane takes), chunks of
 # STAGED_R in turns against the device pool's superstep (the CNN's chunk cut to
@@ -1731,7 +1774,7 @@ def check_flash_attention():
     # every bf16 case here takes the tensor-core route, every fp32 one the
     # scalar route; S = 1, 37, 130, 2047 are off the 32/64-key and 64-row tiles
     cases = [dict(B=1, S=S, H=H, K=K, D=D, dtype=dtype, mask=mask)
-             for dtype in (torch.float32, torch.bfloat16) for D in (64, 128, 256)
+             for dtype in (torch.float32, torch.bfloat16) for D in (64, 128, 192, 256)
              for S in (1, 37, 130, 2047) for H, K in ((32, 8), (8, 1))
              for mask in ("causal", "full", "window")]
     cases += [dict(B=B, S=S, H=H, K=K, D=D, dtype=torch.bfloat16, mask="causal", main=tag)
@@ -1768,9 +1811,10 @@ def check_flash_attention():
     ref32 = flash_attention_ref(q[:, :, None], k[:, :, None], v[:, :, None], window=9)[:, :, 0]
     ok, err = close_to_fp32(out, ref32, float(v.abs().max()))
     views = []
-    for dtype, route in ((torch.float32, "scalar"), (torch.bfloat16, "mma")):
-        qkv = torch.randn((2, 130, 8 * 64), device="cuda").to(dtype)
-        qs, ks, vs = (qkv[..., a * 64:b * 64].view(2, 130, b - a, 64)
+    for dtype, route, D in ((torch.float32, "scalar", 64), (torch.bfloat16, "mma", 64),
+                            (torch.float32, "scalar", 192), (torch.bfloat16, "mma", 192)):
+        qkv = torch.randn((2, 130, 8 * D), device="cuda").to(dtype)
+        qs, ks, vs = (qkv[..., a * D:b * D].view(2, 130, b - a, D)
                       for a, b in ((0, 4), (4, 6), (6, 8)))
         out2 = flash_routed(qs, ks, vs, route)
         views.append(close_to_fp32(out2, flash_attention_ref(qs.float(), ks.float(), vs.float()),
@@ -1790,14 +1834,16 @@ def check_flash_attention():
     scalar_bf16.append(close_to_fp32(flash_routed(qu, k, v, "scalar"),
                                      flash_attention_ref(q.float(), k.float(), v.float()),
                                      float(v.float().abs().max())))
-    print(f"  (BH, S, D) layout, D=37, window 9: max_abs_err={err:.3e}; fused q/k/v views: fp32 "
-          f"max_abs_err={views[0][1]:.3e}, bf16 (mma) max_err={views[1][1]:.3f}; bf16 on the "
+    print(f"  (BH, S, D) layout, D=37, window 9: max_abs_err={err:.3e}; fused q/k/v views at "
+          f"D=64 and 192: fp32 max_abs_err={max(views[0][1], views[2][1]):.3e}, bf16 (mma) "
+          f"max_err={max(views[1][1], views[3][1]):.3f}; bf16 on the "
           f"scalar route (D=96 x 3 masks, an unaligned q): max_err "
           f"{max(e for _, e in scalar_bf16):.3f} of (1 bf16 ulp + tol)")
     require(ok and all(o for o, _ in views + scalar_bf16),
             f"{name} disagrees with its plain version on layouts or views")
-    worst[torch.float32] = max(worst[torch.float32], err, views[0][1])
-    worst[torch.bfloat16] = max([worst[torch.bfloat16], views[1][1]] + [e for _, e in scalar_bf16])
+    worst[torch.float32] = max(worst[torch.float32], err, views[0][1], views[2][1])
+    worst[torch.bfloat16] = max([worst[torch.bfloat16], views[1][1], views[3][1]]
+                                + [e for _, e in scalar_bf16])
     n_extra = 1 + len(views) + len(scalar_bf16)
     require(flash_attention.launches - before == len(cases) + n_extra, "one launch per case")
 
@@ -1949,12 +1995,15 @@ FLASH_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same r
 
 
 def time_flash_attention():
-    """At both prefill shapes and Gemma-2B's training shape in bf16, causal:
-    the work is the unmasked (query, key) pairs, 4 * D flops each on the
-    tensor cores' rate. The tensor-core route (the one ``flash_attention``
-    takes here) and the scalar route (through the module's private
-    launcher) in turns: scalar, tensor cores, tensor cores, scalar; each
-    route's time is the mean of its two medians."""
+    """At the prefill shapes (MLA's at D = 192 among them) and Gemma-2B's
+    training shape in bf16, causal: the work is the unmasked (query, key)
+    pairs, 4 * D flops each on the tensor cores' rate (at D = 192 a third
+    of the P V product is MLA's zero padding of V, counted as the kernel
+    does it). The tensor-core route (the one ``flash_attention`` takes
+    here) and the scalar route (through the module's private launcher) in
+    turns: scalar, tensor cores, tensor cores, scalar; each route's time is
+    the mean of its two medians (of FLASH_SCALAR_ITERS launches on the
+    scalar route where a shape sets it)."""
     from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1968,7 +2017,9 @@ def time_flash_attention():
         flash_routed(q, k, v, "mma")
         routes = {"scalar": lambda: _launch(q, k, v, True, 0, False, "scalar"),
                   "mma": lambda: flash_attention(q, k, v)}
-        turns = [(name, time_ms(routes[name], flush))
+        iters = {"scalar": FLASH_SCALAR_ITERS.get(tag, 200), "mma": 200}
+        turns = [(name, time_ms(routes[name], flush, iters=iters[name],
+                                warmup=min(20, iters[name])))
                  for name in ("scalar", "mma", "mma", "scalar")]
         tc_ms = float(np.mean([t for name, t in turns if name == "mma"]))
         scalar_ms = float(np.mean([t for name, t in turns if name == "scalar"]))
@@ -2465,7 +2516,8 @@ def check_flash_lse():
     cases = [(B, S, H, K, D, dtype, mask)
              for dtype in (torch.float32, torch.bfloat16) for mask in ("causal", "window", "full")
              for (B, S, H, K, D) in ((1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
-                                     FLASH_SHAPES["gemma-2b train"])]
+                                     FLASH_SHAPES["gemma-2b train"], (1, 2047, 16, 16, 192),
+                                     (2, 300, 8, 2, 192))]
     for i, (B, S, H, K, D, dtype, mask) in enumerate(cases):
         q, k, v = flash_inputs(B, S, S, H, K, D, dtype, 100 + i)
         causal, window = mask != "full", FLASH_WINDOW if mask == "window" else 0
@@ -2714,17 +2766,35 @@ def prompt_tokens(vocab, B, S, seed=0):
     return torch.from_numpy(r.integers(0, vocab, (B, S)).astype(np.int32)).cuda()
 
 
+def serving_prompt(cfg, B, S, seed=0):
+    """A prompt batch on the card: token ids, or for the vision stub (B, S, d)
+    stub embeddings drawn on the card and (B, S, 3) M-RoPE positions whose
+    components differ (t; a 32-wide patch grid's row and column)."""
+    if cfg.modality != "vision":
+        return {"tokens": prompt_tokens(cfg.vocab_size, B, S, seed)}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    embeds = torch.randn((B, S, cfg.d_model), generator=g, device="cuda")
+    t = torch.arange(S, dtype=torch.int32, device="cuda")
+    pos = torch.stack([t, t // 32, t % 32], dim=-1)[None].expand(B, S, 3).contiguous()
+    return {"embeds": embeds, "positions": pos}
+
+
+def prompt_slice(batch, sl):
+    return {k: v[:, sl] for k, v in batch.items()}
+
+
 def serving_lane(label, model, params):
     """One request as a user sends it: prefill of B = 4 prompts of 2048
-    tokens, then greedy decode to 32 tokens (31 decode steps), through
-    ``repro_torch.launch.serve.generate``, after one short warm-up request.
-    Every launch count is set to 0 just before and read just after."""
+    tokens (or stub embeddings), then greedy decode to 32 tokens (31 decode
+    steps), through ``repro_torch.launch.serve.generate``, after one short
+    warm-up request. Every launch count is set to 0 just before and read
+    just after."""
     from repro_torch.kernels.ssm_scan import launch_plan
     from repro_torch.launch.serve import generate
 
     cfg = model.cfg
-    prompt = prompt_tokens(cfg.vocab_size, SERVE_BATCH, PROMPT)
-    generate(model, params, prompt[:, :64], 3)
+    prompt = serving_prompt(cfg, SERVE_BATCH, PROMPT)
+    generate(model, params, prompt_slice(prompt, slice(0, 64)), 3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2733,17 +2803,19 @@ def serving_lane(label, model, params):
     counts, tc = launch_counts(), flash_tc_launches()
     lanes = dict(counters()["ssm_scan"].lane_launches)
     peak = torch.cuda.max_memory_allocated()
-    n_attn = sum(s.mixer == "attn" for s in model.plan)
-    n_mamba = len(model.plan) - n_attn
+    n_attn = sum(s.mixer in ("attn", "mla") for s in model.plan)
+    n_mamba = sum(s.mixer == "mamba" for s in model.plan)
     want = {k: 0 for k in KERNELS}
     want.update(flash_attention=n_attn, ssm_scan=n_mamba * SERVE_TOKENS)
     require(counts == want, f"{label}: launches {counts}, want {want}")
     require(tc == n_attn, f"{label}: {tc} of {n_attn} flash launches took the tensor-core route")
     want_lanes = dict.fromkeys(lanes, 0)
-    want_lanes[launch_plan(PROMPT)] += n_mamba
-    want_lanes[launch_plan(1)] += n_mamba * (SERVE_TOKENS - 1)
+    if n_mamba:
+        want_lanes[launch_plan(PROMPT)] += n_mamba
+        want_lanes[launch_plan(1)] += n_mamba * (SERVE_TOKENS - 1)
     require(lanes == want_lanes, f"{label}: ssm_scan launches by lanes a channel {lanes}, "
             f"want the launch plan's {want_lanes}")
+    require(peak / 2**30 < PEAK_LIMIT_GIB, f"{label}: peak {peak / 2**30:.2f} GiB")
     ids = ids.cpu()
     require(ids.shape == (SERVE_BATCH, SERVE_TOKENS) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab_size, f"{label}: bad sampled ids")
@@ -2763,43 +2835,90 @@ def serving_lane(label, model, params):
 
 
 def no_drop(cfg):
+    """``cfg`` with an MoE capacity that drops nothing: cap = ceil(gs * k / E
+    * cf) >= gs, the whole group, at cf = E / k (at least 8, as before: a
+    token group can send every token to one expert, and at cf 8 V3's 256
+    experts top-8 hold only a quarter of a group, which one prompt's last
+    token overflowed on an H100)."""
     if cfg.moe is None:
         return cfg
-    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    cf = max(8.0, cfg.moe.n_experts / cfg.moe.topk)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
 
 
-def lm_invariant(label, model, params):
+def lm_invariant(label, model, params, shape=INVARIANT_SHAPE, rtol=INVARIANT_RTOL):
     """The reference's own invariant (tests/test_arch_smoke.py) at full width
-    in bf16: prefill of S - 1 tokens, then one decode step, gives the logits
-    that a forward over S tokens gives at the last position; MoE at capacity
-    factor 8, so nothing drops. The two paths round to bf16 at other places
-    (other matmul shapes, the flash kernel against decode_attention), so the
-    logits are held to INVARIANT_RTOL of their largest magnitude."""
+    in the model's dtype: prefill of S - 1 tokens (or stub embeddings), then
+    one decode step, gives the logits that a forward over S tokens gives at
+    the last position; MoE at a capacity that drops nothing (``no_drop``).
+    The two paths round at other places (other matmul shapes, the flash
+    kernel against decode_attention, MLA's naive against its absorbed
+    form), so the logits are held to ``rtol`` of their largest magnitude;
+    ``rtol`` None measures the gap and holds only finite logits."""
     from repro_torch.models.transformer import TransformerLM
 
     m = TransformerLM(no_drop(model.cfg), device="cuda")
-    B, S = INVARIANT_SHAPE
-    tokens = prompt_tokens(m.cfg.vocab_size, B, S, seed=1)
-    hidden, _, _ = m.forward(params, {"tokens": tokens}, mode="train")
+    B, S = shape
+    batch = serving_prompt(m.cfg, B, S, seed=1)
+    hidden, _, _ = m.forward(params, batch, mode="train")
     full = (hidden[:, -1:] @ m._head(params)).float()
-    caches, _ = m.prefill(params, {"tokens": tokens[:, :-1]}, cache_len=S)
-    logits, _ = m.decode_step(params, {"tokens": tokens[:, -1:], "pos_offset": S - 1}, caches)
-    require(bool(torch.isfinite(logits).all()) and logits.shape == full.shape,
-            f"{label}: bad decode logits")
+    caches, _ = m.prefill(params, prompt_slice(batch, slice(0, S - 1)), cache_len=S)
+    last = prompt_slice(batch, slice(S - 1, S))
+    if "tokens" in last:
+        last["pos_offset"] = S - 1
+    logits, _ = m.decode_step(params, last, caches)
+    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(full).all())
+            and logits.shape == full.shape, f"{label}: bad logits")
     err = float((logits - full).abs().max())
     scale = float(full.abs().max())
     agree = float((logits.argmax(-1) == full.argmax(-1)).float().mean())
-    print(f"  {label}: B={B} S={S} bf16, max |decode - forward| {err:.4e} of max |logit| "
-          f"{scale:.4f} ({err / scale:.3%}; tol {INVARIANT_RTOL:.3%}); argmax agree {agree:.2f}")
-    require(err <= INVARIANT_RTOL * scale, f"{label}: prefill+decode != forward")
-    return {"model": label, "batch": B, "seq": S, "max_abs_err": err, "max_abs_logit": scale}
+    dtype = str(m.dtype).replace("torch.", "")
+    held = "not held" if rtol is None else f"tol {rtol:.3%}"
+    print(f"  {label}: B={B} S={S} {dtype}, max |decode - forward| {err:.4e} of max |logit| "
+          f"{scale:.4f} ({err / scale:.4%}; {held}); argmax agree {agree:.2f}")
+    require(rtol is None or err <= rtol * scale, f"{label}: prefill+decode != forward")
+    return {"model": label, "dtype": dtype, "batch": B, "seq": S, "max_abs_err": err,
+            "max_abs_logit": scale, "rtol": rtol}
+
+
+def mla_layer_invariant(label, model, params):
+    """The first MLA layer of ``model`` at full width in its dtype: the last
+    token of prefill (S - 1 tokens into a cache) + one decode step (the
+    absorbed form) against the same layer's prefill over all S tokens (the
+    naive up-projection through the flash kernel), on unit-normal inputs,
+    held to MLA_LAYER_RTOL of the largest output."""
+    from repro_torch.models.layers import init_mla_cache, mla_apply
+    from repro_torch.utils.tree import tree_map
+
+    cfg = model.cfg
+    p = tree_map(lambda a: a[0], params["layers"][0]["sub0"]["mixer"])
+    B, S = MLA_INVARIANT_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda").to(model.dtype)
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    full, _, _ = mla_apply(p, cfg, x, positions=pos, mode="prefill")
+    cache = init_mla_cache(cfg, B, S, model.dtype, "cuda")
+    _, cache, _ = mla_apply(p, cfg, x[:, :-1], positions=pos[:, :-1], cache=cache,
+                            mode="prefill")
+    last, _, _ = mla_apply(p, cfg, x[:, -1:], positions=pos[:, -1:], cache=cache, mode="decode")
+    want = full[:, -1:].float()
+    err = float((last.float() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  {label}: one MLA layer, B={B} S={S} {str(model.dtype)[6:]}, max |decode - "
+          f"prefill| {err:.4e} of max |out| {scale:.4f} ({err / scale:.3%}; tol "
+          f"{MLA_LAYER_RTOL:.3%})")
+    require(bool(torch.isfinite(last).all()) and err <= MLA_LAYER_RTOL * scale,
+            f"{label}: one MLA layer's decode != its prefill")
+    return {"model": label, "batch": B, "seq": S, "max_abs_err": err, "max_abs_out": scale,
+            "rtol": MLA_LAYER_RTOL}
 
 
 def reduced_card_vs_cpu(arch):
     """The reduced config in fp32: prefill + 3 decode steps on the card
     against the CPU on the same params (the kernels against their plain
     versions, end to end), held to the reference's own consistency bound on
-    the logits and to 1e-4 on every cache leaf."""
+    the logits and to 1e-4 on every cache leaf. The vision stub decodes on
+    zero embeddings at S + t, as ``serve.generate`` feeds it."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.models.transformer import TransformerLM
@@ -2809,9 +2928,9 @@ def reduced_card_vs_cpu(arch):
     gpu, cpu = TransformerLM(cfg, device="cuda"), TransformerLM(cfg, device="cpu")
     params = gpu.init(0)
     params_cpu = tree_map(lambda t: t.cpu(), params)
-    tokens = prompt_tokens(cfg.vocab_size, 2, 40, seed=2).cpu()
-    c_gpu, l_gpu = gpu.prefill(params, {"tokens": tokens.cuda()}, cache_len=44)
-    c_cpu, l_cpu = cpu.prefill(params_cpu, {"tokens": tokens}, cache_len=44)
+    prompt = serving_prompt(cfg, 2, 40, seed=2)
+    c_gpu, l_gpu = gpu.prefill(params, prompt, cache_len=44)
+    c_cpu, l_cpu = cpu.prefill(params_cpu, {k: v.cpu() for k, v in prompt.items()}, cache_len=44)
     logit_err = cache_err = 0.0
     for step in range(4):
         logit_err = max(logit_err, float((l_gpu.cpu() - l_cpu).abs().max()))
@@ -2819,11 +2938,16 @@ def reduced_card_vs_cpu(arch):
                                        for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu))))
         if step == 3:
             break
-        tok = torch.argmax(l_cpu[:, -1], dim=-1)[:, None]
-        l_gpu, c_gpu = gpu.decode_step(params, {"tokens": tok.cuda(), "pos_offset": 40 + step},
-                                       c_gpu)
-        l_cpu, c_cpu = cpu.decode_step(params_cpu, {"tokens": tok, "pos_offset": 40 + step},
-                                       c_cpu)
+        if cfg.modality == "vision":
+            batch = {"embeds": torch.zeros((2, 1, cfg.d_model)),
+                     "positions": torch.full((2, 1, 3), 40 + step, dtype=torch.int32)}
+        else:
+            batch = {"tokens": torch.argmax(l_cpu[:, -1], dim=-1)[:, None],
+                     "pos_offset": 40 + step}
+        l_gpu, c_gpu = gpu.decode_step(
+            params, {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in batch.items()},
+            c_gpu)
+        l_cpu, c_cpu = cpu.decode_step(params_cpu, batch, c_cpu)
     print(f"  reduced {arch} fp32, prefill 2x40 + 3 decode steps: card vs CPU logits "
           f"max_abs_err {logit_err:.3e} (tol {REDUCED_LOGITS_ATOL}), cache leaves "
           f"{cache_err:.3e} (tol {REDUCED_CACHE_ATOL})")
@@ -2837,16 +2961,22 @@ def profile_serving(label, model, params):
     torch.profiler: device busy (the union of the ops' intervals) against
     the host wall, the top ops, and the two kernels' share."""
     cfg = model.cfg
-    prompt = prompt_tokens(cfg.vocab_size, SERVE_BATCH, PROMPT)
+    prompt = serving_prompt(cfg, SERVE_BATCH, PROMPT)
     box = {}
 
     def prefill():
-        box["caches"], box["logits"] = model.prefill(params, {"tokens": prompt},
+        box["caches"], box["logits"] = model.prefill(params, prompt,
                                                      cache_len=PROMPT + SERVE_TOKENS)
 
     def decode():
-        tok = torch.argmax(box["logits"][:, -1], dim=-1)[:, None]
-        model.decode_step(params, {"tokens": tok, "pos_offset": PROMPT}, box["caches"])
+        if cfg.modality == "vision":
+            step = {"embeds": torch.zeros((SERVE_BATCH, 1, cfg.d_model), device="cuda"),
+                    "positions": torch.full((SERVE_BATCH, 1, 3), PROMPT, dtype=torch.int32,
+                                            device="cuda")}
+        else:
+            step = {"tokens": torch.argmax(box["logits"][:, -1], dim=-1)[:, None],
+                    "pos_offset": PROMPT}
+        model.decode_step(params, step, box["caches"])
 
     out = {}
     for what, fn in (("prefill", prefill), ("decode step", decode)):
@@ -5650,8 +5780,8 @@ def same_gossip_run(a, b, r):
 
 def gossip_superstep_lane(model_name, spec_name, topo_kind, data, ckpt_root):
     """26(a), one lane: two engines built alike, ``a`` eager and ``b``
-    captured, run R rounds each in turns (eager, captured, captured, eager;
-    the CNN ring the first pair) and must agree bit for bit after each pair (the CNN under
+    captured, run R rounds each in turns (GOSSIP_TURN_PAIRS pairs of eager,
+    captured; then captured, eager) and must agree bit for bit after each pair (the CNN under
     ``cudnn.deterministic``); the wrappers count the eager rounds and the
     capture's warm-up. The 2NN ring
     then runs a chunk under ``transfer_guard`` and ``retrace_guard`` and
@@ -6109,6 +6239,64 @@ def offstar_superstep_phase(train, test):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: serving MLA and the vision stub
+# ---------------------------------------------------------------------------
+
+def mla_vision_serving_phase():
+    """DeepSeek-V2-Lite whole, DeepSeek-V3 at full width cut to 4 layers and
+    Qwen2-VL-7B whole (on stub embeddings with 3-D positions), each drawn on
+    the card from seed 0: one request through ``serve.generate``
+    (``serving_lane``), the prefill + decode == forward invariant at full
+    width (Qwen2-VL in bf16; MLA at B = 1: one layer in bf16, the whole
+    model in fp32 on fresh fp32 weights, its bf16 gap measured), and a
+    profiled prefill and decode step of each; each model and its caches
+    freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+
+    print(f"  memory_allocated at the start {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {"lanes": [], "invariant": [], "profile": {}, "models": []}
+    for arch, n_layers in MLA_VISION_SERVING:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        model = TransformerLM(cfg, device="cuda")
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = cfg.n_params()
+        plan = [s.mixer + "/" + s.ffn for s in model.plan]
+        print(f"  {arch}: {n_params:,} params ({len(plan)} layers: "
+              f"{dict((k, plan.count(k)) for k in dict.fromkeys(plan))}) drawn on the card "
+              f"from seed 0 in {init_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated")
+        lane = serving_lane(arch, model, params)
+        lane.update(params=n_params, layers=len(plan), init_s=init_s)
+        out["lanes"].append(lane)
+        if cfg.mla is None:
+            out["invariant"].append(lm_invariant(arch, model, params))
+        else:
+            out["invariant"].append(lm_invariant(arch, model, params, MLA_INVARIANT_SHAPE,
+                                                 rtol=None))
+            out["invariant"].append(mla_layer_invariant(arch, model, params))
+        out["profile"][arch] = profile_serving(arch, model, params)
+        out["models"].append({"arch": arch, "layers": len(plan), "params": n_params,
+                              "init_s": init_s})
+        del model, params
+        free_card()
+        if cfg.mla is not None:
+            fp32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+            model = TransformerLM(fp32, device="cuda")
+            params = model.init(0)
+            out["invariant"].append(lm_invariant(arch, model, params, MLA_INVARIANT_SHAPE,
+                                                 rtol=MLA_FP32_INVARIANT_RTOL))
+            del model, params
+            free_card()
+    return out
+
+
 def print_ptxas(log):
     """One line per compiled kernel: registers and spill stores."""
     entry, spill = "?", "?"
@@ -6195,8 +6383,10 @@ def main() -> int:
     timing = {"fedavg_aggregate": {**time_fedavg_aggregate(),
                                    "gemma-2b train leaves": time_fedavg_training_leaves()},
               **time_wire_kernels(),
-              "gossip_mix": time_gossip_mix(), "flash_attention": time_flash_attention(),
-              "ssm_scan": time_ssm_scan()}
+              "gossip_mix": time_gossip_mix(),
+              # the scan's microsecond decode rows before flash's long scalar
+              # turns (V3's ~60 ms launches), not right after them
+              "ssm_scan": time_ssm_scan(), "flash_attention": time_flash_attention()}
     timing["fused_cross_entropy"], timing["ce_probs"] = time_fused_cross_entropy()
     timing["ssm_scan_bwd"] = time_ssm_scan_bwd()
 
@@ -6302,7 +6492,8 @@ def main() -> int:
     invariant = [lm_invariant("jamba", jamba, jamba_params),
                  lm_invariant("gemma-2b", gemma, gemma_params)]
     del gemma, gemma_params
-    card_vs_cpu = [reduced_card_vs_cpu("jamba-v0.1-52b"), reduced_card_vs_cpu("gemma-2b")]
+    card_vs_cpu = [reduced_card_vs_cpu(arch) for arch in (
+        "jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b", "deepseek-v3-671b", "qwen2-vl-7b")]
 
     phase("17. where the time goes serving Jamba: one prefill and one decode step, "
           "under torch.profiler")
@@ -6368,6 +6559,15 @@ def main() -> int:
           "repro_torch.launch.train.run; then one profiled group step")
     print(f"card: {smi}")
     jamba_training = jamba_training_phase()
+    free_card()
+
+    phase(f"28. serving MLA and the vision stub: DeepSeek-V2-Lite whole, DeepSeek-V3 at full "
+          f"width cut to 4 layers, Qwen2-VL-7B whole, bf16, B={SERVE_BATCH}, prompt {PROMPT}, "
+          f"{SERVE_TOKENS} tokens, through repro_torch.launch.serve.generate")
+    print(f"card: {smi}")
+    mla_vision = mla_vision_serving_phase()
+    serving += mla_vision["lanes"]
+    invariant += mla_vision["invariant"]
 
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
@@ -6537,7 +6737,9 @@ def main() -> int:
     kernels[6]["jamba_profile"] = serving_profile
     kernels[5]["lse_max_rel_err"] = flash_lse_err
     kernels[5]["tc_launches"] = flash_tc
-    kernels[5]["routes"] = {"mma": "flash_fwd_mma_kernel (bf16, D 64/128/256, aligned rows)",
+    kernels[5]["mla_vision_serving"] = {"models": mla_vision["models"],
+                                        "profile": mla_vision["profile"]}
+    kernels[5]["routes"] = {"mma": "flash_fwd_mma_kernel (bf16, D 64/128/192/256, aligned rows)",
                             "scalar": "flash_fwd_kernel (the rest)"}
     kernels[5]["mma_resources"] = mma_resources
     kernels[7]["tc_launches"] = ce_tc

@@ -43,7 +43,7 @@
 // Two kernels, one route each; ops-level Python (flash_attention.py::_route)
 // picks the route by dtype, D and alignment:
 //
-// flash_fwd_mma_kernel<D>: bf16 q, k, v with D in {64, 128, 256}, every row
+// flash_fwd_mma_kernel<D>: bf16 q, k, v with D in {64, 128, 192, 256}, every row
 // on a 16-byte boundary (pointers 16-byte aligned, strides multiples of 8
 // elements). It is the route of every prefill and training forward of the
 // archs the port serves and trains. Built for the tensor cores, against the
@@ -58,13 +58,16 @@
 //     two-stage ring: tile t + 1 is in flight while tile t is computed,
 //     where the scalar kernel's plain loads overlapped nothing.
 // Each warp owns 16 query rows; a block holds 4 warps (64 rows). K and V
-// tiles are 64 keys at D = 64 and 128, and 32 keys at D = 256, so that two
-// blocks fit an SM there too. Q is staged once; its A fragments are read
-// by ldmatrix once and held in registers at D <= 128, and re-read from
-// shared memory at each 16-wide slice of D at D = 256, where the 128
-// accumulator registers need the room. Shared memory, bf16 rows of D + 8:
-// Q, two K and two V stages, 46,080 / 87,040 / 101,376 bytes at D = 64 /
-// 128 / 256 (of the 227 KB a block may use). The occupancy query gives 3 /
+// tiles are 64 keys at D = 64 and 128, and 32 keys at D = 192 and 256, so
+// that two blocks fit an SM there too. Q is staged once; its A fragments
+// are read by ldmatrix once and held in registers at D <= 128, and re-read
+// from shared memory at each 16-wide slice of D at D = 192 and 256, where
+// the 96 and 128 accumulator registers need the room. D = 192 is MLA's
+// prefill (DeepSeek: qk_nope 128 + qk_rope 64, V zero-padded to 192): a row
+// is 24 chunks of 16 bytes and 12 k-steps of 16, and no loop assumes a
+// power of two. Shared memory, bf16 rows of D + 8: Q, two K and two V
+// stages, 46,080 / 87,040 / 76,800 / 101,376 bytes at D = 64 / 128 / 192 /
+// 256 (of the 227 KB a block may use). The occupancy query gives 3 / 2 /
 // 2 / 2 blocks an SM (PERF.md keeps the registers ptxas reports).
 //   S = Q K^T: fp32 sums of bf16 products; scale * log2(e) is folded into the
 //     scores so the softmax takes 2^x (ex2.approx on the special-function
@@ -352,7 +355,7 @@ int launch_nj(const T* q, const T* k, const T* v, T* o, float* lse, int B, const
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: bf16, D in {64, 128, 256}, 16-byte aligned rows.
+// The tensor-core route: bf16, D in {64, 128, 192, 256}, 16-byte aligned rows.
 
 using bf16 = __nv_bfloat16;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -364,11 +367,11 @@ struct Mma {
   static constexpr int kBQ = 16 * kWarps;         // query rows a block, 16 a warp
   static constexpr int kLd = D + 8;               // row pitch in elements: 16 bytes of padding
   static constexpr int kChunks = D / 8;           // 16-byte chunks a row
-  // keys a tile: 32 at D = 256, so that two blocks fit an SM
-  static constexpr int kBK = D == 256 ? 32 : 64;
+  // keys a tile: 32 at D = 192 and 256, so that two blocks fit an SM
+  static constexpr int kBK = D > 128 ? 32 : 64;
   static constexpr int kStage = kBK * kLd;        // elements of one K or V stage
   static constexpr size_t kSmem = (size_t)(kBQ + 4 * kBK) * kLd * sizeof(bf16);   // Q, K x 2, V x 2
-  // Q's A fragments held in registers for the whole loop; at D = 256 the
+  // Q's A fragments held in registers for the whole loop; at D > 128 the
   // accumulator needs the room, and they are re-read from shared memory
   static constexpr bool kQInRegs = D <= 128;
 };
@@ -666,7 +669,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   Args a;
   const int rc = make_args(a, B, H, K, Sq, Sk, D, st, causal, window);
   if (rc) return rc;
-  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 192 && D != 256) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 12; ++i)
     if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
@@ -678,6 +681,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_mma_d<64>(qt, kt, vt, ot, lse, B, a, s);
   if (D == 128) return launch_mma_d<128>(qt, kt, vt, ot, lse, B, a, s);
+  if (D == 192) return launch_mma_d<192>(qt, kt, vt, ot, lse, B, a, s);
   return launch_mma_d<256>(qt, kt, vt, ot, lse, B, a, s);
 }
 
@@ -701,7 +705,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, f
                                stream);
 }
 
-// The tensor-core route: bf16 q, k, v with D in {64, 128, 256}, pointers
+// The tensor-core route: bf16 q, k, v with D in {64, 128, 192, 256}, pointers
 // 16-byte aligned and all 12 strides multiples of 8 elements (else
 // cudaErrorMisalignedAddress, and nothing is launched).
 int flash_attention_bf16_mma(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -713,19 +717,33 @@ int flash_attention_bf16_mma(const void* q, const void* k, const void* v, void* 
 // The tensor-core kernel at head dim D: dynamic shared memory and threads a
 // block, and the blocks an SM holds (the occupancy query; negative: an error).
 long long flash_attention_mma_smem_bytes(int D) {
-  return D == 64 ? (long long)Mma<64>::kSmem
-                 : D == 128 ? (long long)Mma<128>::kSmem
-                            : D == 256 ? (long long)Mma<256>::kSmem : -1;
+  switch (D) {
+    case 64: return (long long)Mma<64>::kSmem;
+    case 128: return (long long)Mma<128>::kSmem;
+    case 192: return (long long)Mma<192>::kSmem;
+    case 256: return (long long)Mma<256>::kSmem;
+    default: return -1;
+  }
 }
 
 int flash_attention_mma_threads(int D) {
-  return D == 64 ? Mma<64>::kThreads
-                 : D == 128 ? Mma<128>::kThreads : D == 256 ? Mma<256>::kThreads : -1;
+  switch (D) {
+    case 64: return Mma<64>::kThreads;
+    case 128: return Mma<128>::kThreads;
+    case 192: return Mma<192>::kThreads;
+    case 256: return Mma<256>::kThreads;
+    default: return -1;
+  }
 }
 
 int flash_attention_mma_blocks_per_sm(int D) {
-  return D == 64 ? mma_occupancy<64>()
-                 : D == 128 ? mma_occupancy<128>() : D == 256 ? mma_occupancy<256>() : -1;
+  switch (D) {
+    case 64: return mma_occupancy<64>();
+    case 128: return mma_occupancy<128>();
+    case 192: return mma_occupancy<192>();
+    case 256: return mma_occupancy<256>();
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory a block takes at head dim D for elements of elem_bytes.

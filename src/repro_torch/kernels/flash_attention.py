@@ -28,12 +28,13 @@ it through ``ops.FlashAttention``.
 Two kernels, chosen by :func:`_route` from the dtype, D and alignment:
 
 - ``"mma"``, ``flash_fwd_mma_kernel``: bf16 q, k, v with D in
-  ``MMA_HEAD_DIMS`` (64, 128, 256), every row on a 16-byte boundary (each
+  ``MMA_HEAD_DIMS`` (64, 128, 192, 256), every row on a 16-byte boundary (each
   ``data_ptr`` a multiple of 16 bytes, the (batch, sequence, head) strides
   multiples of 8 elements). Both products on the tensor cores, P split
   into bf16 hi and lo so that the result keeps the fp32 P's precision.
   Every prefill and training forward of the archs the port serves and
-  trains takes it.
+  trains takes it: D = 192 is MLA's prefill (DeepSeek's qk_nope 128 +
+  qk_rope 64, V zero-padded to 192).
 - ``"scalar"``, ``flash_fwd_kernel``: everything else, fp32 at any D up to
   256 (the fp32 card-vs-CPU checks need it: no bf16 or TF32 tensor-core
   path meets their 1e-5), bf16 at other D or on unaligned views.
@@ -54,7 +55,7 @@ from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.models.attention_core import blocked_attention
 
 MAX_HEAD_DIM = 256   # csrc/flash_attention.cu's kMaxD
-MMA_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernel's head dims
+MMA_HEAD_DIMS = (64, 128, 192, 256)   # the tensor-core kernel's head dims
 BLOCK = 128          # the reference kernel's default block_q and block_k
 _NO_GRAD = ("Its differentiable entry point is ops.mha_flash_train (the autograd.Function "
             "ops.FlashAttention).")

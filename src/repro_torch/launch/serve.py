@@ -4,11 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
 
 serves the arch's ``reduced()`` config, as the reference's ``main`` does:
-weights from seed 0, a random prompt from ``numpy.random.default_rng(0)``,
-then ``--tokens`` greedy tokens (one from prefill, the rest from
-``decode_step``). ``--device`` defaults to ``cuda``: prefill attention and
-every Mamba scan then run the hand-written kernels. :func:`generate` is the
-loop itself, for callers that bring their own model and params.
+weights from seed 0, a random prompt from ``numpy.random.default_rng(0)``
+(:func:`prompt_batch`: token ids, or for the vision stub (Qwen2-VL)
+normal (B, S, d) embeddings with (B, S, 3) M-RoPE positions), then
+``--tokens`` greedy tokens (one from prefill, the rest from
+``decode_step``). ``--device`` defaults to ``cuda``: prefill attention
+(MLA's at the qk head dim) and every Mamba scan then run the hand-written
+kernels. :func:`generate` is the loop itself, for callers that bring their
+own model and params.
 """
 from __future__ import annotations
 
@@ -24,25 +27,47 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, tokens, n_tokens):
-    """Greedy decode of ``n_tokens`` after the (B, S) int prompt ``tokens``
-    on the model's device: one prefill into caches of S + n_tokens slots,
-    then ``n_tokens - 1`` decode steps. Returns the (B, n_tokens) sampled
-    ids (on the device) and the host seconds of prefill and of the decode
-    steps, each ending on a synchronised device."""
+def prompt_batch(cfg, B, S, rng):
+    """The reference ``main``'s prompt as host tensors: (B, S) int32 token
+    ids from ``rng``; for the vision stub, (B, S, d) fp32 embeddings drawn
+    from ``rng`` and (B, S, 3) int32 positions, every component t."""
+    if cfg.modality == "vision":
+        embeds = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(S)[None, :, None], (B, S, 3)).astype(np.int32)
+        return {"embeds": torch.from_numpy(embeds), "positions": torch.from_numpy(pos)}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+
+
+def generate(model, params, prompt, n_tokens):
+    """Greedy decode of ``n_tokens`` after ``prompt`` on the model's device:
+    a (B, S) int tensor of token ids, or a batch dict (``{"tokens"}``, or
+    for the vision stub ``{"embeds": (B, S, d), "positions": (B, S, 3)}``).
+    One prefill into caches of S + n_tokens slots, then ``n_tokens - 1``
+    decode steps; the vision stub's steps take zero embeddings at positions
+    S + t, as the reference's ``main`` does (a stub has no token to embed).
+    Returns the (B, n_tokens) sampled ids (on the device) and the host
+    seconds of prefill and of the decode steps, each ending on a
+    synchronised device."""
     dev = model.device
-    B, S = tokens.shape
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    B, S = x.shape[0], x.shape[1]
+    vision = "tokens" not in batch
     _sync(dev)
     t0 = time.perf_counter()
-    caches, logits = model.prefill(params, {"tokens": tokens}, cache_len=S + n_tokens)
+    caches, logits = model.prefill(params, batch, cache_len=S + n_tokens)
     tok = torch.argmax(logits[:, -1], dim=-1)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for t in range(n_tokens - 1):
-        logits, caches = model.decode_step(
-            params, {"tokens": tok[:, None], "pos_offset": S + t}, caches)
+        if vision:
+            step = {"embeds": torch.zeros((B, 1, model.cfg.d_model), device=dev),
+                    "positions": torch.full((B, 1, 3), S + t, dtype=torch.int32, device=dev)}
+        else:
+            step = {"tokens": tok[:, None], "pos_offset": S + t}
+        logits, caches = model.decode_step(params, step, caches)
         tok = torch.argmax(logits[:, -1], dim=-1)
         out.append(tok)
     _sync(dev)
@@ -66,12 +91,14 @@ def main(argv=None):
     from repro_torch.models.transformer import TransformerLM
 
     cfg = reduced(get_config(args.arch))
+    if cfg.modality is not None:
+        print(f"note: {args.arch} uses a modality stub; serving its text decoder")
     model = TransformerLM(cfg, device=args.device)
     params = model.init(0)
-    rng = np.random.default_rng(0)
     B, S = args.batch, args.prompt_len
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
-    ids, prefill_s, decode_s = generate(model, params, tokens.to(model.device), args.tokens)
+    prompt = prompt_batch(cfg, B, S, np.random.default_rng(0))
+    prompt = {k: v.to(model.device) for k, v in prompt.items()}
+    ids, prefill_s, decode_s = generate(model, params, prompt, args.tokens)
     print(f"prefill {B}x{S}: {prefill_s * 1e3:.0f} ms")
     print(f"decode: {decode_s / max(args.tokens - 1, 1) * 1e3:.1f} ms/token ({B} seqs)")
     ids = ids.cpu().numpy()

@@ -11,8 +11,9 @@ and softmax statistics in float32. Where the reference calls
 ``blocked_attention``, prefill attention goes through ``ops.mha_flash`` (the
 hand-written flash kernel on the card) and training attention through
 ``ops.mha_flash_train`` (the same kernel forward, with the reference's
-flash backward); decode attention is ``decode_attention``. Caches are updated out of place, as the reference's
-are, so a caller may keep the cache it passed in.
+flash backward); decode attention is ``decode_attention`` (MLA's: its
+absorbed form, plain fp32). Caches are updated out of place, as the
+reference's are, so a caller may keep the cache it passed in.
 
 Init functions draw from ``gen`` (a ``torch.Generator`` on the model's
 device, or ``None`` on the ``meta`` device, which only states shapes) in the
@@ -66,18 +67,30 @@ def rope_freqs(head_dim: int, theta: float, device):
 
 
 def apply_rope(x, positions, theta: float, mrope_sections=None):
-    """x: (B, S, H, D); positions: (B, S) (or (B, S, 3) with every component
-    equal, for text tokens). M-RoPE waits for its arch (Qwen2-VL)."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (Qwen2-VL) is not ported yet: ROADMAP Queue 1 item 4, "
-            "the LM substrate's vision stub"
-        )
+    """x: (B, S, H, D); positions: (B, S), or (B, S, 3) (text tokens: every
+    component equal, and the first is taken).
+
+    With ``mrope_sections`` (M-RoPE, Qwen2-VL) positions must be (B, S, 3):
+    the D/2 rotary channels are split into (temporal, height, width)
+    sections of those sizes, and each channel turns by its section's
+    component. The sections' components are sliced and widened on the
+    tensors' device, so no index array crosses from the host."""
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, x.device)
-    if positions.ndim == 3:
-        positions = positions[..., 0]
-    angles = positions[..., None].float() * freqs
+    if mrope_sections is None:
+        if positions.ndim == 3:
+            positions = positions[..., 0]
+        angles = positions[..., None].float() * freqs
+    else:
+        if positions.ndim != 3 or positions.shape[-1] != 3:
+            raise ValueError(f"M-RoPE takes (B, S, 3) positions, got {tuple(positions.shape)}")
+        if sum(mrope_sections) != D // 2:
+            raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do not sum to "
+                             f"head_dim / 2 = {D // 2}")
+        pos = positions.float()
+        per_freq = torch.cat([pos[..., i:i + 1].expand(*pos.shape[:-1], n)
+                              for i, n in enumerate(mrope_sections)], dim=-1)   # (B, S, D/2)
+        angles = per_freq * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -108,14 +121,16 @@ def attention_init(gen, cfg: ModelConfig, dtype, device, lead=()):
 
 
 def _prefill_write(cache_buf, fresh):
-    """S fresh entries into a length-L cache: the fresh tensor itself when
-    S == L, zero-padded up to L when S < L (masking is by ``idx``), and the
-    last L entries at slots t % L when S > L (a rolling window)."""
+    """S fresh entries into a length-L cache (sequence axis 1, any number of
+    axes after it): the fresh tensor itself when S == L, zero-padded up to L
+    when S < L (masking is by ``idx``), and the last L entries at slots
+    t % L when S > L (a rolling window)."""
     L, S = cache_buf.shape[1], fresh.shape[1]
     if S == L:
         return fresh.to(cache_buf.dtype)
     if S < L:
-        return F.pad(fresh, (0, 0, 0, 0, 0, L - S)).to(cache_buf.dtype)
+        pad = [0, 0] * (fresh.ndim - 2) + [0, L - S]   # F.pad lists the last axis first
+        return F.pad(fresh, pad).to(cache_buf.dtype)
     out = cache_buf.clone()
     t = torch.arange(S - L, S, device=fresh.device)
     out[:, t % L] = fresh[:, S - L:].to(cache_buf.dtype)
@@ -175,6 +190,120 @@ def attention_apply(p, cfg: ModelConfig, x, *, positions, cache=None, mode="trai
         else:
             new_cache = None
     y = out.reshape(B, S, H * hd) @ p["wo"]
+    return y, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek V2/V3)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    """The query (a low-rank pair with an RMSNorm between when
+    ``q_lora_rank``, else one ``wq``), the down-projection to the shared
+    latent and rope key (``wkv_a``), the latent's norm, the up-projection
+    to every head's K_nope and V (``wkv_b``) and ``wo``."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    p = {}
+    if m.q_lora_rank:
+        p["wq_a"] = nn.glorot(gen, (d, m.q_lora_rank), device, dtype, lead)
+        p["q_norm"] = rmsnorm_init(m.q_lora_rank, dtype, device, lead)
+        p["wq_b"] = nn.glorot(gen, (m.q_lora_rank, H * qk_dim), device, dtype, lead)
+    else:
+        p["wq"] = nn.glorot(gen, (d, H * qk_dim), device, dtype, lead)
+    p["wkv_a"] = nn.glorot(gen, (d, m.kv_lora_rank + m.qk_rope_dim), device, dtype, lead)
+    p["kv_norm"] = rmsnorm_init(m.kv_lora_rank, dtype, device, lead)
+    p["wkv_b"] = nn.glorot(gen, (m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim)), device,
+                           dtype, lead)
+    p["wo"] = nn.glorot(gen, (H * m.v_head_dim, d), device, dtype, lead)
+    return p
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device, lead=()):
+    """MLA caches the normed latent and the rotated rope key, one of each a
+    token for all heads, not per-head K and V."""
+    m = cfg.mla
+    return {
+        "latent": _full(0.0, (batch, cache_len, m.kv_lora_rank), dtype, device, lead),
+        "k_rope": _full(0.0, (batch, cache_len, m.qk_rope_dim), dtype, device, lead),
+        "idx": _full(0, (), torch.int32, device, lead),
+    }
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    if m.q_lora_rank:
+        q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_apply(p, cfg: ModelConfig, x, *, positions, cache=None, mode="train", window: int = 0):
+    """MLA. Train and prefill: the naive up-projection, every head's K_nope
+    and V from the latent, the rope key shared by the heads, V zero-padded
+    to the qk head dim so that one attention call takes it (the flash
+    kernel at D = 192 for DeepSeek), and the output sliced back. Decode:
+    the absorbed form in fp32, as the reference's plain one: W_UK folded
+    into the query, scores against the cached latent plus the rope key,
+    W_UV applied after, so no per-head K or V is ever formed."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, R = cfg.n_heads, m.kv_lora_rank
+    nope, vdim = m.qk_nope_dim, m.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+
+    kv = x @ p["wkv_a"]
+    latent = rmsnorm(p["kv_norm"], kv[..., :R], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., R:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token against a cache")
+        wkv_b = p["wkv_b"].reshape(R, H, nope + vdim).float()
+        cache_len = cache["latent"].shape[1]
+        slot = (cache["idx"] % cache_len).long().reshape(1)
+        lat_c = cache["latent"].index_copy(1, slot, latent.to(cache["latent"].dtype))
+        kr_c = cache["k_rope"].index_copy(1, slot, k_rope.to(cache["k_rope"].dtype))
+        valid = torch.clamp(cache["idx"] + 1, max=cache_len)
+        lat_f = lat_c.float()
+        q_eff = torch.einsum("bshn,rhn->bshr", q_nope.float(), wkv_b[..., :nope])
+        s_lat = torch.einsum("bshr,btr->bhst", q_eff, lat_f)
+        s_rope = torch.einsum("bshr,btr->bhst", q_rope.float(), kr_c.float())
+        s = (s_lat + s_rope) * (1.0 / np.sqrt(nope + m.qk_rope_dim))
+        live = torch.arange(cache_len, device=x.device) < valid
+        probs = torch.softmax(s.masked_fill(~live, -1e30), dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, lat_f)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, wkv_b[..., nope:]).to(x.dtype)
+        new_cache = {"latent": lat_c, "k_rope": kr_c, "idx": cache["idx"] + 1}
+    else:
+        kv_up = (latent @ p["wkv_b"]).reshape(B, S, H, nope + vdim)
+        k_nope, v = kv_up[..., :nope], kv_up[..., nope:]
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)],
+                           dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        v_pad = F.pad(v, (0, nope + m.qk_rope_dim - vdim))
+        if mode == "train":
+            out = mha_flash_train(q_full, k_full, v_pad, causal=True, window=window,
+                                  q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+        else:
+            out = mha_flash(q_full, k_full, v_pad, causal=True, window=window)
+        out = out[..., :vdim]
+        if mode == "prefill":
+            idx = torch.full((), S, dtype=torch.int32, device=x.device)
+            if cache is not None:
+                new_cache = {"latent": _prefill_write(cache["latent"], latent),
+                             "k_rope": _prefill_write(cache["k_rope"], k_rope), "idx": idx}
+            else:
+                new_cache = {"latent": latent, "k_rope": k_rope, "idx": idx}
+        else:
+            new_cache = None
+    y = out.reshape(B, S, H * vdim) @ p["wo"]
     return y, new_cache, 0.0
 
 

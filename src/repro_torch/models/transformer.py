@@ -16,16 +16,18 @@ Public entry points, as the reference's:
     logits, caches = model.decode_step(params, batch, caches)
 
 Ported here: attention (GQA/MQA; prefill and the training forward through
-the flash kernel, training's backward by the reference's flash backward)
-and Mamba mixers, MLP and MoE FFNs — every layer of Jamba and of the dense
-archs — and ``train_loss``, whose cross-entropy goes through the fused CE
-kernel (``ops.ce_loss_mean``). Gradients reach every weight of the dense
-archs and of Jamba: a Mamba layer's training scan goes through
-``ops.SSMScan``, whose backward is the ``ssm_scan_bwd`` kernel on the card;
-the MoE layer trains as it stands (its routing is sorts and gathers, its
-experts cuBLAS products). MLA,
-mLSTM/sLSTM, cross-attention and the vision and audio stubs raise
-``NotImplementedError`` naming their ROADMAP item.
+the flash kernel, training's backward by the reference's flash backward),
+multi-head latent attention (DeepSeek V2/V3: prefill through the flash
+kernel at the qk head dim, decode in the absorbed form) and Mamba mixers,
+MLP and MoE FFNs — every layer of Jamba, of DeepSeek and of the dense
+archs — the vision stub (Qwen2-VL: ``batch["embeds"]`` in place of tokens,
+(B, S, 3) M-RoPE positions), and ``train_loss``, whose cross-entropy goes
+through the fused CE kernel (``ops.ce_loss_mean``). Gradients reach every
+weight of the dense archs and of Jamba: a Mamba layer's training scan goes
+through ``ops.SSMScan``, whose backward is the ``ssm_scan_bwd`` kernel on
+the card; the MoE layer trains as it stands (its routing is sorts and
+gathers, its experts cuBLAS products). mLSTM/sLSTM, cross-attention and
+the audio stub raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     init_attn_cache,
+    init_mla_cache,
+    mla_apply,
+    mla_init,
     mlp_apply,
     mlp_init,
     moe_apply,
@@ -57,11 +62,9 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 _NOT_PORTED = {
-    "mla": "multi-head latent attention (DeepSeek V2/V3)",
     "mlstm": "the mLSTM block (xLSTM)",
     "slstm": "the sLSTM block (xLSTM)",
     "cross": "cross-attention (encoder-decoder, seamless-m4t)",
-    "vision": "the vision stub (Qwen2-VL: embeddings in, M-RoPE)",
     "audio": "the audio stub (seamless-m4t: an encoder)",
 }
 
@@ -156,7 +159,7 @@ def segment_plan(plan: List[LayerSpec]) -> List[Segment]:
 
 
 def _check_spec(spec: LayerSpec):
-    if spec.mixer in ("mla", "mlstm", "slstm"):
+    if spec.mixer in ("mlstm", "slstm"):
         raise _not_ported(spec.mixer)
     if spec.cross:
         raise _not_ported("cross")
@@ -166,6 +169,8 @@ def _sublayer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, lead):
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
     if spec.mixer == "attn":
         p["mixer"] = attention_init(gen, cfg, dtype, device, lead)
+    elif spec.mixer == "mla":
+        p["mixer"] = mla_init(gen, cfg, dtype, device, lead)
     else:
         p["mixer"] = ssm_mod.mamba_init(gen, cfg, dtype, device, lead)
     if spec.ffn == "mlp":
@@ -183,6 +188,8 @@ def _sublayer_cache(spec: LayerSpec, cfg: ModelConfig, batch, cache_len, window,
     eff_len = min(cache_len, window) if window else cache_len
     if spec.mixer == "attn":
         return {"mixer": init_attn_cache(cfg, batch, eff_len, dtype, device, lead)}
+    if spec.mixer == "mla":
+        return {"mixer": init_mla_cache(cfg, batch, eff_len, dtype, device, lead)}
     return {"mixer": ssm_mod.init_mamba_cache(cfg, batch, dtype, device, lead)}
 
 
@@ -195,6 +202,9 @@ def _sublayer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions, cache
     if spec.mixer == "attn":
         out, mc, _ = attention_apply(p["mixer"], cfg, h, positions=positions,
                                      cache=mixer_cache, mode=mode, window=window)
+    elif spec.mixer == "mla":
+        out, mc, _ = mla_apply(p["mixer"], cfg, h, positions=positions,
+                               cache=mixer_cache, mode=mode, window=window)
     else:
         out, mc = ssm_mod.mamba_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
     if mc is not None:
@@ -316,8 +326,6 @@ class TransformerLM:
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.encoder_layers or cfg.modality == "audio":
             raise _not_ported("audio")
-        if cfg.modality == "vision":
-            raise _not_ported("vision")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = layer_plan(cfg, decoder=True)
@@ -356,13 +364,17 @@ class TransformerLM:
         return params["lm_head"]
 
     def _embed_in(self, params, batch):
-        """Token embeddings in the compute dtype. The reference's
-        ``embed_onehot`` (a one-hot matmul that avoids gathering from a
-        vocab-sharded table) gives the same rows: the port always gathers."""
+        """Token embeddings in the compute dtype; for the vision stub (or any
+        batch that brings them) ``batch["embeds"]`` (B, S, d), already
+        projected, taken in the params' dtype as the reference takes them.
+        The reference's ``embed_onehot`` (a one-hot matmul that avoids
+        gathering from a vocab-sharded table) gives the same rows: the port
+        always gathers."""
         cfg = self.cfg
-        if "embeds" in batch:
-            raise _not_ported("vision")
-        x = embed_lookup(params["embed"], batch["tokens"])
+        if cfg.modality == "vision" or "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = embed_lookup(params["embed"], batch["tokens"])
         if cfg.tie_embeddings:
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
         return x.to(self.compute_dtype)
@@ -370,8 +382,9 @@ class TransformerLM:
     def _positions(self, batch, S, offset=0):
         if "positions" in batch:
             return batch["positions"]
-        B = batch["tokens"].shape[0]
-        pos = offset + torch.arange(S, device=batch["tokens"].device)
+        x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        B = x.shape[0]
+        pos = offset + torch.arange(S, device=x.device)
         return pos[None, :].expand(B, S)
 
     # -- forward ------------------------------------------------------------
@@ -414,8 +427,11 @@ class TransformerLM:
         """Run the prompt through the stack, writing K/V (and recurrent
         states) into preallocated caches of ``cache_len`` slots (default: the
         prompt length; rolling when sliding-window is on). Returns (caches,
-        logits (B, 1, V) fp32 of the last position)."""
-        B, S = batch["tokens"].shape
+        logits (B, 1, V) fp32 of the last position). The prompt is
+        ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, d) with
+        ``batch["positions"]`` for the vision stub."""
+        x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        B, S = x.shape[0], x.shape[1]
         caches = self.init_caches(B, cache_len or S, window=window)
         hidden, caches, _ = self.forward(params, batch, mode="prefill", caches=caches,
                                          window=window)
@@ -423,7 +439,8 @@ class TransformerLM:
         return caches, logits
 
     def decode_step(self, params, batch, caches, *, window=0):
-        """batch: {'tokens': (B, 1)}, plus optional 'positions'/'pos_offset'.
+        """batch: {'tokens': (B, 1)} or {'embeds': (B, 1, d)}, plus optional
+        'positions'/'pos_offset'.
         Returns (logits (B, 1, V) fp32, new caches)."""
         hidden, new_caches, _ = self.forward(params, batch, mode="decode", caches=caches,
                                              window=window)

@@ -54,12 +54,12 @@ def _views(view, dtype, D, B=2, S=24, H=4, K=2):
 
 
 @pytest.mark.parametrize("view", ["contiguous", "fused", "offset", "row_pitch", "single_head"])
-@pytest.mark.parametrize("D", [37, 64, 96, 128, 256])
+@pytest.mark.parametrize("D", [37, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_takes_aligned_bf16_at_the_tensor_core_head_dims(view, D, dtype):
     q, k, v = _views(view, dtype, D)
     aligned = view in ("contiguous", "fused", "single_head")
-    want = "mma" if dtype == torch.bfloat16 and D in (64, 128, 256) and aligned else "scalar"
+    want = "mma" if dtype == torch.bfloat16 and D in (64, 128, 192, 256) and aligned else "scalar"
     assert fa._route(q, k, v) == want
 
 
@@ -79,13 +79,13 @@ def test_route_refuses_unaligned_inputs_before_any_build():
 
 def _emulate_mma(q, k, v, *, causal, window, split=True):
     """flash_fwd_mma_kernel's arithmetic in plain torch: (B, S, H, D) bf16
-    q over (B, S, K, D) bf16 k, v, key tiles of 64 (32 at D = 256). Scores
+    q over (B, S, K, D) bf16 k, v, key tiles of 64 (32 at D = 192 and 256). Scores
     are fp32 sums of exact bf16 products, scaled by scale * log2(e) and
     masked with -1e30; m, l and the accumulator are fp32; P goes into the
     product as bf16 hi + bf16 lo (``split``) or rounded once to bf16; the
     output is rounded once."""
     B, Sq, H, D = q.shape
-    block_k = 32 if D == 256 else 64
+    block_k = 32 if D > 128 else 64
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     qf = q.float().permute(0, 2, 1, 3)                                   # (B, H, Sq, D)
@@ -142,7 +142,7 @@ def _reference32(q, k, v, causal, window):
 
 
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
-@pytest.mark.parametrize("S,D", [(37, 64), (130, 128), (257, 64), (257, 256)])
+@pytest.mark.parametrize("S,D", [(37, 64), (130, 128), (257, 64), (257, 192), (257, 256)])
 def test_split_p_numerics_meet_the_bf16_allowance(rng, S, D, mask):
     q, k, v = _bf16_case(rng, 2, S, 4, 2, D)
     causal, window = mask != "full", 100 if mask == "window" else 0

@@ -656,7 +656,7 @@ def _flash_check(q, k, v, causal, window, route):
 
 
 @pytest.mark.parametrize("S", [1, 37, 2047])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("heads", [(32, 8), (8, 1)])
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -691,8 +691,9 @@ def test_flash_kernel_layouts_and_views(cuda, dtype):
                  route="mma" if dtype == torch.bfloat16 else "scalar")
 
 
-@pytest.mark.parametrize("shape", [(4, 2048, 32, 8, 128), (4, 2048, 8, 1, 256)],
-                         ids=["jamba", "gemma-2b"])
+@pytest.mark.parametrize("shape", [(4, 2048, 32, 8, 128), (4, 2048, 8, 1, 256),
+                                   (4, 2048, 16, 16, 192)],
+                         ids=["jamba", "gemma-2b", "deepseek-v2-lite"])
 def test_flash_kernel_at_the_prefill_shapes(cuda, shape):
     B, S, H, K, D = shape
     q, k, v = _flash_case(cuda, B, S, S, H, K, D, torch.bfloat16, seed=D)
@@ -700,7 +701,7 @@ def test_flash_kernel_at_the_prefill_shapes(cuda, shape):
 
 
 @pytest.mark.parametrize("S", [1, 37, 130, 2047])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 def test_flash_tc_kernel_at_lengths_off_the_tile(cuda, S, D, mask):
     """bf16 on the tensor-core route at S not a multiple of its 32- or 64-key
@@ -973,15 +974,19 @@ def test_ssm_scan_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert ssm_scan_bwd.launches == before
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b",
+                                  "deepseek-v3-671b", "qwen2-vl-7b"])
 def test_lm_serving_on_card_matches_cpu(cuda, arch):
     """Reduced config in fp32: prefill + 3 decode steps on the card against
     the CPU on the same params (kernels against plain versions, end to end;
-    the reference's own consistency bound, 3e-4, on the logits)."""
+    the reference's own consistency bound, 3e-4, on the logits). The vision
+    stub takes ``serve.prompt_batch``'s prompt (embeds, 3-D positions) and zero
+    embeds at S + t while decoding."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -989,12 +994,12 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch):
     gpu, cpu = TransformerLM(cfg, device=cuda), TransformerLM(cfg, device="cpu")
     params = gpu.init(0)
     params_cpu = tree_map(lambda t: t.cpu(), params)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
-    n_attn = sum(s.mixer == "attn" for s in gpu.plan)
-    n_mamba = len(gpu.plan) - n_attn
+    prompt = prompt_batch(cfg, 2, 40, np.random.default_rng(0))
+    n_attn = sum(s.mixer in ("attn", "mla") for s in gpu.plan)
+    n_mamba = sum(s.mixer == "mamba" for s in gpu.plan)
     f0, s0 = flash_attention.launches, ssm_scan.launches
-    c_gpu, l_gpu = gpu.prefill(params, {"tokens": tokens.to(cuda)}, cache_len=44)
-    c_cpu, l_cpu = cpu.prefill(params_cpu, {"tokens": tokens}, cache_len=44)
+    c_gpu, l_gpu = gpu.prefill(params, {k: v.to(cuda) for k, v in prompt.items()}, cache_len=44)
+    c_cpu, l_cpu = cpu.prefill(params_cpu, prompt, cache_len=44)
     assert (flash_attention.launches - f0, ssm_scan.launches - s0) == (n_attn, n_mamba)
     for step in range(4):
         assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 3e-4
@@ -1002,9 +1007,15 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch):
             assert float((a.cpu().double() - b.double()).abs().max()) <= 1e-4
         if step == 3:
             break
-        tok = torch.argmax(l_cpu[:, -1], dim=-1)[:, None]
-        batch = {"tokens": tok, "pos_offset": 40 + step}
-        l_gpu, c_gpu = gpu.decode_step(params, {**batch, "tokens": tok.to(cuda)}, c_gpu)
+        if cfg.modality == "vision":
+            batch = {"embeds": torch.zeros((2, 1, cfg.d_model)),
+                     "positions": torch.full((2, 1, 3), 40 + step, dtype=torch.int32)}
+        else:
+            batch = {"tokens": torch.argmax(l_cpu[:, -1], dim=-1)[:, None],
+                     "pos_offset": 40 + step}
+        l_gpu, c_gpu = gpu.decode_step(
+            params, {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in batch.items()},
+            c_gpu)
         l_cpu, c_cpu = cpu.decode_step(params_cpu, batch, c_cpu)
     assert flash_attention.launches - f0 == n_attn
     assert ssm_scan.launches - s0 == 4 * n_mamba
@@ -1274,7 +1285,8 @@ def test_ce_backward_on_card_matches_cpu(cuda, chunk, dtype):
 
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 @pytest.mark.parametrize("shape", [(1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
-                                   (2, 2048, 8, 1, 256)])   # the last: Gemma-2B's training step
+                                   (2, 2048, 8, 1, 256),    # Gemma-2B's training step
+                                   (1, 2048, 16, 16, 192)])   # an MLA prefill (V2-Lite)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_lse_matches_plain_version(cuda, mask, shape, dtype):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref

@@ -96,7 +96,8 @@ def test_jamba_at_16_layers_stacks_two_repeats():
     assert [(len(g.specs), g.repeats) for g in segs] == [(1, 1)] * 8
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b",
+                                  "deepseek-v3-671b", "qwen2-vl-7b"])
 def test_parameter_counts_equal_the_reference(arch):
     for ref_cfg, cfg in (_cfgs(arch), (ref_get_config(arch), get_config(arch))):
         assert cfg.n_params() == ref_cfg.n_params()
@@ -105,9 +106,14 @@ def test_parameter_counts_equal_the_reference(arch):
 
 
 def test_unported_archs_and_entry_points_name_their_roadmap_item():
-    for arch in ("deepseek-v2-lite-16b", "xlstm-350m", "seamless-m4t-medium", "qwen2-vl-7b"):
+    for arch in ("xlstm-350m", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
             tf.TransformerLM(reduced(get_config(arch)), device="cpu")
+    # MLA (DeepSeek) and the vision stub (Qwen2-VL) are ported
+    # (tests/test_torch_mla.py, tests/test_torch_vision.py)
+    assert sorted(tf._NOT_PORTED) == ["audio", "cross", "mlstm", "slstm"]
+    for arch in ("deepseek-v2-lite-16b", "deepseek-v3-671b", "qwen2-vl-7b"):
+        tf.TransformerLM(reduced(get_config(arch)), device="cpu")
     # train_loss is ported (tests/test_torch_train.py): nothing names it unported
     assert "train" not in tf._NOT_PORTED
     assert not any("train" in why for why in tf._NOT_PORTED.values())
