@@ -56,7 +56,8 @@ Phases, in order, each printing its own lines:
 15. the same for Gemma-2B, all 18 layers: ``flash_attention`` 18 times;
 16. correctness of the LM path: prefill + decode equals forward at full
     width in bf16 (both models), and the reduced configs in fp32 on the card
-    against the CPU (Jamba, Gemma-2B, DeepSeek-V2-Lite and V3, Qwen2-VL);
+    against the CPU (Jamba, Gemma-2B, DeepSeek-V2-Lite and V3, Qwen2-VL,
+    xLSTM, SeamlessM4T over 16 frames);
 17. one profiled Jamba prefill and one decode step: device busy, idle
     share, the top ops and the two kernels' share;
 18. training the LM substrate: Gemma-2B whole (18 layers, bf16, remat,
@@ -212,7 +213,24 @@ Phases, in order, each printing its own lines:
     at full width (Qwen2-VL in bf16; MLA at B = 1, one layer in bf16 and
     the whole model in fp32, its bf16 gap printed: MoE routing flips under
     bf16 rounding); one profiled prefill and decode step of each. Phase 16
-    holds the three reduced configs card vs CPU.
+    holds the three reduced configs card vs CPU;
+29. serving the last two archs at the same traffic, each drawn on the card
+    from seed 0 and freed before the next: xLSTM-350M whole (24 blocks, 21
+    mLSTM and 3 sLSTM; plain torch, as the reference's plain XLA, so no
+    flash launch) and SeamlessM4T-medium whole (12 encoder + 12 decoder
+    layers over 4,096 frames of stub encoder embeddings): ``flash_attention``
+    36 times a request (each encoder layer, decoder self-attention and
+    cross-attention once, non-causal but for the decoder's self-attention,
+    cross-attention at Sq = 2048 over Sk = 4096), all on the tensor-core
+    route, none in a decode step; prefill + decode equals forward
+    (SeamlessM4T at full width in bf16; xLSTM, whose bf16 gap grows with the
+    width, one mLSTM and one sLSTM block at full width in bf16, the whole
+    model at full width in fp32 and at the reduced width in bf16, its whole
+    bf16 gap at full width printed); one profiled prefill and decode step of
+    each, and for
+    xLSTM the device time and ops of its mLSTM chunkwise and sLSTM ranges
+    in a prefill. Phase 16 holds both reduced configs card vs CPU; phases 3
+    and 4 hold and time the flash kernel non-causal at Sq != Sk.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy``, ``ce_probs`` and ``ssm_scan_bwd`` too, at the
@@ -267,6 +285,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -401,10 +420,21 @@ FLASH_SHAPES = {"jamba": (SERVE_BATCH, PROMPT, 32, 8, 128),
                 "gemma-2b": (SERVE_BATCH, PROMPT, 8, 1, 256),
                 "gemma-2b train": (2, 2048, 8, 1, 256),
                 "deepseek-v2-lite": (SERVE_BATCH, PROMPT, 16, 16, 192),
-                "deepseek-v3": (SERVE_BATCH, PROMPT, 128, 128, 192)}
+                "deepseek-v3": (SERVE_BATCH, PROMPT, 128, 128, 192),
+                "seamless decoder": (SERVE_BATCH, PROMPT, 16, 16, 64)}
+# SeamlessM4T's decoder self-attention is causal MHA at head dim 64 (above);
+# its prefill also attends non-causally at head dim 64 (1024 / 16): its
+# encoder's 12 layers over SEAMLESS_FRAMES frames (Sq = Sk), its decoder's 12
+# cross-attention layers from the prompt's 2048 tokens over them (Sq != Sk):
+# (B, Sq, Sk, H, K, D).
+SEAMLESS_FRAMES = 4096
+FLASH_NONCAUSAL_SHAPES = {
+    "seamless encoder": (SERVE_BATCH, SEAMLESS_FRAMES, SEAMLESS_FRAMES, 16, 16, 64),
+    "seamless cross": (SERVE_BATCH, PROMPT, SEAMLESS_FRAMES, 16, 16, 64)}
 # The scalar route's launches a timing turn where one takes ~8 ms or more
 # (V3's 825 GFLOP at ~14 TFLOP/s: ~59 ms); the median of 200 elsewhere.
-FLASH_SCALAR_ITERS = {"deepseek-v2-lite": 50, "deepseek-v3": 10}
+FLASH_SCALAR_ITERS = {"deepseek-v2-lite": 50, "deepseek-v3": 10, "seamless decoder": 50,
+                      "seamless encoder": 10, "seamless cross": 20}
 FLASH_WINDOW = 100
 SSM_D, SSM_N = 8192, 16
 # The prefill+decode == forward invariant at full width in bf16, at a size
@@ -414,6 +444,36 @@ SSM_D, SSM_N = 8192, 16
 # of their largest magnitude.
 INVARIANT_SHAPE = (2, 128)
 INVARIANT_RTOL = 2.0 ** -5
+# Phase 29. SeamlessM4T's bf16 gap at the reduced width (0-0.54% over four
+# seeds, the reference on the CPU) sits under INVARIANT_RTOL; its memory is
+# INVARIANT_FRAMES frames. xLSTM's 24 recurrent blocks round to bf16 at
+# other places in the chunkwise prefill and the step decode, and that gap
+# grows block by block and with the width: on an H100, 2.4-3.0% of the
+# largest logit at d_model 256, 2.4-5.3% at 512 and 7.3-10.7% at the full
+# 1024 over four seeds; the port on the host's CPU, on the same weights and
+# tokens, 2.6-4.5%, 3.7-6.3% and 5.8-10.3%
+# (scripts/probe_xlstm_invariant.py). The reference runs
+# only narrower widths on the CPU (0-1.6% at d_model 256, the port 0-1.4% on
+# its params; tests/test_torch_xlstm.py), so the whole bf16 model is held at
+# the reduced width and full depth, at XLSTM_INVARIANT_RTOL (2^-4, at least
+# twice the reference's own gap there), and at full width its gap is
+# printed, not held. At full width one mLSTM and one sLSTM block are held in
+# bf16 at XLSTM_BLOCK_RTOL (2^-6, MLA's one-layer tolerance) on the inputs of
+# XLSTM_BLOCK_SEEDS: at least twice the reference's own one-block gap there
+# (mLSTM 0.02-0.29%; the sLSTM's is 0 on the CPU, whose products give a row
+# the same bits whatever the row count). On an H100 the sLSTM's FFN product
+# x @ wi gives 40-43% of its results other bits over 2 or 127 rows than over
+# 128 (x @ wx none), and the block's gap is 0.45-1.06% over 12 weight and
+# input seeds; the mLSTM's 0-0.29%. The whole model is held in fp32
+# (fresh fp32 weights) at XLSTM_FP32_INVARIANT_RTOL (ten times the
+# reference's fp32 gap at the reduced width and full depth, 3.0-6.9e-6).
+# tests/test_torch_xlstm.py and tests/test_torch_encdec.py hold each
+# tolerance against the reference's gaps.
+XLSTM_INVARIANT_RTOL = 2.0 ** -4
+XLSTM_BLOCK_RTOL = 2.0 ** -6
+XLSTM_BLOCK_SEEDS = (1, 2, 3)
+XLSTM_FP32_INVARIANT_RTOL = 1e-4
+INVARIANT_FRAMES = 128
 # MLA's prefill (the naive up-projection in bf16, through the flash kernel)
 # and its decode (the absorbed form in fp32) round at other places. One MLA
 # layer at full width in bf16, the last token of prefill + decode against
@@ -439,6 +499,11 @@ MLA_INVARIANT_SHAPE = (1, 128)
 # layers and its first MoE layer (15.1 B params, 30 GB in bf16; all 61 take
 # 1.3 TB).
 MLA_VISION_SERVING = (("deepseek-v2-lite-16b", 0), ("deepseek-v3-671b", 4), ("qwen2-vl-7b", 0))
+# Phase 29, the last two archs whole at the same traffic: (arch, flash launches
+# a request). xLSTM's blocks are plain torch (the reference's are plain XLA);
+# SeamlessM4T's 12 encoder layers, 12 decoder self-attentions and 12
+# cross-attentions each launch flash once a prefill.
+XLSTM_SEAMLESS_SERVING = (("xlstm-350m", 0), ("seamless-m4t-medium", 36))
 # The reduced configs in fp32, card vs CPU: the reference's own prefill+decode
 # consistency bound on logits, and 1e-4 on the caches (sums in other orders).
 REDUCED_LOGITS_ATOL = 3e-4
@@ -1779,10 +1844,19 @@ def check_flash_attention():
              for mask in ("causal", "full", "window")]
     cases += [dict(B=B, S=S, H=H, K=K, D=D, dtype=torch.bfloat16, mask="causal", main=tag)
               for tag, (B, S, H, K, D) in FLASH_SHAPES.items()]
+    # cross-attention's: bidirectional, Sq queries over Sk != Sq keys, MHA and
+    # GQA, both routes; then SeamlessM4T's two prefill shapes
+    cases += [dict(B=1, S=Sq, Sk=Sk, H=H, K=K, D=D, dtype=dtype, mask="full")
+              for dtype in (torch.float32, torch.bfloat16) for D in (64, 128)
+              for Sq, Sk in ((1, 4096), (37, 130), (130, 37), (2048, 4096))
+              for H, K in ((16, 16), (32, 8))]
+    cases += [dict(B=B, S=Sq, Sk=Sk, H=H, K=K, D=D, dtype=torch.bfloat16, mask="full", main=tag)
+              for tag, (B, Sq, Sk, H, K, D) in FLASH_NONCAUSAL_SHAPES.items()]
     before = flash_attention.launches
     main_err, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, c in enumerate(cases):
-        q, k, v = flash_inputs(c["B"], c["S"], c["S"], c["H"], c["K"], c["D"], c["dtype"], i)
+        q, k, v = flash_inputs(c["B"], c["S"], c.get("Sk", c["S"]), c["H"], c["K"], c["D"],
+                               c["dtype"], i)
         causal, window = c["mask"] != "full", FLASH_WINDOW if c["mask"] == "window" else 0
         route = "mma" if c["dtype"] == torch.bfloat16 else "scalar"
         out = flash_routed(q, k, v, route, causal=causal, window=window)
@@ -1794,7 +1868,8 @@ def check_flash_attention():
         worst[c["dtype"]] = max(worst[c["dtype"]], err)
         if "main" in c:
             main_err = max(main_err, float((out.float() - ref32).abs().max()))
-        print(f"  B={c['B']} S={c['S']:4d} H/K={c['H']}/{c['K']} D={c['D']:3d} "
+        print(f"  B={c['B']} S={c['S']:4d}" + (f"/Sk={c['Sk']:4d}" if "Sk" in c else "")
+              + f" H/K={c['H']}/{c['K']} D={c['D']:3d} "
               f"{str(c['dtype'])[6:]:8s} {c['mask']:6s} {route:6s} "
               f"smem={smem_bytes(c['D'], c['dtype'], route)}: "
               + (f"max_abs_err={err:.3e}" if c["dtype"] == torch.float32
@@ -1996,40 +2071,46 @@ FLASH_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same r
 
 def time_flash_attention():
     """At the prefill shapes (MLA's at D = 192 among them) and Gemma-2B's
-    training shape in bf16, causal: the work is the unmasked (query, key)
-    pairs, 4 * D flops each on the tensor cores' rate (at D = 192 a third
-    of the P V product is MLA's zero padding of V, counted as the kernel
-    does it). The tensor-core route (the one ``flash_attention`` takes
-    here) and the scalar route (through the module's private launcher) in
-    turns: scalar, tensor cores, tensor cores, scalar; each route's time is
-    the mean of its two medians (of FLASH_SCALAR_ITERS launches on the
-    scalar route where a shape sets it)."""
+    training shape in bf16, causal, and SeamlessM4T's encoder and
+    cross-attention shapes, non-causal (Sq != Sk for cross-attention): the
+    work is the unmasked (query, key) pairs, 4 * D flops each on the tensor
+    cores' rate (at D = 192 a third of the P V product is MLA's zero padding
+    of V, counted as the kernel does it). The tensor-core route (the one
+    ``flash_attention`` takes here) and the scalar route (through the
+    module's private launcher) in turns: scalar, tensor cores, tensor cores,
+    scalar; each route's time is the mean of its two medians (of
+    FLASH_SCALAR_ITERS launches on the scalar route where a shape sets it)."""
     from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = flush_buffer()
     rows = {}
-    for tag, (B, S, H, K, D) in FLASH_SHAPES.items():
-        q, k, v = flash_inputs(B, S, S, H, K, D, torch.bfloat16, 7)
+    shapes = [(tag, B, S, S, H, K, D, True) for tag, (B, S, H, K, D) in FLASH_SHAPES.items()]
+    shapes += [(tag, *shape, False) for tag, shape in FLASH_NONCAUSAL_SHAPES.items()]
+    for tag, B, S, Sk, H, K, D, causal in shapes:
+        q, k, v = flash_inputs(B, S, Sk, H, K, D, torch.bfloat16, 7)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = B * H * S * (S + 1) // 2
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Sk
         flops = 4 * D * pairs
-        flash_routed(q, k, v, "mma")
-        routes = {"scalar": lambda: _launch(q, k, v, True, 0, False, "scalar"),
-                  "mma": lambda: flash_attention(q, k, v)}
+        flash_routed(q, k, v, "mma", causal=causal)
+        routes = {"scalar": lambda: _launch(q, k, v, causal, 0, False, "scalar"),
+                  "mma": lambda: flash_attention(q, k, v, causal=causal)}
         iters = {"scalar": FLASH_SCALAR_ITERS.get(tag, 200), "mma": 200}
         turns = [(name, time_ms(routes[name], flush, iters=iters[name],
                                 warmup=min(20, iters[name])))
                  for name in ("scalar", "mma", "mma", "scalar")]
         tc_ms = float(np.mean([t for name, t in turns if name == "mma"]))
         scalar_ms = float(np.mean([t for name, t in turns if name == "scalar"]))
+        mask = "causal" if causal else "non-causal"
         rows[tag] = lm_row(
-            f"flash_attention {tag}: B={B} S={S} H/K={H}/{K} D={D} bf16 causal, tensor-core route",
-            None, lambda: flash_attention_ref(q, k, v),
-            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-            (2 * B * S * H * D + 2 * B * S * K * D) * 2, flops, flush,
+            f"flash_attention {tag}: B={B} S={S}" + (f" Sk={Sk}" if Sk != S else "")
+            + f" H/K={H}/{K} D={D} bf16 {mask}, tensor-core route",
+            None, lambda: flash_attention_ref(q, k, v, causal=causal),
+            lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+            (2 * B * S * H * D + 2 * B * Sk * K * D) * 2, flops, flush,
             tensor_core=True, kernel_ms=tc_ms)
-        rows[tag].update(B=B, S=S, H=H, K=K, D=D, dtype="bfloat16", causal=True, route="mma",
+        rows[tag].update(B=B, S=S, Sk=Sk, H=H, K=K, D=D, dtype="bfloat16", causal=causal,
+                         route="mma",
                          scalar_ms=scalar_ms, turns_ms=turns, speedup=scalar_ms / tc_ms,
                          TFLOPs=flops / tc_ms / 1e9, scalar_TFLOPs=flops / scalar_ms / 1e9,
                          vs_library=tc_ms / rows[tag]["library_ms"])
@@ -2513,13 +2594,18 @@ def check_flash_lse():
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     worst = 0.0
-    cases = [(B, S, H, K, D, dtype, mask)
+    cases = [(B, S, S, H, K, D, dtype, mask)
              for dtype in (torch.float32, torch.bfloat16) for mask in ("causal", "window", "full")
              for (B, S, H, K, D) in ((1, 37, 4, 2, 64), (2, 300, 8, 1, 256), (1, 2047, 32, 8, 128),
                                      FLASH_SHAPES["gemma-2b train"], (1, 2047, 16, 16, 192),
                                      (2, 300, 8, 2, 192))]
-    for i, (B, S, H, K, D, dtype, mask) in enumerate(cases):
-        q, k, v = flash_inputs(B, S, S, H, K, D, dtype, 100 + i)
+    # non-causal at Sq != Sk (cross-attention's backward reads this lse)
+    cases += [(B, Sq, Sk, H, K, 64, dtype, "full")
+              for dtype in (torch.float32, torch.bfloat16)
+              for (B, Sq, Sk, H, K) in ((2, 37, 130, 8, 2), (2, 130, 37, 8, 2),
+                                        (1, 2048, 4096, 16, 16))]
+    for i, (B, S, Sk, H, K, D, dtype, mask) in enumerate(cases):
+        q, k, v = flash_inputs(B, S, Sk, H, K, D, dtype, 100 + i)
         causal, window = mask != "full", FLASH_WINDOW if mask == "window" else 0
         route = "mma" if dtype == torch.bfloat16 else "scalar"
         out, lse = flash_routed(q, k, v, route, causal=causal, window=window, return_lse=True)
@@ -2532,8 +2618,8 @@ def check_flash_lse():
         require(lse.shape == (B, S, H) and lse.dtype == torch.float32, "lse shape")
         require(torch.equal(out, plain), "asking for lse changed the output")
         if err > 1e-5:
-            raise AssertionError(f"flash_attention lse disagrees: {(B, S, H, K, D, dtype, mask)}"
-                                 f" rel {err:.3e}")
+            raise AssertionError(f"flash_attention lse disagrees: "
+                                 f"{(B, S, Sk, H, K, D, dtype, mask)} rel {err:.3e}")
     print(f"kernels: flash_attention lse ok ({len(cases)} cases, bf16 on the tensor-core "
           f"route, fp32 on the scalar one; max error {worst:.3e} of max(1, |lse|), tol 1e-5; "
           f"the output equals the call without lse)")
@@ -2766,10 +2852,15 @@ def prompt_tokens(vocab, B, S, seed=0):
     return torch.from_numpy(r.integers(0, vocab, (B, S)).astype(np.int32)).cuda()
 
 
-def serving_prompt(cfg, B, S, seed=0):
+def serving_prompt(cfg, B, S, seed=0, frames=SEAMLESS_FRAMES):
     """A prompt batch on the card: token ids, or for the vision stub (B, S, d)
     stub embeddings drawn on the card and (B, S, 3) M-RoPE positions whose
-    components differ (t; a 32-wide patch grid's row and column)."""
+    components differ (t; a 32-wide patch grid's row and column); the audio
+    stub adds (B, ``frames``, d) encoder embeddings drawn on the card."""
+    if cfg.modality == "audio":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return {"tokens": prompt_tokens(cfg.vocab_size, B, S, seed),
+                "enc_embeds": torch.randn((B, frames, cfg.d_model), generator=g, device="cuda")}
     if cfg.modality != "vision":
         return {"tokens": prompt_tokens(cfg.vocab_size, B, S, seed)}
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -2780,7 +2871,15 @@ def serving_prompt(cfg, B, S, seed=0):
 
 
 def prompt_slice(batch, sl):
-    return {k: v[:, sl] for k, v in batch.items()}
+    """The prompt's positions ``sl``; the encoder's frames whole."""
+    return {k: v if k == "enc_embeds" else v[:, sl] for k, v in batch.items()}
+
+
+def n_flash_layers(model):
+    """Flash launches a prefill: each attention or MLA mixer, each
+    cross-attention and each encoder layer once."""
+    return (sum((s.mixer in ("attn", "mla")) + s.cross for s in model.plan)
+            + len(model.enc_plan))
 
 
 def serving_lane(label, model, params):
@@ -2803,7 +2902,7 @@ def serving_lane(label, model, params):
     counts, tc = launch_counts(), flash_tc_launches()
     lanes = dict(counters()["ssm_scan"].lane_launches)
     peak = torch.cuda.max_memory_allocated()
-    n_attn = sum(s.mixer in ("attn", "mla") for s in model.plan)
+    n_attn = n_flash_layers(model)
     n_mamba = sum(s.mixer == "mamba" for s in model.plan)
     want = {k: 0 for k in KERNELS}
     want.update(flash_attention=n_attn, ssm_scan=n_mamba * SERVE_TOKENS)
@@ -2848,8 +2947,9 @@ def no_drop(cfg):
 
 def lm_invariant(label, model, params, shape=INVARIANT_SHAPE, rtol=INVARIANT_RTOL):
     """The reference's own invariant (tests/test_arch_smoke.py) at full width
-    in the model's dtype: prefill of S - 1 tokens (or stub embeddings), then
-    one decode step, gives the logits that a forward over S tokens gives at
+    in the model's dtype: prefill of S - 1 tokens (or stub embeddings; the
+    audio stub's INVARIANT_FRAMES frames whole), then one decode step on the
+    last token alone, gives the logits that a forward over S tokens gives at
     the last position; MoE at a capacity that drops nothing (``no_drop``).
     The two paths round at other places (other matmul shapes, the flash
     kernel against decode_attention, MLA's naive against its absorbed
@@ -2859,11 +2959,12 @@ def lm_invariant(label, model, params, shape=INVARIANT_SHAPE, rtol=INVARIANT_RTO
 
     m = TransformerLM(no_drop(model.cfg), device="cuda")
     B, S = shape
-    batch = serving_prompt(m.cfg, B, S, seed=1)
+    batch = serving_prompt(m.cfg, B, S, seed=1, frames=INVARIANT_FRAMES)
     hidden, _, _ = m.forward(params, batch, mode="train")
     full = (hidden[:, -1:] @ m._head(params)).float()
     caches, _ = m.prefill(params, prompt_slice(batch, slice(0, S - 1)), cache_len=S)
-    last = prompt_slice(batch, slice(S - 1, S))
+    last = prompt_slice({k: v for k, v in batch.items() if k != "enc_embeds"},
+                        slice(S - 1, S))
     if "tokens" in last:
         last["pos_offset"] = S - 1
     logits, _ = m.decode_step(params, last, caches)
@@ -2881,36 +2982,54 @@ def lm_invariant(label, model, params, shape=INVARIANT_SHAPE, rtol=INVARIANT_RTO
             "max_abs_logit": scale, "rtol": rtol}
 
 
+def block_invariant(label, what, run, d_model, dtype, shape, rtol, new_cache=None,
+                    seeds=(1,)):
+    """One block at full width in ``dtype``: the last token of prefill (S - 1
+    tokens into a cache) + one decode step against the same block's prefill
+    over all S tokens, on unit-normal inputs drawn on the card from each of
+    ``seeds``, held to ``rtol`` of the largest output. ``run(x, positions,
+    cache, mode)`` applies the block and returns (out, cache); ``new_cache``
+    makes the empty cache the shorter prefill fills, where the block takes
+    one."""
+    B, S = shape
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    out = []
+    for seed in seeds:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((B, S, d_model), generator=g, device="cuda").to(dtype)
+        full, _ = run(x, pos, None, "prefill")
+        _, cache = run(x[:, :-1], pos[:, :-1], new_cache and new_cache(), "prefill")
+        last, _ = run(x[:, -1:], pos[:, -1:], cache, "decode")
+        want = full[:, -1:].float()
+        err = float((last.float() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"  {label}: {what}, B={B} S={S} {str(dtype)[6:]}, input seed {seed}, max |decode "
+              f"- prefill| {err:.4e} of max |out| {scale:.4f} ({err / scale:.3%}; tol "
+              f"{rtol:.3%})")
+        require(bool(torch.isfinite(last).all()) and err <= rtol * scale,
+                f"{label}: {what}'s decode != its prefill (input seed {seed})")
+        out.append({"model": f"{label} {what}", "batch": B, "seq": S, "seed": seed,
+                    "max_abs_err": err, "max_abs_out": scale, "rtol": rtol})
+    return out
+
+
 def mla_layer_invariant(label, model, params):
-    """The first MLA layer of ``model`` at full width in its dtype: the last
-    token of prefill (S - 1 tokens into a cache) + one decode step (the
-    absorbed form) against the same layer's prefill over all S tokens (the
-    naive up-projection through the flash kernel), on unit-normal inputs,
-    held to MLA_LAYER_RTOL of the largest output."""
+    """The first MLA layer of ``model`` (``block_invariant``): the decode step
+    in the absorbed form against the naive up-projection through the flash
+    kernel, at MLA_INVARIANT_SHAPE, held to MLA_LAYER_RTOL."""
     from repro_torch.models.layers import init_mla_cache, mla_apply
     from repro_torch.utils.tree import tree_map
 
     cfg = model.cfg
     p = tree_map(lambda a: a[0], params["layers"][0]["sub0"]["mixer"])
     B, S = MLA_INVARIANT_SHAPE
-    g = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda").to(model.dtype)
-    pos = torch.arange(S, device="cuda")[None].expand(B, S)
-    full, _, _ = mla_apply(p, cfg, x, positions=pos, mode="prefill")
-    cache = init_mla_cache(cfg, B, S, model.dtype, "cuda")
-    _, cache, _ = mla_apply(p, cfg, x[:, :-1], positions=pos[:, :-1], cache=cache,
-                            mode="prefill")
-    last, _, _ = mla_apply(p, cfg, x[:, -1:], positions=pos[:, -1:], cache=cache, mode="decode")
-    want = full[:, -1:].float()
-    err = float((last.float() - want).abs().max())
-    scale = float(want.abs().max())
-    print(f"  {label}: one MLA layer, B={B} S={S} {str(model.dtype)[6:]}, max |decode - "
-          f"prefill| {err:.4e} of max |out| {scale:.4f} ({err / scale:.3%}; tol "
-          f"{MLA_LAYER_RTOL:.3%})")
-    require(bool(torch.isfinite(last).all()) and err <= MLA_LAYER_RTOL * scale,
-            f"{label}: one MLA layer's decode != its prefill")
-    return {"model": label, "batch": B, "seq": S, "max_abs_err": err, "max_abs_out": scale,
-            "rtol": MLA_LAYER_RTOL}
+
+    def run(x, pos, cache, mode):
+        return mla_apply(p, cfg, x, positions=pos, cache=cache, mode=mode)[:2]
+
+    return block_invariant(label, "one MLA layer", run, cfg.d_model, model.dtype,
+                           MLA_INVARIANT_SHAPE, MLA_LAYER_RTOL,
+                           new_cache=lambda: init_mla_cache(cfg, B, S, model.dtype, "cuda"))
 
 
 def reduced_card_vs_cpu(arch):
@@ -2928,7 +3047,7 @@ def reduced_card_vs_cpu(arch):
     gpu, cpu = TransformerLM(cfg, device="cuda"), TransformerLM(cfg, device="cpu")
     params = gpu.init(0)
     params_cpu = tree_map(lambda t: t.cpu(), params)
-    prompt = serving_prompt(cfg, 2, 40, seed=2)
+    prompt = serving_prompt(cfg, 2, 40, seed=2, frames=16)
     c_gpu, l_gpu = gpu.prefill(params, prompt, cache_len=44)
     c_cpu, l_cpu = cpu.prefill(params_cpu, {k: v.cpu() for k, v in prompt.items()}, cache_len=44)
     logit_err = cache_err = 0.0
@@ -2959,7 +3078,8 @@ def reduced_card_vs_cpu(arch):
 def profile_serving(label, model, params):
     """One prefill (B = 4, 2048 tokens) and one decode step under
     torch.profiler: device busy (the union of the ops' intervals) against
-    the host wall, the top ops, and the two kernels' share."""
+    the host wall, the top ops, the two kernels' share, and the launches the
+    wrappers counted in each (set to 0 just before)."""
     cfg = model.cfg
     prompt = serving_prompt(cfg, SERVE_BATCH, PROMPT)
     box = {}
@@ -2980,7 +3100,9 @@ def profile_serving(label, model, params):
 
     out = {}
     for what, fn in (("prefill", prefill), ("decode step", decode)):
+        reset_counts()
         wall, ops, rows = device_profile(fn)
+        counted = {k: v for k, v in launch_counts().items() if v}
         busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
         summed = sum(e.time_range.elapsed_us() for e in ops) / 1e6
         shares = {}
@@ -2996,8 +3118,9 @@ def profile_serving(label, model, params):
                           for k, v in shares.items()))
         for us, count, k in rows[:8]:
             print(f"    {us / 1e3:10.3f} ms {count:6d}x  {k[:90]}")
+        print(f"    launches counted by the wrappers: {counted}")
         out[what] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
-                     "device_ops": len(ops), "kernels": shares}
+                     "device_ops": len(ops), "kernels": shares, "launches": counted}
     return out
 
 
@@ -3261,34 +3384,43 @@ PROFILER_RANGES = ("flash_attention_bwd", "fused_cross_entropy_bwd", "ssm_scan_b
 
 
 def range_device_ms(prof, names):
-    """{range: (device ms, host spans)}: the device time of each host range
-    of ``names`` (``torch.profiler.record_function``): on the one stream,
-    every kernel from the first to the last of those whose launch call
-    (matched by correlation id) falls inside one of the range's host spans.
-    The profiler's op tree alone misses kernels that no torch op launches
-    (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
+    """{range: {"device_ms", "device_ops", "host_ms", "spans"}} for host
+    ranges of ``names`` (``torch.profiler.record_function``): on the one
+    stream, every device op from the first to the last of those whose launch
+    call (matched by correlation id) falls inside one of the range's host
+    spans, their summed durations and count; and the spans' summed host
+    time. The profiler's op tree alone misses kernels that no torch op
+    launches (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
+    import bisect
+
     from torch.autograd import DeviceType
 
     raw = prof.profiler.kineto_results.events()
-    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA
-                 and not e.is_user_annotation()]
-    launch_of = {}
-    for e in raw:
-        if e.device_type() == DeviceType.CPU and "aunch" in e.name() and e.correlation_id():
-            launch_of[e.correlation_id()] = e.start_ns()
+    on_device = sorted((e for e in raw if e.device_type() == DeviceType.CUDA
+                        and not e.is_user_annotation()), key=lambda e: e.start_ns())
+    starts = [e.start_ns() for e in on_device]
+    cum = list(itertools.accumulate((e.duration_ns() for e in on_device), initial=0))
+    launch_of = {e.correlation_id(): e.start_ns() for e in raw
+                 if e.device_type() == DeviceType.CPU and "aunch" in e.name()
+                 and e.correlation_id()}
+    launched = sorted((launch_of[e.correlation_id()], e.start_ns(), e.end_ns())
+                      for e in on_device if e.correlation_id() in launch_of)
+    launch_times = [t for t, _, _ in launched]
     out = {}
     for name in names:
         spans = [(e.start_ns(), e.end_ns()) for e in raw
                  if e.device_type() == DeviceType.CPU and e.name() == name]
-        total = 0
+        total, n_ops = 0, 0
         for a, b in spans:
-            mine = [k for k in on_device
-                    if a <= launch_of.get(k.correlation_id(), -1) <= b]
+            mine = launched[bisect.bisect_left(launch_times, a):
+                            bisect.bisect_right(launch_times, b)]
             if mine:
-                lo = min(k.start_ns() for k in mine)
-                hi = max(k.end_ns() for k in mine)
-                total += sum(k.duration_ns() for k in on_device if lo <= k.start_ns() < hi)
-        out[name] = (total / 1e6, len(spans))
+                lo = bisect.bisect_left(starts, min(k[1] for k in mine))
+                hi = bisect.bisect_left(starts, max(k[2] for k in mine))
+                total += cum[hi] - cum[lo]
+                n_ops += hi - lo
+        out[name] = {"device_ms": total / 1e6, "device_ops": n_ops,
+                     "host_ms": sum(b - a for a, b in spans) / 1e6, "spans": len(spans)}
     return out
 
 
@@ -3374,7 +3506,8 @@ def profile_training_step():
         "flash_attention (tensor-core kernel)": (
             sum(us for us, _, k in rows if "flash_fwd_mma_kernel" in k) / 1e3,
             sum(c for _, c, k in rows if "flash_fwd_mma_kernel" in k)),
-        **{f"{name} (range)": v for name, v in range_device_ms(prof, ranges).items()},
+        **{f"{name} (range)": (r["device_ms"], r["spans"])
+           for name, r in range_device_ms(prof, ranges).items()},
     }
     print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
@@ -3559,7 +3692,7 @@ def profile_jamba_step():
                                                 "ssm_scan_bwd_reduce_kernel"),
         "fused_cross_entropy and ce_probs": named("ce_fwd_mma_kernel", "ce_merge_kernel",
                                                   "ce_probs_mma_kernel"),
-        **{f"{name} (range)": v for name, v in range_device_ms(
+        **{f"{name} (range)": (r["device_ms"], r["spans"]) for name, r in range_device_ms(
             prof, ("ssm_scan_bwd", "fused_cross_entropy_bwd", "optimizer_update")).items()},
     }
     print(f"  jamba one group step (B={TRAIN_B} x {TRAIN_S}, AdamW, bf16 moments): wall "
@@ -3939,11 +4072,46 @@ def busy_seconds(spans):
     return total / 1e6
 
 
+class Span(NamedTuple):
+    """A device op's interval, µs from the trace's start."""
+    start: float
+    end: float
+
+    def elapsed_us(self) -> float:
+        return self.end - self.start
+
+
+class DeviceOp(NamedTuple):
+    """One device op of a profile (kernel, copy or fill), with the fields of
+    ``prof.events()``'s device events that the phases read."""
+    name: str
+    time_range: Span
+    device_resource_id: int    # the stream
+
+
+def profiled_device_ops(prof):
+    """A finished profile's device ops, from its raw kineto events (a
+    ``record_function`` range's span on the device timeline is no op)."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    start = results.trace_start_ns()
+    return [DeviceOp(e.name(), Span((e.start_ns() - start) / 1e3, (e.end_ns() - start) / 1e3),
+                     e.device_resource_id())
+            for e in results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_profile(fn):
     """Run ``fn`` once under torch.profiler's CUDA activity (CUPTI): its host
     wall time, which ends when the card has finished, the device ops, and
-    (self device µs, count, name) rows by kernel, longest first."""
-    from torch.autograd import DeviceType
+    (self device µs, count, name) rows by kernel, longest first.
+
+    The ops are read from the profiler's raw kineto events, the ones
+    ``prof.events()`` turns into ``FunctionEvent``s and a tree: that
+    processing costs the host ~0.3 ms an op, 90 s for the 326,000 ops of one
+    profiled CNN ring round (phase 13), and reads no other number."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3952,7 +4120,7 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = profiled_device_ops(prof)
     by_name = {}
     for e in ops:             # a device op's self time is its duration
         us, count = by_name.get(e.name, (0.0, 0))
@@ -6280,7 +6448,7 @@ def mla_vision_serving_phase():
         else:
             out["invariant"].append(lm_invariant(arch, model, params, MLA_INVARIANT_SHAPE,
                                                  rtol=None))
-            out["invariant"].append(mla_layer_invariant(arch, model, params))
+            out["invariant"] += mla_layer_invariant(arch, model, params)
         out["profile"][arch] = profile_serving(arch, model, params)
         out["models"].append({"arch": arch, "layers": len(plan), "params": n_params,
                               "init_s": init_s})
@@ -6294,6 +6462,137 @@ def mla_vision_serving_phase():
                                                  rtol=MLA_FP32_INVARIANT_RTOL))
             del model, params
             free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: serving xLSTM and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def xlstm_prefill_ranges(model, params):
+    """One xLSTM prefill (B = 4, 2048 tokens) under torch.profiler with CPU
+    and CUDA activity: the idle share and device ops of the whole prefill,
+    and of its ``mlstm_chunkwise`` (21 layers, fp32 einsums over chunks of
+    1024) and ``slstm_scan`` (3 layers, 2048 steps each, one op at a time)
+    ranges the device ms, ops and share of busy, and their host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = serving_prompt(model.cfg, SERVE_BATCH, PROMPT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, prompt, cache_len=PROMPT + SERVE_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = profiled_device_ops(prof)
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    ranges = range_device_ms(prof, ("mlstm_chunkwise", "slstm_scan"))
+    print(f"  xlstm-350m prefill under the profiler (CPU and CUDA activity): wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), {len(ops)} device ops")
+    for name, r in ranges.items():
+        r["share_of_busy"] = r["device_ms"] / 1e3 / busy
+        print(f"    {name}: {r['spans']} layers, {r['device_ops']} device ops, "
+              f"{r['device_ms']:.3f} ms on the device ({r['share_of_busy']:.1%} of busy), "
+              f"{r['host_ms']:.1f} ms of host time inside the range")
+    require(ranges["slstm_scan"]["spans"] == 3 and ranges["mlstm_chunkwise"]["spans"] == 21,
+            f"xlstm ranges {ranges}")
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_ops": len(ops), "ranges": ranges}
+
+
+def xlstm_block_invariant(label, model, params):
+    """The first mLSTM and the first sLSTM block of ``model``
+    (``block_invariant``) at INVARIANT_SHAPE over XLSTM_BLOCK_SEEDS, held to
+    XLSTM_BLOCK_RTOL."""
+    from repro_torch.models import xlstm
+    from repro_torch.utils.tree import tree_map
+
+    seg = model.segments[0]
+    out = []
+    for kind in ("mlstm", "slstm"):
+        j = [s.mixer for s in seg.specs].index(kind)
+        p = tree_map(lambda a: a[0], params["layers"][0][f"sub{j}"]["mixer"])
+        apply = getattr(xlstm, f"{kind}_apply")
+
+        def run(x, pos, cache, mode):
+            return apply(p, model.cfg, x, cache=cache, mode=mode)
+
+        out += block_invariant(label, f"one {kind} block (layer {j})", run, model.cfg.d_model,
+                               model.dtype, INVARIANT_SHAPE, XLSTM_BLOCK_RTOL,
+                               seeds=XLSTM_BLOCK_SEEDS)
+    return out
+
+
+def xlstm_seamless_serving_phase():
+    """xLSTM-350M whole and SeamlessM4T-medium whole (4,096 frames), each
+    drawn on the card from seed 0: one request through ``serve.generate``
+    (``serving_lane``; flash 0 and 36 times a request), the prefill +
+    decode == forward invariant (SeamlessM4T at full width in bf16 at
+    INVARIANT_RTOL over INVARIANT_FRAMES frames; xLSTM's whole bf16 model at
+    full width measured, one mLSTM and one sLSTM block there held at
+    XLSTM_BLOCK_RTOL, the whole model in fp32 on fresh fp32 weights at
+    XLSTM_FP32_INVARIANT_RTOL and in bf16 at the reduced width and full
+    depth at XLSTM_INVARIANT_RTOL), a profiled prefill and decode step of
+    each (flash launches counted in each: 36 and 0 for SeamlessM4T), and
+    xLSTM's mLSTM and sLSTM ranges in a prefill; each model freed before the
+    next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+
+    print(f"  memory_allocated at the start {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {"lanes": [], "invariant": [], "profile": {}, "models": []}
+    for arch, n_flash in XLSTM_SEAMLESS_SERVING:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = TransformerLM(cfg, device="cuda")
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = cfg.n_params()
+        plan = [s.mixer + "/" + s.ffn + ("/cross" if s.cross else "") for s in model.plan]
+        print(f"  {arch}: {n_params:,} params ({len(plan)} decoder layers: "
+              f"{dict((k, plan.count(k)) for k in dict.fromkeys(plan))}; "
+              f"{len(model.enc_plan)} encoder layers) drawn on the card from seed 0 in "
+              f"{init_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        require(n_flash_layers(model) == n_flash,
+                f"{arch}: {n_flash_layers(model)} flash layers, want {n_flash}")
+        lane = serving_lane(arch, model, params)
+        lane.update(params=n_params, layers=len(plan), encoder_layers=len(model.enc_plan),
+                    init_s=init_s)
+        out["lanes"].append(lane)
+        if cfg.xlstm_pattern:
+            out["invariant"].append(lm_invariant(arch, model, params, rtol=None))
+            out["invariant"] += xlstm_block_invariant(arch, model, params)
+        else:
+            out["invariant"].append(lm_invariant(arch, model, params))
+        prof = profile_serving(arch, model, params)
+        flash = {what: prof[what]["launches"].get("flash_attention", 0) for what in prof}
+        require(flash == {"prefill": n_flash, "decode step": 0},
+                f"{arch}: flash launches in the profiled prefill and decode step {flash}")
+        out["profile"][arch] = prof
+        if cfg.xlstm_pattern:
+            out["xlstm_ranges"] = xlstm_prefill_ranges(model, params)
+        out["models"].append({"arch": arch, "layers": len(plan),
+                              "encoder_layers": len(model.enc_plan), "params": n_params,
+                              "init_s": init_s})
+        del model, params
+        free_card()
+        if cfg.xlstm_pattern:
+            from repro_torch.configs.base import reduced
+
+            for label, c, rtol in (
+                    (f"{arch} fp32", dataclasses.replace(
+                        cfg, param_dtype="float32", compute_dtype="float32"),
+                     XLSTM_FP32_INVARIANT_RTOL),
+                    (f"{arch} at the reduced width", reduced(
+                        cfg, n_layers=cfg.n_layers, xlstm_pattern=cfg.xlstm_pattern,
+                        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype),
+                     XLSTM_INVARIANT_RTOL)):
+                model = TransformerLM(c, device="cuda")
+                params = model.init(0)
+                out["invariant"].append(lm_invariant(label, model, params, rtol=rtol))
+                del model, params
+                free_card()
     return out
 
 
@@ -6493,7 +6792,8 @@ def main() -> int:
                  lm_invariant("gemma-2b", gemma, gemma_params)]
     del gemma, gemma_params
     card_vs_cpu = [reduced_card_vs_cpu(arch) for arch in (
-        "jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b", "deepseek-v3-671b", "qwen2-vl-7b")]
+        "jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b", "deepseek-v3-671b", "qwen2-vl-7b",
+        "xlstm-350m", "seamless-m4t-medium")]
 
     phase("17. where the time goes serving Jamba: one prefill and one decode step, "
           "under torch.profiler")
@@ -6568,6 +6868,14 @@ def main() -> int:
     mla_vision = mla_vision_serving_phase()
     serving += mla_vision["lanes"]
     invariant += mla_vision["invariant"]
+
+    phase(f"29. serving xLSTM-350M whole (24 blocks) and SeamlessM4T-medium whole (12 + 12 "
+          f"layers over {SEAMLESS_FRAMES} frames), bf16, B={SERVE_BATCH}, prompt {PROMPT}, "
+          f"{SERVE_TOKENS} tokens, through repro_torch.launch.serve.generate")
+    print(f"card: {smi}")
+    xlstm_seamless = xlstm_seamless_serving_phase()
+    serving += xlstm_seamless["lanes"]
+    invariant += xlstm_seamless["invariant"]
 
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
@@ -6739,6 +7047,9 @@ def main() -> int:
     kernels[5]["tc_launches"] = flash_tc
     kernels[5]["mla_vision_serving"] = {"models": mla_vision["models"],
                                         "profile": mla_vision["profile"]}
+    kernels[5]["xlstm_seamless_serving"] = {"models": xlstm_seamless["models"],
+                                            "profile": xlstm_seamless["profile"],
+                                            "xlstm_ranges": xlstm_seamless["xlstm_ranges"]}
     kernels[5]["routes"] = {"mma": "flash_fwd_mma_kernel (bf16, D 64/128/192/256, aligned rows)",
                             "scalar": "flash_fwd_kernel (the rest)"}
     kernels[5]["mma_resources"] = mma_resources

@@ -6,11 +6,13 @@
 serves the arch's ``reduced()`` config, as the reference's ``main`` does:
 weights from seed 0, a random prompt from ``numpy.random.default_rng(0)``
 (:func:`prompt_batch`: token ids, or for the vision stub (Qwen2-VL)
-normal (B, S, d) embeddings with (B, S, 3) M-RoPE positions), then
-``--tokens`` greedy tokens (one from prefill, the rest from
+normal (B, S, d) embeddings with (B, S, 3) M-RoPE positions; the audio
+stub (SeamlessM4T) adds 16 frames of normal (B, 16, d) encoder embeddings),
+then ``--tokens`` greedy tokens (one from prefill, the rest from
 ``decode_step``). ``--device`` defaults to ``cuda``: prefill attention
-(MLA's at the qk head dim) and every Mamba scan then run the hand-written
-kernels. :func:`generate` is the loop itself, for callers that bring their
+(MLA's at the qk head dim, the encoder's and cross-attention's
+bidirectional) and every Mamba scan then run the hand-written kernels; the
+xLSTM blocks are plain torch, as the reference's are plain XLA. :func:`generate` is the loop itself, for callers that bring their
 own model and params.
 """
 from __future__ import annotations
@@ -27,24 +29,34 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def prompt_batch(cfg, B, S, rng):
+def prompt_batch(cfg, B, S, rng, frames=16):
     """The reference ``main``'s prompt as host tensors: (B, S) int32 token
     ids from ``rng``; for the vision stub, (B, S, d) fp32 embeddings drawn
-    from ``rng`` and (B, S, 3) int32 positions, every component t."""
+    from ``rng`` and (B, S, 3) int32 positions, every component t; for the
+    audio stub, the token ids and then (B, ``frames``, d) fp32 encoder
+    embeddings drawn from ``rng`` (``enc_embeds``)."""
     if cfg.modality == "vision":
         embeds = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
         pos = np.broadcast_to(np.arange(S)[None, :, None], (B, S, 3)).astype(np.int32)
         return {"embeds": torch.from_numpy(embeds), "positions": torch.from_numpy(pos)}
-    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                        .astype(np.int32))}
+    if cfg.modality == "audio":
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.normal(size=(B, frames, cfg.d_model)).astype(np.float32))
+    return batch
 
 
 def generate(model, params, prompt, n_tokens):
     """Greedy decode of ``n_tokens`` after ``prompt`` on the model's device:
-    a (B, S) int tensor of token ids, or a batch dict (``{"tokens"}``, or
-    for the vision stub ``{"embeds": (B, S, d), "positions": (B, S, 3)}``).
-    One prefill into caches of S + n_tokens slots, then ``n_tokens - 1``
-    decode steps; the vision stub's steps take zero embeddings at positions
-    S + t, as the reference's ``main`` does (a stub has no token to embed).
+    a (B, S) int tensor of token ids, or a batch dict (``{"tokens"}``; for
+    the vision stub ``{"embeds": (B, S, d), "positions": (B, S, 3)}``; for
+    the audio stub ``{"tokens", "enc_embeds": (B, T, d)}``). One prefill into
+    caches of S + n_tokens slots (and the cross caches of T frames), then
+    ``n_tokens - 1`` decode steps, which take tokens only (the audio stub's
+    memory lives in its cross caches); the vision stub's steps take zero
+    embeddings at positions S + t, as the reference's ``main`` does (a stub
+    has no token to embed).
     Returns the (B, n_tokens) sampled ids (on the device) and the host
     seconds of prefill and of the decode steps, each ending on a
     synchronised device."""

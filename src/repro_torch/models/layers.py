@@ -5,14 +5,17 @@ Every block is an (init, apply) pair over dict trees:
 
     apply(params, cfg, x, *, positions, cache, mode) -> (y, new_cache, aux)
 
-``mode`` is one of "train" (no cache), "prefill" (build cache) or "decode"
-(one-token step against the cache). Matmuls run in the params' dtype; norms
+``mode`` is one of "train" (no cache), "prefill" (build cache), "decode"
+(one-token step against the cache) or "encode" (an encoder's layer: no
+cache, no causal mask). Matmuls run in the params' dtype; norms
 and softmax statistics in float32. Where the reference calls
 ``blocked_attention``, prefill attention goes through ``ops.mha_flash`` (the
 hand-written flash kernel on the card) and training attention through
 ``ops.mha_flash_train`` (the same kernel forward, with the reference's
-flash backward); decode attention is ``decode_attention`` (MLA's: its
-absorbed form, plain fp32). Caches are updated out of place, as the
+flash backward); an encoder's attention (``mode="encode"``) and
+cross-attention are bidirectional (``causal=False``), the latter at
+Sq != Sk. Decode attention is ``decode_attention`` (MLA's: its absorbed
+form, plain fp32). Caches are updated out of place, as the
 reference's are, so a caller may keep the cache it passed in.
 
 Init functions draw from ``gen`` (a ``torch.Generator`` on the model's
@@ -20,6 +23,8 @@ device, or ``None`` on the ``meta`` device, which only states shapes) in the
 params' dtype; ``lead`` axes (a segment's stacked repeats) come first.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -178,6 +183,12 @@ def attention_apply(p, cfg: ModelConfig, x, *, positions, cache=None, mode="trai
         out = mha_flash_train(q, k, v, causal=True, window=window,
                               q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
         new_cache = None
+    elif mode == "encode" and q.requires_grad:
+        # a differentiable encoder (training an encoder-decoder): the same
+        # kernel through the autograd.Function, bidirectional
+        out = mha_flash_train(q, k, v, causal=False, window=window,
+                              q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+        new_cache = None
     else:
         out = mha_flash(q, k, v, causal=(mode != "encode"), window=window)
         if mode == "prefill":
@@ -191,6 +202,56 @@ def attention_apply(p, cfg: ModelConfig, x, *, positions, cache=None, mode="trai
             new_cache = None
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder cross-attention (SeamlessM4T)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    return attention_init(gen, dataclasses.replace(cfg, attn_bias=False), dtype, device, lead)
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, memory_len: int, dtype, device, lead=()):
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"k": _full(0.0, (batch, memory_len, K, hd), dtype, device, lead),
+            "v": _full(0.0, (batch, memory_len, K, hd), dtype, device, lead)}
+
+
+def cross_attention_apply(p, cfg: ModelConfig, x, memory, *, cache=None, mode="train"):
+    """The decoder's queries against the encoder's ``memory`` (B, M, d),
+    position-free: no RoPE, no bias. K and V are projected from the memory
+    in train and prefill mode; prefill returns them as the layer's cross
+    cache ``{"k", "v"}``, and decode reads them from it and takes no memory.
+
+    Prefill attends through ``ops.mha_flash(causal=False)`` at Sq = S over
+    Sk = M (the reference's ``blocked_attention``, which the flash kernel
+    replaces); training through ``ops.mha_flash_train(causal=False)``, the
+    same kernel with the flash backward. Decode at Sq = 1 is the plain
+    ``decode_attention`` with ``valid_len`` = M, as self-attention's decode:
+    the reference's ``blocked_attention`` at Sq = 1 computes the same
+    softmax over the M keys."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token against a cache")
+        k, v = cache["k"], cache["v"]
+        # every key is valid: M filled on the device, not copied from the host
+        valid = torch.full((), k.shape[1], dtype=torch.int32, device=x.device)
+        return (decode_attention(q, k, v, valid).reshape(B, S, H * hd) @ p["wo"], cache, 0.0)
+    M = memory.shape[1]
+    k = (memory @ p["wk"]).reshape(B, M, K, hd)
+    v = (memory @ p["wv"]).reshape(B, M, K, hd)
+    if mode == "train":
+        out = mha_flash_train(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk,
+                              k_chunk=cfg.attn_k_chunk)
+    else:
+        out = mha_flash(q, k, v, causal=False)
+    new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache, 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,20 @@ the flash kernel, training's backward by the reference's flash backward),
 multi-head latent attention (DeepSeek V2/V3: prefill through the flash
 kernel at the qk head dim, decode in the absorbed form) and Mamba mixers,
 MLP and MoE FFNs — every layer of Jamba, of DeepSeek and of the dense
-archs — the vision stub (Qwen2-VL: ``batch["embeds"]`` in place of tokens,
-(B, S, 3) M-RoPE positions), and ``train_loss``, whose cross-entropy goes
-through the fused CE kernel (``ops.ce_loss_mean``). Gradients reach every
-weight of the dense archs and of Jamba: a Mamba layer's training scan goes
-through ``ops.SSMScan``, whose backward is the ``ssm_scan_bwd`` kernel on
-the card; the MoE layer trains as it stands (its routing is sorts and
-gathers, its experts cuBLAS products). mLSTM/sLSTM, cross-attention and
-the audio stub raise ``NotImplementedError`` naming their ROADMAP item.
+archs — the xLSTM blocks (mLSTM, sLSTM: plain torch, as the reference's
+plain XLA), the encoder-decoder of SeamlessM4T (the audio stub:
+``batch["enc_embeds"]`` (B, T, d) frame embeddings through a bidirectional
+encoder stack, whose output every decoder layer reads through
+cross-attention; prefill keeps each layer's projected memory K/V as its
+cross cache, so decode runs no encoder), the vision stub (Qwen2-VL:
+``batch["embeds"]`` in place of tokens, (B, S, 3) M-RoPE positions), and
+``train_loss``, whose cross-entropy goes through the fused CE kernel
+(``ops.ce_loss_mean``). All ten reference archs build. Gradients reach every
+weight: a Mamba layer's training scan goes through ``ops.SSMScan``, whose
+backward is the ``ssm_scan_bwd`` kernel on the card; attention, the
+encoder's and cross-attention included, through ``ops.FlashAttention``; the
+MoE layer and the xLSTM blocks train as they stand (sorts, gathers, cuBLAS
+products, plain recurrences).
 """
 from __future__ import annotations
 
@@ -42,12 +48,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import ce_loss_mean
 from repro_torch.models import nn
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     attention_apply,
     attention_init,
+    cross_attention_apply,
+    cross_attention_init,
     embed_init,
     embed_lookup,
     init_attn_cache,
+    init_cross_cache,
     init_mla_cache,
     mla_apply,
     mla_init,
@@ -60,20 +70,6 @@ from repro_torch.models.layers import (
 )
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
-
-_NOT_PORTED = {
-    "mlstm": "the mLSTM block (xLSTM)",
-    "slstm": "the sLSTM block (xLSTM)",
-    "cross": "cross-attention (encoder-decoder, seamless-m4t)",
-    "audio": "the audio stub (seamless-m4t: an encoder)",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{_NOT_PORTED[what]} is not ported to repro_torch yet: ROADMAP Queue 1 item 4"
-    )
-
 
 # ---------------------------------------------------------------------------
 # Layer plan
@@ -158,21 +154,23 @@ def segment_plan(plan: List[LayerSpec]) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
-def _check_spec(spec: LayerSpec):
-    if spec.mixer in ("mlstm", "slstm"):
-        raise _not_ported(spec.mixer)
-    if spec.cross:
-        raise _not_ported("cross")
-
-
 def _sublayer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, lead):
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
     if spec.mixer == "attn":
         p["mixer"] = attention_init(gen, cfg, dtype, device, lead)
     elif spec.mixer == "mla":
         p["mixer"] = mla_init(gen, cfg, dtype, device, lead)
-    else:
+    elif spec.mixer == "mamba":
         p["mixer"] = ssm_mod.mamba_init(gen, cfg, dtype, device, lead)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm_mod.mlstm_init(gen, cfg, dtype, device, lead)
+    elif spec.mixer == "slstm":
+        p["mixer"] = xlstm_mod.slstm_init(gen, cfg, dtype, device, lead)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.cross:
+        p["cross_norm"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
+        p["cross"] = cross_attention_init(gen, cfg, dtype, device, lead)
     if spec.ffn == "mlp":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
         p["ffn"] = mlp_init(gen, cfg.d_model, spec.dense_ff, dtype, device,
@@ -184,17 +182,25 @@ def _sublayer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, lead):
 
 
 def _sublayer_cache(spec: LayerSpec, cfg: ModelConfig, batch, cache_len, window, dtype,
-                    device, lead):
+                    device, lead, memory_len=0):
     eff_len = min(cache_len, window) if window else cache_len
     if spec.mixer == "attn":
-        return {"mixer": init_attn_cache(cfg, batch, eff_len, dtype, device, lead)}
-    if spec.mixer == "mla":
-        return {"mixer": init_mla_cache(cfg, batch, eff_len, dtype, device, lead)}
-    return {"mixer": ssm_mod.init_mamba_cache(cfg, batch, dtype, device, lead)}
+        c = {"mixer": init_attn_cache(cfg, batch, eff_len, dtype, device, lead)}
+    elif spec.mixer == "mla":
+        c = {"mixer": init_mla_cache(cfg, batch, eff_len, dtype, device, lead)}
+    elif spec.mixer == "mamba":
+        c = {"mixer": ssm_mod.init_mamba_cache(cfg, batch, dtype, device, lead)}
+    elif spec.mixer == "mlstm":
+        c = {"mixer": xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device, lead)}
+    else:
+        c = {"mixer": xlstm_mod.init_slstm_cache(cfg, batch, dtype, device, lead)}
+    if spec.cross:
+        c["cross"] = init_cross_cache(cfg, batch, memory_len, dtype, device, lead)
+    return c
 
 
 def _sublayer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions, cache, mode,
-                    window):
+                    window, memory):
     new_cache: Dict[str, Any] = {}
     aux = 0.0
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -205,11 +211,23 @@ def _sublayer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions, cache
     elif spec.mixer == "mla":
         out, mc, _ = mla_apply(p["mixer"], cfg, h, positions=positions,
                                cache=mixer_cache, mode=mode, window=window)
-    else:
+    elif spec.mixer == "mamba":
         out, mc = ssm_mod.mamba_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
+    elif spec.mixer == "mlstm":
+        out, mc = xlstm_mod.mlstm_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
+    else:
+        out, mc = xlstm_mod.slstm_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
     if mc is not None:
         new_cache["mixer"] = mc
     x = x + out
+    if spec.cross:
+        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        out, cc, _ = cross_attention_apply(p["cross"], cfg, h, memory,
+                                           cache=None if cache is None else cache.get("cross"),
+                                           mode=mode)
+        if cc is not None:
+            new_cache["cross"] = cc
+        x = x + out
     if spec.ffn == "mlp":
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(p["ffn"], h, cfg.act)
@@ -235,16 +253,17 @@ def _stack_init(gen, segments: List[Segment], cfg: ModelConfig, dtype, device):
     ]
 
 
-def _stack_cache(segments, cfg, batch, cache_len, window, dtype, device):
+def _stack_cache(segments, cfg, batch, cache_len, window, dtype, device, memory_len=0):
     return [
         {f"sub{j}": _sublayer_cache(spec, cfg, batch, cache_len, window, dtype, device,
-                                    (seg.repeats,))
+                                    (seg.repeats,), memory_len)
          for j, spec in enumerate(seg.specs)}
         for seg in segments
     ]
 
 
-def _repeat_apply(p_rep, c_subs, specs, cfg: ModelConfig, x, positions, mode, window):
+def _repeat_apply(p_rep, c_subs, specs, cfg: ModelConfig, x, positions, mode, window,
+                  memory):
     """One repeat of a segment: its layers in order, ``c_subs`` holding each
     layer's cache (or None). Returns (x, the repeat's new caches, its aux
     loss)."""
@@ -252,20 +271,23 @@ def _repeat_apply(p_rep, c_subs, specs, cfg: ModelConfig, x, positions, mode, wi
     aux = 0.0
     for j, spec in enumerate(specs):
         x, nc, a = _sublayer_apply(p_rep[f"sub{j}"], spec, cfg, x, positions=positions,
-                                   cache=c_subs[j], mode=mode, window=window)
+                                   cache=c_subs[j], mode=mode, window=window, memory=memory)
         nc_rep[f"sub{j}"] = nc
         aux = aux + a
     return x, nc_rep, aux
 
 
 def _stack_apply(stack_params, segments: List[Segment], cfg: ModelConfig, x, *, positions,
-                 caches, mode, window):
+                 caches, mode, window, memory=None):
     """Each segment's repeats in order, each repeat's layers in order (the
     reference's scan over a segment, unrolled); new caches are stacked back
-    on the repeats axis. Under ``cfg.remat``, with grad mode on, each repeat
-    runs inside ``torch.utils.checkpoint`` (the reference's
-    ``jax.checkpoint(body)``): its activations are dropped after the forward
-    and recomputed in the backward."""
+    on the repeats axis. ``memory`` is the encoder's output that the
+    decoder's cross-attention reads (None without an encoder, and in
+    decode, where the cross caches hold its K/V). Under ``cfg.remat``, with
+    grad mode on, each repeat runs inside ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint(body)``), the memory among its arguments:
+    its activations are dropped after the forward and recomputed in the
+    backward."""
     new_caches = []
     aux_total = 0.0
     remat = cfg.remat and torch.is_grad_enabled()
@@ -277,7 +299,7 @@ def _stack_apply(stack_params, segments: List[Segment], cfg: ModelConfig, x, *, 
             p_rep = tree_map(lambda a: a[r], p_seg)
             c_subs = ([None] * len(seg.specs) if c_seg is None else
                       [tree_map(lambda a: a[r], c_seg[f"sub{j}"]) for j in range(len(seg.specs))])
-            args = (p_rep, c_subs, seg.specs, cfg, x, positions, mode, window)
+            args = (p_rep, c_subs, seg.specs, cfg, x, positions, mode, window, memory)
             if remat:
                 x, nc_rep, a = torch.utils.checkpoint.checkpoint(
                     _repeat_apply, *args, use_reentrant=False)
@@ -324,14 +346,12 @@ class TransformerLM:
     ``meta`` device without allocating them."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.encoder_layers or cfg.modality == "audio":
-            raise _not_ported("audio")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = layer_plan(cfg, decoder=True)
         self.segments = segment_plan(self.plan)
-        for spec in self.plan:
-            _check_spec(spec)
+        self.enc_plan = layer_plan(cfg, decoder=False)
+        self.enc_segments = segment_plan(self.enc_plan)
         self.dtype = getattr(torch, cfg.param_dtype)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
 
@@ -346,6 +366,11 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["lm_head"] = nn.normal_init(
                 gen, (cfg.d_model, cfg.vocab_size), 0.02, device, self.dtype)
+        if self.enc_segments:
+            params["encoder"] = {
+                "layers": _stack_init(gen, self.enc_segments, cfg, self.dtype, device),
+                "final_norm": rmsnorm_init(cfg.d_model, self.dtype, device),
+            }
         return params
 
     def init(self, seed: int):
@@ -387,16 +412,34 @@ class TransformerLM:
         pos = offset + torch.arange(S, device=x.device)
         return pos[None, :].expand(B, S)
 
+    def _encode(self, params, batch):
+        """The audio stub's encoder: ``batch["enc_embeds"]`` (B, T, d) frame
+        embeddings in the compute dtype at positions 0..T-1 through the
+        encoder stack, bidirectional (``mode="encode"``, no sliding window),
+        then the encoder's final norm: the memory (B, T, d)."""
+        cfg = self.cfg
+        x = batch["enc_embeds"].to(self.compute_dtype)
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        x, _, _ = _stack_apply(
+            params["encoder"]["layers"], self.enc_segments,
+            dataclasses.replace(cfg, sliding_window=0), x, positions=pos, caches=None,
+            mode="encode", window=0)
+        return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
     # -- forward ------------------------------------------------------------
     def forward(self, params, batch, *, mode, caches=None, window=0):
-        if "enc_embeds" in batch:
-            raise _not_ported("audio")
+        """(final hidden (B, S, d), new caches, aux loss). With an encoder the
+        batch brings ``enc_embeds``, encoded in every mode but decode, whose
+        cross caches hold the memory's K/V already."""
         x = self._embed_in(params, batch)
         B, S, _ = x.shape
         positions = self._positions(batch, S, batch.get("pos_offset", 0))
+        memory = (self._encode(params, batch) if self.enc_segments and mode != "decode"
+                  else None)
         x, new_caches, aux = _stack_apply(
             params["layers"], self.segments, self.cfg, x, positions=positions,
-            caches=caches, mode=mode, window=window)
+            caches=caches, mode=mode, window=window, memory=memory)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return x, new_caches, aux
 
@@ -419,9 +462,11 @@ class TransformerLM:
             batch = {"tokens": batch[0], "labels": batch[1]}
         return self.train_loss(params, batch)
 
-    def init_caches(self, batch_size, cache_len, *, window=0):
+    def init_caches(self, batch_size, cache_len, *, window=0, memory_len=0):
+        """Zeroed caches of ``cache_len`` slots; the cross caches (an
+        encoder-decoder's) of ``memory_len`` frames."""
         return _stack_cache(self.segments, self.cfg, batch_size, cache_len, window,
-                            self.dtype, self.device)
+                            self.dtype, self.device, memory_len)
 
     def prefill(self, params, batch, *, cache_len=0, window=0):
         """Run the prompt through the stack, writing K/V (and recurrent
@@ -429,10 +474,13 @@ class TransformerLM:
         prompt length; rolling when sliding-window is on). Returns (caches,
         logits (B, 1, V) fp32 of the last position). The prompt is
         ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, d) with
-        ``batch["positions"]`` for the vision stub."""
+        ``batch["positions"]`` for the vision stub; the audio stub adds
+        ``batch["enc_embeds"]`` (B, T, d), whose T frames size the cross
+        caches."""
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]
         B, S = x.shape[0], x.shape[1]
-        caches = self.init_caches(B, cache_len or S, window=window)
+        memory_len = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+        caches = self.init_caches(B, cache_len or S, window=window, memory_len=memory_len)
         hidden, caches, _ = self.forward(params, batch, mode="prefill", caches=caches,
                                          window=window)
         logits = (hidden[:, -1:] @ self._head(params)).float()
@@ -440,7 +488,8 @@ class TransformerLM:
 
     def decode_step(self, params, batch, caches, *, window=0):
         """batch: {'tokens': (B, 1)} or {'embeds': (B, 1, d)}, plus optional
-        'positions'/'pos_offset'.
+        'positions'/'pos_offset'; an encoder-decoder takes no ``enc_embeds``
+        (its cross caches hold the memory's K/V).
         Returns (logits (B, 1, V) fp32, new caches)."""
         hidden, new_caches, _ = self.forward(params, batch, mode="decode", caches=caches,
                                              window=window)

@@ -711,6 +711,34 @@ def test_flash_tc_kernel_at_lengths_off_the_tile(cuda, S, D, mask):
                  route="mma")
 
 
+@pytest.mark.parametrize("sq_sk", [(1, 4096), (37, 130), (130, 37), (2048, 4096)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("heads", [(16, 16), (32, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_non_causal_at_sq_ne_sk(cuda, sq_sk, D, heads, dtype):
+    """Cross-attention's shapes: bidirectional, Sq queries over Sk != Sq
+    keys (SeamlessM4T's decoder over 4,096 encoder frames), MHA and GQA,
+    on both routes."""
+    (Sq, Sk), (H, K) = sq_sk, heads
+    q, k, v = _flash_case(cuda, 1, Sq, Sk, H, K, D, dtype, seed=Sq + Sk + D + H)
+    _flash_check(q, k, v, causal=False, window=0,
+                 route="mma" if dtype == torch.bfloat16 else "scalar")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_non_causal_at_sq_ne_sk(cuda, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    for Sq, Sk in ((37, 130), (130, 37)):
+        q, k, v = _flash_case(cuda, 2, Sq, Sk, 8, 2, 64, dtype, seed=Sq)
+        out, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+        _, want = flash_attention_ref(q.float(), k.float(), v.float(), causal=False,
+                                      return_lse=True)
+        assert lse.shape == (2, Sq, 8)
+        assert float((lse - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+        assert torch.equal(out, flash_attention(q, k, v, causal=False))
+
+
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 def test_flash_scalar_route_takes_bf16_at_d96_and_unaligned_views(cuda, mask):
     causal, window = mask != "full", 100 if mask == "window" else 0
@@ -975,13 +1003,16 @@ def test_ssm_scan_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "gemma-2b", "deepseek-v2-lite-16b",
-                                  "deepseek-v3-671b", "qwen2-vl-7b"])
+                                  "deepseek-v3-671b", "qwen2-vl-7b", "xlstm-350m",
+                                  "seamless-m4t-medium"])
 def test_lm_serving_on_card_matches_cpu(cuda, arch):
     """Reduced config in fp32: prefill + 3 decode steps on the card against
     the CPU on the same params (kernels against plain versions, end to end;
     the reference's own consistency bound, 3e-4, on the logits). The vision
     stub takes ``serve.prompt_batch``'s prompt (embeds, 3-D positions) and zero
-    embeds at S + t while decoding."""
+    embeds at S + t while decoding; the audio stub its 16 frames, and
+    decodes on tokens: flash once a prefill for each encoder layer, decoder
+    attention layer and cross-attention, never in decode; xLSTM none."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.kernels.flash_attention import flash_attention
@@ -995,7 +1026,8 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch):
     params = gpu.init(0)
     params_cpu = tree_map(lambda t: t.cpu(), params)
     prompt = prompt_batch(cfg, 2, 40, np.random.default_rng(0))
-    n_attn = sum(s.mixer in ("attn", "mla") for s in gpu.plan)
+    n_attn = (sum((s.mixer in ("attn", "mla")) + s.cross for s in gpu.plan)
+              + len(gpu.enc_plan))
     n_mamba = sum(s.mixer == "mamba" for s in gpu.plan)
     f0, s0 = flash_attention.launches, ssm_scan.launches
     c_gpu, l_gpu = gpu.prefill(params, {k: v.to(cuda) for k, v in prompt.items()}, cache_len=44)

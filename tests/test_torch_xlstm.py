@@ -1,0 +1,491 @@
+"""repro_torch's xLSTM blocks (mLSTM, sLSTM) and the xLSTM-350M assembly held
+against the reference on the same params, in fp32 on the CPU.
+
+The mLSTM's chunkwise form at a chunk smaller than S with S not a multiple
+of it (the padded tail) against the reference's and against the exact step
+over S steps; ``mlstm_apply`` and ``slstm_apply`` in train, prefill and
+decode with their caches; the whole reduced xLSTM (its plan ['mlstm',
+'slstm']) forward, prefill and three decode steps; prefill + decode ==
+forward; ``launch.serve.main``; bf16 leaves through ``convert``; the
+tolerance of ``chip_smoke.py`` phase 29's bf16 invariant against the
+reference's own gap; ``train_loss`` and every gradient against
+``jax.value_and_grad``.
+
+Tolerance: 1e-5 of the largest reference magnitude (fp32 sums in other
+orders; measured at most 2.1e-6 on the reduced config). The sLSTM's test
+params have every gate block and the FFN's two input weights distinct, so
+that a swap of the gate layouts or of ``wi`` and ``wg`` would show."""
+import dataclasses
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs.base import reduced as ref_reduced  # noqa: E402
+from repro.models import transformer as ref_tf  # noqa: E402
+from repro.models import xlstm as ref_xlstm  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import reduced  # noqa: E402
+from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models import xlstm  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
+
+ARCH = "xlstm-350m"
+RTOL = 1e-5
+LOSS_TOL = 1e-5     # tests/test_torch_train.py's, as for Jamba
+GRAD_RTOL = 1e-4
+B, S, EXTRA = 2, 16, 4
+DECODE_STEPS = 3
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _cfgs(**over):
+    return ref_reduced(ref_get_config(ARCH), **over), reduced(get_config(ARCH), **over)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _torch(tree):
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _close(got, want, rtol=RTOL):
+    assert np.shape(got) == np.shape(want)
+    assert _rel(got, want) <= rtol, _rel(got, want)
+
+
+def _tree_close(got, want, rtol=RTOL):
+    want_leaves = jax.tree.leaves(want)
+    assert len(tree_leaves(got)) == len(want_leaves)
+    for path, g, w in zip(tree_paths(got), tree_leaves(got), want_leaves):
+        assert tuple(g.shape) == np.shape(w), path
+        if np.abs(np.asarray(w, np.float64)).max() == 0:
+            assert float(g.abs().max()) == 0, path
+        else:
+            assert _rel(g, w) <= rtol, (path, _rel(g, w))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM recurrence
+# ---------------------------------------------------------------------------
+
+def _mlstm_inputs(rng, Bq, Sq, H, hd, carry_scale):
+    q, k, v = (rng.normal(size=(Bq, Sq, H, hd)).astype(np.float32) for _ in range(3))
+    ig = rng.normal(size=(Bq, Sq, H)).astype(np.float32)
+    fg = -np.log1p(np.exp(-rng.normal(size=(Bq, Sq, H)) - 2.0)).astype(np.float32)
+    carry = (carry_scale * rng.normal(size=(Bq, H, hd, hd)).astype(np.float32),
+             carry_scale * rng.normal(size=(Bq, H, hd)).astype(np.float32),
+             (rng.normal(size=(Bq, H)) if carry_scale else np.full((Bq, H), -1e30))
+             .astype(np.float32))
+    return carry, (q, k, v, ig, fg)
+
+
+@pytest.mark.parametrize("S_, chunk", [(37, 8), (32, 8), (5, 5), (130, 64)])
+@pytest.mark.parametrize("carry_scale", [0.0, 1.0])
+def test_mlstm_chunkwise_matches_reference_and_the_step(rng, S_, chunk, carry_scale):
+    """From a zero (stabilizer -1e30) and a random carry; S not a multiple
+    of the chunk pads the tail (ig -1e30, fg 0), which must leave the final
+    state the state at S."""
+    carry, inp = _mlstm_inputs(rng, 2, S_, 4, 16, carry_scale)
+    (C, n, m), ys = ref_xlstm._mlstm_chunkwise(tuple(map(jnp.asarray, carry)),
+                                                *map(jnp.asarray, inp), chunk=chunk)
+    (Ct, nt, mt), yt = xlstm._mlstm_chunkwise(tuple(map(torch.from_numpy, carry)),
+                                              *map(torch.from_numpy, inp), chunk=chunk)
+    assert bool(torch.isfinite(yt).all())
+    for got, want in ((yt, ys), (Ct, C), (nt, n), (mt, m)):
+        _close(got, want)
+    step, outs = tuple(map(torch.from_numpy, carry)), []
+    for t in range(S_):
+        step, y = xlstm._mlstm_step(step, tuple(torch.from_numpy(a[:, t]) for a in inp))
+        outs.append(y)
+    for got, want in ((torch.stack(outs, 1), yt), (step[0], Ct), (step[1], nt), (step[2], mt)):
+        _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the blocks, same params
+# ---------------------------------------------------------------------------
+
+def _distinct_slstm(p, rng):
+    """The reference's sLSTM params with the bias's four blocks and the
+    FFN's ``wg`` moved off their structured starts (zeros, threes, and
+    ``wg`` equal to ``wi``), so every gate block differs."""
+    p = dict(p, b=p["b"] + rng.normal(size=p["b"].shape).astype(np.float32))
+    ffn = dict(p["ffn"])
+    ffn["wg"] = ffn["wg"] + 0.1 * rng.normal(size=ffn["wg"].shape).astype(np.float32)
+    return dict(p, ffn=ffn)
+
+
+def _block(kind, rng):
+    ref_cfg, cfg = _cfgs()
+    init = ref_xlstm.mlstm_init if kind == "mlstm" else ref_xlstm.slstm_init
+    p = _np(init(jax.random.PRNGKey(3), ref_cfg, jnp.float32))
+    if kind == "slstm":
+        p = _distinct_slstm(p, rng)
+    return ref_cfg, cfg, p
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_init_and_caches_state_the_reference_trees(kind):
+    ref_cfg, cfg = _cfgs(param_dtype="bfloat16")
+    ref_init = getattr(ref_xlstm, f"{kind}_init")
+    want = _np(ref_init(jax.random.PRNGKey(1), ref_cfg, jnp.bfloat16))
+    got = getattr(xlstm, f"{kind}_init")(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                                         "cpu", lead=(3,))
+    assert tree_paths(got) == [tuple(getattr(k, "key", None) for k in path)
+                               for path, _ in jax.tree_util.tree_flatten_with_path(want)[0]]
+    for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
+        assert tuple(g.shape) == (3,) + w.shape
+        assert str(g.dtype).split(".")[-1] == str(w.dtype)
+    cache = getattr(xlstm, f"init_{kind}_cache")(cfg, B, torch.float32, "cpu")
+    ref_cache = getattr(ref_xlstm, f"init_{kind}_cache")(ref_cfg, B, jnp.float32)
+    assert sorted(cache) == sorted(ref_cache)
+    for k in cache:
+        _close(cache[k], ref_cache[k], 0)
+    if kind == "slstm":   # the reference draws wi and wg from one key
+        assert torch.equal(got["ffn"]["wi"], got["ffn"]["wg"])
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_block_train_prefill_and_decode_match_reference(rng, kind):
+    """Train mode (no cache), prefill (its cache), then three decode steps
+    against it: each output and every cache leaf; the caller's cache is
+    left as it was."""
+    ref_cfg, cfg, p = _block(kind, rng)
+    ref_apply, apply = getattr(ref_xlstm, f"{kind}_apply"), getattr(xlstm, f"{kind}_apply")
+    pt = _torch(p)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    want, want_c = ref_apply(p, ref_cfg, jnp.asarray(x), mode="train")
+    got, got_c = apply(pt, cfg, torch.from_numpy(x), mode="train")
+    assert want_c is None and got_c is None
+    _close(got, want)
+    want, want_c = ref_apply(p, ref_cfg, jnp.asarray(x), mode="prefill")
+    got, got_c = apply(pt, cfg, torch.from_numpy(x), mode="prefill")
+    _close(got, want)
+    for t in range(DECODE_STEPS + 1):
+        assert sorted(got_c) == sorted(want_c)
+        for k in got_c:
+            _close(got_c[k], want_c[k])
+        if t == DECODE_STEPS:
+            break
+        x1 = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+        want, want_c = ref_apply(p, ref_cfg, jnp.asarray(x1), cache=want_c, mode="decode")
+        kept = tree_map(lambda a: a.clone(), got_c)
+        got, new_c = apply(pt, cfg, torch.from_numpy(x1), cache=got_c, mode="decode")
+        for a, b in zip(tree_leaves(got_c), tree_leaves(kept)):
+            assert torch.equal(a, b)
+        got_c = new_c
+        _close(got, want)
+
+
+def test_mlstm_prefill_in_chunks_matches_the_reference(rng):
+    """``mlstm_apply(chunk=8)`` over S = 37: the chunkwise form with a padded
+    tail inside the block, its output and its cache."""
+    ref_cfg, cfg, p = _block("mlstm", rng)
+    x = rng.normal(size=(B, 37, cfg.d_model)).astype(np.float32)
+    want, want_c = ref_xlstm.mlstm_apply(p, ref_cfg, jnp.asarray(x), mode="prefill", chunk=8)
+    got, got_c = xlstm.mlstm_apply(_torch(p), cfg, torch.from_numpy(x), mode="prefill", chunk=8)
+    _close(got, want)
+    for k in got_c:
+        _close(got_c[k], want_c[k])
+
+
+def test_blocks_refuse_decode_without_a_cache():
+    _, cfg = _cfgs()
+    for kind in ("mlstm", "slstm"):
+        p = getattr(xlstm, f"{kind}_init")(torch.Generator().manual_seed(0), cfg,
+                                           torch.float32, "cpu")
+        with pytest.raises(ValueError, match="cache"):
+            getattr(xlstm, f"{kind}_apply")(p, cfg, torch.zeros(1, 1, cfg.d_model),
+                                            mode="decode")
+
+
+# ---------------------------------------------------------------------------
+# the whole reduced xLSTM, same params
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _reference():
+    ref_cfg, cfg = _cfgs()
+    model = ref_tf.TransformerLM(ref_cfg)
+    params = _np(model.init(jax.random.PRNGKey(0)))
+    prefill = jax.jit(lambda p, b: model.prefill(p, b, cache_len=S + EXTRA))
+    forward = jax.jit(lambda p, b: model.forward(p, b, mode="train")[0])
+    return cfg, params, prefill, jax.jit(model.decode_step), forward
+
+
+def _tokens(cfg, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_reduced_plan_holds_both_blocks():
+    cfg = _reference()[0]
+    model = tf.TransformerLM(cfg, device="cpu")
+    assert cfg.xlstm_pattern == "ms"
+    assert [(s.mixer, s.ffn) for s in model.plan] == [("mlstm", "none"), ("slstm", "none")]
+    full = tf.TransformerLM(get_config(ARCH), device="meta")
+    assert [s.mixer for s in full.plan].count("slstm") == 3 and len(full.plan) == 24
+    assert [(len(g.specs), g.repeats) for g in full.segments] == [(8, 3)]
+
+
+def test_forward_prefill_and_decode_match_reference():
+    """The training forward; prefill into caches of S + EXTRA slots (its
+    logits and every cache leaf); then three greedy decode steps."""
+    cfg, ref_params, prefill, decode, forward = _reference()
+    model = tf.TransformerLM(cfg, device="cpu")
+    params = params_from_numpy(ref_params, model, device="cpu")
+    tokens = _tokens(cfg)
+    hidden, _, _ = model.forward(params, {"tokens": torch.from_numpy(tokens)}, mode="train")
+    _close(hidden, forward(ref_params, {"tokens": jnp.asarray(tokens)}))
+    want_c, want = prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+    got_c, got = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, cache_len=S + EXTRA)
+    for t in range(DECODE_STEPS + 1):
+        _close(got, want)
+        _tree_close(got_c, want_c)
+        if t == DECODE_STEPS:
+            break
+        tok = np.asarray(jnp.argmax(want[:, -1], axis=-1))[:, None].astype(np.int32)
+        want, want_c = decode(ref_params, {"tokens": jnp.asarray(tok), "pos_offset": S + t},
+                              want_c)
+        got, got_c = model.decode_step(params, {"tokens": torch.from_numpy(tok),
+                                                "pos_offset": S + t}, got_c)
+
+
+def test_prefill_plus_decode_equals_forward():
+    """The last token's logits from prefill of S - 1 tokens and one decode
+    step equal the forward's over S tokens (fp32; the chunkwise form
+    against the step)."""
+    cfg, ref_params, _, _, _ = _reference()
+    model = tf.TransformerLM(cfg, device="cpu")
+    params = params_from_numpy(ref_params, model, device="cpu")
+    t = torch.from_numpy(_tokens(cfg, 1))
+    hidden, _, _ = model.forward(params, {"tokens": t}, mode="train")
+    full = (hidden[:, -1:] @ model._head(params)).float()
+    caches, _ = model.prefill(params, {"tokens": t[:, :-1]}, cache_len=S)
+    logits, _ = model.decode_step(params, {"tokens": t[:, -1:], "pos_offset": S - 1}, caches)
+    _close(logits, full)
+
+
+def test_params_from_numpy_keeps_the_fp32_leaves_of_a_bf16_model():
+    """In a bf16 model the gate weights and biases (mLSTM ``wi``, ``wf``,
+    ``bi``, ``bf``; sLSTM ``r``, ``b``) stay fp32; the reference's tree
+    crosses with every dtype and bit kept."""
+    ref_cfg, cfg = _cfgs(param_dtype="bfloat16", compute_dtype="bfloat16")
+    ref_params = _np(ref_tf.TransformerLM(ref_cfg).init(jax.random.PRNGKey(0)))
+    params = params_from_numpy(ref_params, tf.TransformerLM(cfg, device="cpu"), device="cpu")
+    fp32 = {path[-1] for path, leaf in zip(tree_paths(params), tree_leaves(params))
+            if leaf.dtype == torch.float32}
+    assert fp32 == {"wi", "wf", "bi", "bf", "r", "b"}
+    m = params["layers"][0]["sub0"]["mixer"]
+    s = params["layers"][1]["sub0"]["mixer"]
+    assert m["wi"].dtype == torch.float32 and m["up"].dtype == torch.bfloat16
+    assert s["ffn"]["wi"].dtype == torch.bfloat16 and s["r"].dtype == torch.float32
+    for g, w in zip(tree_leaves(params_to_numpy(params)), jax.tree.leaves(ref_params)):
+        np.testing.assert_array_equal(g, np.asarray(w, np.float32))
+
+
+def test_serve_main_samples_the_reference_greedy_ids(capsys):
+    """``python -m repro_torch.launch.serve --arch xlstm-350m --device cpu``:
+    its ids equal the reference's greedy loop on the port's seed-0 params."""
+    cfg, _, prefill, decode, _ = _reference()
+    ids = serve.main(["--arch", ARCH, "--device", "cpu", "--batch", str(B),
+                      "--prompt-len", str(S), "--tokens", str(DECODE_STEPS + 1)])
+    assert "ms/token" in capsys.readouterr().out
+    params = params_to_numpy(tf.TransformerLM(cfg, device="cpu").init(0))
+    prompt = serve.prompt_batch(cfg, B, S, np.random.default_rng(0))
+    caches, logits = prefill(params, {"tokens": jnp.asarray(prompt["tokens"].numpy())})
+    want = [np.asarray(jnp.argmax(logits[:, -1], axis=-1))]
+    for t in range(DECODE_STEPS):
+        step = {"tokens": jnp.asarray(want[-1][:, None].astype(np.int32)), "pos_offset": S + t}
+        logits, caches = decode(params, step, caches)
+        want.append(np.asarray(jnp.argmax(logits[:, -1], axis=-1)))
+    np.testing.assert_array_equal(ids, np.stack(want, axis=1))
+
+
+# ---------------------------------------------------------------------------
+# phase 29's bf16 invariant, and training on the CPU
+# ---------------------------------------------------------------------------
+
+def _model_gaps(ref_cfg, cfg, seeds, S_):
+    """The prefill + decode against forward gap (max |decode - forward| over
+    max |logit| at the last position, B = 2 prompts of ``S_`` tokens) of the
+    reference and of the port on the reference's params, a list each over
+    ``seeds``."""
+    ref_model, model = ref_tf.TransformerLM(ref_cfg), tf.TransformerLM(cfg, device="cpu")
+    forward = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train")[0])
+    prefill = jax.jit(lambda p, b: ref_model.prefill(p, b, cache_len=S_)[0])
+    decode = jax.jit(ref_model.decode_step)
+    ref_gaps, gaps = [], []
+    for seed in seeds:
+        ref_params = ref_model.init(jax.random.PRNGKey(seed))
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, S_)).astype(np.int32)
+        hidden = forward(ref_params, {"tokens": jnp.asarray(tokens)})
+        full = (hidden[:, -1:] @ ref_model._head(ref_params)).astype(jnp.float32)
+        caches = prefill(ref_params, {"tokens": jnp.asarray(tokens[:, :-1])})
+        logits, _ = decode(ref_params, {"tokens": jnp.asarray(tokens[:, -1:]),
+                                        "pos_offset": S_ - 1}, caches)
+        ref_gaps.append(_rel(logits, full))
+        params = params_from_numpy(_np(ref_params), model, device="cpu")
+        t = torch.from_numpy(tokens)
+        hidden, _, _ = model.forward(params, {"tokens": t}, mode="train")
+        full = (hidden[:, -1:] @ model._head(params)).float()
+        caches, _ = model.prefill(params, {"tokens": t[:, :-1]}, cache_len=S_)
+        logits, _ = model.decode_step(params, {"tokens": t[:, -1:], "pos_offset": S_ - 1}, caches)
+        gaps.append(_rel(logits, full))
+    return ref_gaps, gaps
+
+
+def _invariant_gaps(dtype, rtol_name, factor):
+    """xLSTM's 24 blocks at the reduced width in ``dtype``, at phase 29's
+    invariant shape, over two seeds: ``factor`` times the reference's own
+    prefill + decode against forward gap is within ``chip_smoke``'s
+    ``rtol_name``, and the port's on the same params within it."""
+    smoke = _smoke()
+    rtol, (Bi, Si) = getattr(smoke, rtol_name), smoke.INVARIANT_SHAPE
+    assert Bi == 2
+    ref_cfg, cfg = _cfgs(n_layers=24, xlstm_pattern=get_config(ARCH).xlstm_pattern,
+                         param_dtype=dtype, compute_dtype=dtype)
+    ref_gaps, gaps = _model_gaps(ref_cfg, cfg, range(2), Si)
+    assert factor * max(ref_gaps) <= rtol, ref_gaps
+    assert max(gaps) <= rtol, gaps
+
+
+def test_bf16_invariant_tolerance_covers_the_reference_gap():
+    """In bf16 the reference's gap is at most half of
+    ``XLSTM_INVARIANT_RTOL`` (measured 2.36% and 0.20%; 1.88% and 0.0 on
+    seeds 2 and 3), which phase 29 holds the whole model to at this width
+    and depth; at full width the gap grows past it (7.3-10.7% on an H100,
+    ``scripts/probe_xlstm_invariant.py``) and is printed, not held."""
+    _invariant_gaps("bfloat16", "XLSTM_INVARIANT_RTOL", 2)
+
+
+class _Block:
+    """The shapes ``convert.params_from_numpy`` checks one block's tree
+    against."""
+
+    def __init__(self, cfg, kind):
+        self.cfg, self.kind = cfg, kind
+
+    def param_shapes(self):
+        init = getattr(xlstm, f"{self.kind}_init")
+        return init(None, self.cfg, getattr(torch, self.cfg.param_dtype), "meta")
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_one_block_bf16_tolerance_covers_the_reference_gap(kind):
+    """One block at the full width (d_model 1024; the mLSTM's head dim 512)
+    in bf16, unit-normal inputs at phase 29's invariant shape: the last
+    token of prefill (S - 1 tokens into a cache) + decode against the
+    block's prefill over all S tokens. The reference's gap over three seeds
+    is at most half of ``XLSTM_BLOCK_RTOL`` (mLSTM measured 0.02%, 0.14%,
+    0.29%; the sLSTM's is 0: its two paths run the same steps, and its CPU
+    products give a row the same bits whatever the row count); the port's
+    on the same params within it."""
+    smoke = _smoke()
+    rtol, (Bi, Si) = smoke.XLSTM_BLOCK_RTOL, smoke.INVARIANT_SHAPE
+    ref_cfg = ref_get_config(ARCH)
+    cfg = get_config(ARCH)
+    ref_init, ref_apply = getattr(ref_xlstm, f"{kind}_init"), getattr(ref_xlstm, f"{kind}_apply")
+    apply = getattr(xlstm, f"{kind}_apply")
+    prefill = jax.jit(lambda p, x: ref_apply(p, ref_cfg, x, mode="prefill"))
+    decode = jax.jit(lambda p, x, c: ref_apply(p, ref_cfg, x, cache=c, mode="decode"))
+    for seed in range(3):
+        p = ref_init(jax.random.PRNGKey(seed), ref_cfg, jnp.bfloat16)
+        x = jnp.asarray(np.random.default_rng(seed).normal(size=(Bi, Si, cfg.d_model))
+                        .astype(np.float32)).astype(jnp.bfloat16)
+        full, _ = prefill(p, x)
+        _, cache = prefill(p, x[:, :-1])
+        last, _ = decode(p, x[:, -1:], cache)
+        assert 2 * _rel(last.astype(jnp.float32), full[:, -1:].astype(jnp.float32)) <= rtol
+        pt = params_from_numpy(_np(p), _Block(cfg, kind), device="cpu")
+        xt = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+        full, _ = apply(pt, cfg, xt, mode="prefill")
+        _, cache = apply(pt, cfg, xt[:, :-1], mode="prefill")
+        last, _ = apply(pt, cfg, xt[:, -1:], cache=cache, mode="decode")
+        assert _rel(last.float(), full[:, -1:].float()) <= rtol
+
+
+def test_bf16_gap_at_d_model_256_is_the_references_size():
+    """xLSTM-350M's 24 blocks and published vocab at d_model 256 in bf16
+    (the widest the reference runs on this CPU in a test's time), at phase
+    29's invariant shape, on the reference's params over the seeds
+    ``scripts/probe_xlstm_invariant.py`` reads (0-3): the port's largest
+    gap is within twice the reference's largest (measured: the reference
+    0.0, 0.86, 1.51, 1.60%; the port 0.95, 1.44, 0.80, 0.0%). Phase 29
+    prints the full-width gap without holding it, since the reference
+    cannot give its own there; the probe's host witness shows the port's
+    gap on a CPU as large as on the card (PERF.md)."""
+    smoke = _smoke()
+    Bi, Si = smoke.INVARIANT_SHAPE
+    assert Bi == 2
+    full = get_config(ARCH)
+    ref_cfg = dataclasses.replace(ref_get_config(ARCH), d_model=256)
+    cfg = dataclasses.replace(full, d_model=256)
+    assert cfg.param_dtype == "bfloat16" and cfg.n_layers == 24
+    ref_gaps, gaps = _model_gaps(ref_cfg, cfg, range(4), Si)
+    assert max(gaps) <= 2 * max(ref_gaps), (ref_gaps, gaps)
+
+
+def test_fp32_invariant_tolerance_covers_the_reference_gap():
+    """In fp32 the reference's gap is at most a tenth of
+    ``XLSTM_FP32_INVARIANT_RTOL`` (measured 3.0e-6 and 3.1e-6; 6.9e-6 and
+    5.3e-6 on seeds 2 and 3), the tolerance phase 29 holds xLSTM's whole
+    model to at full width in fp32."""
+    _invariant_gaps("float32", "XLSTM_FP32_INVARIANT_RTOL", 10)
+
+
+def test_train_loss_and_every_gradient_match_the_reference():
+    """``train_loss`` of the reduced xLSTM (the chunkwise mLSTM over 13
+    tokens, one chunk; the sLSTM loop) and its gradient on every leaf
+    against ``jax.value_and_grad`` of the reference's."""
+    ref_cfg, cfg = _cfgs()
+    ref_model, model = ref_tf.TransformerLM(ref_cfg), tf.TransformerLM(cfg, device="cpu")
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    r = np.random.default_rng(1)
+    batch = {"tokens": r.integers(0, cfg.vocab_size, (2, 13)).astype(np.int32),
+             "labels": r.integers(0, cfg.vocab_size, (2, 13)).astype(np.int32)}
+    value_and_grad = jax.jit(jax.value_and_grad(ref_model.train_loss, has_aux=True))
+    (want, _), want_g = value_and_grad(ref_params, jax.tree.map(jnp.asarray, batch))
+    params = tree_map(lambda a: a.requires_grad_(),
+                      params_from_numpy(_np(ref_params), model, device="cpu"))
+    loss, _ = model.train_loss(params, tree_map(torch.from_numpy, batch))
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    assert abs(loss.item() - float(want)) <= LOSS_TOL
+    for path, g, w in zip(tree_paths(params), grads, jax.tree.leaves(_np(want_g))):
+        assert tuple(g.shape) == w.shape, path
+        if path[-1] == "bi":
+            # the mLSTM's output is invariant to one shift of every input
+            # gate (the stabilizer takes it up), so bi's gradient is 0 in
+            # exact arithmetic: both sides are fp32 rounding (about 1e-9)
+            assert max(np.linalg.norm(g.numpy()), np.linalg.norm(w)) <= 1e-6, path
+            continue
+        rel = np.linalg.norm(g.numpy() - w) / max(np.linalg.norm(w), 1e-12)
+        assert rel <= GRAD_RTOL, (path, rel)
