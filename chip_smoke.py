@@ -33,8 +33,8 @@ Phases, in order, each printing its own lines:
    versions and held against the card's aggregate, and their realized
    bytes against the wire-bytes table;
 9. one profiled round of the CNN q8 lane: the kernel's share of the round;
-10. plain and q8 CNN rounds in turns, so that the two lanes' round times
-    are compared on one card at one time;
+10. a plain and a q8 CNN round in turns, so that the two lanes' round
+    times are compared on one card at one time;
 11. the gossip lane at full size through ``RoundEngine(topology=...).run``:
     the 2NN on the ring and small-world graphs of
     ``specs/mnist_2nn_noniid_{ring,smallworld}.json`` and the CNN on the
@@ -71,7 +71,9 @@ Phases, in order, each printing its own lines:
     FedSGD steps; seconds, tokens/s, loss and peak memory a round;
 19. correctness of training: a reduced-config FedAvg round in fp32 on the
     card against the CPU (Gemma-2B, Qwen2 and Jamba's 8 layers: attention,
-    Mamba and MoE; one step's gradients, SGD's update, AdamW's moments),
+    Mamba and MoE; xLSTM's mLSTM and sLSTM; SeamlessM4T's encoder and
+    cross-attention over 24 frames; one step's gradients, SGD's update,
+    AdamW's moments),
     ``train_loss``'s CE at full
     width against materialized fp32 logits, and FusedCrossEntropy's
     gradients against autograd through them;
@@ -80,7 +82,7 @@ Phases, in order, each printing its own lines:
     flash kernel and the two backwards.
 21. the spec front door and checkpoints: all 15 ``specs/*.json`` load
     through ``repro_torch.specs`` and run at full size, 1 round each (2 for
-    FedAvgM, the ring and the small world; 5 applies for the two
+    FedAvgM, the ring and the small world; 3 applies for the two
     buffered-async specs, ``fedavg_aggregate`` once an apply, whose ``sim_s``
     sequence must equal, float for float, the same spec's schedule run by
     the port on the CPU after the card's lanes, its client and apply phases
@@ -113,8 +115,8 @@ Phases, in order, each printing its own lines:
     engine with ``cudnn.deterministic``, its default-mode gap printed beside
     two eager rounds' own) and prints
     the warm-up, capture and instantiation seconds, the graph count and the
-    peak memory; then times host-sampled rounds against superstep chunks in
-    turns (host, superstep, superstep, host) and adds a ragged chunk without
+    peak memory; then times host-sampled rounds against superstep chunks (of
+    5 on the CNN) in turns (host, superstep) and adds a ragged chunk without
     a second graph. The 2NN plain lane also runs a warm chunk under
     ``transfer_guard``, shows that a sync inside the round raises there,
     and resumes from ``save``: 20 replays of ``round()`` in a fresh engine
@@ -142,7 +144,7 @@ Phases, in order, each printing its own lines:
     round; prefetch 1 and 0) and the CNN (1 round, ``cudnn.deterministic``)
     with ``pool`` a ``StreamedClientPool`` against the device pool, and one
     q8 2NN round, params and losses bitwise; (d) 2NN rounds in turns
-    (device, streamed, streamed, device), the bytes staged a round, and one
+    (device, streamed), the bytes staged a round, and one
     profiled streamed round: whether its side stream's host-to-device copies
     ran beside a kernel; (e) ``pool="auto"`` under a
     ``REPRO_DEVICE_POOL_BUDGET`` below the 2NN pool's estimate selects the
@@ -223,20 +225,39 @@ Phases, in order, each printing its own lines:
     cross-attention once, non-causal but for the decoder's self-attention,
     cross-attention at Sq = 2048 over Sk = 4096), all on the tensor-core
     route, none in a decode step; prefill + decode equals forward
-    (SeamlessM4T at full width in bf16; xLSTM, whose bf16 gap grows with the
-    width, one mLSTM and one sLSTM block at full width in bf16, the whole
-    model at full width in fp32 and at the reduced width in bf16, its whole
-    bf16 gap at full width printed); one profiled prefill and decode step of
-    each, and for
-    xLSTM the device time and ops of its mLSTM chunkwise and sLSTM ranges
-    in a prefill. Phase 16 holds both reduced configs card vs CPU; phases 3
-    and 4 hold and time the flash kernel non-causal at Sq != Sk.
+    (SeamlessM4T at full width in bf16; xLSTM's whole model at full width in
+    bf16 and in fp32 and at the reduced width in bf16, one mLSTM and one
+    sLSTM block at full width in bf16); xLSTM's rows against the row count
+    (a forward over S - 1 tokens against the first S - 1 positions over S,
+    one block of each kind and the whole model, and its bf16 products over
+    S - 1 and 2 rows), printed; one profiled prefill and decode step of
+    each, and for xLSTM the device time and ops of its mLSTM chunkwise and
+    sLSTM ranges in a prefill. Phase 16 holds both reduced configs card vs
+    CPU; phases 3 and 4 hold and time the flash kernel non-causal at Sq !=
+    Sk;
+30. training the last two archs whole at full width through
+    ``repro_torch.launch.train.run --full --remat``: xLSTM-350M (24 blocks)
+    and SeamlessM4T-medium (12 + 12 layers over 2048 frames of stub
+    embeddings), bf16, one FedAvg round of G = 2 groups x H = 2 AdamW steps
+    (fp32 moments) on 2 x 2048 tokens a group, each drawn on the card from
+    seed 0 and freed before the next: ``flash_attention`` 288 times a
+    SeamlessM4T round (36 flash layers, forward and remat recompute, 4
+    steps) and never in xLSTM's, ``fused_cross_entropy`` 4 and ``ce_probs``
+    16 a round, all on the tensor-core routes (SeamlessM4T's 256,206-word
+    head staged to a pitch of 256,208), ``fedavg_aggregate`` once a
+    parameter leaf; finite losses, the peak under 75 GiB; seconds, tokens/s
+    and peak a round; then one profiled group step of each (idle share,
+    device ops, the shares of AdamW, the CE and the attention backward, and
+    xLSTM's sLSTM and mLSTM ranges) and xLSTM's sLSTM layer timed alone.
 
 Phases 3 and 4 hold and time ``flash_attention``, ``ssm_scan``,
 ``fused_cross_entropy``, ``ce_probs`` and ``ssm_scan_bwd`` too, at the
-serving and training shapes; phase 3 also holds the flash kernel's ``lse``
-output and the scan's checkpoints, and checks that every kernel wrapper
-refuses an input that requires grad.
+serving and training shapes (phase 30's among them: the CE at V = 50,304
+and at V = 256,206 through the staged head, the staging copy timed beside
+it; ``FlashAttention`` at SeamlessM4T's three training shapes, its forward
+with ``lse`` and its backward against the plain versions); phase 3 also
+holds the flash kernel's ``lse`` output and the scan's checkpoints, and
+checks that every kernel wrapper refuses an input that requires grad.
 ``flash_attention`` and ``fused_cross_entropy`` have two routes each, a
 tensor-core kernel (bf16 on aligned rows; flash at D = 64, 128, 192, 256) and a
 scalar one (everything else): phase 3 checks which route each case took
@@ -431,11 +452,22 @@ SEAMLESS_FRAMES = 4096
 FLASH_NONCAUSAL_SHAPES = {
     "seamless encoder": (SERVE_BATCH, SEAMLESS_FRAMES, SEAMLESS_FRAMES, 16, 16, 64),
     "seamless cross": (SERVE_BATCH, PROMPT, SEAMLESS_FRAMES, 16, 16, 64)}
-# The scalar route's launches a timing turn where one takes ~8 ms or more
-# (V3's 825 GFLOP at ~14 TFLOP/s: ~59 ms); the median of 200 elsewhere.
+# The scalar route's launches a timing turn: FLASH_SCALAR_ITERS where a shape
+# sets it (V3's 825 GFLOP at ~14 TFLOP/s: ~59 ms a launch), else
+# FLASH_SCALAR_DEFAULT_ITERS (its launches take 2.7-8.1 ms); the tensor-core
+# route's median of 200.
+FLASH_SCALAR_DEFAULT_ITERS = 20
 FLASH_SCALAR_ITERS = {"deepseek-v2-lite": 50, "deepseek-v3": 10, "seamless decoder": 50,
                       "seamless encoder": 10, "seamless cross": 20}
 FLASH_WINDOW = 100
+# Phase 30's attention: SeamlessM4T trains on B = 2 sequences of 2048 tokens
+# over min(2048, 4096) = 2048 frames, so its encoder and its cross-attention
+# attend non-causally at Sq = Sk = 2048 and its decoder causally; H = K = 16,
+# D = 64, bf16, the forward with lse (ops.FlashAttention), then the plain
+# backward: (B, Sq, Sk, H, K, D, causal).
+FLASH_TRAIN_SHAPES = {"seamless train encoder": (2, 2048, 2048, 16, 16, 64, False),
+                      "seamless train cross": (2, 2048, 2048, 16, 16, 64, False),
+                      "seamless train decoder": (2, 2048, 2048, 16, 16, 64, True)}
 SSM_D, SSM_N = 8192, 16
 # The prefill+decode == forward invariant at full width in bf16, at a size
 # where Jamba's MoE buffers at capacity factor 8 fit. A bf16 value holds 8
@@ -446,33 +478,34 @@ INVARIANT_SHAPE = (2, 128)
 INVARIANT_RTOL = 2.0 ** -5
 # Phase 29. SeamlessM4T's bf16 gap at the reduced width (0-0.54% over four
 # seeds, the reference on the CPU) sits under INVARIANT_RTOL; its memory is
-# INVARIANT_FRAMES frames. xLSTM's 24 recurrent blocks round to bf16 at
-# other places in the chunkwise prefill and the step decode, and that gap
-# grows block by block and with the width: on an H100, 2.4-3.0% of the
-# largest logit at d_model 256, 2.4-5.3% at 512 and 7.3-10.7% at the full
-# 1024 over four seeds; the port on the host's CPU, on the same weights and
-# tokens, 2.6-4.5%, 3.7-6.3% and 5.8-10.3%
-# (scripts/probe_xlstm_invariant.py). The reference runs
-# only narrower widths on the CPU (0-1.6% at d_model 256, the port 0-1.4% on
-# its params; tests/test_torch_xlstm.py), so the whole bf16 model is held at
-# the reduced width and full depth, at XLSTM_INVARIANT_RTOL (2^-4, at least
-# twice the reference's own gap there), and at full width its gap is
-# printed, not held. At full width one mLSTM and one sLSTM block are held in
-# bf16 at XLSTM_BLOCK_RTOL (2^-6, MLA's one-layer tolerance) on the inputs of
-# XLSTM_BLOCK_SEEDS: at least twice the reference's own one-block gap there
-# (mLSTM 0.02-0.29%; the sLSTM's is 0 on the CPU, whose products give a row
-# the same bits whatever the row count). On an H100 the sLSTM's FFN product
-# x @ wi gives 40-43% of its results other bits over 2 or 127 rows than over
-# 128 (x @ wx none), and the block's gap is 0.45-1.06% over 12 weight and
-# input seeds; the mLSTM's 0-0.29%. The whole model is held in fp32
-# (fresh fp32 weights) at XLSTM_FP32_INVARIANT_RTOL (ten times the
-# reference's fp32 gap at the reduced width and full depth, 3.0-6.9e-6).
-# tests/test_torch_xlstm.py and tests/test_torch_encdec.py hold each
-# tolerance against the reference's gaps.
+# INVARIANT_FRAMES frames. xLSTM's whole bf16 model is held at full width,
+# and at the reduced width and full depth, to XLSTM_INVARIANT_RTOL (2^-4): at
+# least twice the reference's own gap at either width (full width, seeds 0
+# and 1: 2.65% and 2.27% on the CPU, the port 2.44% and 1.92% on the same
+# params; tests/test_torch_xlstm.py). Its bf16 products take fp32 sums and
+# one rounding (models/xlstm.py ``_mm``) and its chunkwise form one chunk
+# size whatever S: before, a bf16 GEMM's blocking by the row count gave the
+# prefill over S - 1 tokens other bits than the forward over S, and the gap
+# grew block by block to 6.4-10.7% at full width on an H100
+# (scripts/probe_xlstm_invariant.py). The mLSTM's fp32 gate products take
+# fp64 sums (``_mm_gate``): cuBLAS's fp32 kernel for them took other bits
+# by the row count too. One mLSTM and one sLSTM block are held at full width
+# in bf16 at XLSTM_BLOCK_RTOL (2^-7) on the inputs of XLSTM_BLOCK_SEEDS: at
+# least twice the reference's own one-block gap there (mLSTM 0.02-0.29%;
+# the sLSTM's is 0); on an H100 the mLSTM block reads 0-0.54% over 12
+# weight and input seeds, the sLSTM block 0.
+# The whole model is held in fp32 (fresh fp32 weights) at
+# XLSTM_FP32_INVARIANT_RTOL (ten times the reference's fp32 gap at the
+# reduced width and full depth, 3.0-6.9e-6). tests/test_torch_xlstm.py and
+# tests/test_torch_encdec.py hold each tolerance against the reference's
+# gaps.
 XLSTM_INVARIANT_RTOL = 2.0 ** -4
-XLSTM_BLOCK_RTOL = 2.0 ** -6
+XLSTM_BLOCK_RTOL = 2.0 ** -7
 XLSTM_BLOCK_SEEDS = (1, 2, 3)
 XLSTM_FP32_INVARIANT_RTOL = 1e-4
+# xLSTM-350M's serving readings on an H100 80GB HBM3 at 700 W before its
+# products took fp32 sums (PERF.md section 5), printed beside phase 29's
+XLSTM_SERVING_BEFORE = {"prefill_s": (1.9521, 3.2504), "decode_ms_per_token": (27.2, 40.4)}
 INVARIANT_FRAMES = 128
 # MLA's prefill (the naive up-projection in bf16, through the flash kernel)
 # and its decode (the absorbed form in fp32) round at other places. One MLA
@@ -524,9 +557,35 @@ CE_SHAPE = (TRAIN_B * TRAIN_S, 2048, 256_000)
 CE_CHUNK_TOKENS = TRAIN_B * 512
 CE_CHUNKS = -(-CE_SHAPE[0] // CE_CHUNK_TOKENS)
 CE_MIN_SPEEDUP = 5.0   # the tensor-core route against the scalar one, same run
+# Phase 30's CE at its training step (T = 2 x 2048 tokens, d_model 1024), each
+# head in the layout train_loss passes it: xLSTM's untied (1024, 50,304) head
+# contiguous (V % 8 = 0); SeamlessM4T's untied (1024, 256,206) head, whose
+# pitch is no multiple of 8, staged by ops.FusedCrossEntropy into a (1024,
+# 256,208) buffer and passed on as its (1024, 256,206) view
+CE_ARCH_SHAPES = {"xlstm-350m": (TRAIN_B * TRAIN_S, 1024, 50_304, "contiguous"),
+                  "seamless-m4t-medium": (TRAIN_B * TRAIN_S, 1024, 256_206, "staged")}
 # The card's fp32 round against the CPU's: sums in other orders through two
 # layers and back, in the SGD update and in AdamW's moments.
 TRAIN_RTOL = 1e-4
+# FlashAttention's dq, dk, dv from the kernel's forward against the same plain
+# backward from the plain forward (phase 3): the two forwards' outputs part by
+# at most a bf16 ulp and their lse by 1e-5, and each gradient is rounded to
+# bf16 once; held as CE_GRAD_RTOL holds the CE's (rel L2).
+FLASH_GRAD_RTOL = 1e-3
+# Phase 30: xLSTM-350M and SeamlessM4T-medium whole at full width, bf16,
+# remat, through launch.train.run: one FedAvg round of TRAIN_G x TRAIN_H
+# AdamW steps (fp32 moments: both fit) on TRAIN_B x TRAIN_S tokens a group,
+# SeamlessM4T's over min(TRAIN_S, 4096) frames, then one profiled group step.
+ARCH_TRAIN = ("xlstm-350m", "seamless-m4t-medium")
+ARCH_TRAIN_LR = 3e-4
+# Leaves whose gradient is 0 in exact arithmetic: the mLSTM's input-gate bias
+# (its output is invariant to one shift of every input gate; the stabilizer
+# takes it up), whose gradient is fp32 rounding on either device (about 1e-9
+# on the CPU, tests/test_torch_xlstm.py). Held by norm, not against each
+# other. Phase 19's SeamlessM4T round takes REDUCED_TRAIN_FRAMES frames.
+ZERO_GRAD_LEAVES = ("bi",)
+ZERO_GRAD_ATOL = 1e-6
+REDUCED_TRAIN_FRAMES = 24
 # Phase 19's leaves held one by one within TRAIN_RTOL beside the whole tree:
 # every leaf's gradient of one step; in the SGD update, attention's and the
 # tied head; in AdamW's moments, those and Mamba's and the MoE router. Not
@@ -539,6 +598,14 @@ TRAIN_RTOL = 1e-4
 # weights step ~3,000 ulps and their updates part by 1.2e-4 on an H100
 # (their gradients 4e-6 or less); at 0.5, ~32,000 ulps and 1.6e-5.
 REDUCED_SGD_LR = 0.5
+# AdamW's lr in phase 19's rounds, by arch (None: the rest). The round's
+# second local step reads the first step's update, lr * g / (|g| + eps), in
+# which card-vs-CPU rounding of near-zero gradient elements moves a
+# parameter by up to about lr / 2 (the mLSTM's mk and mq). xLSTM's second
+# step carries that into its moments in proportion to lr: on an H100 80GB
+# HBM3 at 700 W, card vs CPU 1.2e-4 at lr 1e-3, 1.2e-5 at 1e-4, 2.2e-6
+# after one step; Gemma-2B 2.0e-5 at 1e-3.
+REDUCED_ADAMW_LR = {None: 1e-3, "xlstm-350m": 1e-4}
 UPDATE_LEAVES = ("wq", "wk", "wv", "wo", "table")
 MOMENT_LEAVES = UPDATE_LEAVES + ("in_proj", "conv_w", "x_proj", "dt_proj", "dt_bias", "A_log",
                                  "D", "out_proj", "router")
@@ -580,10 +647,10 @@ SPEC_ROUNDS_OF = {"mnist_2nn_noniid_fedavgm": 2, "mnist_2nn_noniid_ring": 2,
 # The buffered-async specs run this many applies (each one fedavg_aggregate
 # launch over K = buffer_k = 3 buffered updates), and their sim_s sequence
 # must equal, float for float, the same spec's on the CPU: the event
-# schedule is host numpy only. Five applies keep the script inside its time
+# schedule is host numpy only. Three applies keep the script inside its time
 # limit.
 ASYNC_SPECS = ("mnist_2nn_noniid_async", "mnist_2nn_noniid_fedasync")
-ASYNC_APPLIES = 5
+ASYNC_APPLIES = 3
 SPEC_ROUNDS_OF.update({name: ASYNC_APPLIES for name in ASYNC_SPECS})
 SPEC_KERNELS = {
     "mnist_2nn_iid": "fedavg_aggregate", "mnist_2nn_noniid": "fedavg_aggregate",
@@ -621,8 +688,14 @@ SUPERSTEP_LANES = (
     ("mnist_2nn", "mnist_2nn_noniid_q8", "quantized_aggregate"),
     ("mnist_2nn", "mnist_2nn_noniid_topk", "sparse_aggregate"),
 )
-# Host-sampled rounds a turn, beside each superstep chunk of SUPERSTEP_R.
+# Host-sampled rounds a turn, beside each superstep chunk, in the turns
+# SUPERSTEP_TURNS (one pair, to keep the script inside its time).
 SUPERSTEP_HOST_ROUNDS = {"mnist_2nn": 1, "mnist_cnn": 1}
+SUPERSTEP_TURNS = ("host", "superstep")
+# The timed chunk where it is not SUPERSTEP_R: a CNN superstep round holds
+# the card ~0.39 s, so its chunk is cut to 5 (seconds a round are the
+# replays' whatever the chunk; the 2NN's 20 rounds take ~0.9 s).
+SUPERSTEP_TURN_R = {"mnist_cnn": 5}
 # The profiled chunk of each lane (CUPTI records every replayed kernel: a 2NN
 # round runs ~17,000 device ops, a CNN round ~53,000). A replay runs on the
 # card without the kernel wrappers, so their counters count only eager
@@ -670,8 +743,9 @@ CIFAR_CLIENTS = 100
 CIFAR_CFG = dict(C=0.1, E=5, B=50, lr=0.1, seed=0)
 WORD_UNROLL = 10
 WORD_CFG = dict(C=0.1, E=1, B=8, lr=1.0, seed=0)
-# The Shakespeare example run as a user runs it, in a process of its own.
-EXAMPLE_ROUNDS = 2
+# The Shakespeare example run as a user runs it, in a process of its own, for
+# one round.
+EXAMPLE_ROUNDS = 1
 EXAMPLE_ARGV = ["-m", "repro_torch.examples.shakespeare_lstm", "--roles", "60",
                 "--rounds", str(EXAMPLE_ROUNDS)]
 # Card vs CPU at a reduced population (each model at its full width): the
@@ -763,17 +837,18 @@ GOSSIP_TURN_PAIRS = {"mnist_2nn": 1, "mnist_cnn": 1}
 # expected, and printed).
 SKETCH_ATOL = 1e-6
 LOWRANK_R = 20
-LOWRANK_HOST_ROUNDS = 1   # each of the two host-sampled turns
+LOWRANK_HOST_ROUNDS = 1   # the host-sampled turn, beside one superstep chunk
 LOWRANK_REPLAY_RTOL = 1e-5
 # (c) The staged superstep: (model, spec whose codec the lane takes), chunks of
 # STAGED_R in turns against the device pool's superstep (the CNN's chunk cut to
-# 5: a CNN superstep round is ~0.42 s, and the lane runs six chunks), a profiled streamed 2NN chunk of
-# STAGED_PROFILE_R, and phase 24 (f)'s population in one chunk of POP_ROUNDS.
+# 2: a CNN superstep round is ~0.42 s, and the lane runs four chunks), a
+# profiled streamed 2NN chunk of STAGED_PROFILE_R, and phase 24 (f)'s
+# population in one chunk of POP_ROUNDS.
 STAGED_LANES = (("mnist_2nn", None), ("mnist_cnn", None), ("mnist_2nn", "mnist_2nn_noniid_q8"))
-STAGED_R = {"mnist_2nn": 20, "mnist_cnn": 5}
+STAGED_R = {"mnist_2nn": 20, "mnist_cnn": 2}
 STAGED_PROFILE_R = 2
 # (d) from_spec: one chunk of this many rounds a spec.
-FROM_SPEC_R = 10
+FROM_SPEC_R = 2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2095,7 +2170,7 @@ def time_flash_attention():
         flash_routed(q, k, v, "mma", causal=causal)
         routes = {"scalar": lambda: _launch(q, k, v, causal, 0, False, "scalar"),
                   "mma": lambda: flash_attention(q, k, v, causal=causal)}
-        iters = {"scalar": FLASH_SCALAR_ITERS.get(tag, 200), "mma": 200}
+        iters = {"scalar": FLASH_SCALAR_ITERS.get(tag, FLASH_SCALAR_DEFAULT_ITERS), "mma": 200}
         turns = [(name, time_ms(routes[name], flush, iters=iters[name],
                                 warmup=min(20, iters[name])))
                  for name in ("scalar", "mma", "mma", "scalar")]
@@ -2108,7 +2183,7 @@ def time_flash_attention():
             None, lambda: flash_attention_ref(q, k, v, causal=causal),
             lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
             (2 * B * S * H * D + 2 * B * Sk * K * D) * 2, flops, flush,
-            tensor_core=True, kernel_ms=tc_ms)
+            tensor_core=True, kernel_ms=tc_ms, plain_iters=2)
         rows[tag].update(B=B, S=S, Sk=Sk, H=H, K=K, D=D, dtype="bfloat16", causal=causal,
                          route="mma",
                          scalar_ms=scalar_ms, turns_ms=turns, speedup=scalar_ms / tc_ms,
@@ -2123,7 +2198,42 @@ def time_flash_attention():
         require(r["speedup"] >= FLASH_MIN_SPEEDUP,
                 f"flash_attention {tag}: the tensor-core route is only {r['speedup']:.2f}x "
                 f"faster than the scalar route (want >= {FLASH_MIN_SPEEDUP})")
+    rows.update(time_flash_training(flush))
     del flush
+    return rows
+
+
+def time_flash_training(flush):
+    """The forward ``ops.FlashAttention`` runs at phase 30's SeamlessM4T
+    shapes: ``flash_attention(return_lse=True)`` on the tensor-core route,
+    non-causal at Sq = Sk = 2048 (the encoder's and cross-attention's one
+    shape, timed once) and causal (the decoder), against the plain version
+    with its lse and SDPA (which returns no lse). Bound: the unmasked pairs'
+    4 D flops on the tensor cores against q, k, v read and the output and
+    lse written once."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for tag in ("seamless train encoder", "seamless train decoder"):
+        B, S, Sk, H, K, D, causal = FLASH_TRAIN_SHAPES[tag]
+        q, k, v = flash_inputs(B, S, Sk, H, K, D, torch.bfloat16, 9)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Sk
+        flash_routed(q, k, v, "mma", causal=causal, return_lse=True)
+        name = tag + (" (and cross)" if not causal else "")
+        rows[name] = lm_row(
+            f"flash_attention {name}: B={B} S={S} Sk={Sk} H/K={H}/{K} D={D} bf16 "
+            f"{'causal' if causal else 'non-causal'}, with lse, tensor-core route",
+            lambda: flash_attention(q, k, v, causal=causal, return_lse=True),
+            lambda: flash_attention_ref(q, k, v, causal=causal, return_lse=True),
+            lambda: sdpa(qt, kt, vt, is_causal=causal), (2 * B * S * H * D + 2 * B * Sk * K * D)
+            * 2 + B * S * H * 4, 4 * D * pairs, flush, tensor_core=True, plain_iters=2)
+        r = rows[name]
+        r.update(B=B, S=S, Sk=Sk, H=H, K=K, D=D, dtype="bfloat16", causal=causal, route="mma",
+                 lse=True, TFLOPs=4 * D * pairs / r["ms"] / 1e9,
+                 vs_library=r["ms"] / r["library_ms"])
+        print(f"    {r['TFLOPs']:.1f} TFLOP/s counted; {r['vs_library']:.2f}x SDPA's time")
     return rows
 
 
@@ -2342,17 +2452,23 @@ def ce_inputs(T, d, V, dtype, layout, seed, same_label=False):
     """hidden ~ N(0, 1), a head ~ N(0, 1/d) so logits are O(1), labels with
     0 and V - 1 among them (or one label for every token). ``layout`` is
     "tied" (the transposed view of a (V, d) table), "contiguous" (a (d, V)
-    tensor) or "sliced" (the first V columns of a (d, V') tensor, V' a
+    tensor), "sliced" (the first V columns of a (d, V') tensor, V' a
     multiple of 8 above V: a (d, V) view with contiguous rows that the
-    tensor-core route takes at any V)."""
+    tensor-core route takes at any V) or "staged" (a contiguous (d, V) head
+    as ``ops.FusedCrossEntropy`` passes it on: ``ops.tensor_core_head``'s
+    copy, V' = V rounded up to 8, where V is no multiple of 8)."""
+    from repro_torch.kernels.ops import tensor_core_head
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     hidden = torch.randn((T, d), generator=g, device="cuda").to(dtype)
     if layout == "tied":
         head = (torch.randn((V, d), generator=g, device="cuda") / math.sqrt(d)).to(dtype).T
     else:
-        pitch = V if layout == "contiguous" else -(-V // 8) * 8 + 8
+        pitch = V if layout in ("contiguous", "staged") else -(-V // 8) * 8 + 8
         head = (torch.randn((d, pitch), generator=g, device="cuda") / math.sqrt(d)).to(dtype)
         head = head[:, :V]
+        if layout == "staged":
+            head = tensor_core_head(hidden, head)
     labels = torch.randint(0, V, (T,), generator=g, device="cuda", dtype=torch.int32)
     labels[0] = 0
     labels[-1] = V - 1
@@ -2404,6 +2520,9 @@ def check_fused_cross_entropy():
               for T in (1, 37, 4096) for V in (1, 1000, 2049, 256_000)]
     cases.append(dict(T=37, d=64, V=1000, dtype=torch.float32, layout="contiguous",
                       same_label=True))
+    # phase 30's two heads at the training step's T, as train_loss passes them
+    cases += [dict(T=T, d=d, V=V, dtype=torch.bfloat16, layout=layout, arch=arch)
+              for arch, (T, d, V, layout) in CE_ARCH_SHAPES.items()]
     before = fused_cross_entropy.launches
     main_err, worst = 0.0, {"scalar": 0.0, "mma": 0.0}
     n_runs, scalar_only = 0, []
@@ -2417,6 +2536,8 @@ def check_fused_cross_entropy():
             scalar_only.append((c["layout"], c["V"]))
         require(c["dtype"] == torch.float32 or c["layout"] != "tied" or "mma" in routes,
                 f"a bf16 tied head does not take the tensor-core route: {c}")
+        require("arch" not in c or "mma" in routes,
+                f"{c.get('arch')}'s training head does not take the tensor-core route: {c}")
         for route in routes:
             loss, lse = ce_routed(hidden, head, labels, route)
             torch.cuda.synchronize()
@@ -2429,11 +2550,13 @@ def check_fused_cross_entropy():
                     and c["layout"] == "tied" and route == "mma")
             if main:
                 main_err = err
-            if main or not ok or c["T"] == 4096 and c["V"] == 256_000 or c.get("same_label"):
+            if (main or not ok or c["T"] == 4096 and c["V"] == 256_000 or c.get("same_label")
+                    or "arch" in c):
                 print(f"  T={c['T']:4d} d={c['d']:4d} V={c['V']:6d} {str(c['dtype'])[6:]:8s} "
                       f"{c['layout']:10s} {route:6s}"
                       f"{' one label' if c.get('same_label') else ''}: max_abs_err={err:.3e} "
                       f"(tol {tol:.2e}){' [the training shape]' if main else ''}"
+                      + (f" [{c['arch']}'s training step]" if "arch" in c else "")
                       + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"{name} {route} disagrees with its plain version: {c}")
@@ -2525,6 +2648,9 @@ def check_ce_probs():
               for layout in ("tied", "sliced") for T in (1, 37, 300)
               for V in (1, 1000, 2049) for d in (64, 2048)]
     cases += [dict(T=37, d=12, V=1000, layout="tied", dtype=torch.bfloat16)]
+    # phase 30's two heads, a backward chunk of each
+    cases += [dict(T=CE_CHUNK_TOKENS, d=d, V=V, layout=layout, dtype=torch.bfloat16, arch=arch)
+              for arch, (_, d, V, layout) in CE_ARCH_SHAPES.items()]
     before = ce_probs.launches
     worst = {"scalar": 0.0, "mma": 0.0}
     main_share, main_err, n_runs = 0.0, 0.0, 0
@@ -2546,6 +2672,8 @@ def check_ce_probs():
         routes = ["scalar"] + (["mma"] if _route(hidden, head) == "mma" else [])
         require(dtype == torch.float32 or c["d"] % 8 or "mma" in routes,
                 f"an aligned bf16 case does not take the tensor-core route: {c}")
+        require("arch" not in c or "mma" in routes,
+                f"{c.get('arch')}'s training chunk does not take the tensor-core route: {c}")
         for route in routes:
             p = probs_routed(hidden, head, labels, lse, g, route)
             torch.cuda.synchronize()
@@ -2556,10 +2684,11 @@ def check_ce_probs():
             main = c.get("main") and route == "mma"
             if main:
                 main_share, main_err = share, float((p.float() - p32).abs().max())
-            if c.get("main") or share > 1.0 or (T, V) == (37, 1):
+            if c.get("main") or share > 1.0 or (T, V) == (37, 1) or "arch" in c:
                 print(f"  T={T:4d} d={c['d']:4d} V={V:6d} {str(dtype)[6:]:8s} "
                       f"{c['layout']:6s} {route:6s}: max error {share:.3f} of the allowance"
                       f"{' [the training chunk]' if c.get('main') else ''}"
+                      + (f" [{c['arch']}'s training chunk]" if "arch" in c else "")
                       + (" ok" if share <= 1.0 else " FAIL"))
             require(share <= 1.0, f"ce_probs {route} disagrees with its plain version: {c}")
             del p
@@ -2623,6 +2752,54 @@ def check_flash_lse():
     print(f"kernels: flash_attention lse ok ({len(cases)} cases, bf16 on the tensor-core "
           f"route, fp32 on the scalar one; max error {worst:.3e} of max(1, |lse|), tol 1e-5; "
           f"the output equals the call without lse)")
+    return worst
+
+
+def check_flash_training():
+    """FlashAttention at phase 30's three SeamlessM4T training shapes in bf16:
+    the forward's output and lse (``flash_attention(return_lse=True)``, the
+    tensor-core route) against the plain ``flash_attention_ref`` in fp32,
+    within one bf16 ulp + 1e-5 max|v| and 1e-5 max(1, |lse|); then dq, dk, dv
+    of ``ops.mha_flash_train`` (the kernel's forward, then the plain
+    ``flash_attention_bwd``) against the same backward from the plain
+    forward's output and lse, within FLASH_GRAD_RTOL (rel L2) each. Returns
+    the worst relative gradient error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.models.attention_core import flash_attention_bwd
+
+    worst = 0.0
+    for i, (tag, (B, Sq, Sk, H, K, D, causal)) in enumerate(FLASH_TRAIN_SHAPES.items()):
+        q, k, v = flash_inputs(B, Sq, Sk, H, K, D, torch.bfloat16, 400 + i)
+        g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(500 + i),
+                        device="cuda").to(q.dtype)
+        out, lse = flash_routed(q, k, v, "mma", causal=causal, return_lse=True)
+        ref32, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                             return_lse=True)
+        ok, share = close_to_fp32(out, ref32, float(v.float().abs().max()))
+        lse_err = float((lse - ref_lse).abs().max()) / max(1.0, float(ref_lse.abs().max()))
+        del ref32, ref_lse
+        n, tc = flash_attention.launches, flash_attention.tc_launches
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(ops.mha_flash_train(*leaves, causal=causal), leaves, g)
+        require(flash_attention.launches == n + 1 and flash_attention.tc_launches == tc + 1,
+                f"{tag}: FlashAttention's forward did not launch once on the tensor-core route")
+        plain_out, plain_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        want = flash_attention_bwd(q, k, v, plain_out, plain_lse, g, causal=causal)
+        errs = [float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(got, want)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        worst = max([worst] + errs)
+        print(f"  {tag}: B={B} Sq={Sq} Sk={Sk} H/K={H}/{K} D={D} bf16 "
+              f"{'causal' if causal else 'non-causal'}, tensor-core route: output max_err="
+              f"{share:.3f} of (1 bf16 ulp + tol), lse {lse_err:.2e} of max(1, |lse|) (tol "
+              f"1e-5); dq/dk/dv rel L2 {', '.join(f'{e:.2e}' for e in errs)} against the plain "
+              f"forward's backward (tol {FLASH_GRAD_RTOL:g})")
+        require(ok and lse_err <= 1e-5 and finite and max(errs) <= FLASH_GRAD_RTOL,
+                f"FlashAttention disagrees with its plain version at {tag}")
+        del q, k, v, g, out, lse, leaves, got, plain_out, plain_lse, want
+    print(f"kernels: FlashAttention at the {len(FLASH_TRAIN_SHAPES)} SeamlessM4T training "
+          f"shapes ok (gradients within {worst:.2e} rel L2)")
     return worst
 
 
@@ -2759,7 +2936,7 @@ def time_fused_cross_entropy():
     ce_routed(hidden, head, labels, "mma")
     routes = {"scalar": lambda: _launch(hidden, head, labels, "scalar"),
               "mma": lambda: fused_cross_entropy(hidden, head, labels)}
-    turns = [(name, time_ms(routes[name], flush, iters=5, warmup=1))
+    turns = [(name, time_ms(routes[name], flush, iters=3, warmup=1))
              for name in ("scalar", "mma", "mma", "scalar")]
     tc_ms = float(np.mean([t for name, t in turns if name == "mma"]))
     scalar_ms = float(np.mean([t for name, t in turns if name == "scalar"]))
@@ -2839,8 +3016,55 @@ def time_fused_cross_entropy():
           f"{bwd['dhidden_rel_diff_vs_old']:.2e} and {bwd['dhead_rel_diff_vs_old']:.2e} "
           f"(rel L2, both bf16)")
     r["backward"] = bwd
+    del hidden, head, labels, lbl64, lse, g
+    rows = {"gemma-2b train": r, **time_arch_ce(flush)}
     del flush
-    return {"gemma-2b train": r}, {"gemma-2b train chunk": probs}
+    return rows, {"gemma-2b train chunk": probs}
+
+
+def time_arch_ce(flush):
+    """SeamlessM4T's CE at its training step (CE_ARCH_SHAPES: T = 4096, d =
+    1024, the untied V = 256,206 head) on the tensor-core route through the
+    staged head, the way ``ops.FusedCrossEntropy`` runs it: the staging copy
+    (``ops.tensor_core_head`` of the contiguous head, a (d, V') buffer) and
+    the kernel on the staged view, each timed alone (20 launches); the plain
+    version (3) and ``hidden @ head`` then ``F.cross_entropy`` (5). Bound as
+    the tied row's, plus the copy's read and write of the head."""
+    from repro_torch.kernels.ce_loss import fused_cross_entropy, fused_cross_entropy_ref
+    from repro_torch.kernels.ops import tensor_core_head
+
+    arch = "seamless-m4t-medium"
+    T, d, V, layout = CE_ARCH_SHAPES[arch]
+    hidden, staged, labels = ce_inputs(T, d, V, torch.bfloat16, layout, 8)
+    head = staged.contiguous()
+    require(staged.stride() == (-(-V // 8) * 8, 1), f"the staged head's strides {staged.stride()}")
+    lbl64 = labels.long()
+    ce_routed(hidden, staged, labels, "mma")
+    flops = 2 * T * d * V
+    nbytes = (T * d + 3 * d * V) * 2 + T * 4 + 2 * T * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    r = {"ms": time_ms(lambda: fused_cross_entropy(hidden, staged, labels), flush, iters=20,
+                       warmup=2),
+         "staging_ms": time_ms(lambda: tensor_core_head(hidden, head), flush, iters=20, warmup=2),
+         "plain_ms": time_ms(lambda: fused_cross_entropy_ref(hidden, head, labels), flush,
+                             iters=3, warmup=1),
+         "library_ms": time_ms(lambda: torch.nn.functional.cross_entropy(
+             (hidden @ head).float(), lbl64, reduction="none"), flush, iters=5, warmup=1),
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes": nbytes, "flops": flops, "T": T, "d": d, "V": V, "dtype": "bfloat16",
+         "head": "(d, V) contiguous, staged to a (d, V') buffer's view", "route": "mma"}
+    r["with_staging_ms"] = r["ms"] + r["staging_ms"]
+    r["bound_share"] = r["bound_ms"] / r["with_staging_ms"]
+    r["achieved_TFLOPs"] = flops / (r["ms"] * 1e-3) / 1e12
+    r["vs_library"] = r["with_staging_ms"] / r["library_ms"]
+    print(f"  fused_cross_entropy {arch} train: T={T} d={d} V={V} bf16, the head staged "
+          f"(pitch {staged.stride(0)}), tensor-core route: kernel_ms={r['ms']:.3f} + staging "
+          f"copy {r['staging_ms']:.3f} ms, bound_ms={r['bound_ms']:.3f} ({r['bound_by']}; "
+          f"{r['bound_share']:.1%} of bound with the copy, {r['achieved_TFLOPs']:.1f} TFLOP/s) "
+          f"plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.3f} (matmul then "
+          f"F.cross_entropy; the kernel and copy take {r['vs_library']:.2f}x its time)")
+    return {f"{arch} train": r}
 
 
 # ---------------------------------------------------------------------------
@@ -3209,15 +3433,19 @@ def reduced_round_card_vs_cpu(arch):
     scalar routes, required), the scan's backward kernel and the plain
     attention backward against the plain versions end to end (Jamba's 8
     layers: one attention, 7 Mamba, 4 MoE; each Mamba layer launches
-    ``ssm_scan`` and ``ssm_scan_bwd`` once a step). Twice: with SGD at
+    ``ssm_scan`` and ``ssm_scan_bwd`` once a step; xLSTM's mLSTM and sLSTM
+    blocks, no kernel but the CE's; SeamlessM4T over REDUCED_TRAIN_FRAMES
+    frames, flash once a step in each encoder layer, decoder self-attention
+    and cross-attention). A leaf of ZERO_GRAD_LEAVES, whose gradient is 0 in
+    exact arithmetic, is held by its norm on both devices. Twice: with SGD at
     REDUCED_SGD_LR, whose update is linear in the gradients, the loss and
     the update (the whole tree's, in L2, and each of UPDATE_LEAVES') within
     TRAIN_RTOL; with
     AdamW, the local optimizer of the main path, the loss and the groups'
     moments mu and nu (linear and quadratic in the gradients; the trees and
-    each of MOMENT_LEAVES) within TRAIN_RTOL. The AdamW update itself is not
-    compared: its first steps are lr * g / |g|, so a gradient element at
-    rounding level steps by +-lr on either side."""
+    each of MOMENT_LEAVES) within TRAIN_RTOL, at REDUCED_ADAMW_LR. The AdamW
+    update itself is not compared: its first steps are lr * g / |g|, so a
+    gradient element at rounding level steps by +-lr on either side."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.core import local_sgd
@@ -3230,9 +3458,12 @@ def reduced_round_card_vs_cpu(arch):
     shape = (TRAIN_H, TRAIN_G, 2, 40)
     batches = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, shape).astype(np.int32))
                for k in ("tokens", "labels")}
+    if cfg.modality == "audio":
+        batches["enc_embeds"] = torch.from_numpy(
+            r.normal(size=shape[:3] + (REDUCED_TRAIN_FRAMES, cfg.d_model)).astype(np.float32))
     start = TransformerLM(cfg, device="cuda").init(0)
     plan = TransformerLM(cfg, device="cuda").plan
-    n_attn = sum(s.mixer == "attn" for s in plan)
+    n_attn = n_flash_layers(TransformerLM(cfg, device="meta"))
     n_mamba = sum(s.mixer == "mamba" for s in plan)
     paths = ["/".join(map(str, p)) for p in tree_paths(start)]
     steps = TRAIN_G * TRAIN_H
@@ -3250,16 +3481,24 @@ def reduced_round_card_vs_cpu(arch):
         loss, _ = TransformerLM(cfg, device=dev).train_loss(
             p, {k: v[0, 0].to(dev) for k, v in batches.items()})
         grads[dev] = [g.cpu().double() for g in torch.autograd.grad(loss, tree_leaves(p))]
+    zero = {pth: max(float(a.norm()), float(b.norm()))
+            for pth, a, b in zip(paths, grads["cuda"], grads["cpu"])
+            if pth.split("/")[-1] in ZERO_GRAD_LEAVES}
     grad_err = {pth: float((a - b).norm() / b.norm())
-                for pth, a, b in zip(paths, grads["cuda"], grads["cpu"])}
+                for pth, a, b in zip(paths, grads["cuda"], grads["cpu"]) if pth not in zero}
     worst_grad = max(grad_err, key=grad_err.get)
     print(f"  reduced {arch} fp32, one step's gradients, card vs CPU: {len(grad_err)} leaves, "
-          f"worst {grad_err[worst_grad]:.2e} ({worst_grad}) (tol {TRAIN_RTOL:g})")
+          f"worst {grad_err[worst_grad]:.2e} ({worst_grad}) (tol {TRAIN_RTOL:g})"
+          + (f"; {len(zero)} leaves whose gradient is 0 in exact arithmetic, largest norm "
+             f"{max(zero.values()):.2e} on either device (tol {ZERO_GRAD_ATOL:g})" if zero else ""))
     require(grad_err[worst_grad] <= TRAIN_RTOL, f"reduced {arch}: a gradient leaf disagrees")
+    require(all(v <= ZERO_GRAD_ATOL for v in zero.values()),
+            f"reduced {arch}: a gradient that is 0 in exact arithmetic is not: {zero}")
     out = {"arch": arch, "gradient_worst_rel_err": grad_err[worst_grad],
            "gradient_worst_leaf": worst_grad}
     del grads
-    for name, make in (("SGD", lambda: sgd(REDUCED_SGD_LR)), ("AdamW", lambda: adamw(1e-3))):
+    adamw_lr = REDUCED_ADAMW_LR.get(arch, REDUCED_ADAMW_LR[None])
+    for name, make in (("SGD", lambda: sgd(REDUCED_SGD_LR)), ("AdamW", lambda: adamw(adamw_lr))):
         results = {}
         for dev in ("cuda", "cpu"):
             model = TransformerLM(cfg, device=dev)
@@ -3314,7 +3553,8 @@ def reduced_round_card_vs_cpu(arch):
                 e, p, ulps = max(unheld)
                 print(f"    (not held) the SGD update of Mamba's and the router's leaves: worst "
                       f"{e:.2e} ({p}), its median step {ulps:.1f} ulps of its values")
-        print(f"  reduced {arch} fp32, one round G={TRAIN_G} H={TRAIN_H} {name}: loss "
+        lr = REDUCED_SGD_LR if name == "SGD" else adamw_lr
+        print(f"  reduced {arch} fp32, one round G={TRAIN_G} H={TRAIN_H} {name} lr {lr:g}: loss "
               f"{l_gpu:.6f} vs CPU {l_cpu:.6f} (rel {l_err:.2e}); "
               + ", ".join(f"{k} rel L2 {e:.2e}" for k, e in tree_err.items())
               + f"; {len(leaf_err)} checked leaves, worst {worst_leaf:.2e} ({worst_key}) "
@@ -3383,33 +3623,50 @@ PROFILER_RANGES = ("flash_attention_bwd", "fused_cross_entropy_bwd", "ssm_scan_b
                    "optimizer_update")
 
 
-def range_device_ms(prof, names):
-    """{range: {"device_ms", "device_ops", "host_ms", "spans"}} for host
-    ranges of ``names`` (``torch.profiler.record_function``): on the one
-    stream, every device op from the first to the last of those whose launch
-    call (matched by correlation id) falls inside one of the range's host
-    spans, their summed durations and count; and the spans' summed host
-    time. The profiler's op tree alone misses kernels that no torch op
-    launches (ctypes launches, cuBLASLt's cuLaunchKernelEx launches)."""
+def read_trace(prof, names=()):
+    """(device ops, ranges) of a finished profile, read in one pass over
+    its raw kineto events (a profile of one training step holds millions,
+    and each pass over them costs seconds): the ops as
+    ``profiled_device_ops`` gives them, and {range: {"device_ms",
+    "device_ops", "host_ms", "spans"}} for the host ranges of ``names``
+    (``torch.profiler.record_function``): on the one stream, every device
+    op from the first to the last of those whose launch call (matched by
+    correlation id) falls inside one of the range's host spans, their summed
+    durations and count; and the spans' summed host time. The profiler's op
+    tree alone misses kernels that no torch op launches (ctypes launches,
+    cuBLASLt's cuLaunchKernelEx launches)."""
     import bisect
 
     from torch.autograd import DeviceType
 
-    raw = prof.profiler.kineto_results.events()
-    on_device = sorted((e for e in raw if e.device_type() == DeviceType.CUDA
-                        and not e.is_user_annotation()), key=lambda e: e.start_ns())
-    starts = [e.start_ns() for e in on_device]
-    cum = list(itertools.accumulate((e.duration_ns() for e in on_device), initial=0))
-    launch_of = {e.correlation_id(): e.start_ns() for e in raw
-                 if e.device_type() == DeviceType.CPU and "aunch" in e.name()
-                 and e.correlation_id()}
-    launched = sorted((launch_of[e.correlation_id()], e.start_ns(), e.end_ns())
-                      for e in on_device if e.correlation_id() in launch_of)
+    results = prof.profiler.kineto_results
+    t_start = results.trace_start_ns()
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    on_device, launch_of, spans_of, ops = [], {}, {name: [] for name in names}, []
+    for e in results.events():
+        if e.device_type() == cuda:
+            if e.is_user_annotation():
+                continue
+            a, b = e.start_ns(), e.end_ns()
+            on_device.append((a, b, e.correlation_id()))
+            if not getattr(e, "is_hidden_event", lambda: False)():
+                ops.append(DeviceOp(e.name(), Span((a - t_start) / 1e3, (b - t_start) / 1e3),
+                                    e.device_resource_id()))
+        elif e.device_type() == cpu and names:
+            name = e.name()
+            if name in spans_of:
+                spans_of[name].append((e.start_ns(), e.end_ns()))
+            elif "aunch" in name and e.correlation_id():
+                launch_of[e.correlation_id()] = e.start_ns()
+    if not names:
+        return ops, {}
+    on_device.sort()
+    starts = [a for a, _, _ in on_device]
+    cum = list(itertools.accumulate((b - a for a, b, _ in on_device), initial=0))
+    launched = sorted((launch_of[c], a, b) for a, b, c in on_device if c in launch_of)
     launch_times = [t for t, _, _ in launched]
     out = {}
-    for name in names:
-        spans = [(e.start_ns(), e.end_ns()) for e in raw
-                 if e.device_type() == DeviceType.CPU and e.name() == name]
+    for name, spans in spans_of.items():
         total, n_ops = 0, 0
         for a, b in spans:
             mine = launched[bisect.bisect_left(launch_times, a):
@@ -3421,7 +3678,7 @@ def range_device_ms(prof, names):
                 n_ops += hi - lo
         out[name] = {"device_ms": total / 1e6, "device_ops": n_ops,
                      "host_ms": sum(b - a for a, b in spans) / 1e6, "spans": len(spans)}
-    return out
+    return ops, out
 
 
 def profile_training_step():
@@ -3507,7 +3764,7 @@ def profile_training_step():
             sum(us for us, _, k in rows if "flash_fwd_mma_kernel" in k) / 1e3,
             sum(c for _, c, k in rows if "flash_fwd_mma_kernel" in k)),
         **{f"{name} (range)": (r["device_ms"], r["spans"])
-           for name, r in range_device_ms(prof, ranges).items()},
+           for name, r in read_trace(prof, ranges)[1].items()},
     }
     print(f"  gemma-2b one group step (B={TRAIN_B} x {TRAIN_S}, AdamW): wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), "
@@ -3596,9 +3853,10 @@ def jamba_training_lane():
             "n_params": n_params, "wall_s": wall, "argv": JAMBA_TRAIN_ARGV}
 
 
-def layer_ms(fn, inputs, leaves, grad_out):
+def layer_ms(fn, inputs, leaves, grad_out, iters=3, warmup=True):
     """(forward ms, forward + backward ms) of ``fn(inputs)``, CUDA events
-    around 3 runs each after a warm-up, the backward reaching ``inputs`` and
+    around ``iters`` runs each after a warm-up (none where the caller's own
+    run warmed the same shapes), the backward reaching ``inputs`` and
     ``leaves`` (the layer's params, which require grad)."""
     def fwd():
         with torch.no_grad():
@@ -3611,14 +3869,15 @@ def layer_ms(fn, inputs, leaves, grad_out):
 
     res = []
     for f in (fwd, fwd_bwd):
-        f()
+        if warmup:
+            f()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(3):
+        for _ in range(iters):
             f()
         b.record()
         torch.cuda.synchronize()
-        res.append(a.elapsed_time(b) / 3)
+        res.append(a.elapsed_time(b) / iters)
     return tuple(res)
 
 
@@ -3692,8 +3951,8 @@ def profile_jamba_step():
                                                 "ssm_scan_bwd_reduce_kernel"),
         "fused_cross_entropy and ce_probs": named("ce_fwd_mma_kernel", "ce_merge_kernel",
                                                   "ce_probs_mma_kernel"),
-        **{f"{name} (range)": (r["device_ms"], r["spans"]) for name, r in range_device_ms(
-            prof, ("ssm_scan_bwd", "fused_cross_entropy_bwd", "optimizer_update")).items()},
+        **{f"{name} (range)": (r["device_ms"], r["spans"]) for name, r in read_trace(
+            prof, ("ssm_scan_bwd", "fused_cross_entropy_bwd", "optimizer_update"))[1].items()},
     }
     print(f"  jamba one group step (B={TRAIN_B} x {TRAIN_S}, AdamW, bf16 moments): wall "
           f"{wall:.4f} s under the profiler, device busy {busy:.4f} s (idle share "
@@ -3750,6 +4009,205 @@ def jamba_training_phase():
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 27: launches {out['lane']['launches']} in {out['seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 30: training xLSTM and SeamlessM4T whole
+# ---------------------------------------------------------------------------
+
+def arch_train_argv(arch):
+    return ["--arch", arch, "--full", "--remat", "--groups", str(TRAIN_G), "--local-steps",
+            str(TRAIN_H), "--global-batch", str(TRAIN_G * TRAIN_B), "--seq", str(TRAIN_S),
+            "--rounds", "1", "--lr", str(ARCH_TRAIN_LR), "--device", "cuda"]
+
+
+def arch_training_lane(arch):
+    """``arch`` whole through ``repro_torch.launch.train.run``
+    (``arch_train_argv``): one FedAvg round of G = 2 groups x H = 2 AdamW
+    steps (fp32 moments), bf16, remat. Every count is set to 0 just before
+    the run and read just after; the round must launch ``flash_attention``
+    G·H·2 times a flash layer (its forward and remat recompute: SeamlessM4T's
+    12 encoder layers, 12 decoder self-attentions and 12 cross-attentions),
+    ``fused_cross_entropy`` G·H times, ``ce_probs`` G·H·chunks times,
+    ``fedavg_aggregate`` once a parameter leaf, and nothing else; every
+    flash, CE and ``ce_probs`` launch on the tensor-core route (SeamlessM4T's
+    CE through the staged head). The loss finite, the peak under
+    PEAK_LIMIT_GIB."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(arch)
+    meta = TransformerLM(cfg, device="meta")
+    n_leaves = len(tree_leaves(meta.param_shapes()))
+    steps = TRAIN_G * TRAIN_H
+    chunks = -(-TRAIN_B * TRAIN_S // (TRAIN_B * cfg.ce_chunk))
+    per = {k: 0 for k in KERNELS}
+    per.update(fused_cross_entropy=steps, ce_probs=steps * chunks,
+               flash_attention=steps * n_flash_layers(meta) * 2, fedavg_aggregate=n_leaves)
+    free_card()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs, final = train.run(arch_train_argv(arch))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    tc = {"flash_attention": flash_tc_launches(), "fused_cross_entropy": ce_tc_launches(),
+          "ce_probs": probs_tc_launches()}
+    n_params = sum(int(t.numel()) for t in tree_leaves(final))
+    del final
+    free_card()
+    require(counts == per and len(recs) == 1, f"training {arch}: launches {counts}, want {per}")
+    require(all(tc[k] == per[k] for k in tc),
+            f"training {arch}: tensor-core launches {tc}, want all of {per}")
+    rec = recs[0]
+    require(rec["launches"] == {k: per[k] for k in rec["launches"]},
+            f"training {arch}: the round's record {rec['launches']}")
+    require(math.isfinite(rec["loss"]), f"training {arch}: loss {rec['loss']}")
+    require(rec["peak_GiB"] <= PEAK_LIMIT_GIB,
+            f"training {arch}: peak {rec['peak_GiB']:.2f} GiB over {PEAK_LIMIT_GIB} GiB")
+    print(f"  {arch}: {n_params:,} params, {n_leaves} leaves, fp32 moments: one FedAvg round of "
+          f"G={TRAIN_G} x H={TRAIN_H} on {TRAIN_B} x {TRAIN_S} tokens a group"
+          + (f" over {min(TRAIN_S, 4096)} frames" if cfg.modality == "audio" else "")
+          + f": {rec['seconds']:.3f} s, {rec['tokens']} tokens, {rec['tokens_per_s']:.0f} "
+          f"tokens/s, loss {rec['loss']:.4f}, peak device memory {rec['peak_GiB']:.2f} GiB "
+          f"({held / 2**30:.2f} GiB held before); {wall:.1f} s with set-up; launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+          + " (every flash, CE and ce_probs launch on the tensor-core route)")
+    return {"record": rec, "launches": counts, "tc_launches": tc, "n_params": n_params,
+            "leaves": n_leaves, "wall_s": wall, "argv": arch_train_argv(arch)}
+
+
+def profile_arch_step(arch, step_s):
+    """One group step of ``arch`` (B = 2 x 2048 tokens, and frames for the
+    audio stub; AdamW with fp32 moments, remat, through
+    ``build_fedsgd_train_step``) under torch.profiler, right after the
+    lane's round warmed the same shapes: device busy against the host wall,
+    the device ops (the profiler's raw events), the top kernels, the hand
+    kernels' shares, and the device time of the ranges
+    ``optimizer_update``, ``fused_cross_entropy_bwd``,
+    ``flash_attention_bwd`` and, for xLSTM, ``slstm_scan`` and
+    ``mlstm_chunkwise`` (their forwards and remat recomputes), with CPU and
+    CUDA activity (``read_trace``: the ranges are host spans, which a
+    profile without CPU activity holds none of). For xLSTM then the first
+    sLSTM layer alone
+    at the step's shape, one forward and one forward + backward between
+    CUDA events (the loop is host-bound: the events time the host's pace),
+    against ``step_s``, the lane's seconds a group step: a step runs 2
+    forwards (remat) and a backward of each of its sLSTM layers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.local_sgd import build_fedsgd_train_step
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), remat=True)
+    model = TransformerLM(cfg, device="cuda")
+    params = model.init(0)
+    opt = adamw(ARCH_TRAIN_LR)
+    box = {"state": opt.init(params)}
+    step = build_fedsgd_train_step(model.train_loss, opt)
+    r = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+                                 .astype(np.int32)).cuda() for k in ("tokens", "labels")}
+    if cfg.modality == "audio":
+        batch["enc_embeds"] = torch.from_numpy(r.normal(size=(TRAIN_B, TRAIN_S, cfg.d_model))
+                                               .astype(np.float32)).cuda().to(model.compute_dtype)
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, box["state"], m = step(params, box["state"], batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    names = ["optimizer_update", "fused_cross_entropy_bwd", "flash_attention_bwd"]
+    if cfg.xlstm_pattern:
+        names += ["slstm_scan", "mlstm_chunkwise"]
+    ops, ranges = read_trace(prof, names)
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
+    read_s = time.perf_counter() - t0
+    del prof
+    by_name = {}
+    for e in ops:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    rows = sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)
+    hand = {k: (sum(us for us, _, n in rows if k in n) / 1e3, sum(c for _, c, n in rows if k in n))
+            for k in ("flash_fwd_mma_kernel", "ce_fwd_mma_kernel", "ce_merge_kernel",
+                      "ce_probs_mma_kernel")}
+    chunks = -(-TRAIN_B * TRAIN_S // (TRAIN_B * cfg.ce_chunk))
+    want = {k: 0 for k in KERNELS}
+    want.update(fused_cross_entropy=1, ce_probs=chunks,
+                flash_attention=2 * n_flash_layers(model))
+    require(counts == want and math.isfinite(loss),
+            f"profiled {arch} step: launches {counts}, want {want}; loss {loss}")
+    print(f"  {arch} one group step (B={TRAIN_B} x {TRAIN_S}, AdamW, fp32 moments, remat) under "
+          f"the profiler (CPU and CUDA activity): wall {wall:.4f} s, device busy {busy:.4f} s "
+          f"(idle share {1 - busy / wall:.1%}), {len(ops)} device ops, loss {loss:.4f}; the "
+          f"trace read in {read_s:.1f} s")
+    print("    hand kernels: " + "; ".join(f"{k} {c}x {ms:.3f} ms ({ms / 1e3 / busy:.1%} of busy)"
+                                           for k, (ms, c) in hand.items() if c))
+    for name, rg in ranges.items():
+        rg["share_of_busy"] = rg["device_ms"] / 1e3 / busy
+        print(f"    range {name}: {rg['spans']} spans, {rg['device_ops']} device ops, "
+              f"{rg['device_ms']:.3f} ms on the device ({rg['share_of_busy']:.1%} of busy), "
+              f"{rg['host_ms']:.1f} ms of host time inside it")
+    for us, count, k in rows[:8]:
+        print(f"    {us / 1e3:10.3f} ms {count:7d}x  {k[:90]}")
+    out = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+           "device_ops": len(ops), "loss": loss, "ranges": ranges, "read_s": read_s,
+           "hand_kernels_ms": {k: v[0] for k, v in hand.items()},
+           "top": [(us / 1e3, c, k[:120]) for us, c, k in rows[:8]]}
+    del box, ops, rows
+    free_card()
+    if cfg.xlstm_pattern:
+        seg = model.segments[0]
+        j = [sp.mixer for sp in seg.specs].index("slstm")
+        p = tree_map(lambda a: a[0].detach().requires_grad_(),
+                     params["layers"][0][f"sub{j}"]["mixer"])
+        g = torch.Generator(device="cuda").manual_seed(3)
+        h = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=g, device="cuda",
+                        dtype=model.compute_dtype).requires_grad_()
+        grad_out = torch.randn(h.shape, generator=g, device="cuda", dtype=h.dtype)
+        f, fb = layer_ms(lambda x: xlstm.slstm_apply(p, cfg, x)[0], h, tree_leaves(p), grad_out,
+                         iters=1, warmup=False)
+        n_slstm = sum(sp.mixer == "slstm" for sp in model.plan)
+        step_ms = n_slstm * (2 * f + (fb - f))
+        out["slstm_layer"] = {"forward_ms": f, "forward_backward_ms": fb, "layers": n_slstm,
+                              "step_ms": step_ms, "share_of_step": step_ms / 1e3 / step_s}
+        print(f"    slstm layer alone: forward {f:.3f} ms, forward + backward {fb:.3f} ms between "
+              f"CUDA events (one run each); x{n_slstm} layers with 2 forwards (remat) "
+              f"{step_ms:.3f} ms a step, {step_ms / 1e3 / step_s:.1%} of the lane's "
+              f"{step_s:.3f} s a group step")
+        del h, grad_out, p
+    del params
+    free_card()
+    return out
+
+
+def archs_training_phase():
+    """Phase 30: each of ARCH_TRAIN, its training lane, then its profiled
+    step; each model freed before the next."""
+    t0 = time.perf_counter()
+    print(f"  memory_allocated at the start {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {}
+    for arch in ARCH_TRAIN:
+        t1 = time.perf_counter()
+        lane = arch_training_lane(arch)
+        step_s = lane["record"]["seconds"] / (TRAIN_G * TRAIN_H)
+        out[arch] = {"lane": lane, "profile": profile_arch_step(arch, step_s)}
+        out[arch]["seconds"] = time.perf_counter() - t1
+        print(f"  {arch}: {out[arch]['seconds']:.1f} s with its profile")
+    launches = {k: sum(a["lane"]["launches"][k] for a in out.values()) for k in KERNELS}
+    print(f"  phase 30: launches {({k: v for k, v in launches.items() if v})} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"archs": out, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4092,15 +4550,7 @@ class DeviceOp(NamedTuple):
 def profiled_device_ops(prof):
     """A finished profile's device ops, from its raw kineto events (a
     ``record_function`` range's span on the device timeline is no op)."""
-    from torch.autograd import DeviceType
-
-    results = prof.profiler.kineto_results
-    start = results.trace_start_ns()
-    return [DeviceOp(e.name(), Span((e.start_ns() - start) / 1e3, (e.end_ns() - start) / 1e3),
-                     e.device_resource_id())
-            for e in results.events()
-            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
-            and not getattr(e, "is_hidden_event", lambda: False)()]
+    return read_trace(prof)[0]
 
 
 def device_profile(fn):
@@ -4742,19 +5192,20 @@ def deterministic_capture_check(model_name, data):
 
 
 def superstep_turns(name, host, eng, model_name):
-    """Host-sampled rounds and superstep chunks in turns (host, superstep,
-    superstep, host): seconds a round from ``wall_s``. The wrappers must
+    """Host-sampled rounds and superstep chunks in turns (SUPERSTEP_TURNS):
+    seconds a round from ``wall_s``. The wrappers must
     count nothing in a chunk: its rounds are replays, and a round that fell
     back to eager would count its launch (the replays' own launches are
     counted by ``profile_chunk``)."""
     n_host = SUPERSTEP_HOST_ROUNDS[model_name]
     turns = []
-    for which in ("host", "superstep", "superstep", "host"):
+    for which in SUPERSTEP_TURNS:
         reset_counts()
         if which == "host":
             recs = host.run(n_host).records[-n_host:]
         else:
-            recs = eng.run(SUPERSTEP_R, rounds_per_step=SUPERSTEP_R).records[-SUPERSTEP_R:]
+            R = SUPERSTEP_TURN_R.get(model_name, SUPERSTEP_R)
+            recs = eng.run(R, rounds_per_step=R).records[-R:]
             torch.cuda.synchronize()
             counts = {k: v for k, v in launch_counts().items() if v}
             require(not counts, f"{name}: the wrappers counted {counts} in a chunk of replays")
@@ -4765,15 +5216,16 @@ def superstep_turns(name, host, eng, model_name):
               f"last loss {recs[-1].train_loss:.6f}, test_acc {recs[-1].test_acc:.4f}")
     host_s = [t for w, t in turns if w == "host"]
     step_s = [t for w, t in turns if w == "superstep"]
-    print(f"  {name}: host-sampled {host_s[0]:.4f} / {host_s[1]:.4f} s a round, superstep "
-          f"{step_s[0]:.4f} / {step_s[1]:.4f} s a round "
-          f"({min(host_s) / max(step_s):.1f}x to {max(host_s) / min(step_s):.1f}x); "
-          "the wrappers counted no launch in the chunks")
+    print(f"  {name}: host-sampled " + " / ".join(f"{t:.4f}" for t in host_s)
+          + " s a round, superstep " + " / ".join(f"{t:.4f}" for t in step_s)
+          + f" s a round ({min(host_s) / max(step_s):.1f}x to {max(host_s) / min(step_s):.1f}x);"
+          " the wrappers counted no launch in the chunks")
     before = eng.round_idx
     eng.run(5, rounds_per_step=4)        # a chunk of 4 and a ragged 1
     require(eng.num_compilations == 1 and eng.round_idx == before + 5,
             f"{name}: {eng.num_compilations} graphs after a ragged chunk")
-    print(f"  {name}: after two chunks of {SUPERSTEP_R} and a ragged chunk (4 + 1): "
+    print(f"  {name}: after {len(step_s)} chunk(s) of "
+          f"{SUPERSTEP_TURN_R.get(model_name, SUPERSTEP_R)} and a ragged chunk (4 + 1): "
           f"{eng.num_compilations} graph ok")
     return {"turns": turns}
 
@@ -4978,9 +5430,9 @@ def superstep_phase(train, test):
     spec = superstep_spec(train, test)
     free_card()
     for lane in lanes:
-        (h0, s0), (h1, s1) = (lane["turns"][0][1], lane["turns"][1][1]), \
-            (lane["turns"][3][1], lane["turns"][2][1])
-        print(f"  {lane['lane']:18s} host {h0:.4f} / {h1:.4f} s, superstep {s0:.4f} / {s1:.4f} s "
+        host_s = " / ".join(f"{t:.4f}" for w, t in lane["turns"] if w == "host")
+        step_s = " / ".join(f"{t:.4f}" for w, t in lane["turns"] if w == "superstep")
+        print(f"  {lane['lane']:18s} host {host_s} s, superstep {step_s} s "
               f"a round; capture {lane['capture_s']:.3f} s; peak {lane['peak_MiB']:.0f} MiB; "
               f"idle {lane['profile']['idle_share']:.1%} of a profiled chunk")
     return lanes, spec
@@ -5256,8 +5708,8 @@ def copies_beside_kernels(ops):
 def streamed_vs_device(data, spool):
     """(c) and (d): the 2NN and the CNN on the streamed pool against the
     device pool (rounds and params bitwise), the 2NN with prefetch 0, one q8
-    2NN round on each; then 2NN rounds in turns (device, streamed, streamed,
-    device) and one profiled streamed round."""
+    2NN round on each; then 2NN rounds in turns (device, streamed) and one
+    profiled streamed round."""
     from repro_torch.specs import get_spec
 
     out, launches = {"lanes": []}, {"fedavg_aggregate": 0, "quantized_aggregate": 0}
@@ -5307,7 +5759,7 @@ def streamed_vs_device(data, spool):
     dev, st = keep[("mnist_2nn", None)], keep["streamed"]
     turns = []
     before = counters()["fedavg_aggregate"].launches
-    for name, eng in (("device", dev), ("streamed", st), ("streamed", st), ("device", dev)):
+    for name, eng in (("device", dev), ("streamed", st)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng._read_loss(eng.round()["loss"])
@@ -5315,7 +5767,7 @@ def streamed_vs_device(data, spool):
         print(f"  {name:8s} round {turns[-1][1]:.4f} s")
     mean = {k: float(np.mean([t for n, t in turns if n == k])) for k in ("device", "streamed")}
     ratio = mean["streamed"] / mean["device"]
-    print(f"  2NN rounds in turns (device, streamed, streamed, device): streamed / device = "
+    print(f"  2NN rounds in turns (device, streamed): streamed / device = "
           f"{ratio:.4f}; {st.staged_bytes:,} B staged host to device a streamed round")
     wall, ops, _ = device_profile(lambda: float(st.round()["loss"]))
     launches["fedavg_aggregate"] += counters()["fedavg_aggregate"].launches - before
@@ -5702,7 +6154,7 @@ def sharded_superstep(data, mesh):
           f"capture {shrd._graph.capture_s:.3f} s")
     require(ok and shrd.num_compilations == 1, "the sharded superstep disagrees")
     turns = []
-    for tag in ("unsharded", "sharded", "sharded", "unsharded"):
+    for tag in ("unsharded", "sharded"):
         eng = shrd if tag == "sharded" else base
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6101,7 +6553,7 @@ def lowrank_superstep(data):
           f"{'ok' if ok else 'FAIL'}")
     require(ok, "the low-rank superstep disagrees with its rounds")
     turns = []
-    for which in ("host", "superstep", "superstep", "host"):
+    for which in ("host", "superstep"):
         if which == "host":
             recs = host.run(LOWRANK_HOST_ROUNDS, eval_every=10**9).records[-LOWRANK_HOST_ROUNDS:]
         else:
@@ -6131,8 +6583,8 @@ def staged_superstep(data, spool):
     """26(c): the streamed pool's staged superstep against the device pool's
     superstep, the 2NN and CNN plain lanes and the 2NN q8 lane: an untimed
     first chunk each (the captures, the first staging, the slots' pinning),
-    then chunks in turns (device, streamed, streamed, device), all bitwise
-    equal after each pair (the CNN under ``cudnn.deterministic``); the
+    then chunks in turns (device, streamed), bitwise equal after the pair
+    (the CNN under ``cudnn.deterministic``); the
     staged bytes a chunk and the pinned bytes; then one profiled streamed chunk: whether
     the next chunk's staging copies ran beside the replays' kernels."""
     from repro_torch.specs import get_spec
@@ -6160,8 +6612,7 @@ def staged_superstep(data, spool):
                 print(f"  {tag} {'device' if eng is dev else 'streamed'}: a first chunk of {R} "
                       f"(capture {eng._graph.warmup_s + eng._graph.capture_s:.3f} s) in "
                       f"{time.perf_counter() - t0:.3f} s, not timed")
-            for which, eng in (("device", dev), ("streamed", st), ("streamed", st),
-                               ("device", dev)):
+            for which, eng in (("device", dev), ("streamed", st)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 recs = eng.run(R, eval_every=10**9, rounds_per_step=R).records[-R:]
@@ -6170,7 +6621,7 @@ def staged_superstep(data, spool):
                 require(all(math.isfinite(r.train_loss) for r in recs), f"{tag}: non-finite")
                 print(f"  {tag} {which:8s}: a chunk of {R}, {wall / R:.4f} s a round, last "
                       f"loss {recs[-1].train_loss:.6f}")
-                if len(turns) in (2, 4):
+                if len(turns) == 2:
                     # a pending chunk has drawn ahead: its snapshot is the
                     # ids stream a device run holds
                     ids = (st._prefetched["ids_gen"] if st._prefetched is not None
@@ -6484,9 +6935,8 @@ def xlstm_prefill_ranges(model, params):
         model.prefill(params, prompt, cache_len=PROMPT + SERVE_TOKENS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = profiled_device_ops(prof)
+    ops, ranges = read_trace(prof, ("mlstm_chunkwise", "slstm_scan"))
     busy = busy_seconds((e.time_range.start, e.time_range.end) for e in ops)
-    ranges = range_device_ms(prof, ("mlstm_chunkwise", "slstm_scan"))
     print(f"  xlstm-350m prefill under the profiler (CPU and CUDA activity): wall {wall:.4f} s, "
           f"device busy {busy:.4f} s (idle share {1 - busy / wall:.1%}), {len(ops)} device ops")
     for name, r in ranges.items():
@@ -6498,6 +6948,61 @@ def xlstm_prefill_ranges(model, params):
             f"xlstm ranges {ranges}")
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
             "device_ops": len(ops), "ranges": ranges}
+
+
+def row_gap(full, short):
+    """(max |short - full[:, :S-1]| over max |full[:, :S-1]|, the share of
+    values whose bits differ) of a forward over S - 1 rows against the
+    first S - 1 rows of one over S."""
+    head = full[:, :short.shape[1]]
+    a, b = head.float(), short.float()
+    return float((a - b).abs().max()) / float(a.abs().max()), float((head != short).float().mean())
+
+
+def xlstm_row_count(model, params):
+    """Does a row's output depend on how many rows there are? At
+    INVARIANT_SHAPE in bf16, the forward over S - 1 tokens against the first
+    S - 1 positions of the forward over S: one mLSTM and one sLSTM block
+    (unit-normal inputs drawn on the card), the whole model's final hidden
+    (the invariant's tokens), and the bf16 products alone: ``xlstm._mm``
+    (fp32 sums, one rounding) and the plain bf16 ``x @ w`` they replaced, on
+    the mLSTM's ``up`` and the sLSTM FFN's ``wi`` over 2 x (S - 1) and 2
+    rows (the decode step's) against 2 x S. Printed, not held: cuBLAS picks
+    its kernels by the row count either way; the fp32 sums leave a bf16
+    result other bits only where another order of fp32 sums crosses a
+    rounding boundary."""
+    from repro_torch.models import xlstm
+    from repro_torch.utils.tree import tree_map
+
+    B, S = INVARIANT_SHAPE
+    cfg, seg = model.cfg, model.segments[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda").to(model.dtype)
+    mixers = {kind: tree_map(lambda a: a[0], params["layers"][0][
+        f"sub{[sp.mixer for sp in seg.specs].index(kind)}"]["mixer"]) for kind in ("mlstm", "slstm")}
+    out = {}
+    with torch.no_grad():
+        for kind, p in mixers.items():
+            apply = getattr(xlstm, f"{kind}_apply")
+            out[f"one {kind} block"] = row_gap(apply(p, cfg, x, mode="train")[0],
+                                               apply(p, cfg, x[:, :-1], mode="train")[0])
+        batch = serving_prompt(cfg, B, S, seed=1)
+        full = model.forward(params, batch, mode="train")[0]
+        short = model.forward(params, prompt_slice(batch, slice(0, S - 1)), mode="train")[0]
+        out["the whole model"] = row_gap(full, short)
+        rows = x.reshape(B * S, -1)
+        for wname, w in (("up", mixers["mlstm"]["up"]), ("ffn wi", mixers["slstm"]["ffn"]["wi"])):
+            for how, mm in (("fp32 sums", xlstm._mm), ("plain bf16", torch.matmul)):
+                ref = mm(rows, w)
+                for n in (B * (S - 1), B):
+                    out[f"{wname} {how} over {n} rows"] = row_gap(ref[None], mm(rows[:n], w)[None])
+    for what, (rel, share) in out.items():
+        print(f"  xlstm-350m row count, {what}: max gap {rel:.3e} of the largest value, "
+              f"{share:.4%} of values other bits (over S - 1 = {S - 1} against S = {S})"
+              if "rows" not in what else
+              f"  xlstm-350m row count, {what} against {B * S}: {share:.4%} of values other "
+              f"bits, max gap {rel:.3e}")
+    return {k: {"max_rel_gap": v[0], "share_differing": v[1]} for k, v in out.items()}
 
 
 def xlstm_block_invariant(label, model, params):
@@ -6561,8 +7066,16 @@ def xlstm_seamless_serving_phase():
                     init_s=init_s)
         out["lanes"].append(lane)
         if cfg.xlstm_pattern:
-            out["invariant"].append(lm_invariant(arch, model, params, rtol=None))
+            b = XLSTM_SERVING_BEFORE
+            print(f"  {arch}: prefill {lane['prefill_s']:.4f} s, decode "
+                  f"{lane['decode_ms_per_token']:.3f} ms/token; before its bf16 products took "
+                  f"fp32 sums and its chunkwise form one chunk size: prefill "
+                  f"{b['prefill_s'][0]}-{b['prefill_s'][1]} s, decode "
+                  f"{b['decode_ms_per_token'][0]}-{b['decode_ms_per_token'][1]} ms/token")
+            out["invariant"].append(lm_invariant(arch, model, params,
+                                                 rtol=XLSTM_INVARIANT_RTOL))
             out["invariant"] += xlstm_block_invariant(arch, model, params)
+            out["xlstm_row_count"] = xlstm_row_count(model, params)
         else:
             out["invariant"].append(lm_invariant(arch, model, params))
         prof = profile_serving(arch, model, params)
@@ -6674,6 +7187,7 @@ def main() -> int:
         "ssm_scan_bwd": check_ssm_scan_bwd(),
     }
     flash_lse_err = check_flash_lse()
+    flash_train_err = check_flash_training()
     check_grad_guard()
 
     phase("4. timing (CUDA events, median of 200, L2 flushed to clean lines before each "
@@ -6725,17 +7239,16 @@ def main() -> int:
     profile_round("mnist_cnn q8", eng_cnn_q8, "qagg_stream_kernel<", "quantized_aggregate")
     require_main_route("mnist_cnn q8 profiled round", "quantized_aggregate")
 
-    phase("10. plain and q8 CNN rounds in turns (plain, q8, q8, plain), host clock to the synced loss")
+    phase("10. plain and q8 CNN rounds in turns (plain, q8), host clock to the synced loss")
     turns = []
     reset_counts()
-    for name, eng in (("plain", eng_cnn), ("q8", eng_cnn_q8), ("q8", eng_cnn_q8),
-                      ("plain", eng_cnn)):
+    for name, eng in (("plain", eng_cnn), ("q8", eng_cnn_q8)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         float(eng.round()["loss"])
         turns.append((name, time.perf_counter() - t0))
         print(f"  {name:5s} round {turns[-1][1]:.4f} s")
-    require(launch_counts()["quantized_aggregate"] == 2, "two q8 rounds, two launches")
+    require(launch_counts()["quantized_aggregate"] == 1, "one q8 round, one launch")
     require_main_route("plain and q8 CNN rounds in turns", "quantized_aggregate")
     del eng_cnn, eng_cnn_q8, eng
 
@@ -6807,9 +7320,9 @@ def main() -> int:
     training = training_lane()
 
     phase("19. correctness of the training path on the card")
-    train_checks = {"reduced_card_vs_cpu": [reduced_round_card_vs_cpu("gemma-2b"),
-                                            reduced_round_card_vs_cpu("qwen2-72b"),
-                                            reduced_round_card_vs_cpu("jamba-v0.1-52b")]}
+    train_checks = {"reduced_card_vs_cpu": [
+        reduced_round_card_vs_cpu(arch) for arch in (
+            "gemma-2b", "qwen2-72b", "jamba-v0.1-52b", "xlstm-350m", "seamless-m4t-medium")]}
     free_card()
     train_checks["full_width"] = full_width_ce_checks()
     free_card()
@@ -6876,6 +7389,14 @@ def main() -> int:
     xlstm_seamless = xlstm_seamless_serving_phase()
     serving += xlstm_seamless["lanes"]
     invariant += xlstm_seamless["invariant"]
+    free_card()
+
+    phase(f"30. training xLSTM-350M and SeamlessM4T-medium whole, bf16, remat, FedAvg "
+          f"G={TRAIN_G} x H={TRAIN_H} AdamW steps (fp32 moments) on {TRAIN_B} x {TRAIN_S} "
+          "tokens a group, one round, through repro_torch.launch.train.run; then one profiled "
+          "group step each")
+    print(f"card: {smi}")
+    archs_training = archs_training_phase()
 
     phase("summary")
     launches = {"fedavg_aggregate": launches_2nn + launches_cnn}
@@ -6901,10 +7422,14 @@ def main() -> int:
     for k in ("ssm_scan", "ssm_scan_bwd", "fused_cross_entropy", "ce_probs", "fedavg_aggregate"):
         launches[k] = launches.get(k, 0) + jamba_training["lane"]["launches"][k]
     for k in ("fedavg_aggregate", "flash_attention", "fused_cross_entropy", "ce_probs"):
-        launches[k] = launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
+        launches[k] = (launches.get(k, 0) + sum(run["launches"][k] for run in training.values())
+                       + archs_training["launches"][k])
+    arch_lanes = [a["lane"] for a in archs_training["archs"].values()]
     flash_tc = (sum(lane["flash_tc_launches"] for lane in serving)
-                + sum(run["flash_tc_launches"] for run in training.values()))
-    ce_tc = sum(run["ce_tc_launches"] for run in training.values())
+                + sum(run["flash_tc_launches"] for run in training.values())
+                + sum(lane["tc_launches"]["flash_attention"] for lane in arch_lanes))
+    ce_tc = (sum(run["ce_tc_launches"] for run in training.values())
+             + sum(lane["tc_launches"]["fused_cross_entropy"] for lane in arch_lanes))
     sources = {
         "fedavg_aggregate": ("fedavg_agg.cu", "src/repro/kernels/fedavg_agg.py:77"),
         "quantized_aggregate": ("quantized_agg.cu", "src/repro/kernels/quantized_agg.py:81"),
@@ -7044,6 +7569,9 @@ def main() -> int:
     kernels[5]["reduced_card_vs_cpu"] = card_vs_cpu
     kernels[6]["jamba_profile"] = serving_profile
     kernels[5]["lse_max_rel_err"] = flash_lse_err
+    kernels[5]["training_shapes_grad_rel_err"] = flash_train_err
+    kernels[5]["xlstm_row_count"] = xlstm_seamless["xlstm_row_count"]
+    kernels[7]["archs_training"] = archs_training["archs"]
     kernels[5]["tc_launches"] = flash_tc
     kernels[5]["mla_vision_serving"] = {"models": mla_vision["models"],
                                         "profile": mla_vision["profile"]}

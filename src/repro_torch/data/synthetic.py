@@ -15,6 +15,7 @@ and a per-author mixture of topics.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 
 import numpy as np
@@ -123,15 +124,23 @@ def make_char_corpus(
 
 
 def _markov_sample(trans: np.ndarray, n: int, rng) -> np.ndarray:
-    """First-order chain: ``trans`` is (V, V) rows P(next | prev)."""
+    """First-order chain: ``trans`` is (V, V) rows P(next | prev). Each step
+    is the reference's ``np.searchsorted(row, u * row[-1])``, walked with
+    ``bisect`` on the rows as fp64 lists (the values searchsorted compares
+    against its fp64 key), an order of magnitude faster than a numpy call a
+    character and the same draws."""
     V = trans.shape[-1]
     out = np.empty(n, np.int32)
     out[0] = rng.integers(V)
     cdf = np.cumsum(trans, axis=-1)
     u = rng.random(n)
-    for i in range(1, n):
-        row = cdf[out[i - 1]]
-        out[i] = np.searchsorted(row, u[i] * row[-1])
+    rows = cdf.astype(np.float64).tolist()
+    prev, seq = int(out[0]), []
+    for ui in u[1:].tolist():
+        row = rows[prev]
+        prev = bisect.bisect_left(row, ui * row[-1])
+        seq.append(prev)
+    out[1:] = seq
     return np.minimum(out, V - 1)
 
 

@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels.ce_loss import _route as ce_route
 from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate
 from repro_torch.kernels.flash_attention import flash_attention
@@ -372,17 +373,37 @@ def ce_backward(hidden, head, labels, lse, g, chunk):
     return dhidden, dhead.to(head.dtype)
 
 
+def tensor_core_head(hidden, head):
+    """``head``, or a copy of it that the CE's tensor-core route takes: a
+    (d, V) head whose row pitch is no multiple of 8 (SeamlessM4T's untied
+    (1024, 256,206)) is staged into a (d, V') buffer, V' = V rounded up to 8,
+    and its (d, V) view returned: rows on the 16-byte grid, as ``_route``
+    requires. The copy is made only where ``_route`` (strides, dtypes and
+    pointers alone) sends the view to the tensor cores and ``head`` not."""
+    if head.dtype != torch.bfloat16 or ce_route(hidden, head) == "mma":
+        return head
+    d, V = head.shape
+    buf = torch.empty((d, -(-V // 8) * 8), dtype=head.dtype, device=head.device)
+    staged = buf[:, :V]
+    if ce_route(hidden, staged) != "mma":
+        return head
+    return staged.copy_(head)
+
+
 class FusedCrossEntropy(torch.autograd.Function):
     """Per-token CE ``lse - gold`` of ``hidden @ head`` with a gradient.
 
     Forward: ``fused_cross_entropy`` (the kernel on the card, the plain
-    version on the CPU), keeping (hidden, head, labels, lse). Backward:
-    :func:`ce_backward` over token chunks of ``chunk``. The reference's
-    gradient here is XLA's autodiff of ``chunked_cross_entropy``; its Pallas
-    kernel is forward only."""
+    version on the CPU) on :func:`tensor_core_head`'s head, keeping (hidden,
+    that head, labels, lse); the backward's ``ce_probs`` chunks read the
+    same staged head, and the gradient lands on the (d, V) parameter.
+    Backward: :func:`ce_backward` over token chunks of ``chunk``. The
+    reference's gradient here is XLA's autodiff of
+    ``chunked_cross_entropy``; its Pallas kernel is forward only."""
 
     @staticmethod
     def forward(ctx, hidden, head, labels, chunk):
+        head = tensor_core_head(hidden, head)
         loss, lse = fused_cross_entropy(hidden, head, labels)
         ctx.save_for_backward(hidden, head, labels, lse)
         ctx.chunk = chunk

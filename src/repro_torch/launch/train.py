@@ -6,14 +6,19 @@ device (counterpart of ``repro/launch/train.py``).
 
 trains the arch's ``reduced()`` config (``--n-layers`` layers, 6 unless
 given), as the reference's ``launch/train.py`` does; ``--full`` trains the
-arch's own config instead (Gemma-2B whole on the card), and ``--full
---n-layers L`` its own widths cut to the first L layers of its plan (Jamba
-at L = 2 on one card). Without ``--arch`` it trains the reference's small
-demo LM. A FedAvg round is H local AdamW steps for each of
+arch's own config instead (Gemma-2B, xLSTM-350M and SeamlessM4T-medium
+whole on the card), and ``--full --n-layers L`` its own widths cut to the
+first L layers of its plan (Jamba at L = 2 on one card). Without ``--arch``
+it trains the reference's small demo LM. A FedAvg round is H local AdamW steps for each of
 ``--groups`` client groups, then their weighted average through
 ``fedavg_aggregate`` (see ``core/local_sgd.py``); ``--algo fedsgd`` takes
 one AdamW step per batch instead. Weights come from ``--seed`` on the
-device; tokens from ``make_word_corpus``, one shard per group.
+device; tokens from ``make_word_corpus``, one shard per group. The audio
+arch (SeamlessM4T) also takes ``enc_embeds``, (H, G, B, min(S, 4096), d)
+normal frame embeddings in the compute dtype, drawn from the same numpy
+generator after the tokens and labels: the train shape the reference's
+``launch/steps.py`` gives it (``ENC_FRAMES = 4096``), since its own
+``launch/train.py`` draws tokens only and cannot train that arch.
 
 The reference's mesh flags have no counterpart: the groups run one after
 another on one device. ``--device`` defaults to ``cuda``: attention, the
@@ -21,9 +26,12 @@ cross-entropy and the group average then run the hand-written kernels.
 ``--dtype`` sets the model's parameter and compute dtype (by default the
 config's own: float32 for a reduced config, bfloat16 for Gemma-2B's).
 ``--state-dtype`` sets the stored dtype of AdamW's moments (float32 by
-default; bfloat16 halves them, the math staying fp32). The reference's
-launcher has neither ``--full --n-layers`` nor ``--state-dtype``: both
-reach options the config and ``optim.adamw`` already have.
+default; bfloat16 halves them, the math staying fp32). ``--remat`` turns
+on the config's ``remat`` (each layer under ``torch.utils.checkpoint``, as
+SeamlessM4T's and Gemma-2B's configs set it; xLSTM's does not). The
+reference's launcher has none of ``--full --n-layers``, ``--state-dtype``
+and ``--remat``: each reaches an option the config or ``optim.adamw``
+already has.
 ``--checkpoint-dir`` saves the final params (group 0's replica on the
 FedAvg path) at ``step=--rounds`` with ``{"algo", "arch"}`` metadata, in
 the reference's layout (``repro_torch.checkpoint``), as the reference does.
@@ -39,6 +47,8 @@ import time
 
 import numpy as np
 import torch
+
+ENC_FRAMES = 4096   # the audio arch's encoder frames, as the reference's launch/steps.py
 
 
 def _parser():
@@ -64,6 +74,8 @@ def _parser():
                     help="parameter and compute dtype (default: the config's own)")
     ap.add_argument("--state-dtype", default="float32", choices=["float32", "bfloat16"],
                     help="stored dtype of AdamW's moments")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer's activations in the backward (cfg.remat)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -122,6 +134,8 @@ def run(argv=None):
         )
     if args.dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     model = TransformerLM(cfg, device=args.device)
     dev = model.device
     params = model.init(args.seed)
@@ -141,12 +155,18 @@ def run(argv=None):
     rng = np.random.default_rng(args.seed)
 
     def sample_round_batch():
-        # (H, G, B_local, S) tokens + labels: each group reads its own shard
+        # (H, G, B_local, S) tokens + labels: each group reads its own shard;
+        # the audio arch's (H, G, B_local, T, d) frames after them
         starts = rng.integers(0, len(corpus) - S - 1, (H, G, B_local))
         tok = np.stack([[[corpus[s:s + S] for s in row] for row in step] for step in starts])
         lab = np.stack([[[corpus[s + 1:s + S + 1] for s in row] for row in step]
                         for step in starts])
-        return {"tokens": torch.from_numpy(tok).to(dev), "labels": torch.from_numpy(lab).to(dev)}
+        batch = {"tokens": torch.from_numpy(tok).to(dev), "labels": torch.from_numpy(lab).to(dev)}
+        if cfg.modality == "audio":
+            frames = rng.normal(size=(H, G, B_local, min(S, ENC_FRAMES), cfg.d_model))
+            batch["enc_embeds"] = torch.from_numpy(frames.astype(np.float32)).to(
+                dev, model.compute_dtype)
+        return batch
 
     def timed(fn, tokens):
         """Run ``fn`` and return its record: seconds to a synced device,
@@ -196,8 +216,7 @@ def run(argv=None):
         opt_state = inner.init(params)
         for r in range(args.rounds * H):
             b = sample_round_batch()
-            batch = {"tokens": b["tokens"][0].reshape(-1, S),
-                     "labels": b["labels"][0].reshape(-1, S)}
+            batch = {k: v[0].reshape(-1, *v.shape[3:]) for k, v in b.items()}
 
             def one_step():
                 nonlocal params, opt_state

@@ -16,15 +16,28 @@ FFN (factor 4/3), the paper's post-up-projection block.
 The reference computes both in plain XLA (no Pallas kernel), so the port is
 plain torch with the reference's arithmetic: q, k, v are projected in the
 params' dtype and taken to fp32, the gates from ``xb.float()`` against the
-fp32 gate weights, and every state is fp32. The stabilizer starts at the
-finite sentinel -1e30, never -inf (-inf - -inf is NaN); a chunkwise input
-padded past S takes input gates of -1e30 and forget gates of 0, so it adds
-nothing and carries the state through. Prefill runs the chunkwise form
-(:func:`_mlstm_chunkwise`, chunks of ``min(chunk, S)``) and one token
-(decode) the exact step (:func:`_mlstm_step`), which is also the chunkwise
-form's oracle. The sLSTM recurrence is a loop over t: the reference runs it
-through ``_segmented_scan(segment=128)``, whose segments only set what its
-backward recomputes, so the loop computes the same steps.
+fp32 gate weights, and every state is fp32. Every product with a weight in
+the params' dtype (the mLSTM's ``up``, ``mq``, ``mk``, ``mv``, ``down``; the
+sLSTM's ``wx`` and its FFN's ``wi``, ``wg``, ``wo``) goes through
+:func:`_mm`: in bf16 its sums are fp32 and it is rounded to bf16 once, so a
+row's bits do not depend on how many rows the product has. A bf16 GEMM
+picks its blocking by the row count, so without this the prefill over S - 1
+tokens handed the decode step another state than the forward over S
+computes; the reference's forward gives its first S - 1 rows the same bits
+either way. The fp32 gate products take fp64 sums rounded once to fp32
+(:func:`_mm_gate`) for the same reason.
+
+The stabilizer starts at the finite sentinel -1e30, never -inf (-inf - -inf
+is NaN); a chunkwise input padded past S takes input gates of -1e30 and
+forget gates of 0, so it adds nothing and carries the state through.
+Prefill runs the chunkwise form (:func:`_mlstm_chunkwise`, chunks of
+:data:`CHUNK` tokens) and one token (decode) the exact step
+(:func:`_mlstm_step`), which is also the chunkwise form's oracle. The sLSTM
+recurrence is a loop over t: the reference runs it through
+``_segmented_scan(segment=128)``, whose segments only set what its backward
+recomputes, so the loop computes the same steps. Under autograd the loop
+runs inside :class:`_SLSTMScan`, whose backward is the chain rule written
+out (the same gradients, far fewer host ops than autograd's).
 
 Decode caches: mLSTM (C: B, H, D, D; n: B, H, D; m: B, H), sLSTM (c, n, h,
 m: B, H, D), all fp32: O(1) per token. The chunkwise form and the sLSTM
@@ -40,10 +53,63 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import _mm_f32
 from repro_torch.models import nn
 from repro_torch.models.layers import _full, rmsnorm, rmsnorm_init
 
 NEG = -1e30   # the stabilizer's start and the padded input gates
+# The chunkwise form's chunk, the same for every S (the reference takes
+# min(1024, S)): each chunk's tensors then have one shape, so every op of it
+# computes a row's values in the same order and lanes whatever S is. Over
+# min(1024, S) the CPU's vectorized exp and sums give the (t, s) entries of
+# a chunk of 127 and of 128 other bits, which bf16 rounding carries on.
+CHUNK = 128
+
+
+class _MatmulF32(torch.autograd.Function):
+    """(M, k) x (k, n) bf16 -> (M, n) bf16 with fp32 sums and one rounding,
+    forward and backward: ``ops._mm_f32`` (cuBLAS's bf16 product with an
+    fp32 output on the card, the fp32-widened product on the CPU; bf16
+    products are exact in fp32), then one cast. The backward's two products
+    take the same route on the bf16 cotangent, each rounded once to its
+    input's dtype, so no derivative of ``torch.mm(out_dtype=)`` is relied
+    on; widening the inputs under autograd instead would keep fp32 copies
+    of them for the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _mm_f32(g, b.T).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _mm_f32(a.T, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _mm_gate(xf, w):
+    """The fp32 gate product ``xf @ w`` of a (..., k) activation and a (k, H)
+    fp32 gate weight, its sums in fp64 and rounded to fp32 once, so that a
+    row's gate has the same bits whatever the number of rows: cuBLAS picks
+    its fp32 kernel for so narrow a product by the row count (on an H100
+    80GB HBM3 at 700 W, 87.6% of the gates took other bits over 254 rows
+    than over 256), and fp64 sums rounded once do not show it. Autograd
+    takes the gradient through the same casts."""
+    return (xf.double() @ w.double()).float()
+
+
+def _mm(x, w):
+    """``x @ w`` of a (..., k) activation and a (k, n) weight. In bf16 with
+    fp32 sums and one rounding to bf16 (:class:`_MatmulF32`), so that each
+    row's result has the same bits whatever the number of rows; in fp32 the
+    plain product (``.float()`` of an fp32 tensor is itself)."""
+    if x.dtype != torch.bfloat16:
+        return x @ w
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -77,20 +143,22 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device, lead=()):
     }
 
 
-def mlstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train", chunk=1024):
-    """x: (B, S, d). Returns (y, new cache; None in train mode)."""
+def mlstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train", chunk=CHUNK):
+    """x: (B, S, d). Returns (y, new cache; None in train mode). Over S > 1
+    tokens the chunkwise form runs in chunks of ``chunk`` tokens, the tail
+    padded, whatever S (see :data:`CHUNK`)."""
     B, S, _ = x.shape
     H = cfg.n_heads
-    xb, z = (x @ p["up"]).chunk(2, dim=-1)   # (B, S, di)
+    xb, z = _mm(x, p["up"]).chunk(2, dim=-1)   # (B, S, di)
     di = xb.shape[-1]
     hd = di // H
 
-    q = (xb @ p["mq"]).reshape(B, S, H, hd).float()
-    k = (xb @ p["mk"]).reshape(B, S, H, hd).float() / (hd ** 0.5)
-    v = (xb @ p["mv"]).reshape(B, S, H, hd).float()
+    q = _mm(xb, p["mq"]).reshape(B, S, H, hd).float()
+    k = _mm(xb, p["mk"]).reshape(B, S, H, hd).float() / (hd ** 0.5)
+    v = _mm(xb, p["mv"]).reshape(B, S, H, hd).float()
     xf = xb.float()
-    ig = xf @ p["wi"] + p["bi"]                     # (B, S, H) log input gate
-    fg = F.logsigmoid(xf @ p["wf"] + p["bf"])       # log forget gate
+    ig = _mm_gate(xf, p["wi"]) + p["bi"]            # (B, S, H) log input gate
+    fg = F.logsigmoid(_mm_gate(xf, p["wf"]) + p["bf"])   # log forget gate
 
     if mode == "decode":
         if cache is None:
@@ -106,10 +174,10 @@ def mlstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train", chunk=1024)
         ys = y[:, None]
     else:
         with torch.profiler.record_function("mlstm_chunkwise"):
-            carry, ys = _mlstm_chunkwise(carry0, q, k, v, ig, fg, chunk=min(chunk, S))
+            carry, ys = _mlstm_chunkwise(carry0, q, k, v, ig, fg, chunk=chunk)
     y = ys.reshape(B, S, di).to(x.dtype)
     y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
-    out = y @ p["down"]
+    out = _mm(y, p["down"])
     new_cache = None if mode == "train" else {"C": carry[0], "n": carry[1], "m": carry[2]}
     return out, new_cache
 
@@ -210,6 +278,100 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype, device, lead=()):
             "m": _full(NEG, (batch, H, hd), torch.float32, device, lead)}
 
 
+def _slstm_step(gx_t, r, c, n, h, m):
+    """One step of the sLSTM recurrence: gx_t (B, 4, H, hd) the input part
+    of the gates, r (H, hd, 4 hd), the states (B, H, hd) each. Returns
+    (pre, c, n, h, m): the gates' pre-activations (B, 4, H, hd) and the new
+    states."""
+    B, _, H, hd = gx_t.shape
+    rc = torch.einsum("bhk,hkg->bhg", h, r).reshape(B, H, 4, hd)
+    pre = gx_t + rc.transpose(1, 2)
+    i_t, f_t, z_t, o_t = pre.unbind(1)
+    z_t = torch.tanh(z_t)
+    o_t = torch.sigmoid(o_t)
+    a = F.logsigmoid(f_t) + m                              # log f + m_{t-1}
+    m_new = torch.maximum(a, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(a - m_new)
+    c = f_p * c + i_p * z_t
+    n = torch.clamp(f_p * n + i_p, min=1.0)
+    return pre, c, n, o_t * (c / n), m_new
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM recurrence over S steps with a gradient: (hs (B, S, H, hd),
+    c, n, h, m) of :func:`_slstm_step` applied in turn, from gx (B, S, 4, H,
+    hd), r and the initial states.
+
+    Forward: the same steps as the plain loop, so the same bits, run without
+    autograd; it keeps every step's pre-activations and states. Backward: the
+    chain rule written out, one pass from the last step to the first, with
+    the derivatives that need no carried state (the gates', the stabilizer's
+    and the clamp's, as torch's autograd takes them: a tie of
+    ``torch.maximum`` splits the gradient in halves, the clamp passes it at
+    1 and above) computed for all steps at once before the pass; the
+    gradient of r and of gx in one product and one copy after it. Autograd
+    through the plain loop records ~20 ops a step forward and ~70 backward,
+    each at a host's per-op cost; this pass is ~28 plain ops a step."""
+
+    @staticmethod
+    def forward(ctx, gx, r, c, n, h, m):
+        pres, cs, ns, hs, ms = [], [c], [n], [h], [m]
+        for gx_t in gx.unbind(1):
+            pre, c, n, h, m = _slstm_step(gx_t, r, c, n, h, m)
+            pres.append(pre)
+            cs.append(c)
+            ns.append(n)
+            hs.append(h)
+            ms.append(m)
+        ctx.save_for_backward(r, torch.stack(pres), torch.stack(cs), torch.stack(ns),
+                              torch.stack(hs), torch.stack(ms))
+        return torch.stack(hs[1:], dim=1), c, n, h, m
+
+    @staticmethod
+    def backward(ctx, gy, gc, gn, gh, gm):
+        r, pre, cs, ns, hs, ms = ctx.saved_tensors
+        S, B, _, H, hd = pre.shape
+        i_all, f_all, zp, op = pre.unbind(2)               # (S, B, H, hd) each
+        z = torch.tanh(zp)
+        o = torch.sigmoid(op)
+        a = F.logsigmoid(f_all) + ms[:-1]
+        i_p = torch.exp(i_all - ms[1:])
+        f_p = torch.exp(a - ms[1:])
+        keep_n = (f_p * ns[:-1] + i_p >= 1.0).float()
+        w_a = torch.where(a == i_all, 0.5, (a > i_all).float())
+        w_i = 1.0 - w_a
+        ratio = cs[1:] / ns[1:]
+        dc_dh = o / ns[1:]                                 # d c_t of d h_t
+        dn_dh = o * cs[1:] / (ns[1:] * ns[1:])             # -d n_t of d h_t
+        df_da = torch.sigmoid(-f_all)                      # log sigmoid's derivative
+        dz_dzp = 1.0 - z * z
+        do_dop = o * (1.0 - o)
+        zeros = torch.zeros_like(hs[0])
+        dc, dn, dh, dm = (zeros if g is None else g for g in (gc, gn, gh, gm))
+        dpre = torch.empty((S, B, H, 4, hd), dtype=pre.dtype, device=pre.device)
+        for t in range(S - 1, -1, -1):
+            g_t = dh if gy is None else dh + gy[:, t]
+            do = g_t * ratio[t]
+            dc = dc + g_t * dc_dh[t]
+            dn = (dn - g_t * dn_dh[t]) * keep_n[t]
+            df_p = dc * cs[t] + dn * ns[t]
+            di_p = dc * z[t] + dn
+            dz = dc * i_p[t]
+            dc = dc * f_p[t]
+            dn = dn * f_p[t]
+            e_i = di_p * i_p[t]
+            e_f = df_p * f_p[t]
+            dm_new = dm - e_i - e_f
+            dm = e_f + dm_new * w_a[t]                     # d a = d m_{t-1}
+            torch.stack((e_i + dm_new * w_i[t], dm * df_da[t], dz * dz_dzp[t], do * do_dop[t]),
+                        dim=2, out=dpre[t])
+            dh = torch.einsum("bhg,hkg->bhk", dpre[t].reshape(B, H, 4 * hd), r)
+        g_gx = dpre.permute(1, 0, 3, 2, 4).contiguous()     # (B, S, 4, H, hd)
+        g_r = torch.einsum("sbhk,sbhg->hkg", hs[:-1], dpre.reshape(S, B, H, 4 * hd))
+        return g_gx, g_r, dc, dn, dh, dm
+
+
 def slstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train"):
     """x: (B, S, d). Returns (y, new cache; None in train mode).
 
@@ -220,7 +382,7 @@ def slstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train"):
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
-    gates_x = (x @ p["wx"]).float() + p["b"]               # (B, S, 4d)
+    gates_x = _mm(x, p["wx"]).float() + p["b"]              # (B, S, 4d)
     gx = gates_x.reshape(B, S, 4, H, hd)
     r = p["r"]
 
@@ -231,27 +393,19 @@ def slstm_apply(p, cfg: ModelConfig, x, *, cache=None, mode="train"):
     else:
         c = n = h = torch.zeros((B, H, hd), device=x.device)
         m = torch.full((B, H, hd), NEG, device=x.device)
-    hs = []
     with torch.profiler.record_function("slstm_scan"):
-        for gx_t in gx.unbind(1):                          # (B, 4, H, hd) a step
-            rc = torch.einsum("bhk,hkg->bhg", h, r).reshape(B, H, 4, hd)
-            i_t = gx_t[:, 0] + rc[:, :, 0]
-            f_t = gx_t[:, 1] + rc[:, :, 1]
-            z_t = torch.tanh(gx_t[:, 2] + rc[:, :, 2])
-            o_t = torch.sigmoid(gx_t[:, 3] + rc[:, :, 3])
-            logf = F.logsigmoid(f_t)
-            m_new = torch.maximum(logf + m, i_t)
-            i_p = torch.exp(i_t - m_new)
-            f_p = torch.exp(logf + m - m_new)
-            c = f_p * c + i_p * z_t
-            n = torch.clamp(f_p * n + i_p, min=1.0)
-            h = o_t * (c / n)
-            m = m_new
-            hs.append(h)
-        y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+        if torch.is_grad_enabled() and (gx.requires_grad or r.requires_grad):
+            hs, c, n, h, m = _SLSTMScan.apply(gx, r, c, n, h, m)
+        else:
+            steps = []
+            for gx_t in gx.unbind(1):                      # (B, 4, H, hd) a step
+                _, c, n, h, m = _slstm_step(gx_t, r, c, n, h, m)
+                steps.append(h)
+            hs = torch.stack(steps, dim=1)
+        y = hs.reshape(B, S, d).to(x.dtype)
     # the gated FFN (post-up-projection, factor 4/3)
     yn = rmsnorm(p["ffn_norm"], y, cfg.norm_eps)
-    ff = (yn @ p["ffn"]["wi"]) * F.silu(yn @ p["ffn"]["wg"])
-    out = y + ff @ p["ffn"]["wo"]
+    ff = _mm(yn, p["ffn"]["wi"]) * F.silu(_mm(yn, p["ffn"]["wg"]))
+    out = y + _mm(ff, p["ffn"]["wo"])
     new_cache = None if mode == "train" else {"c": c, "n": n, "h": h, "m": m}
     return out, new_cache
