@@ -92,11 +92,14 @@ def _train_step_in_place(loss_fn, opt, params, state, batch):
     """One optimizer step on ``params`` (a tree of tensors, updated in
     place) and ``state``: (loss, aux, new step). The update runs inside the
     ``torch.profiler`` range ``optimizer_update``, so a trace shows what it
-    costs."""
+    costs. A leaf the loss does not reach (the vision stub's embedding
+    table: its batches bring embeddings, no token ids) takes a zero
+    gradient, as ``jax.grad`` gives it in the reference, and the optimizer
+    steps it alike."""
     p = tree_map(lambda a: a.detach().requires_grad_(), params)
     leaves = tree_leaves(p)
     loss, aux = loss_fn(p, batch)
-    grads = list(torch.autograd.grad(loss, leaves))
+    grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
     with torch.no_grad(), torch.profiler.record_function("optimizer_update"):
         step = _update_in_place(opt, leaves, grads, state)
     return loss.detach(), aux, step

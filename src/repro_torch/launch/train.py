@@ -8,7 +8,8 @@ trains the arch's ``reduced()`` config (``--n-layers`` layers, 6 unless
 given), as the reference's ``launch/train.py`` does; ``--full`` trains the
 arch's own config instead (Gemma-2B, xLSTM-350M and SeamlessM4T-medium
 whole on the card), and ``--full --n-layers L`` its own widths cut to the
-first L layers of its plan (Jamba at L = 2 on one card). Without ``--arch``
+first L layers of its plan (Jamba at L = 2 on one card; DeepSeek-V2-Lite at
+L = 4, its leading dense layer and 3 MoE layers; Qwen2-VL-7B at L = 8). Without ``--arch``
 it trains the reference's small demo LM. A FedAvg round is H local AdamW steps for each of
 ``--groups`` client groups, then their weighted average through
 ``fedavg_aggregate`` (see ``core/local_sgd.py``); ``--algo fedsgd`` takes
@@ -18,7 +19,13 @@ arch (SeamlessM4T) also takes ``enc_embeds``, (H, G, B, min(S, 4096), d)
 normal frame embeddings in the compute dtype, drawn from the same numpy
 generator after the tokens and labels: the train shape the reference's
 ``launch/steps.py`` gives it (``ENC_FRAMES = 4096``), since its own
-``launch/train.py`` draws tokens only and cannot train that arch.
+``launch/train.py`` draws tokens only and cannot train that arch. The
+vision arch (Qwen2-VL, its stub) takes, in place of the tokens, the batch
+the reference's ``make_batch_specs`` lays out: ``embeds``, (H, G, B, S, d)
+normal embeddings in the compute dtype, drawn from the same numpy
+generator right after the round's start offsets into the corpus (whose
+next tokens are the labels), and ``positions``, (H, G, B, S, 3) int32,
+every component t, as ``serve.prompt_batch`` gives them.
 
 The reference's mesh flags have no counterpart: the groups run one after
 another on one device. ``--device`` defaults to ``cuda``: attention, the
@@ -99,25 +106,12 @@ def main(argv=None):
     return run(argv)[0]
 
 
-def run(argv=None):
-    """Train as the flags say; returns (records, final params)."""
-    args = _parser().parse_args(argv)
-
-    from repro_torch.checkpoint import save_checkpoint
+def train_config(args):
+    """The model config the parsed flags name: the arch's reduced config,
+    its own (``--full``, cut to ``--n-layers`` if given), or the demo LM;
+    then ``--dtype`` and ``--remat``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ModelConfig, reduced
-    from repro_torch.core.local_sgd import (
-        LocalSGDConfig,
-        build_fedavg_round_step,
-        build_fedsgd_train_step,
-        init_group_states,
-        replicate_for_groups,
-        unreplicate,
-    )
-    from repro_torch.data.synthetic import make_word_corpus
-    from repro_torch.models.transformer import TransformerLM
-    from repro_torch.optim import adamw, momentum
-    from repro_torch.utils.tree import tree_leaves
 
     n_layers = 6 if args.n_layers is None else args.n_layers
     if args.arch and args.full:
@@ -136,6 +130,28 @@ def run(argv=None):
         cfg = dataclasses.replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
+    return cfg
+
+
+def run(argv=None):
+    """Train as the flags say; returns (records, final params)."""
+    args = _parser().parse_args(argv)
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core.local_sgd import (
+        LocalSGDConfig,
+        build_fedavg_round_step,
+        build_fedsgd_train_step,
+        init_group_states,
+        replicate_for_groups,
+        unreplicate,
+    )
+    from repro_torch.data.synthetic import make_word_corpus
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw, momentum
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = train_config(args)
     model = TransformerLM(cfg, device=args.device)
     dev = model.device
     params = model.init(args.seed)
@@ -156,12 +172,22 @@ def run(argv=None):
 
     def sample_round_batch():
         # (H, G, B_local, S) tokens + labels: each group reads its own shard;
-        # the audio arch's (H, G, B_local, T, d) frames after them
+        # the audio arch's (H, G, B_local, T, d) frames after them; the
+        # vision arch's (H, G, B_local, S, d) embeddings in place of the
+        # tokens, drawn after the same start offsets
         starts = rng.integers(0, len(corpus) - S - 1, (H, G, B_local))
-        tok = np.stack([[[corpus[s:s + S] for s in row] for row in step] for step in starts])
         lab = np.stack([[[corpus[s + 1:s + S + 1] for s in row] for row in step]
                         for step in starts])
-        batch = {"tokens": torch.from_numpy(tok).to(dev), "labels": torch.from_numpy(lab).to(dev)}
+        batch = {"labels": torch.from_numpy(lab).to(dev)}
+        if cfg.modality == "vision":
+            embeds = rng.normal(size=(H, G, B_local, S, cfg.d_model))
+            batch["embeds"] = torch.from_numpy(embeds.astype(np.float32)).to(
+                dev, model.compute_dtype)
+            pos = np.broadcast_to(np.arange(S, dtype=np.int32)[:, None], (H, G, B_local, S, 3))
+            batch["positions"] = torch.from_numpy(np.ascontiguousarray(pos)).to(dev)
+            return batch
+        tok = np.stack([[[corpus[s:s + S] for s in row] for row in step] for step in starts])
+        batch["tokens"] = torch.from_numpy(tok).to(dev)
         if cfg.modality == "audio":
             frames = rng.normal(size=(H, G, B_local, min(S, ENC_FRAMES), cfg.d_model))
             batch["enc_embeds"] = torch.from_numpy(frames.astype(np.float32)).to(

@@ -1339,6 +1339,61 @@ def test_flash_kernel_lse_matches_plain_version(cuda, mask, shape, dtype):
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(1.0, float(ref_lse.abs().max()))
 
 
+@pytest.mark.parametrize("shape", [(2, 2048, 16, 16, 192), (2, 2048, 28, 4, 128)],
+                         ids=["deepseek-v2-lite", "qwen2-vl"])
+def test_flash_training_at_the_mla_and_gqa_shapes(cuda, shape):
+    """FlashAttention at the training shapes of DeepSeek-V2-Lite (MLA at the
+    qk head dim 192) and Qwen2-VL (GQA 28/4 at D = 128), bf16, causal: the
+    forward ``ops.mha_flash_train`` runs, on the tensor-core route, within
+    one bf16 ulp of the plain fp32 version with its lse within 1e-5; dq,
+    dk, dv within 1e-3 rel L2 of the plain backward from the plain
+    forward's output and lse."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.models.attention_core import flash_attention_bwd
+
+    B, S, H, K, D = shape
+    q, k, v = _flash_case(cuda, B, S, S, H, K, D, torch.bfloat16, seed=D + H)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(H),
+                    device=cuda).to(q.dtype)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ref32, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                         return_lse=True)
+    assert _close_to_fp32(out, ref32, float(v.float().abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(1.0, float(ref_lse.abs().max()))
+    del ref32, ref_lse
+    n, tc = flash_attention.launches, flash_attention.tc_launches
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.mha_flash_train(*leaves, causal=True), leaves, g)
+    assert flash_attention.launches == n + 1 and flash_attention.tc_launches == tc + 1
+    plain_out, plain_lse = flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    want = flash_attention_bwd(q, k, v, plain_out, plain_lse, g, causal=True)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("d,V", [(2048, 102_400), (3584, 152_064)],
+                         ids=["deepseek-v2-lite", "qwen2-vl"])
+def test_ce_at_the_mla_and_vision_heads(cuda, d, V):
+    """The CE at the training steps of DeepSeek-V2-Lite and Qwen2-VL (T =
+    4096 tokens, their untied (d, V) bf16 heads, contiguous): the forward and
+    ``ce_probs`` over one backward chunk of 1,024 tokens on the tensor-core
+    route, each against its plain version."""
+    from repro_torch.kernels.ce_loss import _route, fused_cross_entropy
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    hidden = torch.randn((4096, d), generator=gen, device=cuda).bfloat16()
+    head = (torch.randn((d, V), generator=gen, device=cuda) / np.sqrt(d)).bfloat16()
+    labels = torch.randint(0, V, (4096,), generator=gen, device=cuda, dtype=torch.int32)
+    labels[0], labels[-1] = 0, V - 1
+    assert _route(hidden, head) == "mma"
+    tc = fused_cross_entropy.tc_launches
+    _ce_check(hidden, head, labels)
+    assert fused_cross_entropy.tc_launches == tc + 1
+    assert _probs_check(hidden[:1024], head, labels[:1024].clone(), seed=d) == "mma"
+
+
 def _guard_calls(cuda):
     from repro_torch.kernels.ce_loss import ce_probs, fused_cross_entropy
     from repro_torch.kernels.flash_attention import flash_attention
